@@ -1,0 +1,136 @@
+"""Digit planning + the multi-pass LSD radix sort of (col, row) keys.
+
+Counterpart of ``repro/kernels/radix_sort/ops.py``.  The pair
+``(col, row)`` is one two-word key, hi word ``col``, lo word ``row``,
+sorted digit by digit, row digits first.  Every pass is a stable
+counting sort of one bounded digit (B1 histogram -> exclusive scan ->
+B2 placement with the permutation as payload), so the composition is
+the stable lexicographic (col, row) order for any ``M``/``N``.  Any
+stable LSD schedule gives the same permutation, so the port's digit
+plan may differ from the reference's while ``perm`` stays bit-identical.
+
+The reference's cost-model priors describe TPU VMEM and lane tiles.
+The port keeps its own, below: H100 priors in bytes moved per key,
+**not measured**.  A pass costs about ``PASS_BYTES`` per key (key
+gather 12 B, B1 4 B, B2 12 B), its histogram about ``BIN_BYTES`` per
+bin per key (write, scan, re-read of ``nbins`` counters per tile of
+``TILE`` keys), and a fixed ``LAUNCH_BYTES`` (three launches of about
+5 us at 3.35 TB/s) spread over the L keys.  With digits of at most 8
+bits this picks the fewest passes and splits each word evenly.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .radix_sort import (KERNEL_MAX_BITS, TILE, digit_block_histogram,
+                         digit_placement)
+
+#: H100 priors (not measured): see the module docstring
+MAX_BITS = KERNEL_MAX_BITS
+PASS_BYTES = 28.0
+BIN_BYTES = 12.0 / TILE
+LAUNCH_BYTES = 50_000.0
+
+
+class DigitPass(NamedTuple):
+    """One stable counting-sort pass over ``bits`` bits of one word."""
+
+    src_col: bool   # False: digit of the row word; True: of the col word
+    shift: int      # right shift applied to the word before masking
+    bits: int       # digit width; mask = (1 << bits) - 1
+    nbins: int      # exact bin count (<= 2**bits)
+
+
+def _word_cost(npass: int, width: int, L: int) -> float:
+    return npass * (PASS_BYTES + BIN_BYTES * (1 << width)
+                    + LAUNCH_BYTES / max(L, 1))
+
+
+def _word_passes(vmax: int, L: int, max_bits: int,
+                 src_col: bool) -> list[DigitPass]:
+    """Cheapest equal-width LSD digit split of one index word with values
+    ``0..vmax`` (inclusive: ``vmax`` is the rows' padding sentinel)."""
+    bits_total = max(1, int(vmax).bit_length())
+    _, width = min(
+        (_word_cost(npass, -(-bits_total // npass), L),
+         -(-bits_total // npass))
+        for npass in range(1, bits_total + 1)
+        if -(-bits_total // npass) <= max_bits
+    )
+    passes = []
+    shift = 0
+    while shift < bits_total:
+        bits = min(width, bits_total - shift)
+        top = shift + bits >= bits_total
+        nbins = (vmax >> shift) + 1 if top else 1 << bits
+        passes.append(DigitPass(src_col, shift, bits, nbins))
+        shift += bits
+    return passes
+
+
+def plan_digit_passes(M: int, N: int, L: int, *,
+                      max_bits: int | None = None) -> tuple[DigitPass, ...]:
+    """LSD pass schedule for the two-word key (col hi, row lo).
+
+    Rows span ``0..M`` (``M`` is the padding sentinel) and cols are
+    sized for ``0..N``; ``max_bits`` caps the digit width (default and
+    upper bound: the kernels' 8 bits).
+    """
+    max_bits = MAX_BITS if max_bits is None else max_bits
+    if not 1 <= max_bits <= KERNEL_MAX_BITS:
+        raise ValueError(
+            f"max_bits must be in [1, {KERNEL_MAX_BITS}], got {max_bits}"
+        )
+    return tuple(_word_passes(M, L, max_bits, False)
+                 + _word_passes(N, L, max_bits, True))
+
+
+def digit_bases(hist: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of the flattened digit-major histogram: the base
+    position of every (digit, block) of one pass."""
+    flat = hist.reshape(-1)
+    return torch.cumsum(flat, 0, dtype=torch.int32) - flat
+
+
+def _pass(keys, payload, *, shift: int, bits: int, nbins: int):
+    hist = digit_block_histogram(keys, shift=shift, bits=bits, nbins=nbins)
+    return digit_placement(keys, digit_bases(hist), payload, shift=shift,
+                           bits=bits, nbins=nbins)
+
+
+def radix_pass_positions(keys: torch.Tensor, *, shift: int, bits: int,
+                         nbins: int) -> torch.Tensor:
+    """Landing positions of a stable sort of one digit.
+
+    ``pos[i]`` is where element ``i`` lands when the stream is stably
+    ordered by ``(keys >> shift) & (2^bits - 1)``: the inverse of one
+    placement pass of the identity payload.
+    """
+    rank = _pass(keys, None, shift=shift, bits=bits, nbins=nbins)
+    pos = torch.empty_like(rank)
+    pos[rank] = torch.arange(rank.shape[0], dtype=torch.int32,
+                             device=rank.device)
+    return pos
+
+
+def radix_sort_pair(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
+                    N: int, max_bits: int | None = None) -> torch.Tensor:
+    """(col, row)-stable-ordered permutation via LSD radix partitioning.
+
+    Bit-identical to the two-pass stable sort for every ``M``/``N``.
+    Per pass the size-L data movement is one key gather through the
+    running permutation (plain PyTorch indexing) and the B1/B2 kernels;
+    the placement scatters the permutation itself, so ``rank`` and the
+    landing positions are never materialized.
+    """
+    L = rows.shape[0]
+    rows = rows.to(torch.int32).contiguous()
+    cols = cols.to(torch.int32).contiguous()
+    perm = None  # identity until the first pass lands
+    for p in plan_digit_passes(M, N, L, max_bits=max_bits):
+        src = cols if p.src_col else rows
+        keys = src if perm is None else src[perm]
+        perm = _pass(keys, perm, shift=p.shift, bits=p.bits, nbins=p.nbins)
+    return perm

@@ -1,0 +1,114 @@
+"""Wrappers of the radix planner's CUDA kernels (``csrc/radix_sort.cu``).
+
+``digit_block_histogram`` (B1) and ``digit_placement`` (B2) are the
+counterparts of the Pallas kernels of the same names in
+``repro/kernels/radix_sort/radix_sort.py``.  Two layout differences:
+the histogram is digit-major (``[nbins, nblocks]``) so one flat
+exclusive scan yields every block's per-digit base, and the placement
+scatters the payload straight to its landing position instead of
+returning the positions.
+
+Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
+launches its kernel for a CUDA tensor; ``.launches`` counts kernel
+launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
+                      current_stream, load_library)
+from .ref import digit_block_histogram_ref, digit_placement_ref
+
+#: keys per thread block (256 threads x 16) -- fixed by the kernel source
+TILE = 4096
+#: widest digit the kernels take: 2^8 bins of shared-memory counters
+KERNEL_MAX_BITS = 8
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FNS: dict = {}
+
+
+def _fns() -> dict:
+    if not _FNS:
+        lib = load_library("radix_sort")
+        bind(lib, "radix_tile", [])
+        if lib.radix_tile() != TILE:
+            raise RuntimeError("csrc/radix_sort.cu tile differs from TILE")
+        _FNS["hist"] = bind(lib, "digit_histogram_launch",
+                            [_P, _P, _LL, _I, _I, _I, _I, _P])
+        _FNS["place"] = bind(lib, "digit_placement_launch",
+                             [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P])
+    return _FNS
+
+
+def _check_digit(keys: torch.Tensor, bits: int, nbins: int) -> None:
+    check_cuda_tensor(keys, "keys", (torch.int32,))
+    L = keys.shape[0]
+    if keys.ndim != 1 or L == 0 or L >= 2**31:
+        raise ValueError(f"keys must be 1-d with 0 < L < 2^31, got "
+                         f"{tuple(keys.shape)}")
+    if not 1 <= bits <= KERNEL_MAX_BITS or not 1 <= nbins <= 1 << bits:
+        raise ValueError(f"need 1 <= bits <= {KERNEL_MAX_BITS} and "
+                         f"1 <= nbins <= 2^bits, got bits={bits}, "
+                         f"nbins={nbins}")
+
+
+def digit_block_histogram(keys: torch.Tensor, *, shift: int, bits: int,
+                          nbins: int) -> torch.Tensor:
+    """B1: ``int32[nbins, nblocks]`` histogram of ``(keys >> shift) &
+    (2^bits - 1)`` per block of :data:`TILE` keys (digit-major)."""
+    if keys.device.type == "cpu":
+        return digit_block_histogram_ref(keys, shift=shift, bits=bits,
+                                         nbins=nbins, tile=TILE)
+    _check_digit(keys, bits, nbins)
+    L = keys.shape[0]
+    nblocks = cdiv(L, TILE)
+    hist = torch.empty((nbins, nblocks), dtype=torch.int32,
+                       device=keys.device)
+    check_launch(_fns()["hist"](keys.data_ptr(), hist.data_ptr(), L, shift,
+                                bits, nbins, nblocks,
+                                current_stream(keys.device)),
+                 "digit_block_histogram")
+    digit_block_histogram.launches += 1
+    return hist
+
+
+def digit_placement(keys: torch.Tensor, base: torch.Tensor,
+                    payload: torch.Tensor | None = None, *, shift: int,
+                    bits: int, nbins: int) -> torch.Tensor:
+    """B2: one stable counting-sort pass of ``payload`` by the digit.
+
+    ``base`` is the exclusive scan of :func:`digit_block_histogram`'s
+    flattened output; ``payload=None`` scatters the input positions
+    ``0..L-1`` (the first pass of a sort).  Returns the new ``int32[L]``
+    stream.
+    """
+    if keys.device.type == "cpu":
+        return digit_placement_ref(keys, base, payload, shift=shift,
+                                   bits=bits, nbins=nbins, tile=TILE)
+    _check_digit(keys, bits, nbins)
+    L = keys.shape[0]
+    nblocks = cdiv(L, TILE)
+    check_cuda_tensor(base, "base", (torch.int32,))
+    if base.numel() != nbins * nblocks:
+        raise ValueError(f"base has {base.numel()} entries, expected "
+                         f"nbins * nblocks = {nbins * nblocks}")
+    if payload is not None:
+        check_cuda_tensor(payload, "payload", (torch.int32,))
+        if payload.shape != keys.shape:
+            raise ValueError("payload must have the keys' shape")
+    out = torch.empty(L, dtype=torch.int32, device=keys.device)
+    check_launch(_fns()["place"](
+        keys.data_ptr(), base.data_ptr(),
+        None if payload is None else payload.data_ptr(), out.data_ptr(), L,
+        shift, bits, nbins, nblocks, current_stream(keys.device)),
+        "digit_placement")
+    digit_placement.launches += 1
+    return out
+
+
+digit_block_histogram.launches = 0
+digit_placement.launches = 0

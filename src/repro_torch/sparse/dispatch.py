@@ -1,0 +1,104 @@
+"""Single backend-dispatch point for the assembly sort strategies.
+
+Counterpart of ``repro/sparse/dispatch.py`` (sort registry only; the
+merge registry comes with dynamic patterns).  Every planner selects its
+backend through one ``method=`` string:
+
+  "jnp"    two stable sorts (row pass, then column pass) with
+           ``torch.sort`` -- the paper's Parts 1-3 structure (the name
+           is the reference's)
+  "fused"  one stable ``torch.sort`` on the int64 key
+           ``col * (M+1) + row``.  torch always has int64, so the
+           reference's int32-overflow fallback has no regime here
+  "radix"  the LSD radix planner on the hand-written B1/B2 kernels
+           (``repro_torch.kernels.radix_sort``)
+
+All backends produce the identical (col,row)-ordered permutation.
+``method=None`` resolves per device through :func:`default_method`:
+``"radix"`` for CUDA tensors, ``"fused"`` for CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+PermFn = Callable[..., torch.Tensor]
+
+_METHODS: Dict[str, PermFn] = {}
+
+#: the planning backend on the card: the hand-written kernels
+DEFAULT_METHOD_CUDA = "radix"
+#: the backend for CPU tensors, where the kernels run their plain versions
+DEFAULT_METHOD_CPU = "fused"
+
+
+def register_method(name: str, fn: PermFn) -> None:
+    """Register a sort backend: ``fn(rows, cols, *, M, N, **kw) -> perm``."""
+    _METHODS[name] = fn
+
+
+def available_methods() -> tuple[str, ...]:
+    return tuple(sorted(_METHODS))
+
+
+def default_method(device=None) -> str:
+    """The backend used for ``method=None`` on ``device`` (a tensor's
+    device, or ``None`` for the port's default device, CUDA)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return DEFAULT_METHOD_CPU
+    return DEFAULT_METHOD_CUDA
+
+
+def resolve_method(method: str | None, device=None) -> str:
+    """Map ``None`` to the device's default, pass names through."""
+    return default_method(device) if method is None else method
+
+
+def sorted_permutation(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
+                       N: int, method: str | None = None,
+                       **kwargs) -> torch.Tensor:
+    """(col,row)-stable-ordered int32 permutation via the selected
+    backend."""
+    method = resolve_method(method, rows.device)
+    try:
+        fn = _METHODS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown assembly method {method!r}; "
+            f"available: {available_methods()}"
+        ) from None
+    return fn(rows, cols, M=M, N=N, **kwargs)
+
+
+def _argsort_stable(x: torch.Tensor) -> torch.Tensor:
+    return torch.sort(x, stable=True).indices
+
+
+def _perm_jnp(rows, cols, *, M: int, N: int) -> torch.Tensor:
+    """Two-pass path: stable row sort, then stable column sort (paper)."""
+    del M, N
+    rank = _argsort_stable(rows)
+    rank2 = _argsort_stable(cols[rank])
+    return rank[rank2].to(torch.int32)
+
+
+def _perm_fused(rows, cols, *, M: int, N: int) -> torch.Tensor:
+    """One stable sort on the int64 fused key ``col * (M+1) + row``."""
+    del N
+    key = cols.long() * (M + 1) + rows.long()
+    return _argsort_stable(key).to(torch.int32)
+
+
+def _perm_radix(rows, cols, *, M: int, N: int,
+                max_bits: int | None = None) -> torch.Tensor:
+    """LSD radix planner on the B1/B2 kernels (lazy import: no hard
+    kernel dependency)."""
+    from ..kernels.radix_sort.ops import radix_sort_pair
+
+    return radix_sort_pair(rows, cols, M=M, N=N, max_bits=max_bits)
+
+
+register_method("jnp", _perm_jnp)
+register_method("fused", _perm_fused)
+register_method("radix", _perm_radix)

@@ -1,0 +1,161 @@
+"""Matlab-compatibility facade over the two-phase core.
+
+Counterpart of ``repro/sparse/matlab.py``: unit-offset indices,
+duplicate summing and the paper's §2.1 index expansion, on
+:func:`repro_torch.sparse.pattern.plan` + ``SparsePattern``.
+
+  fsparse(i, j, s, [shape], [nzmax], method=...)   one-shot assembly
+  fsparse_coo(coo)                                 zero-offset entry
+  find(S)                                          (i, j, v) unit-offset
+  nnz_of(S)                                        python-int nnz
+
+Not ported yet: ``sparse2`` and its plan LRU, the delta re-planning
+facade, ``mtimes``, ``method="sharded"`` and the ``format=`` targets.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.coo import COO, coo_from_matlab
+from ..core.csc import CSC, slot_columns
+from .dispatch import resolve_method
+from .pattern import plan_coo, validate_accum
+
+
+def expand_indices(ii, jj, ss):
+    """fsparse index-expansion (§2.1): broadcast i (col), j (row), s.
+
+    Elementwise mode: equal-length 1-d ``ii``/``jj`` (``ss`` scalar or
+    the same length).  Outer-product mode: explicitly 2-d inputs (a
+    column ``ii`` and a row ``jj``) or a scalar against a vector; ``ss``
+    may be a scalar, the full (ni, nj) grid, a flat vector of ni*nj
+    values, or a broadcastable (ni, 1) / (1, nj) slice.  Anything else
+    raises the Matlab-compatible errors instead of silently expanding
+    or crashing inside ``reshape``.
+    """
+    ii = np.asarray(ii, dtype=np.float64)
+    jj = np.asarray(jj, dtype=np.float64)
+    ss = np.asarray(ss, dtype=np.float64)
+    if ii.ndim <= 1 and jj.ndim <= 1:
+        if ii.size == jj.size:
+            if ss.size == 1:
+                ss = np.full(ii.shape, float(ss.ravel()[0]))
+            elif ss.size != ii.size:
+                raise ValueError("vectors must be the same length")
+            return ii.ravel(), jj.ravel(), ss.ravel()
+        if ii.size != 1 and jj.size != 1:
+            # mismatched 1-d vectors are an error in Matlab, not an
+            # implicit outer product (only scalars broadcast)
+            raise ValueError("vectors must be the same length")
+    # outer-product expansion: i column (ni, 1), j row (1, nj) -> (ni, nj)
+    ii2 = ii.reshape(-1, 1)
+    jj2 = jj.reshape(1, -1)
+    ni, nj = ii2.shape[0], jj2.shape[1]
+    grid_i = np.broadcast_to(ii2, (ni, nj))
+    grid_j = np.broadcast_to(jj2, (ni, nj))
+    if ss.size == 1:
+        grid_s = np.full((ni, nj), float(ss.ravel()[0]))
+    elif ss.shape == (ni, nj):
+        grid_s = ss
+    elif ss.ndim == 1 and ss.size == ni * nj:
+        grid_s = ss.reshape(ni, nj)
+    elif ss.ndim == 2 and ss.shape in ((ni, 1), (1, nj)):
+        grid_s = np.broadcast_to(ss, (ni, nj))
+    else:
+        raise ValueError(
+            f"cannot expand s of shape {ss.shape} over a ({ni}, {nj}) "
+            f"index grid; expected a scalar, ({ni}, {nj}), ({ni}, 1), "
+            f"(1, {nj}), or a flat vector of {ni * nj} values"
+        )
+    return grid_i.ravel(), grid_j.ravel(), grid_s.ravel()
+
+
+def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
+            method: str | None = None, mesh=None, accum: str = "sum",
+            nzmax_slack: int = 0, format: str | None = None,
+            block: int = 1, device=None) -> CSC:
+    """Assemble a sparse matrix from Matlab-style triplet data.
+
+    >>> S = fsparse([3, 2, 3], [1, 2, 1], [7.0, 9.0, 1.0], device="cpu")
+    >>> S.shape, int(S.nnz)              # duplicates at (3, 1) summed
+    ((3, 2), 2)
+    >>> S.to_dense()
+    tensor([[0., 0.],
+            [0., 9.],
+            [8., 0.]])
+
+    The triplets go to ``device``: ``"cuda"`` unless the caller passes
+    another; with no card and no ``device="cpu"`` the call raises.
+    ``method=None`` resolves per device (``"radix"`` on the card,
+    ``"fused"`` on the CPU).  ``accum`` selects how duplicate (i, j)
+    values combine (``"sum"`` is Matlab's ``sparse``; ``"mean"``,
+    ``"first"`` and ``"last"`` are ported, ``"min"``/``"max"`` not yet).
+    """
+    if method == "sharded":
+        raise NotImplementedError(
+            "method='sharded' is not ported yet: the distributed assembly "
+            "is a later slice of the port (ROADMAP queue A, item 14)"
+        )
+    validate_accum(accum)
+    _validate_format(format, block)
+    if format is not None:
+        raise NotImplementedError(
+            f"format={format!r} is not ported yet: SymCSC and BSR are a "
+            "later slice of the port (ROADMAP queue A, item 9)"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: it belongs to method='sharded', a "
+            "later slice of the port (ROADMAP queue A, item 14)"
+        )
+    ii, jj, ss = expand_indices(ii, jj, ss)
+    coo = coo_from_matlab(ii, jj, ss, shape=shape, device=device)
+    return fsparse_coo(coo, nzmax, method=method, accum=accum,
+                       nzmax_slack=nzmax_slack)
+
+
+def _validate_format(format, block):
+    if format not in (None, "symcsc", "bsr"):
+        raise ValueError(
+            f"unknown assembly format {format!r}; expected None "
+            "(plain CSC), 'symcsc' or 'bsr'"
+        )
+    if int(block) < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if format != "bsr" and int(block) != 1:
+        raise ValueError(
+            f"block={block} is only meaningful with format='bsr' "
+            f"(got format={format!r}); it would be silently ignored"
+        )
+
+
+def fsparse_coo(coo: COO, nzmax: int | None = None, *,
+                method: str | None = None, accum: str = "sum",
+                nzmax_slack: int = 0) -> CSC:
+    """Zero-offset COO entry point (no host validation); runs on the
+    COO's device."""
+    method = resolve_method(method, coo.rows.device)
+    return plan_coo(coo, nzmax=nzmax, method=method, accum=accum,
+                    nzmax_slack=nzmax_slack).assemble(coo.vals)
+
+
+def find(S: CSC):
+    """Matlab ``[i, j, v] = find(S)``: unit-offset triplets of nonzeros.
+
+    Host-side numpy arrays in Matlab's columnwise, row-ascending order;
+    structural zeros (cancelled duplicates) are reported, as fsparse
+    keeps them.
+    """
+    if not isinstance(S, CSC):
+        raise TypeError(f"find takes a CSC, got {type(S).__name__}")
+    nnz = int(S.nnz)
+    cols = slot_columns(S.indptr, S.nzmax)[:nnz].cpu().numpy()
+    rows = S.indices[:nnz].cpu().numpy()
+    vals = S.data[:nnz].detach().cpu().numpy()
+    return rows + 1, cols + 1, vals
+
+
+def nnz_of(S) -> int:
+    """Matlab ``nnz(S)``: structural nonzero count as a python int."""
+    return int(torch.as_tensor(S.nnz).sum())

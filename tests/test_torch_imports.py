@@ -1,0 +1,41 @@
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
+import nothing of JAX and nothing of the JAX package ``repro``."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for must in ("chip_smoke.py", "src/repro_torch/sparse/matlab.py",
+                 "src/repro_torch/kernels/radix_sort/radix_sort.py",
+                 "src/repro_torch/kernels/segment_sum/segment_sum.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, mod) for line, mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
