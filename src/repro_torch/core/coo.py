@@ -56,6 +56,13 @@ def coo_from_matlab(ii, jj, ss, shape=None, *, device=None) -> COO:
     ``"cuda"`` unless the caller passes another (``device="cpu"`` runs
     the plain PyTorch versions of the kernels).
     """
+    return coo_from_host(*host_triplets(ii, jj, ss, shape), device=device)
+
+
+def host_triplets(ii, jj, ss, shape=None):
+    """The host half of :func:`coo_from_matlab`: validated zero-offset
+    ``(rows, cols, vals, (M, N))`` as int32, int32 and float32 numpy
+    arrays, before any copy to a device."""
     ii = np.asarray(ii)
     jj = np.asarray(jj)
     ss = np.asarray(ss, dtype=np.float64)
@@ -75,13 +82,17 @@ def coo_from_matlab(ii, jj, ss, shape=None, *, device=None) -> COO:
         M, N = int(shape[0]), int(shape[1])
         if ii.size and (ii.max() > M or jj.max() > N):
             raise ValueError("index exceeds matrix dimensions")
+    return ii - 1, jj - 1, ss.astype(np.float32), (M, N)
+
+
+def coo_from_host(rows, cols, vals, shape, *, device=None) -> COO:
+    """A :class:`COO` of host arrays copied to ``device`` (``"cuda"``
+    unless the caller passes another)."""
     device = resolve_device(device)
-    return COO(
-        rows=torch.from_numpy(ii - 1).to(device),
-        cols=torch.from_numpy(jj - 1).to(device),
-        vals=torch.from_numpy(ss.astype(np.float32)).to(device),
-        shape=(M, N),
-    )
+    return COO(rows=torch.from_numpy(rows).to(device),
+               cols=torch.from_numpy(cols).to(device),
+               vals=torch.from_numpy(vals).to(device),
+               shape=(int(shape[0]), int(shape[1])))
 
 
 def coo_to_dense(rows, cols, vals, *, M: int, N: int) -> torch.Tensor:

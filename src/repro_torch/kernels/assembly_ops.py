@@ -7,10 +7,14 @@ port is Pallas:
   Parts 1-3  radix_sort.radix_sort_pair  (B1 histogram + scan + B2
              placement per digit of at most 8 bits)
   Part 4     prefix over column boundaries (plain PyTorch)
-  Numeric    segment_sum.gather_segment_sum_sorted (B3': gather +
-             mask + segment sum in one kernel)
+  Numeric    segment_sum.gather_segment_reduce_sorted (B3': gather +
+             mask + segment sum in one kernel; B4 the same for
+             min/max)
 
-On CPU tensors every kernel runs its plain version.
+``fill_pallas`` keeps the reference's unfused reduce for comparison:
+the gathered stream is written out, then prefix-summed (B5) and
+differenced at the segment boundaries.  On CPU tensors every kernel
+runs its plain version.
 """
 from __future__ import annotations
 
@@ -18,7 +22,10 @@ import torch
 
 from ..core.csc import CSC
 from ..sparse.dispatch import sorted_permutation
-from ..sparse.pattern import SparsePattern, pattern_from_perm, trivial_pattern
+from ..sparse.pattern import (SparsePattern, accum_dtype, fill_dtype,
+                              first_flags, pattern_from_perm,
+                              trivial_pattern)
+from .segment_sum.ops import segment_sum_sorted
 
 
 def plan_kernels(rows: torch.Tensor, cols: torch.Tensor, *, M: int, N: int,
@@ -41,12 +48,42 @@ def fill_fused(pattern: SparsePattern, vals: torch.Tensor, *,
                accum: str | None = None) -> CSC:
     """Fused numeric phase: gather + mask + segment reduce in one kernel.
 
-    Counterpart of ``repro.kernels.assembly_ops.fill_fused``.  In the
-    port :meth:`SparsePattern.assemble` itself runs the fused kernel
-    (B3') for ``sum``/``mean``, so this is that fill; ``accum=None``
-    follows the pattern's mode.
+    Counterpart of ``repro.kernels.assembly_ops.fill_fused``: B3' for
+    ``sum``/``mean``, B4 for ``min``/``max``, a scatter for
+    ``first``/``last`` (:func:`~.segment_sum.ops
+    .gather_segment_reduce_sorted`).  Output dtype follows the shared
+    ``fill_dtype`` contract; ``accum=None`` follows the pattern's mode.
+    It is ``pattern.assemble``: the length check and the gradient come
+    with it.
     """
     return pattern.assemble(vals, accum=accum)
+
+
+def fill_pallas(pattern: SparsePattern, vals: torch.Tensor, *,
+                accum: str | None = None) -> CSC:
+    """Numeric phase with the *unfused* sorted-segment sum.
+
+    Counterpart of ``repro.kernels.assembly_ops.fill_pallas``: the
+    masked ``vals[perm]`` gather in PyTorch, a prefix sum (B5) and the
+    per-segment differences of :func:`~.segment_sum.ops
+    .segment_sum_sorted`.  A float32 prefix past 2^24 loses low bits,
+    as the reference's does; :func:`fill_fused` sums each segment
+    directly.  Non-``sum`` modes go to :func:`fill_fused`.  The ``sum``
+    fill records no gradient on the card (B5 is not differentiable):
+    take gradients through :func:`fill_fused`.
+    """
+    accum = pattern.accum if accum is None else accum
+    if accum != "sum":
+        return fill_fused(pattern, vals, accum=accum)
+    pattern.check_vals(vals)
+    nzmax = pattern.nzmax
+    dtype = fill_dtype(vals)
+    acc = accum_dtype(dtype)  # 16-bit floats prefix-sum in float32
+    v_s = torch.where(pattern.slot < nzmax, vals[pattern.perm].to(acc),
+                      torch.zeros((), dtype=acc, device=vals.device))
+    totals = segment_sum_sorted(v_s, first_flags(pattern.slot, nzmax),
+                                num_segments=nzmax)
+    return pattern._csc(totals.to(dtype))
 
 
 def assemble_kernels(rows: torch.Tensor, cols: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Wrapper of the fused fill's CUDA kernel (``csrc/segment_sum.cu``).
+"""Wrappers of the numeric phase's CUDA kernels (``csrc/segment_sum.cu``).
 
 ``gather_segment_sum`` (B3') computes what the Pallas
 ``gather_masked_cumsum`` of ``repro/kernels/segment_sum/segment_sum.py``
@@ -7,8 +7,16 @@ per-segment sums of ``vals[perm]`` over a sorted slot stream, with
 every ``slot >= num_segments`` dropped.  It sums each segment directly
 instead of differencing a global prefix sum.
 
-The wrapper takes the plain version (:mod:`.ref`) for a CPU tensor and
-launches the kernel for a CUDA tensor; ``.launches`` counts kernel
+``gather_segment_minmax`` (B4) is the counterpart of
+``gather_masked_segscan`` read at each segment's end: the per-segment
+min or max, directly, with 0 in empty slots.
+
+``blocked_cumsum`` (B5) is the counterpart of ``blocked_cumsum``: an
+inclusive prefix sum, reduce-then-scan in three launches (one call, one
+count).
+
+Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
+launches its kernel for a CUDA tensor; ``.launches`` counts kernel
 launches only.
 """
 from __future__ import annotations
@@ -17,23 +25,58 @@ import ctypes
 
 import torch
 
-from ..common import (bind, check_cuda_tensor, check_launch, current_stream,
-                      load_library)
-from .ref import gather_segment_sum_ref
+from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
+                      current_stream, load_library)
+from .ref import (SCAN_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
+                  gather_segment_sum_ref)
 
-_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("segment_sum")
-        args = [_P, _P, _P, _P, _LL, _LL, _P]
-        _FNS[torch.float32] = bind(lib, "gather_segment_sum_f32_launch",
-                                   args)
-        _FNS[torch.float64] = bind(lib, "gather_segment_sum_f64_launch",
-                                   args)
+        bind(lib, "scan_tile", [])
+        if lib.scan_tile() != SCAN_TILE:
+            raise RuntimeError("csrc/segment_sum.cu tile differs from "
+                               "SCAN_TILE")
+        for dtype, sfx in _SUFFIX.items():
+            _FNS["sum", dtype] = bind(lib, f"gather_segment_sum_{sfx}_launch",
+                                      [_P, _P, _P, _P, _LL, _LL, _P])
+            _FNS["minmax", dtype] = bind(
+                lib, f"gather_segment_minmax_{sfx}_launch",
+                [_P, _P, _P, _P, _LL, _LL, _I, _P])
+            _FNS["cumsum", dtype] = bind(lib, f"blocked_cumsum_{sfx}_launch",
+                                         [_P, _P, _P, _P, _LL, _P])
     return _FNS
+
+
+def _check_values(vals: torch.Tensor, what: str) -> None:
+    if vals.is_complex():
+        raise NotImplementedError(
+            f"complex values on CUDA are not ported yet ({what} takes "
+            "float32/float64); run it on the CPU"
+        )
+    check_cuda_tensor(vals, "vals", tuple(_SUFFIX))
+
+
+def _check_stream(vals, perm, slot, what: str) -> int:
+    _check_values(vals, what)
+    check_cuda_tensor(perm, "perm", (torch.int32,))
+    check_cuda_tensor(slot, "slot", (torch.int32,))
+    L = perm.shape[0]
+    if perm.ndim != 1 or slot.shape != perm.shape or L == 0 or L >= 2**31:
+        raise ValueError(
+            f"perm and slot must be equal 1-d streams with 0 < L < 2^31, "
+            f"got {tuple(perm.shape)} and {tuple(slot.shape)}"
+        )
+    if tuple(vals.shape) != (L,):
+        # the kernel reads vals[perm[k]] with no bounds check
+        raise ValueError(f"vals has shape {tuple(vals.shape)}, expected "
+                         f"({L},): one value per stream position")
+    return L
 
 
 def gather_segment_sum(vals: torch.Tensor, perm: torch.Tensor,
@@ -44,30 +87,67 @@ def gather_segment_sum(vals: torch.Tensor, perm: torch.Tensor,
     ``perm``/``slot`` are a plan's int32 streams (equal slots adjacent);
     ``vals`` is float32 or float64 on the card (the caller casts 16-bit
     values to float32 first; complex fills on CUDA are not ported).
+
+    Each kept slot (``< num_segments``) must be one run of adjacent
+    positions: the thread at a run's first position writes its slot.
+    A plan's streams meet that for ``num_segments <= nzmax`` only; with
+    more, the dropped inputs' ``slot == nzmax`` runs (one per column)
+    would all write that slot.
     """
     if vals.device.type == "cpu":
         return gather_segment_sum_ref(vals, perm, slot,
                                       num_segments=num_segments)
-    if vals.is_complex():
-        raise NotImplementedError(
-            "complex fills on CUDA are not ported yet (the kernel sums "
-            "float32/float64); run the fill on the CPU"
-        )
-    check_cuda_tensor(vals, "vals", (torch.float32, torch.float64))
-    check_cuda_tensor(perm, "perm", (torch.int32,))
-    check_cuda_tensor(slot, "slot", (torch.int32,))
-    L = perm.shape[0]
-    if perm.ndim != 1 or slot.shape != perm.shape or L == 0 or L >= 2**31:
-        raise ValueError(
-            f"perm and slot must be equal 1-d streams with 0 < L < 2^31, "
-            f"got {tuple(perm.shape)} and {tuple(slot.shape)}"
-        )
+    L = _check_stream(vals, perm, slot, "the fused fill")
     out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
-    check_launch(_fns()[vals.dtype](
+    check_launch(_fns()["sum", vals.dtype](
         vals.data_ptr(), perm.data_ptr(), slot.data_ptr(), out.data_ptr(),
         L, num_segments, current_stream(vals.device)), "gather_segment_sum")
     gather_segment_sum.launches += 1
     return out
 
 
+def gather_segment_minmax(vals: torch.Tensor, perm: torch.Tensor,
+                          slot: torch.Tensor, *, num_segments: int,
+                          op: str) -> torch.Tensor:
+    """B4: ``[num_segments]`` min (``op="min"``) or max (``"max"``) of
+    ``vals[perm]`` per sorted slot run; 0 in every empty slot, NaN
+    propagates.  Same streams, dtypes and contract (``num_segments <=``
+    the plan's ``nzmax``) as :func:`gather_segment_sum`.
+    """
+    if op not in ("min", "max"):
+        raise ValueError(f"op must be 'min' or 'max', got {op!r}")
+    if vals.device.type == "cpu":
+        return gather_segment_minmax_ref(vals, perm, slot,
+                                         num_segments=num_segments, op=op)
+    L = _check_stream(vals, perm, slot, "the min/max fill")
+    out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
+    check_launch(_fns()["minmax", vals.dtype](
+        vals.data_ptr(), perm.data_ptr(), slot.data_ptr(), out.data_ptr(),
+        L, num_segments, int(op == "max"), current_stream(vals.device)),
+        "gather_segment_minmax")
+    gather_segment_minmax.launches += 1
+    return out
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """B5: inclusive prefix sum of a 1-d float32/float64 tensor."""
+    if x.device.type == "cpu":
+        return blocked_cumsum_ref(x)
+    _check_values(x, "the prefix sum")
+    L = x.shape[0]
+    if x.ndim != 1 or L == 0 or L >= 2**31:
+        raise ValueError(f"x must be 1-d with 0 < L < 2^31, got "
+                         f"{tuple(x.shape)}")
+    ntiles = cdiv(L, SCAN_TILE)
+    scratch = torch.empty(2 * ntiles, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    check_launch(_fns()["cumsum", x.dtype](
+        x.data_ptr(), scratch.data_ptr(), scratch[ntiles:].data_ptr(),
+        out.data_ptr(), L, current_stream(x.device)), "blocked_cumsum")
+    blocked_cumsum.launches += 1
+    return out
+
+
 gather_segment_sum.launches = 0
+gather_segment_minmax.launches = 0
+blocked_cumsum.launches = 0

@@ -10,6 +10,10 @@ backend through one ``method=`` string:
   "fused"  one stable ``torch.sort`` on the int64 key
            ``col * (M+1) + row``.  torch always has int64, so the
            reference's int32-overflow fallback has no regime here
+  "pallas" the paper's counting sort on the hand-written B12 (block
+           histogram) and B11 (stable placement) kernels, one full
+           pass per matrix dimension (``repro_torch.kernels
+           .counting_sort``; the name is the reference's)
   "radix"  the LSD radix planner on the hand-written B1/B2 kernels
            (``repro_torch.kernels.radix_sort``)
 
@@ -71,6 +75,21 @@ def sorted_permutation(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
     return fn(rows, cols, M=M, N=N, **kwargs)
 
 
+def method_from_fused(fused: bool | None, method: str | None,
+                      device=None) -> str:
+    """Back-compat shim: map the deprecated ``fused=`` flag to a method.
+
+    An explicit ``fused=True/False`` keeps its historical meaning
+    (``"fused"``/``"jnp"``); with neither argument given the device's
+    default backend applies.
+    """
+    if method is not None:
+        return method
+    if fused is None:
+        return default_method(device)
+    return "fused" if fused else "jnp"
+
+
 def _argsort_stable(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, stable=True).indices
 
@@ -90,6 +109,17 @@ def _perm_fused(rows, cols, *, M: int, N: int) -> torch.Tensor:
     return _argsort_stable(key).to(torch.int32)
 
 
+def _perm_pallas(rows, cols, *, M: int, N: int,
+                 block_b: int | None = None) -> torch.Tensor:
+    """Counting sort on the B12/B11 kernels: rows first (``M + 1``
+    bins, padding included), then the row-ordered cols (``N + 1``)."""
+    from ..kernels.counting_sort.ops import counting_sort
+
+    rank, _ = counting_sort(rows, nbins=M + 1, block_b=block_b)
+    rank2, _ = counting_sort(cols[rank], nbins=N + 1, block_b=block_b)
+    return rank[rank2]
+
+
 def _perm_radix(rows, cols, *, M: int, N: int,
                 max_bits: int | None = None) -> torch.Tensor:
     """LSD radix planner on the B1/B2 kernels (lazy import: no hard
@@ -101,4 +131,5 @@ def _perm_radix(rows, cols, *, M: int, N: int,
 
 register_method("jnp", _perm_jnp)
 register_method("fused", _perm_fused)
+register_method("pallas", _perm_pallas)
 register_method("radix", _perm_radix)

@@ -5,22 +5,27 @@ duplicate summing and the paper's §2.1 index expansion, on
 :func:`repro_torch.sparse.pattern.plan` + ``SparsePattern``.
 
   fsparse(i, j, s, [shape], [nzmax], method=...)   one-shot assembly
+  sparse2(i, j, s, ...)                            assembly with a
+      host-side LRU of symbolic plans: repeated calls with the same
+      index vectors skip Parts 1-4 and run only the fill
   fsparse_coo(coo)                                 zero-offset entry
   find(S)                                          (i, j, v) unit-offset
   nnz_of(S)                                        python-int nnz
 
-Not ported yet: ``sparse2`` and its plan LRU, the delta re-planning
-facade, ``mtimes``, ``method="sharded"`` and the ``format=`` targets.
+Not ported yet: the delta re-planning facade, ``mtimes``,
+``method="sharded"``/``mesh=`` and the ``format=`` targets.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.coo import COO, coo_from_matlab
+from ..core.coo import COO, coo_from_matlab, host_triplets
 from ..core.csc import CSC, slot_columns
+from ..kernels.common import resolve_device
 from .dispatch import resolve_method
-from .pattern import plan_coo, validate_accum
+from .lru import LRUCache
+from .pattern import plan, plan_coo, validate_accum
 
 
 def expand_indices(ii, jj, ss):
@@ -89,9 +94,19 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     another; with no card and no ``device="cpu"`` the call raises.
     ``method=None`` resolves per device (``"radix"`` on the card,
     ``"fused"`` on the CPU).  ``accum`` selects how duplicate (i, j)
-    values combine (``"sum"`` is Matlab's ``sparse``; ``"mean"``,
-    ``"first"`` and ``"last"`` are ported, ``"min"``/``"max"`` not yet).
+    values combine (:data:`repro_torch.sparse.pattern.ACCUM_MODES`:
+    Matlab's ``sparse`` sums; the rest are ``accumarray`` reductions).
     """
+    _check_options(method, mesh, accum, format, block)
+    ii, jj, ss = expand_indices(ii, jj, ss)
+    coo = coo_from_matlab(ii, jj, ss, shape=shape, device=device)
+    return fsparse_coo(coo, nzmax, method=method, accum=accum,
+                       nzmax_slack=nzmax_slack)
+
+
+def _check_options(method, mesh, accum, format, block):
+    """The facade's option checks, in the reference's order; the options
+    of later slices raise ``NotImplementedError`` naming their item."""
     if method == "sharded":
         raise NotImplementedError(
             "method='sharded' is not ported yet: the distributed assembly "
@@ -109,10 +124,6 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
             "mesh= is not ported yet: it belongs to method='sharded', a "
             "later slice of the port (ROADMAP queue A, item 14)"
         )
-    ii, jj, ss = expand_indices(ii, jj, ss)
-    coo = coo_from_matlab(ii, jj, ss, shape=shape, device=device)
-    return fsparse_coo(coo, nzmax, method=method, accum=accum,
-                       nzmax_slack=nzmax_slack)
 
 
 def _validate_format(format, block):
@@ -138,6 +149,111 @@ def fsparse_coo(coo: COO, nzmax: int | None = None, *,
     method = resolve_method(method, coo.rows.device)
     return plan_coo(coo, nzmax=nzmax, method=method, accum=accum,
                     nzmax_slack=nzmax_slack).assemble(coo.vals)
+
+
+# ---------------------------------------------------------------------------
+# sparse2: pattern-caching assembly
+# ---------------------------------------------------------------------------
+#: the sparse2 symbolic-plan LRU.  Thread-safe (see
+#: :mod:`repro_torch.sparse.lru`).  Capacity is read from
+#: REPRO_PLAN_CACHE_SIZE at import; resize at runtime with
+#: ``_PLAN_CACHE.resize(n)``.
+_PLAN_CACHE = LRUCache(32, name="sparse2-plan", env="REPRO_PLAN_CACHE_SIZE")
+
+
+def _device_key(device) -> str:
+    """A device as the plan cache keys it: ``"cuda"`` names the current
+    card, so it keys as ``"cuda:<index>"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _cache_key(rows: np.ndarray, cols: np.ndarray, shape, nzmax, method,
+               device, extra=()):
+    """Structure-identity key for the sparse2 plan cache.
+
+    ``tobytes()`` alone is NOT an identity: two buffers can share bytes
+    while describing different structures (an int64 vector aliases two
+    int32 indices; a transposed expansion shape ravels identically), so
+    the dtypes and *both* shapes are part of the key.  Two points are
+    the port's own: the key is built from the zero-offset host arrays,
+    before they are copied to the card (no device round trip per call),
+    and it holds the plan's device (a CPU plan and a CUDA plan over the
+    same triplets are different resident plans).
+    """
+    return (rows.tobytes(), cols.tobytes(),
+            rows.shape, cols.shape, rows.dtype.str, cols.dtype.str,
+            tuple(shape), nzmax, method, _device_key(device), extra)
+
+
+def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
+                method: str | None = None, mesh=None, accum: str = "sum",
+                nzmax_slack: int = 0, format: str | None = None,
+                block: int = 1, device=None):
+    """The symbolic phase behind ``sparse2``: ``(key, pattern, vals)``.
+
+    Validates and expands the Matlab-style request, keys it, and serves
+    ``pattern`` from (or inserts it into) the thread-safe plan LRU.
+    ``nzmax_slack`` folds into the resolved ``nzmax`` (``L + slack``)
+    *before* keying, so a slack-planned structure and an explicit
+    ``nzmax=L+slack`` request share one entry.  ``accum``, ``format``
+    and ``block`` are part of the key, as in the reference.
+
+    The third element is the values on the plan's device, where the
+    reference returns the whole COO: the row and column indices are
+    copied to the device only when the plan is built, so a hit copies
+    the values alone.
+    """
+    _check_options(method, mesh, accum, format, block)
+    ii, jj, ss = expand_indices(ii, jj, ss)
+    rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
+    device = resolve_device(device)
+    method = resolve_method(method, device)
+    if nzmax is None and nzmax_slack:
+        nzmax = int(rows.shape[0]) + int(nzmax_slack)
+    key = _cache_key(rows, cols, shape, nzmax, method, device,
+                     (accum, format, int(block)))
+    pat = _PLAN_CACHE.get_or_create(key, lambda: plan(
+        torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device),
+        shape, nzmax=nzmax, method=method, accum=accum))
+    return key, pat, torch.from_numpy(vals).to(device)
+
+
+def sparse2(ii, jj, ss, shape=None, nzmax: int | None = None, *,
+            method: str | None = None, mesh=None, accum: str = "sum",
+            nzmax_slack: int = 0, format: str | None = None,
+            block: int = 1, device=None) -> CSC:
+    """``fsparse`` with symbolic-plan reuse across calls.
+
+    >>> S = sparse2([3, 2, 3], [1, 2, 1], [7.0, 9.0, 1.0], device="cpu")
+    >>> S.to_dense()[2, 0].item(), plan_cache_info()["size"] >= 1
+    (8.0, True)
+
+    Same contract and results as :func:`fsparse`; repeated calls whose
+    index vectors (and shape, nzmax, method, accum, device) are
+    identical hit a thread-safe host-side LRU of
+    :class:`~repro_torch.sparse.pattern.SparsePattern`
+    plans and run only the O(L) numeric phase: the repeated-assembly
+    FEM workflow (fixed mesh, changing element values) as a drop-in
+    call.
+    """
+    _, pat, vals = plan_lookup(ii, jj, ss, shape, nzmax, method=method,
+                               mesh=mesh, accum=accum,
+                               nzmax_slack=nzmax_slack, format=format,
+                               block=block, device=device)
+    return pat.assemble(vals)
+
+
+def plan_cache_info() -> dict:
+    """sparse2 plan-cache state: ``size``/``capacity`` and the
+    ``hits``/``misses``/``evictions``/``insertions`` counters."""
+    return _PLAN_CACHE.info()
+
+
+def plan_cache_clear() -> None:
+    _PLAN_CACHE.clear()
 
 
 def find(S: CSC):

@@ -13,12 +13,13 @@ runs the paper's Parts 1-4 once and keeps what the numeric phase needs:
   scols   : int32[L]      sorted col keys (``cols[perm]``)
 
 ``SparsePattern.assemble(vals)`` is then only the O(L) fill: on the
-card the fused gather + mask + segment-sum kernel (B3'), on the CPU its
-plain version.  The fill is a ``torch.autograd.Function`` whose
-backward is the reference's gather-by-slot through the stored plan.
+card the fused gather + mask + segment-sum kernel (B3') for ``sum`` and
+``mean`` and the fused segment min/max kernel (B4) for ``min`` and
+``max``, on the CPU their plain versions.  The fill is a
+``torch.autograd.Function`` whose backward is the reference's
+gather-by-slot through the stored plan.
 
-Not ported yet: ``accum="min"/"max"`` (they need the segmented-scan
-kernel B4), ``update``, ``reduce_rows``, ``plan_symmetric`` and the
+Not ported yet: ``update``, ``reduce_rows``, ``plan_symmetric`` and the
 structure detectors.
 """
 from __future__ import annotations
@@ -99,14 +100,19 @@ class SparsePattern:
         """The raw O(L) numeric phase: ``data`` only (``prS``)."""
         accum = validate_accum(self.accum if accum is None else accum,
                                vals.dtype)
+        self.check_vals(vals)
+        return _Scatter.apply(vals.to(fill_dtype(vals)), self.perm,
+                              self.slot, self.nzmax, accum)
+
+    def check_vals(self, vals: torch.Tensor) -> None:
+        """Raise unless ``vals`` is one length-L vector: the fill kernels
+        read ``vals[perm[k]]`` with no bounds check."""
         if vals.ndim != 1 or vals.shape[0] != self.L:
             raise ValueError(
                 f"vals has shape {tuple(vals.shape)} but this pattern was "
                 f"planned for a length-L={self.L} vector; use "
                 "assemble_batch for batched fills"
             )
-        return _Scatter.apply(vals.to(fill_dtype(vals)), self.perm,
-                              self.slot, self.nzmax, accum)
 
     def _csc(self, data: torch.Tensor) -> CSC:
         return CSC(data=data, indices=self.indices, indptr=self.indptr,
@@ -157,6 +163,15 @@ def validate_accum(accum: str, dtype=None) -> str:
     return accum
 
 
+def accum_identity(accum: str, dtype) -> torch.Tensor:
+    """Neutral element of an ``accum`` mode for ``dtype`` (inexact)."""
+    if accum == "min":
+        return torch.tensor(float("inf"), dtype=dtype)
+    if accum == "max":
+        return torch.tensor(float("-inf"), dtype=dtype)
+    return torch.zeros((), dtype=dtype)
+
+
 def _slot_counts(nzmax: int, slot: torch.Tensor) -> torch.Tensor:
     """Valid duplicate count per output slot (padding dropped).
 
@@ -171,54 +186,44 @@ def _slot_counts(nzmax: int, slot: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_reduce(nzmax: int, accum: str, perm, slot, vals):
-    """Forward of the fill under any ported ``accum`` mode.
+    """Forward of the fill under every ``accum`` mode: B3' (``sum``,
+    ``mean``) or B4 (``min``, ``max``) on the card, their plain versions
+    on the CPU, a scatter for ``first``/``last``
+    (:func:`repro_torch.kernels.segment_sum.ops
+    .gather_segment_reduce_sorted`)."""
+    # lazy: the kernel family's ops module imports this one
+    from ..kernels.segment_sum.ops import gather_segment_reduce_sorted
 
-    ``sum`` and ``mean`` run the fused fill (B3' on the card); ``first``
-    and ``last`` are one collision-free scatter of the flagged elements,
-    as in the reference, which has no kernel for them either.
-    """
-    if accum in ("min", "max"):
-        raise NotImplementedError(
-            f"accum={accum!r} needs the segmented min/max scan kernel "
-            "(B4), which a later slice of the port brings; use 'sum', "
-            "'mean', 'first' or 'last'"
-        )
-    if accum in ("sum", "mean"):
-        # lazy: the kernel family's ops module imports this one
-        from ..kernels.segment_sum.ops import gather_segment_sum_sorted
-
-        acc = accum_dtype(vals.dtype)  # 16-bit floats accumulate in f32
-        s = gather_segment_sum_sorted(vals.to(acc), perm, slot,
-                                      num_segments=nzmax)
-        if accum == "mean":
-            s = s / _slot_counts(nzmax, slot).clamp(min=1).to(acc)
-        return s.to(vals.dtype)
-    keep = first_flags(slot, nzmax) if accum == "first" \
-        else last_flags(slot, nzmax)
-    out = torch.zeros(nzmax + 1, dtype=vals.dtype, device=vals.device)
-    out[torch.where(keep, slot, nzmax)] = vals[perm]
-    return out[:nzmax]
+    return gather_segment_reduce_sorted(vals, perm, slot, accum=accum,
+                                        num_segments=nzmax)
 
 
 class _Scatter(torch.autograd.Function):
     """Differentiable numeric phase.
 
-    Every ported mode's output is ``data[s] = sum_k w_k * v_k`` with
-    weights derived from ``slot`` alone (1 for sum, 1/count for mean, a
-    0/1 selection for first/last), so one backward covers them all:
+    Every mode's output is ``data[s] = sum_k w_k * v_k`` with per-element
+    weights (1 for sum, 1/count for mean, a 0/1 selection for
+    min/max/first/last), so one backward covers them all:
     ``g_vals[perm[k]] = w_k * g_data[slot[k]]``, a padding-masked
     gather-by-slot and a collision-free scatter through the permutation.
+    min/max route the gradient to the *first* attaining element of each
+    duplicate group (the reference's deterministic subgradient), which
+    needs the values and the result kept from the forward.
     """
 
     @staticmethod
     def forward(ctx, vals, perm, slot, nzmax, accum):
-        ctx.save_for_backward(perm, slot)
+        out = _scatter_reduce(nzmax, accum, perm, slot, vals)
+        if accum in ("min", "max"):
+            ctx.save_for_backward(perm, slot, vals, out)
+        else:
+            ctx.save_for_backward(perm, slot)
         ctx.nzmax, ctx.accum = nzmax, accum
-        return _scatter_reduce(nzmax, accum, perm, slot, vals)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        perm, slot = ctx.saved_tensors
+        perm, slot = ctx.saved_tensors[:2]
         nzmax, accum = ctx.nzmax, ctx.accum
         valid = slot < nzmax
         if nzmax == 0:
@@ -233,6 +238,18 @@ class _Scatter(torch.autograd.Function):
                 keep = first_flags(slot, nzmax) if accum == "first" \
                     else last_flags(slot, nzmax)
                 g_sorted = torch.where(keep, g_sorted, 0)
+            elif accum in ("min", "max"):
+                vals, out = ctx.saved_tensors[2:]
+                L = perm.shape[0]
+                attained = valid & (vals[perm] == out[slot_c])
+                pos = torch.where(attained, torch.arange(L, device=g.device),
+                                  L)
+                first_pos = torch.full((nzmax + 1,), L, dtype=torch.int64,
+                                       device=g.device)
+                first_pos.scatter_reduce_(
+                    0, torch.where(valid, slot, nzmax).long(), pos, "amin")
+                winner = attained & (pos == first_pos[slot_c])
+                g_sorted = torch.where(winner, g_sorted, 0)
         g_vals = torch.empty_like(g_sorted)
         g_vals[perm] = g_sorted  # perm is a permutation of [0, L)
         return g_vals, None, None, None, None

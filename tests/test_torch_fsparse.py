@@ -116,7 +116,7 @@ def test_errors_match_reference(args, kw):
 
 def test_unknown_method_names_the_available_ones():
     with pytest.raises(ValueError, match="unknown assembly method 'nope'; "
-                       r"available: \('fused', 'jnp', 'radix'\)"):
+                       r"available: \('fused', 'jnp', 'pallas', 'radix'\)"):
         matlab.fsparse([1], [1], [1.0], method="nope", device="cpu")
 
 
@@ -131,8 +131,14 @@ def test_unported_options_raise_naming_their_slice(kw, later):
 
 @pytest.mark.parametrize("accum", ["min", "max"])
 def test_min_max_need_a_later_kernel(accum):
-    with pytest.raises(NotImplementedError, match="B4"):
-        matlab.fsparse([1, 2], [1, 2], [1.0, 2.0], accum=accum, device="cpu")
+    """B4 has come: min/max assemble (through its plain version on the
+    CPU) and match the reference."""
+    rng = np.random.default_rng(11)
+    ii, jj = rng.integers(1, 9, 300), rng.integers(1, 7, 300)
+    vals = rng.standard_normal(300)
+    S = matlab.fsparse(ii, jj, vals, accum=accum, device="cpu")
+    R = jax_matlab.fsparse(ii, jj, vals, accum=accum, method="fused")
+    np.testing.assert_array_equal(S.data.numpy(), np.asarray(R.data))
 
 
 @pytest.mark.parametrize("accum", ["sum", "mean", "first", "last"])

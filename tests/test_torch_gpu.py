@@ -7,20 +7,32 @@ JAX, so it runs on a machine that has only PyTorch:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the same
-inputs: the integer kernels (B1, B2) bit for bit, the fill (B3') bit for
-bit on integer-valued data and within ``8 * eps * max_s sum|v|`` on
-random values (the plain version's ``index_add_`` adds in another order
-on the card).
+inputs: the integer kernels (B1, B2, B11, B12) and the min/max fill
+(B4) bit for bit, the fill (B3') bit for bit on integer-valued data and
+within ``8 * eps * max_s sum|v|`` on random values (the plain version's
+``index_add_`` adds in another order on the card), the prefix sum (B5)
+bit for bit on integer-valued data and within ``64 * eps`` of the
+running sum of ``|x|`` on random values (both sides add in trees of
+depth under 64).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.coo import coo_from_matlab
 from repro_torch.core.oracle import matlab_sparse_oracle
 from repro_torch.core.ransparse import dataset
+from repro_torch.kernels.counting_sort import counting_sort as cs
+from repro_torch.kernels.counting_sort.ops import counting_sort
+from repro_torch.kernels.counting_sort.ref import placement_ref
+from repro_torch.kernels.hist import hist
+from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+from repro_torch.kernels.hist.ref import block_histogram_ref
 from repro_torch.kernels.radix_sort import ops, radix_sort as rs, ref
 from repro_torch.kernels.segment_sum import segment_sum as ss
-from repro_torch.kernels.segment_sum.ref import gather_segment_sum_ref
+from repro_torch.kernels.segment_sum.ref import (blocked_cumsum_ref,
+                                                 gather_segment_minmax_ref,
+                                                 gather_segment_sum_ref)
 from repro_torch.sparse import matlab
 from repro_torch.sparse.pattern import plan
 
@@ -101,6 +113,32 @@ def test_cuda_tensors_never_fall_back():
         ss.gather_segment_sum(v, i, i, num_segments=4)
     with pytest.raises(TypeError):
         rs.digit_block_histogram(i.long(), shift=0, bits=2, nbins=4)
+    # a short value vector would be read past its end: refused
+    for kern, kw in ((ss.gather_segment_sum, {}),
+                     (ss.gather_segment_minmax, {"op": "max"})):
+        with pytest.raises(ValueError, match="one value per stream"):
+            kern(v.real[:3].contiguous(), i, i, num_segments=4, **kw)
+
+
+@pytest.mark.parametrize("accum", ["sum", "mean", "max"])
+def test_gradient_of_fill_fused_on_card_matches_cpu(accum):
+    from repro_torch.kernels import assembly_ops
+
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    rows = torch.from_numpy(rng.integers(0, 13, 300).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, 9, 300).astype(np.int32))
+    v = torch.from_numpy(rng.integers(-3, 4, 300).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(300).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        pat = plan(rows.to(d), cols.to(d), (12, 9))
+        x = v.to(d).requires_grad_()
+        out = assembly_ops.fill_fused(pat, x, accum=accum).data
+        (g,) = torch.autograd.grad((out * w.to(d)).sum(), x)
+        grads.append(g.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert bool(grads[0].abs().sum() > 0)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -131,6 +169,158 @@ def test_gradient_of_fill_on_card_matches_cpu():
     grads = []
     for d in ("cpu", dev):
         pat = plan(rows.to(d), cols.to(d), (12, 9))
+        x = v.to(d).requires_grad_()
+        (g,) = torch.autograd.grad((pat.assemble(x).data * w.to(d)).sum(), x)
+        grads.append(g.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("frac", [None, 0.5])
+def test_minmax_kernel_matches_plain_version(dtype, op, frac):
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    rows = torch.from_numpy(rng.integers(0, 301, 20000).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, 300, 20000).astype(np.int32))
+    pat = plan(rows.to(dev), cols.to(dev), (300, 300), nzmax_slack=5000)
+    # None: the plan's capacity, with empty slots in the tail; 0.5: a
+    # capacity below nnz.  A count above the plan's nzmax (once 1.3 x
+    # nnz here) is outside the kernels' contract: it keeps the padding
+    # sentinel, whose runs are not adjacent, and there the card differed
+    # from the plain version (gather_segment_minmax's docstring).
+    nzmax = pat.nzmax if frac is None else int(frac * int(pat.nnz))
+    v = torch.from_numpy(rng.standard_normal(20000)).to(dev, dtype)
+    v[[5, 77]] = float("nan")
+    before = ss.gather_segment_minmax.launches
+    got = ss.gather_segment_minmax(v, pat.perm, pat.slot,
+                                   num_segments=nzmax, op=op)
+    assert ss.gather_segment_minmax.launches == before + 1
+    assert bool(torch.isnan(got).any())
+    assert _same(got, gather_segment_minmax_ref(v, pat.perm, pat.slot,
+                                                num_segments=nzmax, op=op))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [1, 4095, 4097, 100_003, 5_000_000])
+def test_prefix_sum_kernel_matches_plain_version(dtype, L):
+    dev = _cuda()
+    rng = np.random.default_rng(L)
+    xi = torch.from_numpy(rng.integers(-8, 9, L)).to(dev, dtype)
+    before = ss.blocked_cumsum.launches
+    assert torch.equal(ss.blocked_cumsum(xi), blocked_cumsum_ref(xi))
+    assert ss.blocked_cumsum.launches == before + 1
+    xn = torch.from_numpy(rng.standard_normal(L)).to(dev, dtype)
+    err = (ss.blocked_cumsum(xn) - blocked_cumsum_ref(xn)).abs()
+    tol = 64 * torch.finfo(dtype).eps * torch.cumsum(xn.abs(), 0)
+    assert bool(torch.all(err <= tol))
+
+
+@pytest.mark.parametrize("nbins,block_b", [(51, 1024), (50_001, 1 << 16),
+                                           (1_000_001, 1 << 20),
+                                           (1_000_001, 4096)])
+def test_counting_sort_kernels_match_plain_versions(nbins, block_b):
+    """B12 and B11 in shared-memory mode (<= 58,112 bins) and in
+    device-memory mode (10^6 + 1 bins)."""
+    dev = _cuda()
+    rng = np.random.default_rng(nbins)
+    L = 300_007
+    keys = torch.from_numpy(rng.integers(0, nbins, L).astype(np.int32)) \
+        .to(dev)
+    before = (hist.block_histogram.launches, cs.placement.launches)
+    h = hist.block_histogram(keys, nbins=nbins, block_b=block_b)
+    assert torch.equal(h, block_histogram_ref(keys, nbins=nbins,
+                                              block_b=block_b))
+    offsets, _ = block_offsets(keys, nbins=nbins, block_b=block_b)
+    copy = offsets.clone()
+    pos = cs.placement(keys, offsets, nbins=nbins, block_b=block_b)
+    assert torch.equal(offsets, copy)  # the kernel's counters are its own
+    assert torch.equal(pos, placement_ref(keys, offsets, nbins=nbins,
+                                          block_b=block_b))
+    assert (hist.block_histogram.launches, cs.placement.launches) == (
+        before[0] + 2, before[1] + 1)
+    rank, cpos = counting_sort(keys, nbins=nbins, block_b=block_b)
+    assert torch.equal(rank.long(), torch.sort(keys, stable=True).indices)
+    assert torch.equal(cpos, pos)  # the sort hands its table over
+    handed = offsets.clone()
+    assert torch.equal(cs.placement(keys, handed, nbins=nbins,
+                                    block_b=block_b, consume_offsets=True),
+                       pos)
+
+
+def test_pallas_plan_equals_radix_plan_through_the_kernels():
+    dev = _cuda()
+    ii, jj, _, siz = dataset(1, scale=0.05)
+    rows = torch.from_numpy((ii - 1).astype(np.int32)).to(dev)
+    cols = torch.from_numpy((jj - 1).astype(np.int32)).to(dev)
+    before = (hist.block_histogram.launches, cs.placement.launches)
+    p = plan(rows, cols, (siz, siz), method="pallas")
+    assert (hist.block_histogram.launches, cs.placement.launches) == (
+        before[0] + 2, before[1] + 2)
+    r = plan(rows, cols, (siz, siz), method="radix")
+    for f in ("perm", "slot", "indices", "indptr", "nnz"):
+        assert torch.equal(getattr(p, f), getattr(r, f)), f
+    assert default_block_b(siz + 1) == 1 << 16
+
+
+@pytest.mark.parametrize("accum", ["min", "max", "mean", "first", "last"])
+def test_duplicate_modes_on_the_card_match_the_cpu(accum):
+    dev = _cuda()
+    ii, jj, _, siz = dataset(3, scale=0.02)
+    vals = np.random.default_rng(5).integers(-20, 21, ii.shape[0]) \
+        .astype(np.float64)
+    S = matlab.fsparse(ii, jj, vals, (siz, siz), accum=accum)
+    C = matlab.fsparse(ii, jj, vals, (siz, siz), accum=accum, device="cpu")
+    assert S.data.device.type == dev.type
+    assert torch.equal(S.data.cpu(), C.data)
+
+
+def test_fill_pallas_matches_the_fused_fill_on_the_card():
+    from repro_torch.kernels import assembly_ops
+
+    _cuda()
+    ii, jj, ss_, siz = dataset(2, scale=0.05)
+    coo = coo_from_matlab(ii, jj, ss_, (siz, siz))
+    pat = plan(coo.rows, coo.cols, coo.shape)
+    before = ss.blocked_cumsum.launches
+    A = assembly_ops.fill_pallas(pat, coo.vals)
+    assert ss.blocked_cumsum.launches == before + 1
+    assert torch.equal(A.data, assembly_ops.fill_fused(pat, coo.vals).data)
+
+
+def test_sparse2_hit_launches_no_plan_kernel():
+    _cuda()
+    ii, jj, ss_, siz = dataset(1, scale=0.02)
+    matlab.plan_cache_clear()
+    A = matlab.sparse2(ii, jj, ss_, (siz, siz))
+    before = (rs.digit_block_histogram.launches, rs.digit_placement.launches,
+              ss.gather_segment_sum.launches)
+    B = matlab.sparse2(ii, jj, ss_, (siz, siz))
+    assert (rs.digit_block_histogram.launches, rs.digit_placement.launches,
+            ss.gather_segment_sum.launches) == (before[0], before[1],
+                                                before[2] + 1)
+    info = matlab.plan_cache_info()
+    assert (info["misses"], info["hits"]) == (1, 1)
+    assert torch.equal(A.data, B.data)
+
+
+@pytest.mark.parametrize("accum", ["min", "max"])
+def test_min_max_gradient_on_card_matches_cpu(accum):
+    dev = _cuda()
+    rng = np.random.default_rng(22)
+    rows = torch.from_numpy(rng.integers(0, 13, 300).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, 9, 300).astype(np.int32))
+    v = torch.from_numpy(rng.integers(-3, 4, 300).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(300).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        pat = plan(rows.to(d), cols.to(d), (12, 9), accum=accum)
         x = v.to(d).requires_grad_()
         (g,) = torch.autograd.grad((pat.assemble(x).data * w.to(d)).sum(), x)
         grads.append(g.cpu())
