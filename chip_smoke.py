@@ -7,16 +7,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. device: the card's name and count, and its power limit from
    nvidia-smi; no CUDA device is a failure.
-2. build: compiles every kernel of both paths from ``src/repro_torch/
-   csrc`` (one nvcc per source, all started together) and prints each
-   kernel's ``-Xptxas -v`` report.
+2. build: compiles every kernel of the three paths from
+   ``src/repro_torch/csrc`` (one nvcc per source, all started together)
+   and prints each kernel's ``-Xptxas -v`` report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on the streams its path gives it at L = 2.5e6 and 5e7: B1
    digit histogram, B2 stable digit placement, B12 block histogram and
    B11 counting-sort placement bit for bit; B3' fused sum and B5 prefix
    sum bit for bit on integer-valued data and within their stated
    tolerances on random float32/float64; B4 fused min/max bit for bit,
-   NaN included.
+   NaN included.  The third path's kernels (B6 product fill, B8 ELL
+   SpMV, B9 symmetric streams, B10 BSR tiles) are held against their
+   plain versions right after phase 4c, on the streams it gave them:
+   bit for bit on integer-valued data (B6 with a NaN too), within
+   ``c * eps * sum|terms|`` on random float32 for c terms an output.
 4. main path: ``repro_torch.sparse.fsparse`` (Matlab ``sparse``) on the
    paper's Table 4.1 sets 1-3 at full scale and on set 2 scaled to
    L = 5e7, each matched bit for bit against the port's numpy oracle,
@@ -32,6 +36,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain version); ``sparse2`` twice, a miss and then a hit that runs no
    plan kernel and one fill.  Counters are set to 0 before this phase
    and must rise by exactly the expected launches.
+4c. third path, the FEM workload of ``examples/fem_poisson.py`` and
+   ``examples/fem_multigrid.py`` at 10^6 degrees of freedom: the P1
+   stiffness matrix of a 999 x 999-cell mesh with Dirichlet identity
+   rows, planned and filled on the card and held bit for bit against
+   the oracle; A @ x four ways (CSC; ``kernels.spmv`` on ELL, B8;
+   SymCSC, B9; 2 x 2 BSR, B10), each within ``8 eps sum_j |a_ij x_j|``
+   of the CSC result per row; CG on the B8 and the B9 operator to the
+   example's error bound against sin(pi x) sin(pi y), and on a seeded
+   random right-hand side within ``CG_RTOL`` of the same iterations in
+   float64 on the host (relative residuals); the Galerkin
+   product ``P' A P`` with a bilinear prolongation (10^6 x 250,000)
+   through two cached product plans and B6, its structure bit for bit
+   against a numpy expansion put through the oracle and its values
+   within ``8 eps (|P'| |A| |P|)`` of scipy's float64 product slot by
+   slot; a refill for ``2 A`` that launches one fill and two B6 and no
+   plan kernel.  Counters are set to 0 before this phase and must rise
+   by exactly the expected launches.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -39,7 +60,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    caller pays it (device plus dispatch gaps; the ratio of the two is
    the device's idle share); host-clock medians of the whole
    ``fsparse`` call, of a ``sparse2`` miss and hit, and of building
-   and hashing the ``sparse2`` key.
+   and hashing the ``sparse2`` key.  For the third path, at its size:
+   B6, B8, B9 and B10 as above (yardsticks ``index_add_`` of the
+   gathered products, cuSPARSE CSR and BSR ``torch.mv``), the plan and
+   fill of A, each SpMV, one CG iteration, ``product_plan`` split into
+   the host expansion and the device plan, and the B6 refills.
 
 The last lines are the ``{"kernels": [...]}`` summary, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  The script imports nothing
@@ -57,6 +82,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.core.oracle import matlab_sparse_oracle  # noqa: E402
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and the
 #: 32-bit non-tensor-core rate, used for the ops bound
 HBM_BYTES_PER_S = 3.35e12
@@ -71,6 +98,16 @@ EPS64 = float(np.finfo(np.float64).eps)
 #: |x| (kernel and plain version both add in trees of depth under 64);
 #: a difference of two prefixes (fill_pallas) within twice that
 C_SCAN = 64
+#: the third path: fem_poisson's P1 mesh with 999 x 999 cells, 10^6
+#: vertices; ELL width = the P1 stencil's row length; CG iterations
+FEM_N = 999
+FEM_K = 7
+CG_ITERS = 50
+#: CG on a random right-hand side: the relative residual after CG_ITERS
+#: iterations on the card (float32) may differ from the same iterations
+#: in float64 on the host by CG_RTOL of it, plus CG_ATOL (float32's
+#: floor, for a system that converges in fewer iterations)
+CG_RTOL, CG_ATOL = 1e-3, 1e-5
 ACCUM_SETS = ("1", "3")
 ACCUM_MODES = ("min", "max", "mean", "first", "last")
 
@@ -155,6 +192,22 @@ def host_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def top_kernels(fn, k: int = 4) -> list:
+    """The ``k`` CUDA kernels with the most device time in one call of
+    ``fn()`` (``torch.profiler``), as ``[name, ms]`` pairs."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return [[name[:60], ms] for name, ms in
+            sorted(rows, key=lambda r: -r[1])[:k]]
+
+
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / FP32_OPS_PER_S * 1e3
@@ -198,12 +251,519 @@ def numpy_accum(v: np.ndarray, slot, first, last, accum: str):
     return v[first if accum == "first" else last]
 
 
+# -- the third path's data: fem_poisson's P1 mesh and a prolongation --------
+def p1_triplets(n: int):
+    """Stiffness triplets of ``examples/fem_poisson.py``'s structured P1
+    mesh (n x n cells, two right triangles each, nine triplets per
+    triangle), vectorised, in the example's order.  Zero-offset int32
+    rows and cols, float64 values, and the vertex count (n + 1)^2."""
+    ix, iy = np.meshgrid(np.arange(n, dtype=np.int32),
+                         np.arange(n, dtype=np.int32), indexing="ij")
+    v = lambda x, y: y * (n + 1) + x  # noqa: E731 (the example's vid)
+    tri = np.stack([np.stack([v(ix, iy), v(ix + 1, iy), v(ix, iy + 1)], -1),
+                    np.stack([v(ix + 1, iy + 1), v(ix, iy + 1),
+                              v(ix + 1, iy)], -1)], -2)  # [n, n, 2, 3]
+    K = 0.5 * np.array([[2, -1, -1], [-1, 1, 0], [-1, 0, 1]])
+    full = (n, n, 2, 3, 3)
+    rows = np.broadcast_to(tri[..., :, None], full).ravel()
+    cols = np.broadcast_to(tri[..., None, :], full).ravel()
+    vals = np.broadcast_to(K, full).ravel()
+    return rows, cols, vals, (n + 1) * (n + 1)
+
+
+def fem_system(n: int):
+    """``fem_poisson.py``'s Dirichlet system: boundary rows and columns
+    dropped and replaced by identity rows; the load of u = sin(pi x)
+    sin(pi y).  Returns zero-offset (rows, cols, float32 vals), the
+    vertex count, the float32 right-hand side and u_exact."""
+    rows, cols, vals, nv = p1_triplets(n)
+    xs, ys = np.meshgrid(np.linspace(0, 1, n + 1), np.linspace(0, 1, n + 1))
+    boundary = ((xs == 0) | (xs == 1) | (ys == 0) | (ys == 1)).ravel()
+    keep = ~(boundary[rows] | boundary[cols])
+    bidx = np.nonzero(boundary)[0].astype(np.int32)
+    rows_f = np.concatenate([rows[keep], bidx])
+    cols_f = np.concatenate([cols[keep], bidx])
+    vals_f = np.concatenate([vals[keep], np.ones(bidx.size)])
+    h = 1.0 / n
+    u_exact = (np.sin(np.pi * xs) * np.sin(np.pi * ys)).ravel()
+    f = 2 * np.pi ** 2 * u_exact * h * h
+    f[boundary] = 0.0
+    return (rows_f, cols_f, vals_f.astype(np.float32), nv,
+            f.astype(np.float32), u_exact)
+
+
+def bilinear_prolongation(n: int):
+    """P: fine vertices (n + 1)^2 -> coarse vertices at even (ix, iy),
+    (n // 2 + 1)^2 of them.  Each fine vertex interpolates bilinearly
+    from the coarse vertices around it (weights 1, 1/2, 1/4); a parent
+    past the grid's edge is left out.  Zero-offset triplets (rows, cols,
+    float32 vals) and the shape."""
+    nf, nc = n + 1, n // 2 + 1
+    i = np.arange(nf)
+    par = np.stack([i // 2, i // 2 + 1], 1)                   # [nf, 2]
+    w = np.where((i % 2 == 0)[:, None], [[1.0, 0.0]], [[0.5, 0.5]])
+    ok = (w > 0) & (par < nc)
+    # [iy, ix, y parent, x parent]
+    rows = np.broadcast_to((i[:, None] * nf + i[None, :])[:, :, None, None],
+                           (nf, nf, 2, 2))
+    cols = par[:, None, :, None] * nc + par[None, :, None, :]
+    vals = w[:, None, :, None] * w[None, :, None, :]
+    keep = ok[:, None, :, None] & ok[None, :, None, :]
+    return (rows[keep].astype(np.int32), cols[keep].astype(np.int32),
+            vals[keep].astype(np.float32), (nf * nf, nc * nc))
+
+
+def cg(apply, b: torch.Tensor, iters: int):
+    """Conjugate gradients as ``fem_poisson.py`` runs them, a fixed number
+    of iterations, on the device (no host synchronisation)."""
+    x = torch.zeros_like(b)
+    r = b - apply(x)
+    p = r
+    rs = torch.dot(r, r)
+    for _ in range(iters):
+        Ap = apply(p)
+        alpha = rs / torch.dot(p, Ap).clamp(min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / rs.clamp(min=1e-30)) * p
+        rs = rs_new
+    return x, torch.sqrt(rs)
+
+
+def cg_random_check(ops_cg, Asp, b: np.ndarray, iters: int, dev):
+    """CG on ``b`` (a seeded random right-hand side, so every iteration
+    has work to do) through each operator of ``ops_cg``, held against
+    the same iterations in float64 on the host (``Asp`` a scipy matrix):
+    the relative residuals ``||b - A u|| / ||b||``, both computed in
+    float64 on the host, may differ by ``CG_RTOL`` of the float64 one
+    plus ``CG_ATOL``.  Returns ``{name: residual}`` with the float64
+    one under ``"float64"``."""
+    b64 = b.astype(np.float64)
+
+    def relres(u):
+        return float(np.linalg.norm(b64 - Asp @ u.astype(np.float64))
+                     / np.linalg.norm(b64))
+
+    u64, _ = cg(lambda v: torch.from_numpy(Asp @ v.numpy()),
+                torch.from_numpy(b64), iters)
+    out = {"float64": relres(u64.numpy())}
+    bd = torch.from_numpy(b).to(dev)
+    for name, op in ops_cg.items():
+        u, _ = cg(op, bd, iters)
+        out[name] = relres(u.cpu().numpy())
+        require(abs(out[name] - out["float64"])
+                <= CG_RTOL * out["float64"] + CG_ATOL,
+                f"CG on {name}, random b: relative residual {out[name]} "
+                f"against {out['float64']} in float64")
+    return out
+
+
+def product_structure(ir_a, jc_a, ir_b, jc_b, M: int, N: int):
+    """The structure of A @ B from host CSC arrays: every stored B(k, j)
+    expanded against A's column k in numpy, the (i, j) stream put through
+    the numpy oracle.  Returns the oracle's (irS, jcS)."""
+    ka = np.diff(jc_a).astype(np.int64)                   # |A(:, k)|
+    cols_b = np.repeat(np.arange(jc_b.size - 1), np.diff(jc_b))
+    k = ir_b.astype(np.int64)
+    counts = ka[k]
+    start = np.repeat(jc_a[:-1].astype(np.int64)[k], counts)
+    within = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts,
+                                                 counts)
+    i = ir_a[start + within]
+    j = np.repeat(cols_b, counts)
+    _, ir, jc = matlab_sparse_oracle(i, j, np.ones(i.size), M, N)
+    return ir, jc
+
+
+def values_at(ref, indices: np.ndarray, indptr: np.ndarray) -> np.ndarray:
+    """A scipy CSC matrix read at the slots of a CSC structure; slots the
+    matrix does not store (scipy drops exact zeros) read 0."""
+    ref = ref.tocsc()
+    ref.sort_indices()
+    M = ref.shape[0]
+    cols = np.repeat(np.arange(indptr.size - 1), np.diff(indptr))
+    want = cols.astype(np.int64) * M + indices
+    rcols = np.repeat(np.arange(ref.shape[1]), np.diff(ref.indptr))
+    have = rcols.astype(np.int64) * M + ref.indices
+    pos = np.searchsorted(have, want).clip(0, max(have.size - 1, 0))
+    hit = have[pos] == want if have.size else np.zeros(want.size, bool)
+    return np.where(hit, ref.data[pos] if have.size else 0.0, 0.0)
+
+
+def fem_path(dev, n: int, iters: int, counts, rng):
+    """Phase 4c, the third path: the FEM workload of ``examples/
+    fem_poisson.py`` and ``examples/fem_multigrid.py`` at (n + 1)^2
+    degrees of freedom.  ``counts()`` reads the launch counters.  Returns
+    the check row (with the launches of the refill for 2 A), the
+    launches of the phase, the launches it expects, and what the kernel
+    checks and the timing phase need; the caller compares the counts."""
+    import scipy.sparse as sp
+
+    from repro_torch import kernels
+    from repro_torch.core.csc import CSC
+    from repro_torch.kernels.radix_sort.ops import plan_digit_passes
+    from repro_torch.sparse import (cached_product_plan, convert, ops, plan,
+                                    product_cache_clear, product_cache_info)
+
+    def npass(M, N, L):
+        return len(plan_digit_passes(M, N, L))
+
+    start = counts()
+    exp = dict.fromkeys(start, 0)
+
+    def expect(**kw):
+        for k, v in kw.items():
+            exp[k] += v
+
+    t0 = time.perf_counter()
+    rows, cols, vals, nv, f, u_exact = fem_system(n)
+    pr_, pc_, pv_, pshape = bilinear_prolongation(n)
+    nc2 = pshape[1]
+    row = {"third_path": f"P1 mesh {n} x {n} cells", "dofs": nv,
+           "triplets": int(rows.size), "data_s": time.perf_counter() - t0}
+    # -- assembly of A and P (B1, B2, B3) and the oracle
+    vals_d = torch.from_numpy(vals).to(dev)
+    rows_d, cols_d = torch.from_numpy(rows).to(dev), \
+        torch.from_numpy(cols).to(dev)
+    pat = plan(rows_d, cols_d, (nv, nv))
+    A = pat.assemble(vals_d)
+    k = npass(nv, nv, rows.size)
+    expect(B1=k, B2=k, B3=1)
+    prA, irA, jcA = matlab_sparse_oracle(rows, cols, vals.astype(np.float64),
+                                         nv, nv)
+    nnz = int(A.nnz)
+    require(nnz == prA.size
+            and np.array_equal(A.indptr.cpu().numpy(), jcA)
+            and np.array_equal(A.indices[:nnz].cpu().numpy(), irA)
+            and np.array_equal(A.data[:nnz].cpu().numpy(),
+                               prA.astype(np.float32)),
+            "FEM matrix differs from the oracle")
+    row.update(nnz=nnz, max_per_row=int(np.bincount(irA).max()))
+    patP = plan(torch.from_numpy(pr_).to(dev), torch.from_numpy(pc_).to(dev),
+                pshape)
+    P = patP.assemble(torch.from_numpy(pv_).to(dev))
+    k = npass(*pshape, pr_.size)
+    expect(B1=k, B2=k, B3=1)
+    # -- the four SpMVs, each against the CSC result
+    x = torch.from_numpy(rng.standard_normal(nv).astype(np.float32)).to(dev)
+    y_csc = ops.matmul(A, x)
+    absA = CSC(data=A.data.abs(), indices=A.indices, indptr=A.indptr,
+               nnz=A.nnz, shape=A.shape)
+    tol = 8 * EPS32 * ops.matmul(absA, x.abs())
+    ell_cols, ell_vals, overflow = kernels.csc_to_ell(A,
+                                                      max_per_row=FEM_K)
+    require(not bool(overflow), f"ELL overflow at max_per_row={FEM_K}")
+    S = convert(A, "symcsc")
+    Bm = convert(A, "bsr", block=2)
+    ys = {"ell": kernels.spmv(ell_cols, ell_vals, x),
+          "symcsc": ops.matmul(S, x), "bsr": ops.matmul(Bm, x)}
+    expect(B8=1, B9=1, B10=1)
+    for name, y in ys.items():
+        err = (y - y_csc).abs()
+        require(bool(torch.all(err <= tol)),
+                f"{name} SpMV differs from CSC by more than 8 eps sum|a x|")
+        row[f"spmv_{name}_max_err_over_tol"] = float(
+            (err / tol.clamp(min=1e-30)).max())
+    # -- CG on the B8 and the B9 operator (fem_poisson's error bound)
+    b = torch.from_numpy(f).to(dev)
+    bound = 10.0 / n ** 2 + 5e-2
+    ops_cg = {"ell": lambda v: kernels.spmv(ell_cols, ell_vals, v),
+              "symcsc": lambda v: ops.matmul(S, v)}
+    for name, op in ops_cg.items():
+        u, res = cg(op, b, iters)
+        expect(**{"B8" if name == "ell" else "B9": iters + 1})
+        err = float(np.abs(u.cpu().numpy() - u_exact).max())
+        require(np.isfinite(err) and err < bound,
+                f"CG on {name}: max |u - u_exact| = {err} >= {bound}")
+        row[f"cg_{name}"] = {"iters": iters, "residual": float(res),
+                             "max_err": err, "bound": bound}
+    # -- and on a seeded random right-hand side, against float64 CG
+    Asp = sp.csc_matrix((prA, irA, jcA), shape=(nv, nv))
+    b_rand = rng.standard_normal(nv).astype(np.float32)
+    row["cg_random_relres"] = cg_random_check(ops_cg, Asp, b_rand, iters,
+                                              dev)
+    expect(B8=iters + 1, B9=iters + 1)
+    # -- Galerkin product P' A P: two cached product plans, B6 refills
+    product_cache_clear()
+    Ac = ops.matmul(ops.matmul(ops.transpose(P), A), P)
+    Ptc = convert(ops.transpose(P), "csc")
+    pp1 = cached_product_plan(Ptc, A)
+    PtA = pp1.multiply(Ptc.data, A.data)
+    pp2 = cached_product_plan(PtA, P)
+    expect(B1=npass(nc2, nv, pp1.flops) + npass(nc2, nc2, pp2.flops),
+           B2=npass(nc2, nv, pp1.flops) + npass(nc2, nc2, pp2.flops),
+           B6=3)
+    info = product_cache_info()
+    require((info["misses"], info["hits"]) == (2, 2),
+            f"product cache {info} after the Galerkin product")
+    # structure: a numpy expansion of the same products through the oracle
+    prP, irP, jcP = matlab_sparse_oracle(pr_, pc_, pv_.astype(np.float64),
+                                         *pshape)
+    _, irT, jcT = matlab_sparse_oracle(pc_, pr_, pv_.astype(np.float64),
+                                       nc2, nv)
+    irPA, jcPA = product_structure(irT, jcT, irA, jcA, nc2, nv)
+    irC, jcC = product_structure(irPA, jcPA, irP, jcP, nc2, nc2)
+    for C, ir, jc, what in ((PtA, irPA, jcPA, "P' A"), (Ac, irC, jcC,
+                                                        "P' A P")):
+        nz = int(C.nnz)
+        require(nz == ir.size and C.nzmax == nz
+                and np.array_equal(C.indptr.cpu().numpy(), jc)
+                and np.array_equal(C.indices.cpu().numpy(), ir),
+                f"{what} structure differs from the numpy expansion")
+    # values: scipy's float64 products, slot by slot
+    Psp = sp.csc_matrix((prP, irP, jcP), shape=pshape)
+    ref = Psp.T @ Asp @ Psp
+    mag = abs(Psp).T @ abs(Asp) @ abs(Psp)
+    got = Ac.data.double().cpu().numpy()
+    want, wmag = values_at(ref, irC, jcC), values_at(mag, irC, jcC)
+    verr = np.abs(got - want)
+    require(np.all(verr <= 8 * EPS32 * wmag),
+            "P' A P differs from scipy by more than 8 eps (|P'| |A| |P|)")
+    row.update(nnz_PtA=int(PtA.nnz), nnz_Ac=int(Ac.nnz), flops_PtA=pp1.flops,
+               flops_Ac=pp2.flops, galerkin_max_abs_err=float(verr.max()),
+               galerkin_scipy_zero_slots=int(np.sum(
+                   values_at(ref, irC, jcC) == 0)))
+    # refill for a second coefficient: B6 and one fill, no plan kernel
+    before = counts()
+    A2 = pat.assemble(2 * vals_d)
+    Ac2 = ops.matmul(ops.matmul(ops.transpose(P), A2), P)
+    expect(B3=1, B6=2)
+    after = counts()
+    refill = {k: after[k] - before[k] for k in after}
+    require(torch.equal(Ac2.data, 2 * Ac.data) and product_cache_info()[
+        "misses"] == 2, "the refill for 2 A differs from 2 (P' A P)")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got_counts = {k: counts()[k] - start[k] for k in start}
+    row["run_s"] = time.perf_counter() - t0
+    row["refill_launches"] = refill
+    ctx = dict(A=A, pat=pat, rows_d=rows_d, cols_d=cols_d, vals_d=vals_d,
+               x=x, b=torch.from_numpy(b_rand).to(dev), ell=(ell_cols,
+               ell_vals), S=S, Bm=Bm, P=P, Ptc=Ptc, PtA=PtA, pp1=pp1,
+               pp2=pp2, ops_cg=ops_cg, nv=nv, nc2=nc2, hostA=(irA, jcA),
+               hostPt=(irT, jcT))
+    return row, got_counts, exp, ctx
+
+
+def fem_kernel_checks(fem, rng, dev):
+    """Phase 3 for the third path's kernels, on the streams phase 4c gave
+    them: B6, B8, B9 and B10 against their plain versions, bit for bit on
+    integer-valued data and within stated tolerances on random float32
+    data; B6 also with a NaN.  Returns each kernel's largest float32
+    error against its plain version."""
+    from repro_torch.core.csc import slot_columns
+    from repro_torch.kernels.segment_sum import segment_sum as ss_mod
+    from repro_torch.kernels.segment_sum.ref import gather2_segment_sum_ref
+    from repro_torch.kernels.spmv import spmv as ell_mod
+    from repro_torch.kernels.spmv.ref import spmv_ell_ref
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref, sym_streams_ref
+
+    def ints(n):
+        return torch.from_numpy(rng.integers(-8, 9, n).astype(np.float32)) \
+            .to(dev)
+
+    def floats(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)) \
+            .to(dev)
+
+    def within(got, want, mag, c, what):
+        # c terms per output: any two summation orders differ by at most
+        # c * eps * sum|terms| (each is within (c - 1) eps / 2 of exact)
+        err = (got - want).abs()
+        tol = c * EPS32 * mag
+        require(bool(torch.all(err <= tol)),
+                f"{what}: error above {c} eps x sum|terms|")
+        return float(err.max())
+
+    errs = dict.fromkeys(("B6", "B8", "B9", "B10"), 0.0)
+    # B6 on both products of the Galerkin operator
+    for what, pp, a, b in (("P' A", fem["pp1"], fem["Ptc"], fem["A"]),
+                           ("P' A P", fem["pp2"], fem["PtA"], fem["P"])):
+        st = (pp.sa, pp.sb, pp.pattern.slot)
+        nz = dict(num_segments=pp.nzmax)
+        va, vb = ints(a.nzmax), ints(b.nzmax)
+        require(torch.equal(ss_mod.gather2_segment_sum(va, vb, *st, **nz),
+                            gather2_segment_sum_ref(va, vb, *st, **nz)),
+                f"B6 differs on integer-valued data, {what}")
+        va, vb = floats(a.nzmax), floats(b.nzmax)
+        run = int(torch.bincount(pp.pattern.slot.long()).max())
+        errs["B6"] = max(errs["B6"], within(
+            ss_mod.gather2_segment_sum(va, vb, *st, **nz),
+            gather2_segment_sum_ref(va, vb, *st, **nz),
+            gather2_segment_sum_ref(va.abs(), vb.abs(), *st, **nz), run,
+            f"B6 float32, {what}"))
+        # a NaN among integer-valued data: the rest is exact, bit for bit
+        va, vb = ints(a.nzmax), ints(b.nzmax)
+        va[int(pp.sa[0])] = float("nan")
+        got = ss_mod.gather2_segment_sum(va, vb, *st, **nz)
+        require(bool(torch.isnan(got).any()) and same_bits(
+            got, gather2_segment_sum_ref(va, vb, *st, **nz)),
+            f"B6 differs with a NaN, {what}")
+    # B8 on the ELL arrays of A
+    cols, vals = fem["ell"]
+    nv = fem["nv"]
+    xi, x = ints(nv), fem["x"]
+    require(torch.equal(ell_mod.spmv_ell(cols, vals, xi),
+                        spmv_ell_ref(cols, vals, xi)),
+            "B8 differs on integer-valued data")
+    errs["B8"] = within(ell_mod.spmv_ell(cols, vals, x),
+                        spmv_ell_ref(cols, vals, x),
+                        spmv_ell_ref(cols, vals.abs(), x.abs()), FEM_K,
+                        "B8 float32")
+    # B9 on SymCSC's strict-upper stream
+    S = fem["S"]
+    st = (S.indices, S.data, S.indptr)
+    for got, want in zip(sym_mod.sym_streams(*st, xi),
+                         sym_streams_ref(*st, xi)):
+        require(torch.equal(got, want), "B9 differs on integer-valued data")
+    (up, ct), (up0, ct0) = sym_mod.sym_streams(*st, x), sym_streams_ref(*st, x)
+    require(torch.equal(up, up0), "B9's up stream differs (one product)")
+    _, mag = sym_streams_ref(S.indices, S.data.abs(), S.indptr, x.abs())
+    errs["B9"] = within(ct, ct0, mag, int(torch.diff(S.indptr).max()),
+                        "B9 column totals, float32")
+    # B10 on the 2 x 2 BSR blocks
+    Bm = fem["Bm"]
+    bcols = slot_columns(Bm.indptr, Bm.nbmax).clamp(0, Bm.Nb - 1)
+    st = (Bm.indices, bcols, Bm.data)
+    kw = dict(Mb=Bm.Mb)
+    require(torch.equal(sym_mod.bsr_tiles(*st, xi, **kw),
+                        bsr_tiles_ref(*st, xi, **kw)),
+            "B10 differs on integer-valued data")
+    errs["B10"] = within(
+        sym_mod.bsr_tiles(*st, x, **kw), bsr_tiles_ref(*st, x, **kw),
+        bsr_tiles_ref(Bm.indices, bcols, Bm.data.abs(), x.abs(), **kw),
+        Bm.block, "B10 float32")
+    torch.cuda.synchronize()
+    return errs
+
+
+def fem_times(fem, cpm, dev):
+    """Phase 5 for the third path: each kernel (device time back to back,
+    one call, its plain version, a PyTorch yardstick, the byte bound) and
+    the path's own times.  Returns (kernel rows, path times)."""
+    from repro_torch import kernels
+    from repro_torch.core.csc import slot_columns
+    from repro_torch.kernels.segment_sum import segment_sum as ss_mod
+    from repro_torch.kernels.segment_sum.ref import gather2_segment_sum_ref
+    from repro_torch.kernels.spmv import spmv as ell_mod
+    from repro_torch.kernels.spmv.ref import spmv_ell_ref
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref, sym_streams_ref
+    from repro_torch.sparse import convert, ops, plan, spgemm
+
+    A, S, Bm, x, nv = fem["A"], fem["S"], fem["Bm"], fem["x"], fem["nv"]
+    cols, vals = fem["ell"]
+    t = {"times": "third path", "dofs": nv}
+    # cuSPARSE yardsticks: A as a torch CSR tensor, and as torch BSR
+    Acsr = convert(A, "csr")
+    nnz = int(A.nnz)
+    A_t = torch.sparse_csr_tensor(Acsr.indptr, Acsr.indices[:nnz],
+                                  Acsr.data[:nnz], A.shape)
+    nb = int(Bm.nnz)
+    brow = Bm.indices[:nb].long()
+    bcol = slot_columns(Bm.indptr, Bm.nbmax)[:nb].long()
+    order = torch.argsort(brow * Bm.Nb + bcol)
+    crow = torch.cat([brow.new_zeros(1), torch.cumsum(
+        torch.bincount(brow, minlength=Bm.Mb), 0)])
+    B_t = torch.sparse_bsr_tensor(crow, bcol[order], Bm.data[:nb][order],
+                                  Bm.shape)
+    try:  # a yardstick only: PyTorch may lack a BSR product on CUDA
+        torch.mv(B_t, x)
+        bsr_lib = lambda: torch.mv(B_t, x)  # noqa: E731
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"times: no PyTorch BSR product on CUDA ({e})", flush=True)
+        bsr_lib = None
+    # the kernels' inputs at this path's shapes
+    pp, Ptc = fem["pp1"], fem["Ptc"]
+    st = (pp.sa, pp.sb, pp.pattern.slot)
+    nz = dict(num_segments=pp.nzmax)
+    prod = Ptc.data[pp.sa] * A.data[pp.sb]
+    slot_l = pp.pattern.slot.long()
+    sym_in = (S.indices, S.data, S.indptr, x)
+    bcols = slot_columns(Bm.indptr, Bm.nbmax).clamp(0, Bm.Nb - 1)
+    bsr_in = (Bm.indices, bcols, Bm.data, x)
+    F, M, K, nzh, b = pp.flops, nv, FEM_K, S.nzmax, Bm.block
+    # B6 gathers operand values, so it reads those the streams reach (A's
+    # padded tail is never read), not whole operand vectors
+    reached = [int(torch.unique(i).numel()) for i in (pp.sa, pp.sb)]
+    fns = {
+        "B6": (lambda: ss_mod.gather2_segment_sum(Ptc.data, A.data, *st, **nz),
+               lambda: gather2_segment_sum_ref(Ptc.data, A.data, *st, **nz),
+               lambda: torch.zeros(pp.nzmax, device=dev).index_add_(
+                   0, slot_l, prod),
+               12 * F + 4 * reached[0] + 4 * reached[1] + 4 * pp.nzmax,
+               2 * F),
+        "B8": (lambda: ell_mod.spmv_ell(cols, vals, x),
+               lambda: spmv_ell_ref(cols, vals, x),
+               lambda: torch.mv(A_t, x), 8 * M * K + 4 * nv + 4 * M,
+               2 * M * K),
+        "B9": (lambda: sym_mod.sym_streams(*sym_in),
+               lambda: sym_streams_ref(*sym_in),
+               lambda: torch.mv(A_t, x), 12 * nzh + 12 * M + 4, 3 * nzh),
+        "B10": (lambda: sym_mod.bsr_tiles(*bsr_in, Mb=Bm.Mb),
+                lambda: bsr_tiles_ref(*bsr_in, Mb=Bm.Mb), bsr_lib,
+                4 * b * b * Bm.nbmax + 8 * Bm.nbmax + 4 * Bm.N
+                + 4 * b * Bm.nbmax, 2 * b * b * Bm.nbmax),
+    }
+    rows_k = {}
+    for k, (kern, plain, lib, nbytes, nops) in fns.items():
+        r = {"ms": device_ms(kern, cpm), "call_ms": call_ms(kern),
+             "plain_ms": device_ms(plain, cpm),
+             "library_ms": None if lib is None else device_ms(lib, cpm),
+             "bytes": nbytes, "ops": nops}
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, nops)
+        r["GBps"] = nbytes / r["ms"] / 1e6
+        r["share_of_3.35TBps"] = r["GBps"] / (HBM_BYTES_PER_S / 1e9)
+        rows_k[k] = r
+    t["kernels"] = rows_k
+    # the path: plan and fill of A, each SpMV, one CG iteration
+    pat, vals_d = fem["pat"], fem["vals_d"]
+    spmvs = {"plan_A": lambda: plan(fem["rows_d"], fem["cols_d"], A.shape),
+             "fill_A": lambda: pat.assemble(vals_d),
+             "spmv_csc": lambda: ops.matmul(A, x),
+             "spmv_ell": lambda: kernels.spmv(cols, vals, x),
+             "spmv_symcsc": lambda: ops.matmul(S, x),
+             "spmv_bsr": lambda: ops.matmul(Bm, x)}
+    for what, fn in spmvs.items():
+        t[f"{what}_ms"] = call_ms(fn)
+        t[f"{what}_device_ms"] = device_ms(fn, cpm)
+        t[f"{what}_device_idle_share"] = \
+            1.0 - t[f"{what}_device_ms"] / t[f"{what}_ms"]
+    # where an operator's device time goes: the top kernels of one call
+    for what in ("spmv_csc", "spmv_symcsc", "spmv_bsr"):
+        t[f"{what}_top_kernels"] = top_kernels(spmvs[what])
+    for name, op in fem["ops_cg"].items():
+        t[f"cg_iteration_{name}_ms"] = call_ms(
+            lambda: cg(op, fem["b"], 10), reps=5) / 10
+    # product_plan: the host expansion and the device plan, both products
+    P, PtA = fem["P"], fem["PtA"]
+    for what, (a, bm, pq) in (("PtA", (Ptc, A, pp)),
+                              ("Ac", (PtA, P, fem["pp2"]))):
+        ir_a, jc_a, _, _ = spgemm._csc_structure(a)
+        ir_b, jc_b, nnz_b, _ = spgemm._csc_structure(bm)
+        t[f"product_plan_{what}_ms"] = host_ms(
+            lambda: spgemm.product_plan(a, bm), 3)
+        t[f"product_plan_{what}_host_expand_ms"] = host_ms(
+            lambda: spgemm._expand(ir_a, jc_a, ir_b, jc_b, nnz_b, a.M, None),
+            3)
+        rc, cc = (torch.from_numpy(v).to(dev) for v in spgemm._expand(
+            ir_a, jc_a, ir_b, jc_b, nnz_b, a.M, None)[:2])
+        t[f"product_plan_{what}_device_plan_ms"] = device_ms(
+            lambda: plan(rc, cc, pq.shape, nzmax=pq.flops), cpm, reps=5)
+        t[f"refill_{what}_ms"] = call_ms(lambda: pq.multiply(a.data, bm.data))
+        t[f"refill_{what}_device_ms"] = device_ms(
+            lambda: pq.multiply(a.data, bm.data), cpm)
+    t["galerkin_refill_ms"] = host_ms(
+        lambda: ops.matmul(ops.matmul(ops.transpose(P), A), P), 5)
+    return rows_k, t
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core.oracle import matlab_sparse_oracle
     from repro_torch.core.ransparse import DATA_SETS, ransparse
     from repro_torch.kernels import common
     from repro_torch.kernels.assembly_ops import fill_pallas
@@ -221,6 +781,8 @@ def main() -> None:
     from repro_torch.kernels.segment_sum import segment_sum as ss_mod
     from repro_torch.kernels.segment_sum.ref import (
         blocked_cumsum_ref, gather_segment_minmax_ref, gather_segment_sum_ref)
+    from repro_torch.kernels.spmv import spmv as ell_mod
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
     from repro_torch.sparse.matlab import (_cache_key, expand_indices,
                                            fsparse, plan_cache_clear,
                                            plan_cache_info, sparse2)
@@ -242,7 +804,7 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
-                         "counting_sort"])
+                         "counting_sort", "spmv", "spmv_sym"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -254,6 +816,9 @@ def main() -> None:
     fill_k = ss_mod.gather_segment_sum
     minmax_k, scan_k = ss_mod.gather_segment_minmax, ss_mod.blocked_cumsum
     bhist_k, cplace_k = hist_mod.block_histogram, cs_mod.placement
+    sum2_k = ss_mod.gather2_segment_sum
+    ell_k, sym_k, bsr_k = (ell_mod.spmv_ell, sym_mod.sym_streams,
+                           sym_mod.bsr_tiles)
     TILE = rs.TILE
 
     # data: the paper's Table 4.1 sets at full scale + the L = 5e7 set
@@ -566,9 +1131,41 @@ def main() -> None:
     for k in ("B4", "B5", "B11", "B12"):
         require(launches2[k] > 0, f"kernel {k} never launched on its path")
     del oracles
+    torch.cuda.empty_cache()
+
+    # -- 4c. third path: FEM SpMV four ways, CG, the Galerkin product ------
+    kernels3 = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B6": sum2_k,
+                "B8": ell_k, "B9": sym_k, "B10": bsr_k}
+
+    def counts3() -> dict:
+        return {k: f.launches for k, f in kernels3.items()}
+
+    for f in kernels3.values():
+        f.launches = 0
+    row3, launches3, exp3, fem = fem_path(dev, FEM_N, CG_ITERS, counts3, rng)
+    require(launches3 == exp3, f"launch counts {launches3} != {exp3} on the "
+            "third path")
+    want = dict.fromkeys(kernels3, 0)
+    want.update(B3=1, B6=2)
+    require(row3["refill_launches"] == want, "the P' A P refill for 2 A "
+            f"launched {row3['refill_launches']}, expected {want}")
+    emit(row3)
+    emit({"third_path_launches": launches3, "expected": exp3})
+    for k in ("B6", "B8", "B9", "B10"):
+        require(launches3[k] > 0, f"kernel {k} never launched on its path")
+    # phase 3 for B6, B8, B9, B10, on the streams this path gave them
+    errs3 = fem_kernel_checks(fem, rng, dev)
+    emit({"check": "B6, B8, B9, B10 vs plain", "path": "third",
+          "integer_data": "bit-identical", "B6_nan": "bit-identical",
+          "max_abs_err_float32": errs3})
 
     # -- 5. times -----------------------------------------------------------
     cpm = sleep_cycles_per_ms()
+    fem_k, t3 = fem_times(fem, cpm, dev)
+    t3["card"] = smi_line
+    emit(t3)
+    del fem
+    torch.cuda.empty_cache()
     per_kernel = {}
     for name, (ii, jj, ss, siz) in sets.items():
         L = ii.shape[0]
@@ -707,9 +1304,22 @@ def main() -> None:
                 "src/repro/kernels/counting_sort/counting_sort.py:67", 0.0),
         "B12": ("block_histogram", "src/repro_torch/csrc/hist.cu",
                 "src/repro/kernels/hist/hist.py:39", 0.0),
+        "B6": ("gather2_segment_sum", "src/repro_torch/csrc/segment_sum.cu",
+               "src/repro/kernels/segment_sum/segment_sum.py:211",
+               errs3["B6"]),
+        "B8": ("spmv_ell", "src/repro_torch/csrc/spmv.cu",
+               "src/repro/kernels/spmv/spmv.py:32", errs3["B8"]),
+        "B9": ("sym_streams", "src/repro_torch/csrc/spmv_sym.cu",
+               "src/repro/kernels/spmv_sym/spmv_sym.py:52", errs3["B9"]),
+        "B10": ("bsr_tiles", "src/repro_torch/csrc/spmv_sym.cu",
+                "src/repro/kernels/spmv_sym/spmv_sym.py:104", errs3["B10"]),
     }
-    # launches: B1-B3 on the main path (phase 4), the rest on theirs (4b)
-    path_launches = {**launches2, **launches}
+    # launches: B1-B3 on the main path (phase 4), B4, B5, B11, B12 on
+    # theirs (4b), B6, B8, B9, B10 on the third path (4c); times at 5e7
+    # for the first seven, at the third path's size for the rest
+    path_launches = {**launches2, **launches,
+                     **{k: launches3[k] for k in fem_k}}
+    big = {**big, **fem_k}
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": err,

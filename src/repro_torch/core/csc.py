@@ -73,24 +73,54 @@ def csc_to_dense(data, indices, indptr, *, M: int, N: int) -> torch.Tensor:
                             accumulate=True)
 
 
+#: scratch slots past the end of a scatter-add's output that dropped
+#: entries add into, spread by stream position
+SCRATCH_SLOTS = 1024
+
+
+def scatter_add(n: int, index: torch.Tensor, src: torch.Tensor,
+                valid: torch.Tensor, *,
+                scratch: int = SCRATCH_SLOTS) -> torch.Tensor:
+    """``zeros(n, ...).at[index].add(src)`` over the entries (rows of
+    ``src``) where ``valid``.
+
+    Every other entry adds into one of ``scratch`` slots past the end,
+    by its position, and is cut off.  Sending a padded tail of millions
+    of entries to one slot makes them contend for one address: on an
+    H100 that scatter took 19 ms of a CSC spmv with 7·10^6 entries and
+    1.1·10^7 padding slots (``chip_smoke.py``'s FEM matrix).  The
+    spreading costs an ``arange`` over the stream, which compact streams
+    (SymCSC, BSR, slot counts) skip with ``scratch=1``.
+    """
+    if scratch == 1:
+        idx = torch.where(valid, index, n)
+    else:
+        pos = torch.arange(index.shape[0], device=index.device)
+        idx = torch.where(valid, index, n + pos % scratch)
+    out = torch.zeros((n + scratch,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    return out.index_add_(0, idx.long(), src)[:n]
+
+
 def spmv(A: CSC, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x: gather ``x`` by column, scatter-add by row."""
-    y = torch.zeros(A.M, dtype=A.data.dtype, device=A.data.device)
+    """y = A @ x: gather ``x`` by column, scatter-add by row, in the
+    promoted dtype of ``A.data`` and ``x``."""
+    dtype = torch.promote_types(A.data.dtype, x.dtype)
     if A.M == 0 or A.N == 0:
-        return y
+        return torch.zeros(A.M, dtype=dtype, device=A.data.device)
     valid, rows, cols = _valid_rows_cols(A.indices, A.indptr, A.M, A.N,
                                          A.nzmax)
-    return y.index_add(0, rows, torch.where(valid, A.data * x[cols], 0))
+    return scatter_add(A.M, rows, A.data * x[cols], valid)
 
 
 def spmv_t(A: CSC, y: torch.Tensor) -> torch.Tensor:
     """x = A.T @ y: gather ``y`` by row, sum per column."""
-    x = torch.zeros(A.N, dtype=A.data.dtype, device=A.data.device)
+    dtype = torch.promote_types(A.data.dtype, y.dtype)
     if A.M == 0 or A.N == 0:
-        return x
+        return torch.zeros(A.N, dtype=dtype, device=A.data.device)
     valid, rows, cols = _valid_rows_cols(A.indices, A.indptr, A.M, A.N,
                                          A.nzmax)
-    return x.index_add(0, cols, torch.where(valid, A.data * y[rows], 0))
+    return scatter_add(A.N, cols, A.data * y[rows], valid)
 
 
 def csc_from_arrays(fields: dict[str, np.ndarray], shape, *,

@@ -1,5 +1,6 @@
 // The numeric phase's kernels: B3' (fused segment sum), B4 (fused
-// segment min/max) and B5 (inclusive prefix sum).
+// segment min/max), B5 (inclusive prefix sum) and B6 (the SpGEMM
+// numeric phase: fused two-gather product segment sum).
 //
 // B3' replaces repro/kernels/segment_sum/segment_sum.py:gather_masked_cumsum
 // (_gather_cumsum_kernel) together with its _segment_totals epilogue
@@ -48,6 +49,24 @@
 // integer-valued data below 2^24 the result is exact, otherwise each
 // output is within (depth of its addition tree, under 64) * eps of the
 // running sum of |x|.
+//
+// B6 replaces repro/kernels/segment_sum/segment_sum.py:gather2_masked_cumsum
+// (_gather2_cumsum_kernel) together with its _segment_totals epilogue
+// (repro/kernels/segment_sum/ops.py:gather2_segment_sum_sorted): out[s] is
+// the sum of va[sa[j]] * vb[sb[j]] over the sorted product-stream positions
+// j with slot[j] == s, for every s < nzmax.  The TPU kernel keeps both
+// operand vectors resident in VMEM and carries a running prefix sum across
+// in-order grid steps; here it is B3''s design with two gathers: the thread
+// at the start of a kept run walks it and writes the total once (no
+// carry, no atomics, deterministic order, no float32 running total past
+// 2^24).  Each product is rounded before the add (no FMA contraction), as
+// the plain version rounds it.  Bound: bytes, sa, sb and slot once (12F B),
+// each operand value at least once (4 capA + 4 capB B, gathered in 32 B
+// sectors from L2 or HBM) and nzmax totals; one multiply and one add per
+// product.  Contract: every kept slot is one run of adjacent positions;
+// a product plan's streams meet it for nzmax equal to the plan's (its
+// compaction gives dropped products slot == nzmax, whose runs are not
+// adjacent, and nothing ever writes out[nzmax]).
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,6 +89,32 @@ gather_segment_sum_kernel(const T* __restrict__ vals,
   T acc = T(0);
   for (long long j = i; j < L && __ldg(slot + j) == s; ++j)
     acc += __ldg(vals + __ldg(perm + j));
+  out[s] = acc;
+}
+
+// Products rounded before they are added: no FMA contraction.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather2_segment_sum_kernel(const T* __restrict__ va, const T* __restrict__ vb,
+                           const int32_t* __restrict__ sa,
+                           const int32_t* __restrict__ sb,
+                           const int32_t* __restrict__ slot,
+                           T* __restrict__ out, long long L, long long nzmax) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= L) return;
+  const int s = __ldg(slot + i);
+  if (s < 0 || s >= nzmax) return;              // padding / dropped
+  if (i > 0 && __ldg(slot + i - 1) == s) return;  // not a run start
+  T acc = T(0);
+  for (long long j = i; j < L && __ldg(slot + j) == s; ++j)
+    acc += mul_rn(__ldg(va + __ldg(sa + j)), __ldg(vb + __ldg(sb + j)));
   out[s] = acc;
 }
 
@@ -224,6 +269,18 @@ int launch_sum(const void* vals, const void* perm, const void* slot,
 }
 
 template <typename T>
+int launch_sum2(const void* va, const void* vb, const void* sa,
+                const void* sb, const void* slot, void* out, long long L,
+                long long nzmax, void* stream) {
+  const long long blocks = (L + kThreads - 1) / kThreads;
+  gather2_segment_sum_kernel<T><<<(unsigned)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const T*)va, (const T*)vb, (const int32_t*)sa, (const int32_t*)sb,
+      (const int32_t*)slot, (T*)out, L, nzmax);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_minmax(const void* vals, const void* perm, const void* slot,
                   void* out, long long L, long long nzmax, int is_max,
                   void* stream) {
@@ -275,6 +332,18 @@ extern "C" int gather_segment_sum_f64_launch(const void* vals,
                                              long long L, long long nzmax,
                                              void* stream) {
   return launch_sum<double>(vals, perm, slot, out, L, nzmax, stream);
+}
+
+extern "C" int gather2_segment_sum_f32_launch(
+    const void* va, const void* vb, const void* sa, const void* sb,
+    const void* slot, void* out, long long L, long long nzmax, void* stream) {
+  return launch_sum2<float>(va, vb, sa, sb, slot, out, L, nzmax, stream);
+}
+
+extern "C" int gather2_segment_sum_f64_launch(
+    const void* va, const void* vb, const void* sa, const void* sb,
+    const void* slot, void* out, long long L, long long nzmax, void* stream) {
+  return launch_sum2<double>(va, vb, sa, sb, slot, out, L, nzmax, stream);
 }
 
 extern "C" int gather_segment_minmax_f32_launch(const void* vals,

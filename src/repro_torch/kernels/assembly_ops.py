@@ -10,6 +10,8 @@ port is Pallas:
   Numeric    segment_sum.gather_segment_reduce_sorted (B3': gather +
              mask + segment sum in one kernel; B4 the same for
              min/max)
+  Product    segment_sum.gather2_segment_sum_sorted (B6: both operand
+             gathers, the multiply, mask and segment sum in one kernel)
 
 ``fill_pallas`` keeps the reference's unfused reduce for comparison:
 the gathered stream is written out, then prefix-summed (B5) and
@@ -25,6 +27,7 @@ from ..sparse.dispatch import sorted_permutation
 from ..sparse.pattern import (SparsePattern, accum_dtype, fill_dtype,
                               first_flags, pattern_from_perm,
                               trivial_pattern)
+from ..sparse.spgemm import ProductPattern
 from .segment_sum.ops import segment_sum_sorted
 
 
@@ -94,3 +97,22 @@ def assemble_kernels(rows: torch.Tensor, cols: torch.Tensor,
     Counterpart of ``repro.kernels.assembly_ops.assemble_pallas``.
     """
     return fill_fused(plan_kernels(rows, cols, M=M, N=N, nzmax=nzmax), vals)
+
+
+def multiply_fused(pattern: ProductPattern, data_A: torch.Tensor,
+                   data_B: torch.Tensor) -> CSC:
+    """Fused SpGEMM numeric phase: both gathers, the multiply and the
+    segment sum in one kernel (B6).
+
+    Counterpart of ``repro.kernels.assembly_ops.multiply_fused``, with
+    its shape check and message.  It is ``pattern.multiply``: one
+    numeric path, which keeps the gradient for both operands.
+    """
+    if data_A.ndim != 1 or data_A.shape[0] != pattern.a_capacity \
+            or data_B.ndim != 1 or data_B.shape[0] != pattern.b_capacity:
+        raise ValueError(
+            f"operand data shapes {tuple(data_A.shape)}/"
+            f"{tuple(data_B.shape)} do not match the planned 1-d "
+            f"capacities ({pattern.a_capacity}/{pattern.b_capacity})"
+        )
+    return pattern.multiply(data_A, data_B)

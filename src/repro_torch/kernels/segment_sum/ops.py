@@ -1,4 +1,4 @@
-"""Sorted-stream segment reductions: the dtype contract around B3', B4, B5.
+"""Sorted-stream segment reductions: the dtype contract around B3'-B6.
 
 Counterpart of ``repro/kernels/segment_sum/ops.py``.  ``sum`` runs the
 fused fill (B3'), ``mean`` divides its totals by the duplicate counts,
@@ -6,7 +6,8 @@ fused fill (B3'), ``mean`` divides its totals by the duplicate counts,
 are one collision-free scatter of the boundary-flagged elements (no
 kernel, as in the reference).  :func:`segment_sum_sorted` is the
 unfused reduce: a prefix sum (B5) and the differences at segment
-boundaries.
+boundaries.  :func:`gather2_segment_sum_sorted` is the SpGEMM numeric
+phase (B6).
 
 The reference's VMEM residency guard has no counterpart: its fused
 kernels keep ``vals`` resident in an 8 MB VMEM budget and fall back to
@@ -21,8 +22,8 @@ import torch
 from ...sparse.pattern import (_slot_counts, accum_dtype, fill_dtype,
                                first_flags, last_flags, validate_accum)
 from .ref import segment_ends as _segment_ends  # noqa: F401
-from .segment_sum import (blocked_cumsum, gather_segment_minmax,
-                          gather_segment_sum)
+from .segment_sum import (blocked_cumsum, gather2_segment_sum,
+                          gather_segment_minmax, gather_segment_sum)
 
 
 def _segment_totals(c: torch.Tensor, first: torch.Tensor, *,
@@ -75,6 +76,31 @@ def gather_segment_sum_sorted(vals: torch.Tensor, perm: torch.Tensor,
     """
     return gather_segment_reduce_sorted(vals, perm, slot, accum="sum",
                                         num_segments=num_segments)
+
+
+def gather2_segment_sum_sorted(vals_a: torch.Tensor, vals_b: torch.Tensor,
+                               sa: torch.Tensor, sb: torch.Tensor,
+                               slot: torch.Tensor, *,
+                               num_segments: int) -> torch.Tensor:
+    """Fused SpGEMM numeric phase: segment totals of the expansion
+    product ``vals_a[sa] * vals_b[sb]`` masked by ``slot <
+    num_segments``, without materializing the product stream (B6).
+
+    ``sa``/``sb``/``slot`` are the sorted-order expansion maps of a
+    :class:`~repro_torch.sparse.spgemm.ProductPattern`.  The dtype
+    follows :func:`~repro_torch.sparse.pattern.fill_dtype` on the
+    promoted operand dtype; 16-bit products accumulate in float32
+    (:func:`~repro_torch.sparse.pattern.accum_dtype`) and the totals are
+    cast back once.  Same run contract as
+    :func:`gather_segment_reduce_sorted`.
+    """
+    dtype = fill_dtype(torch.promote_types(vals_a.dtype, vals_b.dtype))
+    if sa.shape[0] == 0:
+        return torch.zeros(num_segments, dtype=dtype, device=vals_a.device)
+    acc = accum_dtype(dtype)
+    return gather2_segment_sum(vals_a.to(acc).contiguous(),
+                               vals_b.to(acc).contiguous(), sa, sb, slot,
+                               num_segments=num_segments).to(dtype)
 
 
 def gather_segment_reduce_sorted(vals: torch.Tensor, perm: torch.Tensor,

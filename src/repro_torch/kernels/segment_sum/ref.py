@@ -1,10 +1,11 @@
-"""Plain-PyTorch versions of the numeric phase's kernels (B3', B4, B5).
+"""Plain-PyTorch versions of the numeric phase's kernels (B3', B4, B5, B6).
 
 The CPU tests run them, the kernel wrappers take them for CPU tensors,
 and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 None of them synchronises with the device (no boolean-mask compaction).
 Counterpart of ``repro/kernels/segment_sum/ref.py`` (``cumsum_ref``,
-``segment_sum_sorted_ref``, ``segment_reduce_sorted_ref``) plus the
+``segment_sum_sorted_ref``, ``gather2_segment_sum_sorted_ref`` as
+:func:`gather2_segment_sum_ref`, ``segment_reduce_sorted_ref``) plus the
 plain versions of the port's kernels.
 """
 from __future__ import annotations
@@ -48,6 +49,22 @@ def gather_segment_sum_ref(vals: torch.Tensor, perm: torch.Tensor,
     keep = (slot >= 0) & (slot < num_segments)
     out = torch.zeros(num_segments + 1, dtype=vals.dtype, device=vals.device)
     out.index_add_(0, torch.where(keep, slot, num_segments), vals[perm])
+    return out[:num_segments]
+
+
+def gather2_segment_sum_ref(vals_a: torch.Tensor, vals_b: torch.Tensor,
+                            sa: torch.Tensor, sb: torch.Tensor,
+                            slot: torch.Tensor, *,
+                            num_segments: int) -> torch.Tensor:
+    """B6: ``out[s] = sum(vals_a[sa[j]] * vals_b[sb[j]] for j with
+    slot[j] == s)`` for every ``0 <= s < num_segments``; every other
+    slot is dropped.  Each product is rounded before it is added; on
+    the CPU the sums run in sorted-stream order, as the kernel's do."""
+    keep = (slot >= 0) & (slot < num_segments)
+    out = torch.zeros(num_segments + 1, dtype=vals_a.dtype,
+                      device=vals_a.device)
+    out.index_add_(0, torch.where(keep, slot, num_segments),
+                   vals_a[sa] * vals_b[sb])
     return out[:num_segments]
 
 

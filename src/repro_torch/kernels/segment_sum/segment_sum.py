@@ -15,6 +15,11 @@ min or max, directly, with 0 in empty slots.
 inclusive prefix sum, reduce-then-scan in three launches (one call, one
 count).
 
+``gather2_segment_sum`` (B6) is the counterpart of
+``gather2_masked_cumsum`` with its ``_segment_totals`` epilogue: the
+SpGEMM numeric phase, per-segment sums of ``vals_a[sa] * vals_b[sb]``
+over a product plan's sorted slot stream, summed directly as B3' sums.
+
 Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
 launches its kernel for a CUDA tensor; ``.launches`` counts kernel
 launches only.
@@ -27,8 +32,8 @@ import torch
 
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
-from .ref import (SCAN_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
-                  gather_segment_sum_ref)
+from .ref import (SCAN_TILE, blocked_cumsum_ref, gather2_segment_sum_ref,
+                  gather_segment_minmax_ref, gather_segment_sum_ref)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -50,6 +55,9 @@ def _fns() -> dict:
                 [_P, _P, _P, _P, _LL, _LL, _I, _P])
             _FNS["cumsum", dtype] = bind(lib, f"blocked_cumsum_{sfx}_launch",
                                          [_P, _P, _P, _P, _LL, _P])
+            _FNS["sum2", dtype] = bind(
+                lib, f"gather2_segment_sum_{sfx}_launch",
+                [_P, _P, _P, _P, _P, _P, _LL, _LL, _P])
     return _FNS
 
 
@@ -62,16 +70,21 @@ def _check_values(vals: torch.Tensor, what: str) -> None:
     check_cuda_tensor(vals, "vals", tuple(_SUFFIX))
 
 
-def _check_stream(vals, perm, slot, what: str) -> int:
-    _check_values(vals, what)
-    check_cuda_tensor(perm, "perm", (torch.int32,))
+def _check_index_stream(perm, slot, name: str = "perm") -> int:
+    check_cuda_tensor(perm, name, (torch.int32,))
     check_cuda_tensor(slot, "slot", (torch.int32,))
     L = perm.shape[0]
     if perm.ndim != 1 or slot.shape != perm.shape or L == 0 or L >= 2**31:
         raise ValueError(
-            f"perm and slot must be equal 1-d streams with 0 < L < 2^31, "
+            f"{name} and slot must be equal 1-d streams with 0 < L < 2^31, "
             f"got {tuple(perm.shape)} and {tuple(slot.shape)}"
         )
+    return L
+
+
+def _check_stream(vals, perm, slot, what: str) -> int:
+    _check_values(vals, what)
+    L = _check_index_stream(perm, slot)
     if tuple(vals.shape) != (L,):
         # the kernel reads vals[perm[k]] with no bounds check
         raise ValueError(f"vals has shape {tuple(vals.shape)}, expected "
@@ -129,6 +142,44 @@ def gather_segment_minmax(vals: torch.Tensor, perm: torch.Tensor,
     return out
 
 
+def gather2_segment_sum(vals_a: torch.Tensor, vals_b: torch.Tensor,
+                        sa: torch.Tensor, sb: torch.Tensor,
+                        slot: torch.Tensor, *,
+                        num_segments: int) -> torch.Tensor:
+    """B6: ``[num_segments]`` sums of ``vals_a[sa] * vals_b[sb]`` per
+    sorted slot run.
+
+    ``sa``/``sb``/``slot`` are a product plan's int32 sorted-order
+    streams; ``vals_a``/``vals_b`` are the operands' ``data`` vectors, of
+    one dtype, float32 or float64 on the card (the caller casts 16-bit
+    values to float32; complex products on CUDA are not ported).  The
+    kernel reads ``vals_a[sa[k]]`` and ``vals_b[sb[k]]`` unchecked: the
+    caller checks the operand lengths against the plan's capacities.
+    Same run contract as :func:`gather_segment_sum` (``num_segments <=``
+    the plan's ``nzmax``).
+    """
+    if vals_a.device.type == "cpu":
+        return gather2_segment_sum_ref(vals_a, vals_b, sa, sb, slot,
+                                       num_segments=num_segments)
+    _check_values(vals_a, "the product fill")
+    check_cuda_tensor(vals_b, "vals_b", (vals_a.dtype,))
+    if vals_a.ndim != 1 or vals_b.ndim != 1:
+        raise ValueError("vals_a and vals_b must be 1-d")
+    L = _check_index_stream(sa, slot, "sa")
+    check_cuda_tensor(sb, "sb", (torch.int32,))
+    if sb.shape != sa.shape:
+        raise ValueError(f"sb has shape {tuple(sb.shape)}, expected "
+                         f"{tuple(sa.shape)}")
+    out = torch.zeros(num_segments, dtype=vals_a.dtype,
+                      device=vals_a.device)
+    check_launch(_fns()["sum2", vals_a.dtype](
+        vals_a.data_ptr(), vals_b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        slot.data_ptr(), out.data_ptr(), L, num_segments,
+        current_stream(vals_a.device)), "gather2_segment_sum")
+    gather2_segment_sum.launches += 1
+    return out
+
+
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """B5: inclusive prefix sum of a 1-d float32/float64 tensor."""
     if x.device.type == "cpu":
@@ -149,5 +200,6 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 gather_segment_sum.launches = 0
+gather2_segment_sum.launches = 0
 gather_segment_minmax.launches = 0
 blocked_cumsum.launches = 0

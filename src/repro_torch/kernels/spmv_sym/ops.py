@@ -1,0 +1,66 @@
+"""The symmetric and blocked SpMVs around B9 and B10.
+
+Counterpart of ``repro/kernels/spmv_sym/ops.py``.  The reference runs
+its Pallas kernels only while the dense vector fits its 8 MB VMEM
+budget and its ``ref.py`` past it (``spmv_sym/ops.py:29-44``); the
+port's kernels gather ``x`` from device memory and serve every size, so
+that guard has no counterpart.  On CPU tensors the kernels run their
+plain versions.  The result has the promoted dtype of the matrix and
+``x``; 16-bit operands run in float32 and are cast back.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.csc import scatter_add, slot_columns
+from ...sparse.pattern import accum_dtype
+from .spmv_sym import bsr_tiles, sym_streams
+
+
+def spmv_sym(diag, data, indices, indptr, x) -> torch.Tensor:
+    """Fused both-triangles symmetric SpMV over strict-upper storage.
+
+    ``y = diag * x + ct + scatter_add(rows, up)``: B9 reads the halved
+    stream once and returns the row-direction contributions ``up`` and
+    each column's total ``ct`` (summed directly, where the reference
+    differences a running sum); the row-direction scatter stays outside
+    the kernel, as the reference's ``y.at[rows].add(up)`` does.
+    """
+    M = diag.shape[0]
+    nzmax = data.shape[-1]
+    dtype = torch.promote_types(data.dtype, x.dtype)
+    y = diag.to(data.dtype) * x
+    if M == 0 or nzmax == 0:
+        return y
+    work = accum_dtype(dtype)
+    up, ct = sym_streams(indices.to(torch.int32).contiguous(),
+                         data.to(work).contiguous(),
+                         indptr.to(torch.int32).contiguous(),
+                         x.to(work).contiguous())
+    # SymCSC streams are compact (``csc_to_symcsc`` stores exactly nnz
+    # entries): the rare sentinel adds into one scratch slot
+    out = y.to(work) + ct + scatter_add(M, indices, up, indices < M,
+                                        scratch=1)
+    return out.to(dtype)
+
+
+def spmv_bsr(data, indices, indptr, x, *, shape, block: int) -> torch.Tensor:
+    """Blocked SpMV: B10's per-block partial products, scatter-added into
+    block rows outside the kernel (as the reference's ``.at[...].add``)."""
+    M, N = shape
+    b = int(block)
+    nbmax = data.shape[0]
+    dtype = torch.promote_types(data.dtype, x.dtype)
+    if M == 0 or nbmax == 0 or b == 0:
+        return torch.zeros(M, dtype=dtype, device=data.device)
+    Mb, Nb = M // b, N // b
+    work = accum_dtype(dtype)
+    bcols = slot_columns(indptr, nbmax).clamp(0, max(Nb - 1, 0))
+    tiles = bsr_tiles(indices.to(torch.int32).contiguous(),
+                      bcols.to(torch.int32).contiguous(),
+                      data.to(work).contiguous(), x.to(work).contiguous(),
+                      Mb=Mb)
+    # compact too (``csc_to_bsr``): padding blocks add into one scratch
+    # block row
+    y = scatter_add(Mb, indices, tiles, indices < Mb, scratch=1)
+    return y.reshape(M).to(dtype)

@@ -1,0 +1,119 @@
+"""Wrappers of the symmetric-stream (B9) and BSR-tile (B10) CUDA kernels
+(``csrc/spmv_sym.cu``).
+
+``sym_streams`` (B9) computes what the Pallas ``sym_streams`` of
+``repro/kernels/spmv_sym/spmv_sym.py`` feeds into ``spmv_sym``: the row
+direction ``up[s] = a_s * x[col_s]`` and, where the reference emits a
+running sum to be differenced at the ``indptr`` boundaries, each
+column's total of ``a_s * x[row_s]`` directly.  ``bsr_tiles`` (B10) is
+the counterpart of ``bsr_tiles``: the partial product of every stored
+block with its slice of ``x``.
+
+Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
+launches its kernel for a CUDA tensor; ``.launches`` counts kernel
+launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..common import (bind, check_cuda_tensor, check_launch, current_stream,
+                      load_library)
+from .ref import bsr_tiles_ref, sym_streams_ref
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FNS: dict = {}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _fns() -> dict:
+    if not _FNS:
+        lib = load_library("spmv_sym")
+        for dtype, sfx in _SUFFIX.items():
+            _FNS["sym", dtype] = bind(lib, f"sym_streams_{sfx}_launch",
+                                      [_P, _P, _P, _P, _P, _P, _LL, _P])
+            _FNS["bsr", dtype] = bind(lib, f"bsr_tiles_{sfx}_launch",
+                                      [_P, _P, _P, _P, _P, _LL, _LL, _I, _P])
+    return _FNS
+
+
+def _check_values(t: torch.Tensor, name: str, what: str) -> None:
+    if t.is_complex():
+        raise NotImplementedError(
+            f"complex values on CUDA are not ported yet ({what} takes "
+            "float32/float64); run it on the CPU")
+    check_cuda_tensor(t, name, tuple(_SUFFIX))
+
+
+def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
+                x: torch.Tensor):
+    """B9: ``(up [nzmax], ct [M])`` over SymCSC's strict-upper stream.
+
+    ``rows``/``data`` are the stream (``M`` is the sentinel row),
+    ``indptr`` int32 ``[M + 1]`` its column pointer (values within the
+    stream), ``x`` ``[M]`` of ``data``'s dtype, float32 or float64 on
+    the card.  ``up`` is 0 on sentinel rows and in the padded tail.
+    """
+    if data.device.type == "cpu":
+        return sym_streams_ref(rows, data, indptr, x)
+    _check_values(data, "data", "the symmetric SpMV")
+    check_cuda_tensor(x, "x", (data.dtype,))
+    check_cuda_tensor(rows, "rows", (torch.int32,))
+    check_cuda_tensor(indptr, "indptr", (torch.int32,))
+    M, nzmax = x.shape[0], data.shape[0]
+    if (x.ndim != 1 or data.ndim != 1 or rows.shape != data.shape
+            or indptr.shape != (M + 1,) or nzmax >= 2**31 or M >= 2**31):
+        raise ValueError(
+            f"rows/data must be equal 1-d streams and indptr [M + 1] for x "
+            f"[M], got {tuple(rows.shape)}, {tuple(data.shape)}, "
+            f"{tuple(indptr.shape)} and {tuple(x.shape)}")
+    up = torch.zeros(nzmax, dtype=data.dtype, device=data.device)
+    ct = torch.empty(M, dtype=data.dtype, device=data.device)
+    if M == 0:
+        return up, ct
+    check_launch(_fns()["sym", data.dtype](
+        rows.data_ptr(), data.data_ptr(), indptr.data_ptr(), x.data_ptr(),
+        up.data_ptr(), ct.data_ptr(), M, current_stream(data.device)),
+        "sym_streams")
+    sym_streams.launches += 1
+    return up, ct
+
+
+def bsr_tiles(brows: torch.Tensor, bcols: torch.Tensor, data: torch.Tensor,
+              x: torch.Tensor, *, Mb: int) -> torch.Tensor:
+    """B10: ``[nb, b]`` partial products of the stored blocks.
+
+    ``brows``/``bcols`` int32 ``[nb]`` (``bcols`` within ``[0, N / b)``,
+    ``brows == Mb`` marks a padding block), ``data`` ``[nb, b, b]`` and
+    ``x`` ``[N]`` of one dtype, float32 or float64 on the card.
+    """
+    if data.device.type == "cpu":
+        return bsr_tiles_ref(brows, bcols, data, x, Mb=Mb)
+    _check_values(data, "data", "the BSR SpMV")
+    check_cuda_tensor(x, "x", (data.dtype,))
+    check_cuda_tensor(brows, "brows", (torch.int32,))
+    check_cuda_tensor(bcols, "bcols", (torch.int32,))
+    nb = data.shape[0]
+    if (data.ndim != 3 or data.shape[1] != data.shape[2] or x.ndim != 1
+            or brows.shape != (nb,) or bcols.shape != (nb,)):
+        raise ValueError(
+            f"data must be [nb, b, b] with brows/bcols [nb] and x 1-d, got "
+            f"{tuple(data.shape)}, {tuple(brows.shape)}, "
+            f"{tuple(bcols.shape)} and {tuple(x.shape)}")
+    b = data.shape[1]
+    out = torch.empty((nb, b), dtype=data.dtype, device=data.device)
+    if nb * b == 0:
+        return out
+    if nb * b >= 2**31:
+        raise ValueError(f"{nb} blocks of {b} rows: too many for one launch")
+    check_launch(_fns()["bsr", data.dtype](
+        brows.data_ptr(), bcols.data_ptr(), data.data_ptr(), x.data_ptr(),
+        out.data_ptr(), nb, Mb, b, current_stream(data.device)), "bsr_tiles")
+    bsr_tiles.launches += 1
+    return out
+
+
+sym_streams.launches = 0
+bsr_tiles.launches = 0

@@ -1,5 +1,5 @@
 """repro_torch.sparse: the two-phase sparse assembly API (counterpart of
-``repro.sparse``, the Matlab facade's slices so far).
+``repro.sparse``: the Matlab facade, the formats and the operators).
 
     >>> import numpy as np
     >>> S = fsparse([1, 2, 2], [1, 1, 2], [1.0, 2.0, 3.0], device="cpu")
@@ -11,6 +11,13 @@ numeric phase many times (``SparsePattern.assemble``, under every
 ``accum`` mode), and the Matlab facade on top (``fsparse``, and
 ``sparse2`` over a plan LRU).  Backend selection is the one
 ``method=`` string of :mod:`repro_torch.sparse.dispatch`.
+
+The formats (CSC, COO, CSR, SymCSC, BSR) share one conversion registry
+(``convert``); :mod:`~repro_torch.sparse.ops` is the operator surface
+over all of them (``matmul``, ``transpose``, ``add``, ...), and a sparse
+second operand of ``matmul`` (or ``mtimes``) runs the two-phase SpGEMM
+(``product_plan`` once per structure pair, ``ProductPattern.multiply``
+per refill).
 """
 from __future__ import annotations
 
@@ -20,20 +27,31 @@ from .dispatch import (available_methods, default_method, method_from_fused,
                        register_method, resolve_method, sorted_permutation)
 from .errors import (CacheCorruptionWarning, CapacityWarning,
                      FallbackWarning, InvariantViolation, ReproWarning)
+from .formats import (BSR, CSR, SparseMatrix, SymCSC, convert, format_of,
+                      from_arrays, register_converter, register_format)
 from .lru import LRUCache, env_capacity
-from .matlab import (expand_indices, find, fsparse, fsparse_coo, nnz_of,
-                     plan_cache_clear, plan_cache_info, plan_lookup, sparse2)
+from .matlab import (expand_indices, find, fsparse, fsparse_coo, mtimes,
+                     nnz_of, plan_cache_clear, plan_cache_info, plan_lookup,
+                     sparse2)
 from .pattern import (ACCUM_MODES, SparsePattern, accum_identity,
                       pattern_from_arrays, plan, plan_coo, trivial_pattern)
+from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
+                     product_cache_info, product_lookup, product_plan,
+                     product_pattern_from_arrays, retire_structure)
+from . import ops
 
 __all__ = [
-    "ACCUM_MODES", "COO", "CSC", "CacheCorruptionWarning",
+    "ACCUM_MODES", "BSR", "COO", "CSC", "CSR", "CacheCorruptionWarning",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
-    "ReproWarning", "SparsePattern", "accum_identity", "available_methods",
-    "coo_from_matlab", "csc_from_arrays", "default_method", "env_capacity",
-    "expand_indices", "find", "fsparse", "fsparse_coo", "method_from_fused",
-    "nnz_of", "pattern_from_arrays", "plan", "plan_cache_clear",
-    "plan_cache_info", "plan_coo", "plan_lookup", "register_method",
-    "resolve_method", "sorted_permutation", "sparse2", "spmv", "spmv_t",
-    "trivial_pattern",
+    "ProductPattern", "ReproWarning", "SparseMatrix", "SparsePattern",
+    "SymCSC", "accum_identity", "available_methods", "cached_product_plan",
+    "convert", "coo_from_matlab", "csc_from_arrays", "default_method",
+    "env_capacity", "expand_indices", "find", "format_of", "from_arrays",
+    "fsparse", "fsparse_coo", "method_from_fused", "mtimes", "nnz_of", "ops",
+    "pattern_from_arrays", "plan", "plan_cache_clear", "plan_cache_info",
+    "plan_coo", "plan_lookup", "product_cache_clear", "product_cache_info",
+    "product_lookup", "product_pattern_from_arrays", "product_plan",
+    "register_converter", "register_format", "register_method",
+    "resolve_method", "retire_structure", "sorted_permutation", "sparse2",
+    "spmv", "spmv_t", "trivial_pattern",
 ]

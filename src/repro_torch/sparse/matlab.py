@@ -11,9 +11,11 @@ duplicate summing and the paper's §2.1 index expansion, on
   fsparse_coo(coo)                                 zero-offset entry
   find(S)                                          (i, j, v) unit-offset
   nnz_of(S)                                        python-int nnz
+  mtimes(A, B)                                     Matlab ``A * B``
 
-Not ported yet: the delta re-planning facade, ``mtimes``,
-``method="sharded"``/``mesh=`` and the ``format=`` targets.
+Not ported yet: the delta re-planning facade, ``method="sharded"``/
+``mesh=`` and the ``format=`` targets of the assembly calls (convert an
+assembled CSC with :func:`repro_torch.sparse.formats.convert`).
 """
 from __future__ import annotations
 
@@ -256,15 +258,19 @@ def plan_cache_clear() -> None:
     _PLAN_CACHE.clear()
 
 
-def find(S: CSC):
+def find(S):
     """Matlab ``[i, j, v] = find(S)``: unit-offset triplets of nonzeros.
 
     Host-side numpy arrays in Matlab's columnwise, row-ascending order;
     structural zeros (cancelled duplicates) are reported, as fsparse
-    keeps them.
+    keeps them.  Other formats convert through the format registry
+    first, so ``find`` reports the expanded structure (a SymCSC's
+    mirrored lower triangle and dense diagonal included).
     """
     if not isinstance(S, CSC):
-        raise TypeError(f"find takes a CSC, got {type(S).__name__}")
+        from .formats import convert
+
+        S = convert(S, "csc")
     nnz = int(S.nnz)
     cols = slot_columns(S.indptr, S.nzmax)[:nnz].cpu().numpy()
     rows = S.indices[:nnz].cpu().numpy()
@@ -272,6 +278,33 @@ def find(S: CSC):
     return rows + 1, cols + 1, vals
 
 
+def mtimes(A, B):
+    """Matlab ``A * B`` on sparse operands.
+
+    A dense ``B`` runs spmv/spmm; a sparse ``B`` (any registered format)
+    runs the two-phase SpGEMM path, its symbolic product plan cached
+    across calls on both structures, so repeated products such as the
+    multigrid Galerkin triple product ``P' * A * P`` pay only the
+    O(flops) numeric refill after the first call.
+
+    >>> A = fsparse([1, 2], [1, 2], [2.0, 3.0], device="cpu")  # diag(2, 3)
+    >>> mtimes(A, A).to_dense()
+    tensor([[4., 0.],
+            [0., 9.]])
+    """
+    from .ops import matmul
+
+    return matmul(A, B)
+
+
 def nnz_of(S) -> int:
-    """Matlab ``nnz(S)``: structural nonzero count as a python int."""
+    """Matlab ``nnz(S)``: structural nonzero count as a python int.
+
+    Formats that store a compressed half or blocked structure (SymCSC,
+    BSR) expose the Matlab-visible expanded count as ``nnz_total``,
+    which is preferred here.
+    """
+    total = getattr(S, "nnz_total", None)
+    if total is not None:
+        return int(torch.as_tensor(total))
     return int(torch.as_tensor(S.nnz).sum())

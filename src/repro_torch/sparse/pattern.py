@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.coo import COO
-from ..core.csc import CSC
+from ..core.csc import CSC, scatter_add
 from ..kernels.common import resolve_device
 from .dispatch import sorted_permutation
 
@@ -179,10 +179,8 @@ def _slot_counts(nzmax: int, slot: torch.Tensor) -> torch.Tensor:
     in the first/last fill: no boolean-mask compaction, so no
     synchronisation with the device.
     """
-    n = torch.zeros(nzmax + 1, dtype=torch.int32, device=slot.device)
-    n.index_add_(0, torch.where(slot < nzmax, slot, nzmax),
-                 torch.ones_like(slot))
-    return n[:nzmax]
+    return scatter_add(nzmax, slot, torch.ones_like(slot), slot < nzmax,
+                       scratch=1)
 
 
 def _scatter_reduce(nzmax: int, accum: str, perm, slot, vals):

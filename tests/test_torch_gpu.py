@@ -325,3 +325,246 @@ def test_min_max_gradient_on_card_matches_cpu(accum):
         (g,) = torch.autograd.grad((pat.assemble(x).data * w.to(d)).sum(), x)
         grads.append(g.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+# ---------------------------------------------------------------------------
+# Slice 3: the SpGEMM fill (B6), the ELL SpMV (B8), the symmetric streams
+# (B9) and the BSR tiles (B10), on the FEM data of chip_smoke.py
+# ---------------------------------------------------------------------------
+def _fem(dev, n=15):
+    """fem_poisson's P1 matrix (n x n cells) and a bilinear P, on ``dev``."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rows, cols, vals, nv, f, _ = chip_smoke.fem_system(n)
+    A = plan(torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev),
+             (nv, nv)).assemble(torch.from_numpy(vals).to(dev))
+    pr, pc, pv, pshape = chip_smoke.bilinear_prolongation(n)
+    P = plan(torch.from_numpy(pr).to(dev), torch.from_numpy(pc).to(dev),
+             pshape).assemble(torch.from_numpy(pv).to(dev))
+    return A, P, torch.from_numpy(f).to(dev)
+
+
+def _within(got, want, mag, c):
+    """Two summation orders of c terms differ by at most c eps sum|t|."""
+    eps = torch.finfo(got.dtype).eps
+    return bool(torch.all((got - want).abs() <= c * eps * mag))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_product_fill_kernel_matches_plain_version(dtype):
+    from repro_torch.kernels.segment_sum.ref import gather2_segment_sum_ref
+    from repro_torch.sparse import convert, ops, product_plan
+
+    dev = _cuda()
+    A, P, _ = _fem(dev)
+    Pt = convert(ops.transpose(P), "csc")
+    rng = np.random.default_rng(31)
+    for pp in (product_plan(Pt, A), product_plan(Pt, A, flops_max=20_000,
+                                                 nzmax=700)):
+        st = (pp.sa, pp.sb, pp.pattern.slot)
+        nz = dict(num_segments=pp.nzmax)
+
+        def vec(n, ints):
+            x = rng.integers(-8, 9, n) if ints else rng.standard_normal(n)
+            return torch.from_numpy(x).to(dev, dtype)
+
+        va, vb = vec(Pt.nzmax, True), vec(A.nzmax, True)
+        before = ss.gather2_segment_sum.launches
+        got = ss.gather2_segment_sum(va, vb, *st, **nz)
+        assert ss.gather2_segment_sum.launches == before + 1
+        assert torch.equal(got, gather2_segment_sum_ref(va, vb, *st, **nz))
+        va, vb = vec(Pt.nzmax, False), vec(A.nzmax, False)
+        run = int(torch.bincount(pp.pattern.slot.long()).max())
+        assert _within(ss.gather2_segment_sum(va, vb, *st, **nz),
+                       gather2_segment_sum_ref(va, vb, *st, **nz),
+                       gather2_segment_sum_ref(va.abs(), vb.abs(), *st, **nz),
+                       run)
+        # a NaN among integer-valued data: the rest is exact, so bit for bit
+        va, vb = vec(Pt.nzmax, True), vec(A.nzmax, True)
+        va[int(pp.sa[0])] = float("nan")
+        got = ss.gather2_segment_sum(va, vb, *st, **nz)
+        assert bool(torch.isnan(got).any())
+        assert _same(got, gather2_segment_sum_ref(va, vb, *st, **nz))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_matches_plain_version(dtype):
+    from repro_torch import kernels
+    from repro_torch.kernels.spmv import spmv as ell
+    from repro_torch.kernels.spmv.ref import spmv_ell_ref
+
+    dev = _cuda()
+    A, _, _ = _fem(dev, 40)
+    cols, vals, overflow = kernels.csc_to_ell(A, max_per_row=7)
+    assert not bool(overflow)
+    vals = vals.to(dtype)
+    rng = np.random.default_rng(32)
+    xi = torch.from_numpy(rng.integers(-8, 9, A.N)).to(dev, dtype)
+    before = ell.spmv_ell.launches
+    assert torch.equal(ell.spmv_ell(cols, vals, xi),
+                       spmv_ell_ref(cols, vals, xi))
+    assert ell.spmv_ell.launches == before + 1
+    x = torch.from_numpy(rng.standard_normal(A.N)).to(dev, dtype)
+    assert _within(ell.spmv_ell(cols, vals, x), spmv_ell_ref(cols, vals, x),
+                   spmv_ell_ref(cols, vals.abs(), x.abs()), 7)
+    # a row of padding only, and an overflowing conversion
+    _, _, over = kernels.csc_to_ell(A, max_per_row=3)
+    assert bool(over)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sym_streams_kernel_matches_plain_version(dtype):
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    from repro_torch.kernels.spmv_sym.ref import sym_streams_ref
+    from repro_torch.sparse import convert
+
+    dev = _cuda()
+    A, _, _ = _fem(dev, 40)
+    S = convert(A, "symcsc")
+    # a padded tail past indptr[-1], sentinel rows, as a capacity leaves
+    rows = torch.cat([S.indices, torch.full((9,), S.M, dtype=torch.int32,
+                                            device=dev)])
+    data = torch.cat([S.data, torch.zeros(9, device=dev)]).to(dtype)
+    rng = np.random.default_rng(33)
+    xi = torch.from_numpy(rng.integers(-8, 9, S.M)).to(dev, dtype)
+    before = sym.sym_streams.launches
+    for got, want in zip(sym.sym_streams(rows, data, S.indptr, xi),
+                         sym_streams_ref(rows, data, S.indptr, xi)):
+        assert torch.equal(got, want)
+    assert sym.sym_streams.launches == before + 1
+    x = torch.from_numpy(rng.standard_normal(S.M)).to(dev, dtype)
+    (up, ct), (up0, ct0) = (sym.sym_streams(rows, data, S.indptr, x),
+                            sym_streams_ref(rows, data, S.indptr, x))
+    assert torch.equal(up, up0)  # one product a slot
+    _, mag = sym_streams_ref(rows, data.abs(), S.indptr, x.abs())
+    assert _within(ct, ct0, mag, int(torch.diff(S.indptr).max()))
+
+
+@pytest.mark.parametrize("block", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_tiles_kernel_matches_plain_version(block, dtype):
+    from repro_torch.core.csc import slot_columns
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref
+    from repro_torch.sparse import convert
+
+    dev = _cuda()
+    rng = np.random.default_rng(34)
+    n = 24 * block
+    r = torch.from_numpy(rng.integers(0, n, 900).astype(np.int32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, n, 900).astype(np.int32)).to(dev)
+    A = plan(r, c, (n, n)).assemble(torch.ones(900, device=dev))
+    B = convert(A, "bsr", block=block)
+    # one padding block (block row == Mb) at the end
+    brows = torch.cat([B.indices, B.indices.new_full((1,), B.Mb)])
+    data = torch.cat([B.data, B.data.new_ones((1, block, block))]).to(dtype)
+    bcols = torch.cat([slot_columns(B.indptr, B.nbmax).clamp(0, B.Nb - 1),
+                       B.indices.new_zeros(1)])
+    xi = torch.from_numpy(rng.integers(-8, 9, n)).to(dev, dtype)
+    before = sym.bsr_tiles.launches
+    got = sym.bsr_tiles(brows, bcols, data, xi, Mb=B.Mb)
+    assert sym.bsr_tiles.launches == before + 1
+    assert torch.equal(got, bsr_tiles_ref(brows, bcols, data, xi, Mb=B.Mb))
+    assert not bool(got[-1].any())
+    x = torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
+    data = data * torch.from_numpy(rng.standard_normal(data.shape)).to(
+        dev, dtype)
+    assert _within(sym.bsr_tiles(brows, bcols, data, x, Mb=B.Mb),
+                   bsr_tiles_ref(brows, bcols, data, x, Mb=B.Mb),
+                   bsr_tiles_ref(brows, bcols, data.abs(), x.abs(), Mb=B.Mb),
+                   block)
+
+
+def test_slice3_wrong_lengths_and_types_raise_on_card():
+    from repro_torch.kernels.assembly_ops import multiply_fused
+    from repro_torch.kernels.spmv import spmv as ell
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    from repro_torch.sparse import convert, ops, product_plan
+
+    dev = _cuda()
+    A, P, _ = _fem(dev)
+    Pt = convert(ops.transpose(P), "csc")
+    pp = product_plan(Pt, A)
+    with pytest.raises(ValueError, match="data_A has shape"):
+        pp.multiply(Pt.data[:-1], A.data)
+    with pytest.raises(ValueError, match="data_B has shape"):
+        pp.multiply(Pt.data, A.data[:7])
+    with pytest.raises(ValueError, match="do not match the planned"):
+        multiply_fused(pp, Pt.data[:-1], A.data)
+    with pytest.raises(NotImplementedError, match="complex"):
+        pp.multiply(Pt.data.to(torch.complex64), A.data)
+    i = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ell.spmv_ell(i, torch.zeros((4, 3), device=dev),
+                     torch.zeros(5, device=dev))
+    with pytest.raises(TypeError):
+        ell.spmv_ell(i, torch.zeros((4, 2), device=dev),
+                     torch.zeros(5, dtype=torch.float64, device=dev))
+    S = convert(A, "symcsc")
+    with pytest.raises(ValueError):
+        sym.sym_streams(S.indices, S.data, S.indptr[:-1], torch.ones(
+            S.M, device=dev))
+
+
+def test_gradients_through_multiply_and_symcsc_on_card_match_cpu():
+    import dataclasses
+
+    from repro_torch.sparse import convert, ops, product_plan
+
+    dev = _cuda()
+    w_host = np.random.default_rng(35).integers(-3, 4, 10**5) \
+        .astype(np.float32)
+    grads = []
+    for d in ("cpu", dev):
+        A, P, _ = _fem(d)
+        Pt = convert(ops.transpose(P), "csc")
+        pp = product_plan(Pt, A)
+        va = Pt.data.clone().requires_grad_()
+        vb = A.data.clone().requires_grad_()
+        w = torch.from_numpy(w_host[:pp.nzmax]).to(d)
+        (pp.multiply(va, vb).data * w).sum().backward()
+        S = convert(A, "symcsc")
+        x = torch.from_numpy(w_host[:S.M].copy()).to(d).requires_grad_()
+        diag = S.diag.clone().requires_grad_()
+        data = S.data.clone().requires_grad_()
+        y = ops.matmul(dataclasses.replace(S, diag=diag, data=data), x)
+        (y * torch.arange(S.M, device=d)).sum().backward()
+        grads.append([g.cpu() for g in (va.grad, vb.grad, x.grad, diag.grad,
+                                        data.grad)])
+    for a, b in zip(*grads):  # integer-valued: exact on both devices
+        assert torch.equal(a, b)
+
+
+def test_fem_path_on_card_matches_cpu_and_counts_launches():
+    from repro_torch import kernels
+    from repro_torch.kernels.spmv import spmv as ell
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    from repro_torch.sparse import convert, ops, product_cache_clear
+
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        A, P, f = _fem(d, 31)
+        S, B = convert(A, "symcsc"), convert(A, "bsr", block=2)
+        cols, vals, _ = kernels.csc_to_ell(A, max_per_row=7)
+        x = torch.arange(A.N, dtype=torch.float32, device=d) % 7 - 3
+        before = (ell.spmv_ell.launches, sym.sym_streams.launches,
+                  sym.bsr_tiles.launches, ss.gather2_segment_sum.launches)
+        ys = [ops.matmul(A, x), kernels.spmv(cols, vals, x),
+              ops.matmul(S, x), ops.matmul(B, x)]
+        product_cache_clear()
+        Ac = ops.matmul(ops.matmul(ops.transpose(P), A), P)
+        after = (ell.spmv_ell.launches, sym.sym_streams.launches,
+                 sym.bsr_tiles.launches, ss.gather2_segment_sum.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (0, 0, 0, 0) if d == "cpu" else (1, 1, 1, 2))
+        out[str(d)] = [y.cpu() for y in ys] + [Ac.data.cpu(),
+                                               Ac.indices.cpu()]
+    for a, b in zip(out["cpu"], out[str(dev)]):  # dyadic values: exact
+        assert torch.equal(a, b)
+    for y in out["cpu"][1:4]:
+        assert torch.equal(y, out["cpu"][0])
