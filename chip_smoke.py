@@ -7,7 +7,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. device: the card's name and count, and its power limit from
    nvidia-smi; no CUDA device is a failure.
-2. build: compiles every kernel of the three paths from
+2. build: compiles every kernel of the four paths from
    ``src/repro_torch/csrc`` (one nvcc per source, all started together)
    and prints each kernel's ``-Xptxas -v`` report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
@@ -53,6 +53,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    slot; a refill for ``2 A`` that launches one fill and two B6 and no
    plan kernel.  Counters are set to 0 before this phase and must rise
    by exactly the expected launches.
+4d. fourth path, dynamic patterns and symmetric planning, on phase 4's
+   sets and phase 4c's FEM stream: ``SparsePattern.update`` of a base
+   (the first L - Ld triplets, planned with nzmax = L) by the last Ld,
+   at 1% and 10% of L, bit for bit against the plan of the whole set,
+   launching exactly the delta's radix passes and one B7 (an empty
+   update launches nothing and returns the same plan); an edge flip of
+   1% of the FEM mesh's cells (``edge_flip``) through
+   ``sparse2_update`` (the drop path), bit for bit against ``fsparse``
+   of the flipped stream and the oracle, then ``sparse2`` of that
+   stream hitting the moved cache entry with one fill and no plan
+   kernel; ``pattern_symmetric`` true on A and on the flipped plan with
+   two B7 launches each, false with one mirror removed;
+   ``fsparse(..., format="symcsc")`` and ``format="bsr", block=2``
+   equal to phase 4c's conversions of A; ``detect_block`` of the P1
+   stream 1.  Counters (all twelve) are set to 0 before this phase and
+   must rise by exactly the expected launches.  Then B7 against its
+   plain version and ``torch.searchsorted``, bit for bit, on both call
+   sites' streams, both sides, and edge cases.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -64,7 +82,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    B6, B8, B9 and B10 as above (yardsticks ``index_add_`` of the
    gathered products, cuSPARSE CSR and BSR ``torch.mv``), the plan and
    fill of A, each SpMV, one CG iteration, ``product_plan`` split into
-   the host expansion and the device plan, and the B6 refills.
+   the host expansion and the device plan, and the B6 refills.  For
+   the fourth path: per set and delta share the update against a
+   re-plan of the whole set, the update split into delta sort, B7,
+   materialisation and Parts 3-4, ``sparse2_update`` of the edge flip
+   on the host clock, ``plan_symmetric`` against ``plan`` of A and the
+   ``SymPattern`` refill against the full fill, and B7 at both call
+   sites (yardstick ``torch.searchsorted`` of packed int64 keys, the
+   packing timed apart; bound: the queries, the offsets and the
+   targets the ladder reaches).
 
 The last lines are the ``{"kernels": [...]}`` summary, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  The script imports nothing
@@ -110,6 +136,14 @@ CG_ITERS = 50
 CG_RTOL, CG_ATOL = 1e-3, 1e-5
 ACCUM_SETS = ("1", "3")
 ACCUM_MODES = ("min", "max", "mean", "first", "last")
+#: phase 4d: the appended delta as a share of L (``benchmarks/
+#: bench_update.py``'s split: the base is the first L - Ld triplets), and
+#: the share of the FEM mesh's cells whose diagonal the edge flip turns
+UPDATE_FRACS = (0.01, 0.1)
+FLIP_FRAC = 0.01
+#: the P1 matrix of a right triangle written (leg end, right-angle
+#: vertex, leg end), the order of the edge flip's new triangles
+K_FLIP = 0.5 * np.array([[1, -1, 0], [-1, 2, -1], [0, -1, 1]])
 
 
 def fail(msg: str) -> None:
@@ -542,7 +576,7 @@ def fem_path(dev, n: int, iters: int, counts, rng):
                x=x, b=torch.from_numpy(b_rand).to(dev), ell=(ell_cols,
                ell_vals), S=S, Bm=Bm, P=P, Ptc=Ptc, PtA=PtA, pp1=pp1,
                pp2=pp2, ops_cg=ops_cg, nv=nv, nc2=nc2, hostA=(irA, jcA),
-               hostPt=(irT, jcT))
+               hostPt=(irT, jcT), host=(rows, cols, vals))
     return row, got_counts, exp, ctx
 
 
@@ -760,6 +794,444 @@ def fem_times(fem, cpm, dev):
     return rows_k, t
 
 
+# -- the fourth path: dynamic patterns and symmetric planning --------------
+def edge_flip(n: int, rng):
+    """The edge flip of phase 4d on ``fem_system(n)``'s stream.
+
+    ``FLIP_FRAC`` of the n x n cells, drawn with ``rng`` among the cells
+    with ``1 <= ix, iy <= n - 2`` (so none of their vertices is a
+    Dirichlet row), turn their diagonal: the 18 triplets of their two
+    triangles are dropped and the 18 of ``(v00, v10, v11)`` and ``(v00,
+    v01, v11)`` appended (``K_FLIP``; values stay dyadic).  Returns the
+    drop mask over the stream's order and the new zero-offset triplets
+    (int32 rows, int32 cols, float32 vals)."""
+    k = round(FLIP_FRAC * n * n)
+    m = n - 2
+    pick = rng.choice(m * m, k, replace=False)
+    ix, iy = pick // m + 1, pick % m + 1
+    # the cells' raw positions in p1_triplets' order ([ix, iy, 2, 3, 3])
+    raw = ((ix * n + iy)[:, None] * 18 + np.arange(18)).ravel()
+    rows, cols, _, nv = p1_triplets(n)
+    vx, vy = np.arange(nv) % (n + 1), np.arange(nv) // (n + 1)
+    boundary = (vx == 0) | (vx == n) | (vy == 0) | (vy == n)
+    keep = ~(boundary[rows] | boundary[cols])   # fem_system's filter
+    require(bool(np.all(keep[raw])), "a flipped cell touches the boundary")
+    L = int(keep.sum()) + int(boundary.sum())   # + the identity rows
+    drop = np.zeros(L, bool)
+    drop[(np.cumsum(keep) - 1)[raw]] = True
+    v = lambda x, y: (y * (n + 1) + x).astype(np.int32)  # noqa: E731
+    v00, v10, v01, v11 = v(ix, iy), v(ix + 1, iy), v(ix, iy + 1), \
+        v(ix + 1, iy + 1)
+    tri = np.stack([np.stack([v00, v10, v11], -1),
+                    np.stack([v00, v01, v11], -1)], 1)       # [k, 2, 3]
+    full = (k, 2, 3, 3)
+    return drop, (np.broadcast_to(tri[..., :, None], full).ravel(),
+                  np.broadcast_to(tri[..., None, :], full).ravel(),
+                  np.broadcast_to(K_FLIP, full).ravel().astype(np.float32))
+
+
+def ladder_reach(qr, qc, tr, tc, side: str) -> int:
+    """The number of distinct targets the merge search's ladder compares
+    against for these queries: the targets it must read (B7's bound)."""
+    from repro_torch.kernels.merge.ref import _below, search_steps
+
+    n = tr.shape[0]
+    seen = torch.zeros(n, dtype=torch.bool, device=tr.device)
+    lo = torch.zeros_like(qr)
+    hi = torch.full_like(qr, n)
+    for _ in range(search_steps(n)):
+        active = lo < hi
+        mid = torch.clamp((lo + hi) // 2, max=n - 1).long()
+        seen[mid[active]] = True
+        below = _below(tc[mid], tr[mid], qc, qr, inclusive=side == "right")
+        lo = torch.where(active & below, mid.int() + 1, lo)
+        hi = torch.where(active & ~below, mid.int(), hi)
+    return int(seen.sum())
+
+
+def update_path(dev, sets, fem, counts, rng):
+    """Phase 4d, the fourth path: ``SparsePattern.update`` on appended
+    deltas of the main path's sets, the FEM edge flip through
+    ``sparse2_update``, and symmetric and block planning of the FEM
+    matrix.  ``counts()`` reads the launch counters.  Returns the check
+    rows, the launches of the phase, the launches it expects, and the
+    streams the B7 checks and the timing phase need."""
+    from repro_torch.kernels.radix_sort.ops import plan_digit_passes
+    from repro_torch.core.coo import host_triplets
+    from repro_torch.sparse import (detect_block, fsparse, pattern_symmetric,
+                                    plan, plan_cache_clear, plan_cache_info,
+                                    plan_lookup, sparse2, sparse2_update)
+
+    fields = ("perm", "slot", "indices", "indptr", "nnz", "srows", "scols")
+
+    def npass(M, N, L):
+        return len(plan_digit_passes(M, N, L))
+
+    start = counts()
+    exp = dict.fromkeys(start, 0)
+
+    def expect(**kw):
+        for k, v in kw.items():
+            exp[k] += v
+
+    def launched(fn):
+        """``fn()`` and the launches it made, by kernel."""
+        before = counts()
+        out = fn()
+        after = counts()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    rows_out, ctx = [], {}
+    # -- 1. appended deltas on the main path's sets -------------------------
+    for name, (ii, jj, ss, siz) in sets.items():
+        t0 = time.perf_counter()
+        r_h, c_h, _, _ = host_triplets(ii, jj, ss, (siz, siz))
+        r, c = torch.from_numpy(r_h).to(dev), torch.from_numpy(c_h).to(dev)
+        del r_h, c_h
+        L = r.shape[0]
+        full = plan(r, c, (siz, siz))  # phase 4's radix plan of the set
+        expect(B1=npass(siz, siz, L), B2=npass(siz, siz, L))
+        row = {"fourth_path": f"update, set {name}", "L": L}
+        for frac in UPDATE_FRACS:
+            Ld = round(frac * L)
+            Lb = L - Ld
+            base = plan(r[:Lb], c[:Lb], (siz, siz), nzmax=L)
+            expect(B1=npass(siz, siz, Lb), B2=npass(siz, siz, Lb))
+            got, made = launched(lambda: base.update(r[Lb:], c[Lb:]))
+            k = npass(siz, siz, Ld)
+            require(made == {"B1": k, "B2": k, "B7": 1},
+                    f"update of set {name} at {frac} launched {made}, "
+                    f"expected {k} B1, {k} B2 and one B7")
+            expect(B1=k, B2=k, B7=1)
+            for f in fields:
+                require(torch.equal(getattr(got, f), getattr(full, f)),
+                        f"update of set {name} at {frac}: {f} differs from "
+                        "the plan of the whole set")
+            require(got.epoch == 1 and got.nzmax == L,
+                    f"update of set {name}: epoch {got.epoch}, nzmax "
+                    f"{got.nzmax}")
+            same, made = launched(lambda: base.update(r[:0], c[:0]))
+            require(same is base and not made, f"an empty update of set "
+                    f"{name} launched {made} or made a new plan")
+            row[f"Ld_{frac}"] = Ld
+            row[f"delta_passes_{frac}"] = k
+            if name == "2x20":
+                ctx[f"update_{frac}"] = (base.srows, base.scols, r[Lb:],
+                                         c[Lb:], siz)
+            del base, got
+        row["update"] = "bit-identical to the plan of the whole set"
+        row["run_s"] = time.perf_counter() - t0
+        rows_out.append(row)
+        del r, c, full
+        torch.cuda.empty_cache()
+    # -- 2. the FEM edge flip through sparse2_update -------------------------
+    t0 = time.perf_counter()
+    rows_f, cols_f, vals_f = fem["host"]
+    nv, A = fem["nv"], fem["A"]
+    drop, (ar, ac, av) = edge_flip(FEM_N, rng)
+    Lf, Ld = rows_f.size, ar.size
+    keep = ~drop
+    ci = np.concatenate([rows_f[keep], ar])
+    cj = np.concatenate([cols_f[keep], ac])
+    cv = np.concatenate([vals_f[keep], av])
+    plan_cache_clear()
+    t1 = time.perf_counter()
+    F, made = launched(lambda: sparse2_update(
+        rows_f + 1, cols_f + 1, vals_f, ar + 1, ac + 1, av, (nv, nv),
+        drop_mask=drop))
+    torch.cuda.synchronize()
+    flip_s = time.perf_counter() - t1
+    kb, kd = npass(nv, nv, Lf), npass(nv, nv, Ld)
+    require(made == {"B1": kb + kd, "B2": kb + kd, "B3": 1, "B7": 1},
+            f"sparse2_update of the edge flip launched {made}")
+    expect(B1=kb + kd, B2=kb + kd, B3=1, B7=1)
+    G = fsparse(ci + 1, cj + 1, cv, (nv, nv), nzmax=F.nzmax)
+    expect(B1=npass(nv, nv, ci.size), B2=npass(nv, nv, ci.size), B3=1)
+    for f in ("data", "indices", "indptr", "nnz"):
+        require(torch.equal(getattr(F, f), getattr(G, f)),
+                f"edge flip: sparse2_update's {f} differs from fsparse")
+    prF, irF, jcF = matlab_sparse_oracle(ci, cj, cv.astype(np.float64),
+                                         nv, nv)
+    nz = int(F.nnz)
+    require(nz == prF.size and nz == int(A.nnz)
+            and np.array_equal(F.indptr.cpu().numpy(), jcF)
+            and np.array_equal(F.indices[:nz].cpu().numpy(), irF)
+            and np.array_equal(F.data[:nz].cpu().numpy(),
+                               prF.astype(np.float32))
+            and bool(torch.all(F.indices[nz:] == nv))
+            and int(torch.count_nonzero(F.data[nz:])) == 0,
+            "edge flip differs from the oracle")
+    H, made = launched(lambda: sparse2(ci + 1, cj + 1, cv, (nv, nv),
+                                       nzmax=F.nzmax))
+    expect(B3=1)
+    info = plan_cache_info()
+    require(made == {"B3": 1} and info["hits"] == 1
+            and torch.equal(H.data, F.data),
+            f"sparse2 after the flip launched {made} (cache {info})")
+    _, pat_f, _ = plan_lookup(ci + 1, cj + 1, cv, (nv, nv), nzmax=F.nzmax)
+    sym_f, made = launched(lambda: pattern_symmetric(pat_f))
+    require(sym_f and made == {"B7": 2},
+            f"the flipped plan: symmetric {sym_f}, launched {made}")
+    expect(B7=2)
+    torch.cuda.synchronize()
+    rows_out.append({
+        "fourth_path": f"edge flip, P1 mesh {FEM_N} x {FEM_N} cells",
+        "cells": Ld // 18, "dropped": int(drop.sum()), "added": Ld, "L": Lf,
+        "nnz": nz, "sparse2_update_s": flip_s,
+        "result": "bit-identical to fsparse and the oracle; sparse2 hit "
+                  "runs one fill; pattern symmetric",
+        "run_s": time.perf_counter() - t0})
+    plan_cache_clear()
+    del F, G, H, pat_f, prF, irF, jcF
+    # -- 3. symmetric and block planning of the FEM matrix -------------------
+    t0 = time.perf_counter()
+    pat = fem["pat"]
+    sym, made = launched(lambda: pattern_symmetric(pat))
+    require(sym and made == {"B7": 2},
+            f"pattern_symmetric(A): {sym}, launched {made}")
+    expect(B7=2)
+    first = pat.first
+    sr, sc = pat.srows[first].contiguous(), pat.scols[first].contiguous()
+    require(sr.shape[0] == int(A.nnz), "first-flagged stream != nnz(A)")
+    ctx["symmetric"] = (sc, sr, sr, sc)  # queries: the mirrored keys
+    k = int(np.nonzero(rows_f != cols_f)[0][0])
+    one = ~((fem["rows_d"] == int(rows_f[k])) & (fem["cols_d"] ==
+                                                  int(cols_f[k])))
+    pat_m = plan(fem["rows_d"][one], fem["cols_d"][one], (nv, nv))
+    Lm = int(one.sum())
+    expect(B1=npass(nv, nv, Lm), B2=npass(nv, nv, Lm))
+    require(not pattern_symmetric(pat_m),
+            "a copy with one mirror removed tests symmetric")
+    expect(B7=2)
+    del pat_m, one
+    Y = fsparse(rows_f + 1, cols_f + 1, vals_f, (nv, nv), format="symcsc")
+    Lu = int(np.sum(rows_f < cols_f))
+    Ldiag = int(np.sum(rows_f == cols_f))
+    expect(B1=npass(nv, nv, Lu), B2=npass(nv, nv, Lu), B3=1)
+    S = fem["S"]
+    nzu = int(S.nnz)
+    require(int(Y.nnz) == nzu and torch.equal(Y.diag, S.diag)
+            and torch.equal(Y.data[:nzu], S.data)
+            and torch.equal(Y.indices[:nzu], S.indices)
+            and torch.equal(Y.indptr, S.indptr)
+            and bool(torch.all(Y.indices[nzu:] == nv))
+            and int(torch.count_nonzero(Y.data[nzu:])) == 0,
+            "fsparse(format='symcsc') differs from convert(A, 'symcsc')")
+    Bz = fsparse(rows_f + 1, cols_f + 1, vals_f, (nv, nv), format="bsr",
+                 block=2)
+    expect(B1=npass(nv, nv, Lf), B2=npass(nv, nv, Lf), B3=1)
+    require(all(torch.equal(getattr(Bz, f), getattr(fem["Bm"], f))
+                for f in ("data", "indices", "indptr", "nnz")),
+            "fsparse(format='bsr', block=2) differs from convert(A, 'bsr')")
+    blk = detect_block(rows_f, cols_f, (nv, nv))
+    require(blk == 1, f"detect_block of the P1 stream is {blk}, not 1")
+    torch.cuda.synchronize()
+    rows_out.append({
+        "fourth_path": "symmetric and block planning, FEM matrix",
+        "pattern_symmetric": "true on A and the flipped stream, false "
+                             "with one mirror removed",
+        "B7_Lq_n": int(sr.shape[0]), "symcsc": "equal to convert(A)",
+        "symcsc_values_streamed": Lu + Ldiag, "full_values_streamed": Lf,
+        "bsr_block2": "equal to convert(A)", "detect_block": blk,
+        "run_s": time.perf_counter() - t0})
+    del Y, Bz
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    got = {k: counts()[k] - start[k] for k in start}
+    return rows_out, got, exp, ctx
+
+
+def merge_kernel_checks(ctx, rng, dev):
+    """Phase 3 for B7: the kernel against its plain version, bit for bit,
+    on both call sites' streams (the update's sorted delta into the 5e7
+    set's survivors at each delta share; the FEM structure's mirrors)
+    and both sides, and on edge cases (ties, sentinel rows, n = 1, a
+    query count that is no multiple of the block), each also against
+    ``torch.searchsorted`` of the packed keys."""
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.kernels.merge.ref import merge_search_ref
+    from repro_torch.sparse.dispatch import sorted_permutation
+
+    cases = {}
+    for frac in UPDATE_FRACS:
+        sr_a, sc_a, ar, ac, siz = ctx[f"update_{frac}"]
+        d = sorted_permutation(ar, ac, M=siz, N=siz).long()
+        cases[f"update 2x20 {frac}"] = (ar[d], ac[d], sr_a, sc_a, siz)
+    qr, qc, tr, tc = ctx["symmetric"]
+    cases["symmetric FEM"] = (qr, qc, tr, tc, int(tr.max()) + 1)
+    M = 1000
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    tr_e = np.sort(rng.integers(0, M + 1, 5000))   # one column, sentinels
+    tc_e = np.zeros(5000, np.int32)
+    cases["ties"] = (i32(tr_e[::7]), i32(tc_e[::7]), i32(tr_e), i32(tc_e), M)
+    q = rng.integers(0, M + 1, mg.BLOCK_Q * 3 + 5)
+    q[::4] = M
+    cases["sentinels, ragged Lq"] = (i32(q), i32(np.zeros_like(q)),
+                                     i32(tr_e), i32(tc_e), M)
+    cases["n = 1"] = (i32([3, 4, 5, 4]), i32([2, 2, 2, 1]), i32([4]),
+                      i32([2]), M)
+    for name, (qr, qc, tr, tc, Mk) in cases.items():
+        key = tc.long() * (Mk + 1) + tr.long()
+        qkey = qc.long() * (Mk + 1) + qr.long()
+        for side in ("left", "right"):
+            got = mg.merge_search_kernel(qr, qc, tr, tc, side=side)
+            require(torch.equal(got, merge_search_ref(qr, qc, tr, tc,
+                                                      side=side)),
+                    f"B7 differs from its plain version, {name}, {side}")
+            require(torch.equal(got.long(), torch.searchsorted(
+                key, qkey, right=side == "right")),
+                f"B7 differs from searchsorted, {name}, {side}")
+    torch.cuda.synchronize()
+    return list(cases)
+
+
+def update_times(sets, fem, ctx, cpm, dev):
+    """Phase 5 for the fourth path: per set and delta share the update
+    against a re-plan of the whole set (device and call time), the
+    update split into delta sort, B7, materialisation and Parts 3-4;
+    ``sparse2_update`` of the edge flip on the host clock; the
+    symmetric plan against the full plan and their refills; B7 at both
+    call sites against its plain version and ``torch.searchsorted``
+    (packing apart).  Returns (B7's kernel row, the path's times)."""
+    from repro_torch.core.coo import host_triplets
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.kernels.merge.ref import merge_search_ref
+    from repro_torch.sparse import (pattern_symmetric, plan,
+                                    plan_cache_clear, plan_lookup,
+                                    plan_symmetric, sparse2_update)
+    from repro_torch.sparse.dispatch import merge_search, sorted_permutation
+    from repro_torch.sparse.pattern import _merge_gather, pattern_from_sorted
+
+    t = {"times": "fourth path"}
+    for name, (ii, jj, ss, siz) in sets.items():
+        r_h, c_h, _, _ = host_triplets(ii, jj, ss, (siz, siz))
+        r, c = torch.from_numpy(r_h).to(dev), torch.from_numpy(c_h).to(dev)
+        del r_h, c_h
+        L = r.shape[0]
+        u = {"L": L}
+        u["replan_ms"] = call_ms(lambda: plan(r, c, (siz, siz)))
+        u["replan_device_ms"] = device_ms(lambda: plan(r, c, (siz, siz)),
+                                          cpm)
+        for frac in UPDATE_FRACS:
+            Ld = round(frac * L)
+            Lb = L - Ld
+            base = plan(r[:Lb], c[:Lb], (siz, siz), nzmax=L)
+            rd, cd = r[Lb:], c[Lb:]
+            f = f"_{frac}"
+            fn = lambda: base.update(rd, cd)  # noqa: E731
+            u["update" + f + "_ms"] = call_ms(fn)
+            u["update" + f + "_device_ms"] = device_ms(fn, cpm)
+            u["update" + f + "_device_idle_share"] = \
+                1.0 - u["update" + f + "_device_ms"] / u["update" + f + "_ms"]
+            u["replan_over_update" + f + "_device"] = \
+                u["replan_device_ms"] / u["update" + f + "_device_ms"]
+            u["replan_over_update" + f + "_call"] = \
+                u["replan_ms"] / u["update" + f + "_ms"]
+            # the split: the same steps as _merge_sorted_streams
+            d = sorted_permutation(rd, cd, M=siz, N=siz)
+            qr, qc = rd[d.long()], cd[d.long()]
+            pb = d + Lb
+            off = merge_search(qr, qc, base.srows, base.scols, side="right")
+            r_m, c_m, p_m = _merge_gather(base.srows, base.scols, base.perm,
+                                          qr, qc, pb, off)
+            steps = {
+                "delta_sort": lambda: sorted_permutation(rd, cd, M=siz,
+                                                         N=siz),
+                "B7": lambda: merge_search(qr, qc, base.srows, base.scols,
+                                           side="right"),
+                "materialise": lambda: _merge_gather(
+                    base.srows, base.scols, base.perm, qr, qc, pb, off),
+                "parts34": lambda: pattern_from_sorted(
+                    r_m, c_m, p_m, M=siz, N=siz, nzmax=L),
+            }
+            for k, step in steps.items():
+                u[f"update{f}_{k}_device_ms"] = device_ms(step, cpm)
+            del base, d, qr, qc, pb, off, r_m, c_m, p_m, steps, fn
+            torch.cuda.empty_cache()
+        t[f"set_{name}"] = u
+        del r, c
+        torch.cuda.empty_cache()
+    # -- the FEM edge flip and symmetric planning
+    rows_f, cols_f, vals_f = fem["host"]
+    nv, pat, vals_d = fem["nv"], fem["pat"], fem["vals_d"]
+    drop, (ar, ac, av) = edge_flip(FEM_N, np.random.default_rng(SEED))
+    base_args = (rows_f + 1, cols_f + 1, vals_f)
+    times = []
+    for _ in range(3):
+        plan_cache_clear()
+        plan_lookup(*base_args, (nv, nv))     # the base, cached
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse2_update(*base_args, ar + 1, ac + 1, av, (nv, nv),
+                       drop_mask=drop)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t["sparse2_update_flip_ms"] = float(np.median(times))
+    plan_cache_clear()
+    t["sparse2_miss_fem_ms"] = host_ms(
+        lambda: (plan_cache_clear(), plan_lookup(*base_args, (nv, nv))), 3)
+    plan_cache_clear()
+    t["pattern_symmetric_ms"] = call_ms(lambda: pattern_symmetric(pat), 5)
+    t["plan_symmetric_ms"] = host_ms(
+        lambda: plan_symmetric(rows_f, cols_f, (nv, nv), device=dev), 3)
+    t["plan_A_host_ms"] = host_ms(
+        lambda: plan(fem["rows_d"], fem["cols_d"], (nv, nv)), 3)
+    up = rows_f < cols_f
+    ru, cu = (torch.from_numpy(a[up]).to(dev) for a in (rows_f, cols_f))
+    t["plan_upper_device_ms"] = device_ms(lambda: plan(ru, cu, (nv, nv)),
+                                          cpm)
+    t["plan_A_device_ms"] = device_ms(
+        lambda: plan(fem["rows_d"], fem["cols_d"], (nv, nv)), cpm)
+    spat = plan_symmetric(rows_f, cols_f, (nv, nv), device=dev)
+    for what, fn in (("sym_refill", lambda: spat.assemble(vals_d)),
+                     ("fill_A", lambda: pat.assemble(vals_d))):
+        t[f"{what}_ms"] = call_ms(fn)
+        t[f"{what}_device_ms"] = device_ms(fn, cpm)
+    del spat, ru, cu
+    # -- B7 at both call sites
+    sites = {}
+    sr_a, sc_a, ar1, ac1, siz = ctx[f"update_{UPDATE_FRACS[0]}"]
+    d = sorted_permutation(ar1, ac1, M=siz, N=siz).long()
+    sites["update"] = (ar1[d], ac1[d], sr_a, sc_a, siz, ("right",))
+    qr, qc, tr, tc = ctx["symmetric"]
+    sites["symmetric"] = (qr, qc, tr, tc, nv, ("left", "right"))
+    rows_k = {}
+    for site, (qr, qc, tr, tc, Mk, sides) in sites.items():
+        Lq, n = qr.shape[0], tr.shape[0]
+        for side in sides:
+            key = tc.long() * (Mk + 1) + tr.long()
+            qkey = qc.long() * (Mk + 1) + qr.long()
+            right = side == "right"
+            reached = ladder_reach(qr, qc, tr, tc, side)
+            nbytes = 12 * Lq + 8 * reached
+            r = {"Lq": Lq, "n": n, "side": side,
+                 "ms": device_ms(lambda: mg.merge_search_kernel(
+                     qr, qc, tr, tc, side=side), cpm),
+                 "call_ms": call_ms(lambda: mg.merge_search_kernel(
+                     qr, qc, tr, tc, side=side)),
+                 "plain_ms": device_ms(lambda: merge_search_ref(
+                     qr, qc, tr, tc, side=side), cpm),
+                 "library_ms": device_ms(lambda: torch.searchsorted(
+                     key, qkey, right=right), cpm),
+                 "pack_ms": device_ms(lambda: (
+                     tc.long() * (Mk + 1) + tr.long(),
+                     qc.long() * (Mk + 1) + qr.long()), cpm),
+                 "targets_reached": reached, "bytes": nbytes, "ops": 0,
+                 "bound_all_targets_ms": (12 * Lq + 8 * n)
+                 / HBM_BYTES_PER_S * 1e3}
+            r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 0)
+            r["GBps"] = nbytes / r["ms"] / 1e6
+            r["share_of_3.35TBps"] = r["GBps"] / (HBM_BYTES_PER_S / 1e9)
+            rows_k[f"{site}_{side}"] = r
+            del key, qkey
+    t["B7"] = rows_k
+    return rows_k["update_right"], t
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -772,6 +1244,7 @@ def main() -> None:
     from repro_torch.kernels.hist import hist as hist_mod
     from repro_torch.kernels.hist.ops import block_offsets, default_block_b
     from repro_torch.kernels.hist.ref import block_histogram_ref
+    from repro_torch.kernels.merge import merge as merge_mod
     from repro_torch.kernels.radix_sort import radix_sort as rs
     from repro_torch.kernels.radix_sort.ops import (digit_bases,
                                                     plan_digit_passes,
@@ -804,7 +1277,7 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
-                         "counting_sort", "spmv", "spmv_sym"])
+                         "counting_sort", "spmv", "spmv_sym", "merge"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -819,6 +1292,7 @@ def main() -> None:
     sum2_k = ss_mod.gather2_segment_sum
     ell_k, sym_k, bsr_k = (ell_mod.spmv_ell, sym_mod.sym_streams,
                            sym_mod.bsr_tiles)
+    merge_k = merge_mod.merge_search_kernel
     TILE = rs.TILE
 
     # data: the paper's Table 4.1 sets at full scale + the L = 5e7 set
@@ -1159,12 +1633,38 @@ def main() -> None:
           "integer_data": "bit-identical", "B6_nan": "bit-identical",
           "max_abs_err_float32": errs3})
 
+    # -- 4d. fourth path: update, the edge flip, symmetric planning ---------
+    kernels4 = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B4": minmax_k,
+                "B5": scan_k, "B6": sum2_k, "B7": merge_k, "B8": ell_k,
+                "B9": sym_k, "B10": bsr_k, "B11": cplace_k, "B12": bhist_k}
+
+    def counts4() -> dict:
+        return {k: f.launches for k, f in kernels4.items()}
+
+    for f in kernels4.values():
+        f.launches = 0
+    rows4, launches4, exp4, upd = update_path(dev, sets, fem, counts4, rng)
+    for row in rows4:
+        emit(row)
+    require(launches4 == exp4, f"launch counts {launches4} != {exp4} on "
+            "the fourth path")
+    emit({"fourth_path_launches": launches4, "expected": exp4})
+    require(launches4["B7"] > 0, "kernel B7 never launched on its path")
+    # phase 3 for B7, on the streams this path gave it
+    cases7 = merge_kernel_checks(upd, rng, dev)
+    emit({"check": "B7 vs plain and torch.searchsorted", "path": "fourth",
+          "cases": cases7, "sides": ["left", "right"],
+          "B7": "bit-identical"})
+
     # -- 5. times -----------------------------------------------------------
     cpm = sleep_cycles_per_ms()
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
     emit(t3)
-    del fem
+    b7_row, t4 = update_times(sets, fem, upd, cpm, dev)
+    t4["card"] = smi_line
+    emit(t4)
+    del fem, upd
     torch.cuda.empty_cache()
     per_kernel = {}
     for name, (ii, jj, ss, siz) in sets.items():
@@ -1313,13 +1813,17 @@ def main() -> None:
                "src/repro/kernels/spmv_sym/spmv_sym.py:52", errs3["B9"]),
         "B10": ("bsr_tiles", "src/repro_torch/csrc/spmv_sym.cu",
                 "src/repro/kernels/spmv_sym/spmv_sym.py:104", errs3["B10"]),
+        "B7": ("merge_search_kernel", "src/repro_torch/csrc/merge.cu",
+               "src/repro/kernels/merge/merge.py:47", 0.0),
     }
     # launches: B1-B3 on the main path (phase 4), B4, B5, B11, B12 on
-    # theirs (4b), B6, B8, B9, B10 on the third path (4c); times at 5e7
-    # for the first seven, at the third path's size for the rest
+    # theirs (4b), B6, B8, B9, B10 on the third path (4c), B7 on the
+    # fourth (4d); times at 5e7 for the first seven, at the third path's
+    # size for B6 and B8-B10, B7 at the update of the 5e7 set (1% delta)
     path_launches = {**launches2, **launches,
-                     **{k: launches3[k] for k in fem_k}}
-    big = {**big, **fem_k}
+                     **{k: launches3[k] for k in fem_k},
+                     "B7": launches4["B7"]}
+    big = {**big, **fem_k, "B7": b7_row}
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "max_abs_err": err,

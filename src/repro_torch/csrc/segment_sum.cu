@@ -61,8 +61,10 @@
 // carry, no atomics, deterministic order, no float32 running total past
 // 2^24).  Each product is rounded before the add (no FMA contraction), as
 // the plain version rounds it.  Bound: bytes, sa, sb and slot once (12F B),
-// each operand value at least once (4 capA + 4 capB B, gathered in 32 B
-// sectors from L2 or HBM) and nzmax totals; one multiply and one add per
+// each operand value the streams reach once (4 |sa| + 4 |sb| B for the
+// distinct sa and sb, gathered in 32 B sectors from L2 or HBM; an
+// operand's padded tail is never read) and nzmax totals (4 nzmax B): 12F +
+// 4 |sa| + 4 |sb| + 4 nzmax B in all; one multiply and one add per
 // product.  Contract: every kept slot is one run of adjacent positions;
 // a product plan's streams meet it for nzmax equal to the plan's (its
 // compaction gives dropped products slot == nzmax, whose runs are not

@@ -12,6 +12,8 @@ Layout (counterpart of ``repro.kernels``):
                   product segment sum (B6)
   spmv/           padded-ELL SpMV (B8) and the CSC -> ELL conversion
   spmv_sym/       symmetric SpMV streams (B9) and BSR tiles (B10)
+  merge/          merge positioning search of ``SparsePattern.update``
+                  and ``pattern_symmetric`` (B7)
   assembly_ops    end-to-end kernel-backed assembly and product refill
   common          integer helpers, the nvcc build and ctypes binding
 

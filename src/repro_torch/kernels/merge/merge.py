@@ -1,0 +1,72 @@
+"""Wrapper of the merge positioning kernel B7 (``csrc/merge.cu``).
+
+``merge_search_kernel`` computes what the Pallas ``merge_search_pallas``
+of ``repro/kernels/merge/merge.py`` computes: each query's insertion
+offset in a ``(col, row)``-sorted target stream, one thread per query
+walking the reference's ladder.  There is no residency budget: the
+targets are read from device memory, so every ``n`` is served.  It takes
+its plain version (:mod:`.ref`) for a CPU tensor and launches the kernel
+for a CUDA tensor; ``.launches`` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
+                      current_stream, load_library)
+from .ref import _check_side, merge_search_ref, search_steps
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FNS: dict = {}
+#: queries (threads) per CUDA block, fixed by ``csrc/merge.cu``
+BLOCK_Q = 256
+
+
+def _fn():
+    if not _FNS:
+        _FNS["search"] = bind(load_library("merge"), "merge_search_launch",
+                              [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P])
+    return _FNS["search"]
+
+
+def merge_search_kernel(q_rows: torch.Tensor, q_cols: torch.Tensor,
+                        t_rows: torch.Tensor, t_cols: torch.Tensor, *,
+                        side: str = "left") -> torch.Tensor:
+    """B7: int32 ``[Lq]`` offsets of the queries in the sorted targets.
+
+    All four inputs are contiguous int32 vectors on one card, the
+    queries of one length, the targets of another, at most ``2^31 - 1``
+    long.  ``n == 0`` or ``Lq == 0`` returns zeros with no launch (a
+    zero grid is a launch error).
+    """
+    if q_rows.device.type == "cpu":
+        return merge_search_ref(q_rows, q_cols, t_rows, t_cols, side=side)
+    _check_side(side)
+    for t, name in ((q_rows, "q_rows"), (q_cols, "q_cols"),
+                    (t_rows, "t_rows"), (t_cols, "t_cols")):
+        check_cuda_tensor(t, name, (torch.int32,))
+        if t.ndim != 1 or t.device != q_rows.device:
+            raise ValueError(f"{name} must be a 1-d vector on "
+                             f"{q_rows.device}")
+    Lq, n = q_rows.shape[0], t_rows.shape[0]
+    if q_cols.shape[0] != Lq or t_cols.shape[0] != n:
+        raise ValueError(
+            f"query vectors ({Lq}, {q_cols.shape[0]}) or target vectors "
+            f"({n}, {t_cols.shape[0]}) differ in length")
+    if n == 0 or Lq == 0:
+        return torch.zeros(Lq, dtype=torch.int32, device=q_rows.device)
+    out = torch.empty(Lq, dtype=torch.int32, device=q_rows.device)
+    if n >= 2**31 or cdiv(Lq, BLOCK_Q) >= 2**31:
+        raise ValueError(f"streams too large for B7: Lq = {Lq}, n = {n}")
+    check_launch(_fn()(
+        q_rows.data_ptr(), q_cols.data_ptr(), t_rows.data_ptr(),
+        t_cols.data_ptr(), out.data_ptr(), Lq, n, search_steps(n),
+        int(side == "right"), current_stream(q_rows.device)),
+        "merge_search")
+    merge_search_kernel.launches += 1
+    return out
+
+
+merge_search_kernel.launches = 0

@@ -12,6 +12,11 @@ numeric phase many times (``SparsePattern.assemble``, under every
 ``sparse2`` over a plan LRU).  Backend selection is the one
 ``method=`` string of :mod:`repro_torch.sparse.dispatch`.
 
+Structures that move a little are merged forward, not re-planned
+(``SparsePattern.update``; ``plan_update``/``sparse2_update`` through
+the plan LRU); structurally symmetric streams plan only their upper
+half (``plan_symmetric`` -> ``SymPattern``, ``format="symcsc"``).
+
 The formats (CSC, COO, CSR, SymCSC, BSR) share one conversion registry
 (``convert``); :mod:`~repro_torch.sparse.ops` is the operator surface
 over all of them (``matmul``, ``transpose``, ``add``, ...), and a sparse
@@ -30,11 +35,13 @@ from .errors import (CacheCorruptionWarning, CapacityWarning,
 from .formats import (BSR, CSR, SparseMatrix, SymCSC, convert, format_of,
                       from_arrays, register_converter, register_format)
 from .lru import LRUCache, env_capacity
-from .matlab import (expand_indices, find, fsparse, fsparse_coo, mtimes,
-                     nnz_of, plan_cache_clear, plan_cache_info, plan_lookup,
-                     sparse2)
-from .pattern import (ACCUM_MODES, SparsePattern, accum_identity,
-                      pattern_from_arrays, plan, plan_coo, trivial_pattern)
+from .matlab import (PlanUpdate, expand_indices, find, fsparse, fsparse_coo,
+                     mtimes, nnz_of, plan_cache_clear, plan_cache_info,
+                     plan_lookup, plan_update, sparse2, sparse2_update)
+from .pattern import (ACCUM_MODES, SparsePattern, SymPattern, accum_identity,
+                      detect_block, detect_symmetry, pattern_from_arrays,
+                      pattern_symmetric, plan, plan_coo, plan_symmetric,
+                      sym_pattern_from_arrays, trivial_pattern)
 from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
                      product_cache_info, product_lookup, product_plan,
                      product_pattern_from_arrays, retire_structure)
@@ -43,15 +50,18 @@ from . import ops
 __all__ = [
     "ACCUM_MODES", "BSR", "COO", "CSC", "CSR", "CacheCorruptionWarning",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
-    "ProductPattern", "ReproWarning", "SparseMatrix", "SparsePattern",
-    "SymCSC", "accum_identity", "available_methods", "cached_product_plan",
-    "convert", "coo_from_matlab", "csc_from_arrays", "default_method",
+    "PlanUpdate", "ProductPattern", "ReproWarning", "SparseMatrix",
+    "SparsePattern", "SymCSC", "SymPattern", "accum_identity",
+    "available_methods", "cached_product_plan", "convert", "coo_from_matlab",
+    "csc_from_arrays", "default_method", "detect_block", "detect_symmetry",
     "env_capacity", "expand_indices", "find", "format_of", "from_arrays",
     "fsparse", "fsparse_coo", "method_from_fused", "mtimes", "nnz_of", "ops",
-    "pattern_from_arrays", "plan", "plan_cache_clear", "plan_cache_info",
-    "plan_coo", "plan_lookup", "product_cache_clear", "product_cache_info",
+    "pattern_from_arrays", "pattern_symmetric", "plan", "plan_cache_clear",
+    "plan_cache_info", "plan_coo", "plan_lookup", "plan_symmetric",
+    "plan_update", "product_cache_clear", "product_cache_info",
     "product_lookup", "product_pattern_from_arrays", "product_plan",
     "register_converter", "register_format", "register_method",
     "resolve_method", "retire_structure", "sorted_permutation", "sparse2",
-    "spmv", "spmv_t", "trivial_pattern",
+    "sparse2_update", "spmv", "spmv_t", "sym_pattern_from_arrays",
+    "trivial_pattern",
 ]

@@ -1,7 +1,6 @@
 """Single backend-dispatch point for the assembly sort strategies.
 
-Counterpart of ``repro/sparse/dispatch.py`` (sort registry only; the
-merge registry comes with dynamic patterns).  Every planner selects its
+Counterpart of ``repro/sparse/dispatch.py``.  Every planner selects its
 backend through one ``method=`` string:
 
   "jnp"    two stable sorts (row pass, then column pass) with
@@ -20,6 +19,19 @@ backend through one ``method=`` string:
 All backends produce the identical (col,row)-ordered permutation.
 ``method=None`` resolves per device through :func:`default_method`:
 ``"radix"`` for CUDA tensors, ``"fused"`` for CPU tensors.
+
+The merge registry (``SparsePattern.update``'s sorted-stream merge by
+key) selects the search backend through ``merge_method=``:
+
+  "jnp"    the plain ``bit_length(n)``-step ladder in torch
+           (``repro_torch.kernels.merge.ref``; the name is the
+           reference's)
+  "pallas" the hand-written B7 kernel (``repro_torch.kernels.merge``;
+           on a CPU tensor its wrapper runs the plain version)
+
+``merge_method=None`` resolves per device through
+:func:`default_merge_method`: ``"pallas"`` for CUDA tensors, ``"jnp"``
+for CPU tensors.  All backends are bit-identical.
 """
 from __future__ import annotations
 
@@ -133,3 +145,75 @@ register_method("jnp", _perm_jnp)
 register_method("fused", _perm_fused)
 register_method("pallas", _perm_pallas)
 register_method("radix", _perm_radix)
+
+
+# ---------------------------------------------------------------------------
+# Merge backends (SparsePattern.update's sorted-stream merge by key)
+# ---------------------------------------------------------------------------
+_MERGE_METHODS: Dict[str, PermFn] = {}
+
+#: the merge backend on the card: the hand-written B7 kernel
+DEFAULT_MERGE_CUDA = "pallas"
+#: the merge backend for CPU tensors: the plain ladder
+DEFAULT_MERGE_CPU = "jnp"
+
+
+def register_merge_method(name: str, fn: PermFn) -> None:
+    """Register a merge-search backend:
+    ``fn(q_rows, q_cols, t_rows, t_cols, *, side, **kw) -> offsets``."""
+    _MERGE_METHODS[name] = fn
+
+
+def available_merge_methods() -> tuple[str, ...]:
+    return tuple(sorted(_MERGE_METHODS))
+
+
+def default_merge_method(device=None) -> str:
+    """The backend used for ``merge_method=None`` on ``device`` (a
+    tensor's device, or ``None`` for the port's default device, CUDA)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return DEFAULT_MERGE_CPU
+    return DEFAULT_MERGE_CUDA
+
+
+def resolve_merge_method(method: str | None, device=None) -> str:
+    return default_merge_method(device) if method is None else method
+
+
+def merge_search(q_rows: torch.Tensor, q_cols: torch.Tensor,
+                 t_rows: torch.Tensor, t_cols: torch.Tensor, *,
+                 side: str = "left", method: str | None = None,
+                 **kwargs) -> torch.Tensor:
+    """Per-query insertion offsets into a (col,row)-sorted target stream.
+
+    ``side="left"`` counts targets strictly below each query key,
+    ``side="right"`` counts targets at-or-below: the two halves of a
+    stable merge's tie rule.  All backends are bit-identical.
+    """
+    method = resolve_merge_method(method, q_rows.device)
+    try:
+        fn = _MERGE_METHODS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown merge method {method!r}; "
+            f"available: {available_merge_methods()}"
+        ) from None
+    return fn(q_rows, q_cols, t_rows, t_cols, side=side, **kwargs)
+
+
+def _merge_jnp(q_rows, q_cols, t_rows, t_cols, *, side="left"):
+    """The plain ladder in torch (lazy import, like the sorts)."""
+    from ..kernels.merge.ref import merge_search_ref
+
+    return merge_search_ref(q_rows, q_cols, t_rows, t_cols, side=side)
+
+
+def _merge_pallas(q_rows, q_cols, t_rows, t_cols, *, side="left"):
+    """B7 on the card (no residency guard: it serves every size)."""
+    from ..kernels.merge.ops import merge_search as _kernel_search
+
+    return _kernel_search(q_rows, q_cols, t_rows, t_cols, side=side)
+
+
+register_merge_method("jnp", _merge_jnp)
+register_merge_method("pallas", _merge_pallas)

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/sparse/lru.py`` (pure Python there too, copied so
 the port imports nothing of the JAX package).  It holds the ``sparse2``
-plan cache of :mod:`repro_torch.sparse.matlab`.
+plan cache of :mod:`repro_torch.sparse.matlab` (and ``plan_update``
+moves entries in it with :meth:`LRUCache.pop`).
 
 Design points:
 
@@ -173,11 +174,22 @@ class LRUCache:
             )
         return self.insert(key, factory())
 
+    def pop(self, key: Hashable, default: Any = None) -> Any:
+        """Remove and return an entry (``default`` when absent).
+
+        Deliberate retirement (a structure was rewritten in place by a
+        delta update), not capacity pressure: it does not count as an
+        eviction and touches no metric counters.
+        """
+        with self._locked():
+            return self._data.pop(key, default)
+
     def purge(self, predicate: Callable[[Hashable], bool]) -> int:
         """Drop every entry whose *key* satisfies ``predicate``.
 
-        Returns the number of entries removed.  A purge is retirement,
-        not eviction: the metrics only track capacity behavior.
+        Returns the number of entries removed.  Like :meth:`pop`, a
+        purge is retirement, not eviction: the metrics only track
+        capacity behavior.
         ``predicate`` runs under the lock: keep it cheap and never have
         it re-enter the cache.
         """

@@ -9,25 +9,31 @@ duplicate summing and the paper's §2.1 index expansion, on
       host-side LRU of symbolic plans: repeated calls with the same
       index vectors skip Parts 1-4 and run only the fill
   fsparse_coo(coo)                                 zero-offset entry
+  plan_update / sparse2_update                     delta re-planning
+      through the plan LRU (``SparsePattern.update``)
   find(S)                                          (i, j, v) unit-offset
   nnz_of(S)                                        python-int nnz
   mtimes(A, B)                                     Matlab ``A * B``
 
-Not ported yet: the delta re-planning facade, ``method="sharded"``/
-``mesh=`` and the ``format=`` targets of the assembly calls (convert an
-assembled CSC with :func:`repro_torch.sparse.formats.convert`).
+``format="symcsc"`` assembles through the halved symmetric plan
+(:func:`~repro_torch.sparse.pattern.plan_symmetric`) and ``"bsr"``
+groups the assembled CSC into dense tiles.  Not ported yet:
+``method="sharded"`` and ``mesh=`` (ROADMAP queue A, item 14).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.coo import COO, coo_from_matlab, host_triplets
+from ..core.coo import COO, coo_from_host, coo_from_matlab, host_triplets
 from ..core.csc import CSC, slot_columns
 from ..kernels.common import resolve_device
 from .dispatch import resolve_method
 from .lru import LRUCache
-from .pattern import plan, plan_coo, validate_accum
+from .pattern import (SparsePattern, _host_array, plan, plan_coo,
+                      plan_symmetric, validate_accum)
 
 
 def expand_indices(ii, jj, ss):
@@ -81,7 +87,7 @@ def expand_indices(ii, jj, ss):
 def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
             method: str | None = None, mesh=None, accum: str = "sum",
             nzmax_slack: int = 0, format: str | None = None,
-            block: int = 1, device=None) -> CSC:
+            block: int = 1, device=None):
     """Assemble a sparse matrix from Matlab-style triplet data.
 
     >>> S = fsparse([3, 2, 3], [1, 2, 1], [7.0, 9.0, 1.0], device="cpu")
@@ -98,12 +104,37 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     ``"fused"`` on the CPU).  ``accum`` selects how duplicate (i, j)
     values combine (:data:`repro_torch.sparse.pattern.ACCUM_MODES`:
     Matlab's ``sparse`` sums; the rest are ``accumarray`` reductions).
+
+    ``format="symcsc"`` assembles through the *halved* symmetric plan
+    (:func:`~repro_torch.sparse.pattern.plan_symmetric`): the structure
+    must be pairwise symmetric (verified; the error names the plain-CSC
+    fallback) and the duplicate-summed values must be too, the FEM
+    element-matrix contract; only strict-upper and diagonal values are
+    streamed.  ``format="bsr"`` assembles a plain CSC and groups it into
+    dense ``block x block`` tiles.
     """
     _check_options(method, mesh, accum, format, block)
     ii, jj, ss = expand_indices(ii, jj, ss)
+    if format == "symcsc":
+        rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
+        device = resolve_device(device)
+        spat = plan_symmetric(rows, cols, shape, nzmax=nzmax,
+                              method=resolve_method(method, device),
+                              accum=accum, device=device)
+        return spat.assemble(torch.from_numpy(vals).to(device))
     coo = coo_from_matlab(ii, jj, ss, shape=shape, device=device)
-    return fsparse_coo(coo, nzmax, method=method, accum=accum,
-                       nzmax_slack=nzmax_slack)
+    out = fsparse_coo(coo, nzmax, method=method, accum=accum,
+                      nzmax_slack=nzmax_slack)
+    return _as_format(out, format, block)
+
+
+def _as_format(out, format, block):
+    """The plain fill's CSC in the requested ``format="bsr"`` tiles."""
+    if format == "bsr":
+        from .formats import convert
+
+        return convert(out, "bsr", block=block)
+    return out
 
 
 def _check_options(method, mesh, accum, format, block):
@@ -116,11 +147,6 @@ def _check_options(method, mesh, accum, format, block):
         )
     validate_accum(accum)
     _validate_format(format, block)
-    if format is not None:
-        raise NotImplementedError(
-            f"format={format!r} is not ported yet: SymCSC and BSR are a "
-            "later slice of the port (ROADMAP queue A, item 9)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: it belongs to method='sharded', a "
@@ -201,7 +227,10 @@ def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     ``nzmax_slack`` folds into the resolved ``nzmax`` (``L + slack``)
     *before* keying, so a slack-planned structure and an explicit
     ``nzmax=L+slack`` request share one entry.  ``accum``, ``format``
-    and ``block`` are part of the key, as in the reference.
+    and ``block`` are part of the key, as in the reference:
+    ``format="symcsc"`` caches the halved
+    :class:`~repro_torch.sparse.pattern.SymPattern`, ``"bsr"`` the
+    plain plan.
 
     The third element is the values on the plan's device, where the
     reference returns the whole COO: the row and column indices are
@@ -217,16 +246,23 @@ def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
         nzmax = int(rows.shape[0]) + int(nzmax_slack)
     key = _cache_key(rows, cols, shape, nzmax, method, device,
                      (accum, format, int(block)))
-    pat = _PLAN_CACHE.get_or_create(key, lambda: plan(
-        torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device),
-        shape, nzmax=nzmax, method=method, accum=accum))
+
+    def build():
+        if format == "symcsc":
+            return plan_symmetric(rows, cols, shape, nzmax=nzmax,
+                                  method=method, accum=accum, device=device)
+        return plan(torch.from_numpy(rows).to(device),
+                    torch.from_numpy(cols).to(device), shape, nzmax=nzmax,
+                    method=method, accum=accum)
+
+    pat = _PLAN_CACHE.get_or_create(key, build)
     return key, pat, torch.from_numpy(vals).to(device)
 
 
 def sparse2(ii, jj, ss, shape=None, nzmax: int | None = None, *,
             method: str | None = None, mesh=None, accum: str = "sum",
             nzmax_slack: int = 0, format: str | None = None,
-            block: int = 1, device=None) -> CSC:
+            block: int = 1, device=None):
     """``fsparse`` with symbolic-plan reuse across calls.
 
     >>> S = sparse2([3, 2, 3], [1, 2, 1], [7.0, 9.0, 1.0], device="cpu")
@@ -239,13 +275,127 @@ def sparse2(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     :class:`~repro_torch.sparse.pattern.SparsePattern`
     plans and run only the O(L) numeric phase: the repeated-assembly
     FEM workflow (fixed mesh, changing element values) as a drop-in
-    call.
+    call.  ``format="symcsc"`` caches the halved plan, so every refill
+    streams half the values; ``format="bsr"`` groups each assembled
+    result into dense tiles.
     """
     _, pat, vals = plan_lookup(ii, jj, ss, shape, nzmax, method=method,
                                mesh=mesh, accum=accum,
                                nzmax_slack=nzmax_slack, format=format,
                                block=block, device=device)
-    return pat.assemble(vals)
+    return _as_format(pat.assemble(vals), format, block)
+
+
+# ---------------------------------------------------------------------------
+# Delta re-planning facade (SparsePattern.update through the plan cache)
+# ---------------------------------------------------------------------------
+class PlanUpdate(NamedTuple):
+    """Result of :func:`plan_update`.
+
+    ``key``/``pattern`` identify the *updated* structure in the plan
+    LRU; ``coo`` is the concatenated (surviving + delta) zero-offset
+    triplet stream on the plan's device, whose values align with
+    ``pattern`` (so ``pattern.assemble(coo.vals)`` is the updated
+    matrix).  ``old_key``/``old_pattern`` are the pre-update entry, equal
+    to the new ones when the update was a no-op.
+    """
+
+    key: tuple
+    pattern: SparsePattern
+    coo: COO
+    old_key: tuple
+    old_pattern: SparsePattern
+
+
+def plan_update(ii, jj, ss, add_ii, add_jj, add_ss, shape=None,
+                nzmax: int | None = None, *, drop_mask=None,
+                method: str | None = None, accum: str = "sum",
+                nzmax_slack: int = 0, device=None) -> PlanUpdate:
+    """Delta re-planning through the ``sparse2`` plan cache.
+
+    ``(ii, jj, ss, shape, nzmax[, nzmax_slack], method, accum, device)``
+    identify the *base* structure exactly as a ``sparse2`` call would (a
+    cold base is planned and cached first); ``add_ii``/``add_jj``/
+    ``add_ss`` are unit-offset Matlab-style delta triplets (validated
+    against the base shape: growing the shape is a re-plan, not an
+    update) and ``drop_mask`` flags expanded base triplets to remove.
+    The base plan is rewritten by
+    :meth:`~repro_torch.sparse.pattern.SparsePattern.update` (epoch
+    bumped, merge by key), the LRU entry moves from the old key to the
+    concatenated stream's key, and dependent SpGEMM products are retired
+    lazily through :func:`repro_torch.sparse.spgemm.retire_structure`.
+
+    The new entry is keyed with the updated pattern's ``nzmax``, so a
+    later ``sparse2(cat_i, cat_j, cat_s, shape,
+    nzmax=result.pattern.nzmax)`` over the concatenated triplets hits it
+    without re-planning.
+    """
+    if method == "sharded":
+        raise ValueError(
+            "plan_update does not support method='sharded': deltas are "
+            "not routed per row block (ShardedPattern.update raises); "
+            "re-plan with plan_sharded"
+        )
+    validate_accum(accum)
+    rows_b, cols_b, vals_b, shape = host_triplets(
+        *expand_indices(ii, jj, ss), shape)
+    device = resolve_device(device)
+    method = resolve_method(method, device)
+    L = int(rows_b.shape[0])
+    if nzmax is None and nzmax_slack:
+        nzmax = L + int(nzmax_slack)
+    # the extras are plan_lookup's plain-CSC identity (format=None,
+    # block=1): delta updates only refine plain plans, and the keys
+    # must collide with the ones sparse2 recorded
+    old_key = _cache_key(rows_b, cols_b, shape, nzmax, method, device,
+                         (accum, None, 1))
+    base = _PLAN_CACHE.get_or_create(old_key, lambda: plan(
+        torch.from_numpy(rows_b).to(device),
+        torch.from_numpy(cols_b).to(device), shape, nzmax=nzmax,
+        method=method, accum=accum))
+    # the delta is validated against the *base* shape: an out-of-range
+    # index raises Matlab's "index exceeds matrix dimensions" here
+    rows_d, cols_d, vals_d, _ = host_triplets(
+        *expand_indices(add_ii, add_jj, add_ss), shape)
+    new_pat = base.update(rows_d, cols_d, drop_mask=drop_mask,
+                          method=method)
+    if drop_mask is not None:
+        keep = ~_host_array(drop_mask).astype(bool)
+        rows_b, cols_b, vals_b = rows_b[keep], cols_b[keep], vals_b[keep]
+    rows_cat = np.concatenate([rows_b, rows_d])
+    cols_cat = np.concatenate([cols_b, cols_d])
+    new_coo = coo_from_host(rows_cat, cols_cat,
+                            np.concatenate([vals_b, vals_d]), shape,
+                            device=device)
+    if new_pat is base:  # no-op update: nothing moved, nothing retired
+        return PlanUpdate(old_key, base, new_coo, old_key, base)
+    new_key = _cache_key(rows_cat, cols_cat, shape, new_pat.nzmax, method,
+                         device, (accum, None, 1))
+    _PLAN_CACHE.pop(old_key)
+    new_pat = _PLAN_CACHE.insert(new_key, new_pat)
+    from .spgemm import _structure_key, retire_structure
+
+    retire_structure(_structure_key(base))
+    return PlanUpdate(new_key, new_pat, new_coo, old_key, base)
+
+
+def sparse2_update(ii, jj, ss, add_ii, add_jj, add_ss, shape=None,
+                   nzmax: int | None = None, *, drop_mask=None,
+                   method: str | None = None, accum: str = "sum",
+                   nzmax_slack: int = 0, device=None) -> CSC:
+    """Incrementally re-planned ``sparse2``: refine, then refill.
+
+    Returns the assembled matrix of the concatenated (surviving base +
+    delta) triplets, bit-identical to ``fsparse`` over that stream with
+    the same capacity, while the cached symbolic plan is *merged
+    forward* (:func:`plan_update`) instead of thrown away: only the
+    delta is sorted, and later ``sparse2``/``plan_update`` calls against
+    the updated structure keep hitting the cache.
+    """
+    res = plan_update(ii, jj, ss, add_ii, add_jj, add_ss, shape, nzmax,
+                      drop_mask=drop_mask, method=method, accum=accum,
+                      nzmax_slack=nzmax_slack, device=device)
+    return res.pattern.assemble(res.coo.vals)
 
 
 def plan_cache_info() -> dict:

@@ -19,12 +19,21 @@ card the fused gather + mask + segment-sum kernel (B3') for ``sum`` and
 ``torch.autograd.Function`` whose backward is the reference's
 gather-by-slot through the stored plan.
 
-Not ported yet: ``update``, ``reduce_rows``, ``plan_symmetric`` and the
-structure detectors.
+``SparsePattern.update`` merges a sorted delta into the plan's sorted
+stream (the delta sorted by the planner backend, positioned by the
+merge search B7, then the shared Parts 3-4), bit-identical to a fresh
+``plan`` of the concatenated triplets.  ``plan_symmetric`` plans only
+the strict upper half of a structurally symmetric stream
+(:class:`SymPattern`); ``detect_symmetry``, ``detect_block`` and
+``pattern_symmetric`` (two B7 probes over a plan) detect structure.
+
+Not ported yet: ``reduce_rows`` (ROADMAP queue A, item 15) and the
+``REPRO_VALIDATE`` hook of ``update`` (item 13).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -32,7 +41,8 @@ import torch
 from ..core.coo import COO
 from ..core.csc import CSC, scatter_add
 from ..kernels.common import resolve_device
-from .dispatch import sorted_permutation
+from .dispatch import merge_search, sorted_permutation
+from .errors import CapacityWarning
 
 #: duplicate-combination modes of the numeric phase (the reference's)
 ACCUM_MODES = ("sum", "min", "max", "mean", "first", "last")
@@ -43,7 +53,11 @@ class SparsePattern:
     """Symbolic assembly plan: the paper's intermediate format, cached.
 
     ``shape``, ``accum`` and ``epoch`` are plain python values; every
-    other field is an int32 tensor on the plan's device.
+    other field is an int32 tensor on the plan's device.  ``epoch``
+    counts structure rewrites: :meth:`update` returns a plan with
+    ``epoch + 1`` so dependent caches can tell a rewritten structure
+    from the one they were built against (torch is eager, so there is
+    no retrace to trigger: it is a plain int).
     """
 
     perm: torch.Tensor     # int32[L]
@@ -72,6 +86,17 @@ class SparsePattern:
     @property
     def N(self) -> int:
         return int(self.shape[1])
+
+    @property
+    def first(self) -> torch.Tensor:
+        """Boundary flags of the sorted stream (Part 3 output)."""
+        return first_flags(self.slot, self.nzmax)
+
+    def irank(self) -> torch.Tensor:
+        """Original-input-order output slots: the paper's eq. (2.2-2.3)."""
+        out = torch.zeros(self.L, dtype=torch.int32, device=self.perm.device)
+        out[self.perm.long()] = self.slot.clamp(max=self.nzmax - 1)
+        return out
 
     def assemble(self, vals: torch.Tensor, *,
                  accum: str | None = None) -> CSC:
@@ -117,6 +142,139 @@ class SparsePattern:
     def _csc(self, data: torch.Tensor) -> CSC:
         return CSC(data=data, indices=self.indices, indptr=self.indptr,
                    nnz=self.nnz, shape=self.shape)
+
+    # -- incremental symbolic phase ---------------------------------------
+    def _input_keys(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Original input-order ``(rows, cols)``, on the plan's device.
+
+        ``perm`` is a permutation of the input stream and ``srows``/
+        ``scols`` are its sorted image, so one scatter inverts exactly:
+        the full re-plan fallback of :meth:`update` rebuilds the
+        concatenated triplet stream from this.
+        """
+        perm = self.perm.long()
+        rows = torch.empty_like(self.srows)
+        cols = torch.empty_like(self.scols)
+        rows[perm] = self.srows
+        cols[perm] = self.scols
+        return rows, cols
+
+    def update(self, add_rows, add_cols, drop_mask=None, *,
+               nzmax: int | None = None, method: str | None = None,
+               merge_method: str | None = None) -> "SparsePattern":
+        """Incremental re-plan: merge a delta stream into this plan.
+
+        ``add_rows``/``add_cols`` are zero-offset index vectors of new
+        triplets (``row == M`` marks padding, exactly like :func:`plan`;
+        numpy arrays or tensors); ``drop_mask`` is an optional boolean
+        vector over the *original input order* (length L) marking
+        triplets to remove.  The result is **bit-identical** to a fresh
+        ``plan()`` over the concatenated (surviving + delta) stream, for
+        every sort backend, but only the delta is sorted (``method=``,
+        the radix planner on the card): the surviving sorted stream is
+        kept and the delta is positioned by the merge search
+        (``merge_method=``, B7 on the card; see
+        :mod:`repro_torch.sparse.dispatch`), then ``perm``/``slot``/
+        ``indices``/``indptr`` are rewritten in O(L + L_delta).  Every
+        step runs on the plan's device.
+
+        Capacity: an explicit ``nzmax=`` wins; otherwise the plan's own
+        ``nzmax`` is kept while the merged stream fits, and once the
+        headroom is exhausted the call degrades to a full re-plan with a
+        one-time :class:`~repro_torch.sparse.errors.CapacityWarning`
+        (pre-reserve headroom with ``plan(..., nzmax_slack=)``).  An
+        empty update (no delta, no effective drops) returns ``self``
+        unchanged: no kernel launch, no epoch bump.  Updating a trivial
+        (empty/zero-dim) plan degrades to a plain ``plan()``.  The
+        returned pattern's ``epoch`` is ``self.epoch + 1``.
+        """
+        M, N = self.M, self.N
+        L = self.L
+        dev = self.perm.device
+        ar, ac = _index_tensor(add_rows), _index_tensor(add_cols)
+        if ar.ndim != 1 or ar.shape != ac.shape:
+            raise ValueError(
+                f"add_rows/add_cols must be equal-length 1-d vectors; "
+                f"got shapes {tuple(ar.shape)} and {tuple(ac.shape)}"
+            )
+        ar = ar.to(dev, torch.int32).contiguous()
+        ac = ac.to(dev, torch.int32).contiguous()
+        L_delta = int(ar.shape[0])
+        dm = None
+        n_drop = 0
+        if drop_mask is not None:
+            dm = _index_tensor(drop_mask)
+            if tuple(dm.shape) != (L,):
+                raise ValueError(
+                    f"drop_mask has shape {tuple(dm.shape)} but this "
+                    f"pattern was planned for L={L} input triplets"
+                )
+            dm = dm.to(dev, torch.bool)
+            n_drop = int(dm.sum())
+            if n_drop == 0:
+                dm = None
+        if L_delta == 0 and n_drop == 0:
+            return self
+        L_keep = L - n_drop
+        L_new = L_keep + L_delta
+        headroom = max(0, self.nzmax - L)
+        if nzmax is not None:
+            new_nzmax = int(nzmax)
+            fallback = False
+        elif L_new <= self.nzmax:
+            new_nzmax = self.nzmax
+            fallback = False
+        else:
+            new_nzmax = L_new + headroom
+            fallback = True
+        bump = dict(accum=self.accum, epoch=self.epoch + 1)
+        if L_new == 0:
+            return dataclasses.replace(
+                trivial_pattern(0, (M, N), nzmax=new_nzmax, device=dev),
+                **bump)
+        if fallback:
+            global _UPDATE_FALLBACK_WARNED
+            if not _UPDATE_FALLBACK_WARNED and L and M and N:
+                _UPDATE_FALLBACK_WARNED = True
+                warnings.warn(
+                    f"SparsePattern.update: the merged stream "
+                    f"(L={L_new}) exceeds this plan's nzmax="
+                    f"{self.nzmax} growth headroom — falling back to a "
+                    "full re-plan over the concatenated triplets. "
+                    "Pre-reserve capacity with plan(..., nzmax_slack=) "
+                    "(or fsparse/sparse2 nzmax_slack=) to keep updates "
+                    "on the O(L + L_delta) merge path.",
+                    CapacityWarning,
+                    stacklevel=2,
+                )
+        if fallback or L == 0 or M == 0 or N == 0:
+            # a trivial base (an empty stream, or a zero-dim shape where
+            # structure is key-independent) has nothing to merge against;
+            # past the headroom the whole stream is planned again
+            rows0, cols0 = self._input_keys()
+            if dm is not None:
+                rows0, cols0 = rows0[~dm], cols0[~dm]
+            pat = plan(torch.cat([rows0, ar]), torch.cat([cols0, ac]),
+                       (M, N), nzmax=new_nzmax, method=method)
+            return dataclasses.replace(pat, **bump)
+        # -- merge path: survivors stay sorted, only the delta sorts ----
+        if dm is None:
+            sr_a, sc_a, pa = self.srows, self.scols, self.perm
+        else:
+            # the new input position of survivor p is p minus the
+            # dropped positions below it (the fresh concatenated stream
+            # the merge must stay bit-identical to renumbers this way)
+            perm = self.perm.long()
+            d = dm.to(torch.int64)
+            shift = torch.cumsum(d, 0) - d
+            keep_sorted = ~dm[perm]
+            pa = (perm - shift[perm])[keep_sorted].to(torch.int32)
+            sr_a = self.srows[keep_sorted]
+            sc_a = self.scols[keep_sorted]
+        pat = _merge_sorted_streams(
+            sr_a, sc_a, pa, ar, ac, L_keep, M=M, N=N, nzmax=new_nzmax,
+            method=method, merge_method=merge_method)
+        return dataclasses.replace(pat, **bump)
 
 
 def fill_dtype(vals) -> torch.dtype:
@@ -299,6 +457,73 @@ def pattern_from_sorted(r_s, c_s, perm, *, M: int, N: int,
     )
 
 
+def _index_tensor(x) -> torch.Tensor:
+    """A tensor as it is, anything else through numpy (on the CPU)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.asarray(x))
+
+
+#: one-time nzmax-headroom fallback warning state of ``update``
+_UPDATE_FALLBACK_WARNED = False
+
+
+def _reset_update_fallback_warning() -> None:
+    """Test hook: re-arm the one-time update-fallback warning."""
+    global _UPDATE_FALLBACK_WARNED
+    _UPDATE_FALLBACK_WARNED = False
+
+
+def _merge_sorted_streams(sr_a, sc_a, pa, add_rows, add_cols, L_keep: int,
+                          *, M: int, N: int, nzmax: int,
+                          method: str | None,
+                          merge_method: str | None) -> SparsePattern:
+    """Sort the delta, stable-merge it into the survivors, run the tail.
+
+    Stream A (the surviving base) wins ties: exactly the order a fresh
+    stable sort over the concatenated input gives, since every survivor
+    precedes every delta element in input order.  Only the small delta
+    searches the large survivor stream (B7 with ``side="right"``).  The
+    merged streams are then materialised **gather-side**, as in the
+    reference: one O(L_delta) scatter marks the delta's landing
+    positions, a cumsum turns the marks into per-position source
+    indices, and three O(L) gathers build the merged keys and perm,
+    which feed the shared Parts 3-4 tail.
+    """
+    if add_rows.shape[0] == 0:
+        return pattern_from_sorted(sr_a, sc_a, pa, M=M, N=N, nzmax=nzmax)
+    dperm = sorted_permutation(add_rows, add_cols, M=M, N=N, method=method)
+    dp = dperm.long()
+    sr_b, sc_b = add_rows[dp], add_cols[dp]
+    # delta elements land after every survivor in the concatenated
+    # input order: offset their perm values past the survivors
+    pb = dperm.to(torch.int32) + int(L_keep)
+    off_b = merge_search(sr_b, sc_b, sr_a, sc_a, side="right",
+                         method=merge_method)
+    r_m, c_m, p_m = _merge_gather(sr_a, sc_a, pa, sr_b, sc_b, pb, off_b)
+    return pattern_from_sorted(r_m, c_m, p_m, M=M, N=N, nzmax=nzmax)
+
+
+def _merge_gather(sr_a, sc_a, pa, sr_b, sc_b, pb, off_b):
+    """The merged ``(rows, cols, perm)`` streams, gather-side: stream B
+    lands at ``arange(nB) + off_b``; every other position takes the
+    next element of stream A."""
+    nA, nB = sr_a.shape[0], sr_b.shape[0]
+    Lm = nA + nB
+    dev = sr_b.device
+    pos_b = torch.arange(nB, dtype=torch.int64, device=dev) + off_b
+    # index_fill_ takes the 1 as a scalar argument: no host-to-device
+    # copy, which would synchronise the stream
+    occ = torch.zeros(Lm, dtype=torch.int32, device=dev).index_fill_(
+        0, pos_b, 1)
+    nb_upto = torch.cumsum(occ, 0)  # deltas at positions <= q
+    q = torch.arange(Lm, dtype=torch.int64, device=dev)
+    # source index into cat([A, B]) for every merged position
+    g = torch.where(occ == 1, nA + nb_upto - 1, q - nb_upto)
+    return (torch.cat([sr_a, sr_b])[g], torch.cat([sc_a, sc_b])[g],
+            torch.cat([pa.to(torch.int32), pb])[g])
+
+
 def trivial_pattern(L: int, shape: tuple[int, int], *,
                     nzmax: int | None = None, accum: str = "sum",
                     device=None) -> SparsePattern:
@@ -378,3 +603,221 @@ def pattern_from_arrays(fields: dict[str, np.ndarray], shape, accum="sum",
         shape=(int(shape[0]), int(shape[1])), accum=validate_accum(accum),
         epoch=int(epoch),
     )
+
+
+# ---------------------------------------------------------------------------
+# Plan-time structure detection (symmetry / block alignment)
+# ---------------------------------------------------------------------------
+def _host_array(x) -> np.ndarray:
+    """Indices on the host: a tensor is copied off its device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def detect_symmetry(rows, cols, shape) -> bool:
+    """Pairwise structural symmetry of the (deduplicated) triplets.
+
+    Host-side numpy, as the reference: one dedup of the valid
+    ``col*M + row`` keys, then an O(L) mirrored-key membership check
+    (structure is a *set*, so "every mirror present" is exactly
+    symmetry).  ``row == M`` sentinels are ignored.
+    """
+    M, N = int(shape[0]), int(shape[1])
+    if M != N:
+        return False
+    r = _host_array(rows).astype(np.int64).ravel()
+    c = _host_array(cols).astype(np.int64).ravel()
+    keep = (r >= 0) & (r < M) & (c >= 0) & (c < N)
+    r, c = r[keep], c[keep]
+    if r.size == 0:
+        return True
+    key = np.unique(c * M + r)
+    mkey = (key % M) * M + key // M
+    pos = np.searchsorted(key, mkey).clip(0, key.size - 1)
+    return bool(np.all(key[pos] == mkey))
+
+
+def pattern_symmetric(pat: SparsePattern) -> bool:
+    """Symmetry of an existing plan through its resident sorted stream.
+
+    The deduplicated structure is the ``first``-flagged subsequence of
+    the already-sorted ``(scols, srows)`` stream, so each mirror
+    resolves with two merge-search probes (B7 on the card, ``side=
+    "left"`` and ``"right"``): the machinery of the delta merge, no
+    re-sort.  Runs on the plan's device.
+    """
+    M, N = pat.shape
+    if M != N:
+        return False
+    first = pat.first
+    srows = pat.srows[first]
+    scols = pat.scols[first]
+    keep = srows < M
+    srows, scols = srows[keep].contiguous(), scols[keep].contiguous()
+    if srows.numel() == 0:
+        return True
+    # probe the mirrored pairs, (row, col) swapped: present iff the
+    # right and left insertion offsets differ by exactly one
+    lo = merge_search(scols, srows, srows, scols, side="left")
+    hi = merge_search(scols, srows, srows, scols, side="right")
+    return bool(torch.all(hi - lo == 1))
+
+
+def detect_block(rows, cols, shape, *, candidates=(8, 4, 2)) -> int:
+    """Largest aligned block size whose occupied blocks are fully dense.
+
+    Returns the largest ``b`` in ``candidates`` dividing both matrix
+    dimensions for which every occupied ``b x b`` block holds all
+    ``b*b`` structural entries (so BSR stores no fill-in zeros), else 1.
+    Host-side numpy, as the reference.
+    """
+    M, N = int(shape[0]), int(shape[1])
+    r = _host_array(rows).astype(np.int64).ravel()
+    c = _host_array(cols).astype(np.int64).ravel()
+    keep = (r >= 0) & (r < M) & (c >= 0) & (c < N)
+    key = np.unique(c[keep] * max(M, 1) + r[keep])
+    if key.size == 0:
+        return 1
+    rr, cc = key % max(M, 1), key // max(M, 1)
+    for b in sorted(set(int(x) for x in candidates), reverse=True):
+        if b <= 1 or M % b or N % b:
+            continue
+        bkey = (cc // b) * (M // b) + rr // b
+        _, counts = np.unique(bkey, return_counts=True)
+        if np.all(counts == b * b):
+            return b
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# SymPattern: the halved symmetric plan (strict-upper + diagonal slots)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SymPattern:
+    """Halved assembly plan for a structurally symmetric matrix.
+
+    Only the strict-upper triplets are planned (``upat``) and only the
+    diagonal triplets get a dense scatter, so every ``assemble`` refill
+    streams *half* the values a full-plan refill would, and the result
+    is a :class:`~repro_torch.sparse.formats.SymCSC` for the
+    both-triangles SpMV (B9).
+
+    Contract: the input stream must be pairwise value-symmetric after
+    duplicate summation (FEM element matrices are).
+    :func:`plan_symmetric` verifies the *structure*; value symmetry is
+    the caller's invariant, as in the reference.
+
+    usel : int32[Lu]  input positions of strict-upper triplets
+    dsel : int32[Ld]  input positions of diagonal triplets
+    drow : int32[Ld]  their (equal) row == col indices
+    """
+
+    upat: SparsePattern
+    usel: torch.Tensor
+    dsel: torch.Tensor
+    drow: torch.Tensor
+    shape: tuple[int, int]
+    L: int = 0
+
+    @property
+    def nzmax(self) -> int:
+        """Strict-upper capacity (the halved resident plan)."""
+        return self.upat.nzmax
+
+    @property
+    def epoch(self) -> int:
+        return self.upat.epoch
+
+    @property
+    def nnz(self) -> torch.Tensor:
+        return self.upat.nnz
+
+    def assemble(self, vals: torch.Tensor):
+        """Half-stream numeric fill -> :class:`SymCSC`.
+
+        Gathers the ``Lu`` upper values through the halved plan (B3' on
+        the card) and adds the ``Ld`` diagonal values into the dense
+        ``diag`` in the :func:`accum_dtype` of the values.
+        Differentiable through both.
+        """
+        from .formats import SymCSC
+
+        if vals.ndim != 1 or int(vals.shape[0]) != self.L:
+            raise ValueError(
+                f"expected a length-{self.L} value vector aligned with "
+                f"the planned triplets, got shape {tuple(vals.shape)}"
+            )
+        dtype = fill_dtype(vals)
+        v = vals.to(dtype)
+        upper = self.upat.assemble(v[self.usel.long()])
+        acc = accum_dtype(dtype)
+        diag = torch.zeros(self.shape[0], dtype=acc, device=v.device) \
+            .index_add(0, self.drow.long(), v[self.dsel.long()].to(acc)) \
+            .to(dtype)
+        return SymCSC(diag=diag, data=upper.data, indices=upper.indices,
+                      indptr=upper.indptr, nnz=upper.nnz, shape=self.shape)
+
+
+def plan_symmetric(rows, cols, shape: tuple[int, int], *,
+                   nzmax: int | None = None, method: str | None = None,
+                   accum: str = "sum", device=None) -> SymPattern:
+    """Symbolic phase for a structurally symmetric stream.
+
+    Verifies pairwise symmetry (``ValueError`` naming the plain-CSC
+    fallback otherwise), splits the stream into strict-upper and
+    diagonal triplets on the host, and plans only the upper half: the
+    resident plan and every refill move half the bytes.  The plan lives
+    on the device of ``rows`` when it is a tensor, else on ``device``
+    (``"cuda"`` unless the caller passes another).
+    """
+    M, N = int(shape[0]), int(shape[1])
+    if M != N:
+        raise ValueError(
+            f"plan_symmetric requires a square matrix, got {shape}; "
+            "use plan() for the plain-CSC fallback"
+        )
+    if accum != "sum":
+        raise NotImplementedError(
+            f"plan_symmetric supports accum='sum' only (got {accum!r}); "
+            "use plan() for the plain-CSC fallback"
+        )
+    if device is None and isinstance(rows, torch.Tensor):
+        device = rows.device
+    device = resolve_device(device)
+    r = _host_array(rows).astype(np.int32).ravel()
+    c = _host_array(cols).astype(np.int32).ravel()
+    if not detect_symmetry(r, c, shape):
+        raise ValueError(
+            "the (deduplicated) structure is not pairwise symmetric — "
+            "some entry (i, j) lacks a mirror (j, i); use plan() for "
+            "the plain-CSC fallback"
+        )
+    valid = (r >= 0) & (r < M) & (c >= 0) & (c < N)
+    usel = np.nonzero(valid & (r < c))[0].astype(np.int32)
+    dsel = np.nonzero(valid & (r == c))[0].astype(np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    upat = plan(dev(r[usel]), dev(c[usel]), (M, N), nzmax=nzmax,
+                method=method)
+    return SymPattern(upat=upat, usel=dev(usel), dsel=dev(dsel),
+                      drow=dev(r[dsel]), shape=(M, N), L=int(r.shape[0]))
+
+
+def sym_pattern_from_arrays(fields: dict[str, np.ndarray], shape, L: int, *,
+                            epoch: int = 0, device=None) -> SymPattern:
+    """A reference ``SymPattern``, given as numpy arrays, as the port's.
+
+    ``fields`` maps the seven :func:`pattern_from_arrays` fields of its
+    ``upat`` and ``usel``, ``dsel`` and ``drow`` to arrays; ``L`` is
+    the reference's ``SymPattern.L``.  ``device`` is ``"cuda"`` unless
+    the caller passes another.
+    """
+    device = resolve_device(device)
+    upat = pattern_from_arrays(fields, shape, epoch=epoch, device=device)
+    sel = {k: torch.from_numpy(np.array(fields[k], np.int32)).to(device)
+           for k in ("usel", "dsel", "drow")}
+    return SymPattern(upat=upat, **sel, shape=(int(shape[0]), int(shape[1])),
+                      L=int(L))

@@ -568,3 +568,125 @@ def test_fem_path_on_card_matches_cpu_and_counts_launches():
         assert torch.equal(a, b)
     for y in out["cpu"][1:4]:
         assert torch.equal(y, out["cpu"][0])
+
+
+# -- slice 4: the merge search B7, update and symmetric planning ----------
+def _sorted_targets(n, M, N, rng, dev):
+    tr = rng.integers(0, M + 1, n).astype(np.int32)  # M: the sentinel row
+    tc = rng.integers(0, N, n).astype(np.int32)
+    order = np.lexsort((tr, tc))
+    return (torch.from_numpy(tr[order]).to(dev),
+            torch.from_numpy(tc[order]).to(dev))
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("n,Lq", [(1, 5), (2, 255), (1000, 257),
+                                  (100_003, 50_001)])
+def test_merge_search_kernel_matches_plain_version(n, Lq, side):
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.kernels.merge.ref import merge_search_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(n + Lq)
+    M, N = 97, 61
+    tr, tc = _sorted_targets(n, M, N, rng, dev)
+    qr = torch.from_numpy(rng.integers(0, M + 1, Lq).astype(np.int32)).to(dev)
+    qc = torch.from_numpy(rng.integers(0, N, Lq).astype(np.int32)).to(dev)
+    # queries equal to targets: the ties the two sides tell apart
+    k = min(n, Lq) // 2
+    qr[:k], qc[:k] = tr[:k], tc[:k]
+    before = mg.merge_search_kernel.launches
+    got = mg.merge_search_kernel(qr, qc, tr, tc, side=side)
+    torch.cuda.synchronize()
+    assert mg.merge_search_kernel.launches == before + 1
+    assert torch.equal(got, merge_search_ref(qr, qc, tr, tc, side=side))
+    key = tc.long() * (M + 1) + tr.long()
+    want = torch.searchsorted(key, qc.long() * (M + 1) + qr.long(),
+                              right=side == "right")
+    assert torch.equal(got.long(), want)
+
+
+def test_merge_search_kernel_empty_and_bad_inputs():
+    from repro_torch.kernels.merge import merge as mg
+
+    dev = _cuda()
+    z = torch.zeros(0, dtype=torch.int32, device=dev)
+    t = torch.arange(4, dtype=torch.int32, device=dev)
+    before = mg.merge_search_kernel.launches
+    assert torch.equal(mg.merge_search_kernel(t, t, z, z),
+                       torch.zeros(4, dtype=torch.int32, device=dev))
+    assert mg.merge_search_kernel(z, z, t, t).shape == (0,)
+    assert mg.merge_search_kernel.launches == before
+    with pytest.raises(TypeError):
+        mg.merge_search_kernel(t.long(), t, t, t)
+    with pytest.raises(ValueError):
+        mg.merge_search_kernel(t, t[:3], t, t)
+    with pytest.raises(ValueError, match="side"):
+        mg.merge_search_kernel(t, t, t, t, side="middle")
+
+
+def test_update_on_card_is_the_fresh_plan_and_counts_launches():
+    from repro_torch.kernels.merge import merge as mg
+
+    dev = _cuda()
+    rng = np.random.default_rng(41)
+    M, N, L, Ld = 3000, 2000, 200_000, 2_000
+    rows = rng.integers(0, M + 1, L + Ld).astype(np.int32)
+    cols = rng.integers(0, N, L + Ld).astype(np.int32)
+    r, c = torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)
+    base = plan(r[:L], c[:L], (M, N), nzmax=L + Ld)
+    b7 = mg.merge_search_kernel.launches
+    before = _launches()
+    got = base.update(r[L:], c[L:])
+    npass = len(ops.plan_digit_passes(M, N, Ld))
+    assert _launches() == (before[0] + npass, before[1] + npass, before[2])
+    assert mg.merge_search_kernel.launches == b7 + 1
+    want = plan(r, c, (M, N), nzmax=L + Ld)
+    for f in ("perm", "slot", "indices", "indptr", "nnz", "srows", "scols"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    drop = torch.from_numpy(rng.random(L) < 0.01).to(dev)
+    got = base.update(r[L:], c[L:], drop_mask=drop)
+    keep = torch.cat([~drop, torch.ones(Ld, dtype=torch.bool, device=dev)])
+    want = plan(r[keep], c[keep], (M, N), nzmax=L + Ld)
+    for f in ("perm", "slot", "indices", "indptr", "nnz"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    before = (_launches(), mg.merge_search_kernel.launches)
+    empty = r[:0]
+    assert base.update(empty, empty) is base
+    assert (_launches(), mg.merge_search_kernel.launches) == before
+
+
+def test_symmetric_planning_on_card_matches_cpu():
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.sparse import (convert, fsparse, pattern_symmetric,
+                                    plan_symmetric)
+
+    dev = _cuda()
+    A, _, _ = _fem(dev, 31)
+    pat_cols = torch.repeat_interleave(
+        torch.arange(A.N, device=dev), torch.diff(A.indptr.long()))
+    rows = A.indices[:int(A.nnz)]
+    pat = plan(rows, pat_cols.to(torch.int32), A.shape)
+    before = mg.merge_search_kernel.launches
+    assert pattern_symmetric(pat)
+    assert mg.merge_search_kernel.launches == before + 2
+    k = int(torch.nonzero(rows != pat_cols)[0, 0])  # one mirror removed
+    keep = torch.arange(rows.shape[0], device=dev) != k
+    assert not pattern_symmetric(plan(rows[keep], pat_cols[keep].to(
+        torch.int32), A.shape))
+    vals = A.data[:int(A.nnz)]
+    Y = plan_symmetric(rows, pat_cols, A.shape).assemble(vals)
+    S = convert(A, "symcsc")
+    nz = int(S.nnz)
+    assert int(Y.nnz) == nz and torch.equal(Y.diag, S.diag)
+    assert torch.equal(Y.data[:nz], S.data) \
+        and torch.equal(Y.indices[:nz], S.indices)
+    ii = (rows + 1).cpu().numpy()
+    jj = (pat_cols + 1).cpu().numpy()
+    vv = vals.cpu().numpy()
+    for fmt, kw in (("symcsc", {}), ("bsr", {"block": 2})):
+        on_card = fsparse(ii, jj, vv, A.shape, format=fmt, **kw)
+        on_cpu = fsparse(ii, jj, vv, A.shape, format=fmt, device="cpu", **kw)
+        for f in ("data", "indices", "indptr", "nnz"):
+            assert torch.equal(getattr(on_card, f).cpu(),
+                               getattr(on_cpu, f)), (fmt, f)

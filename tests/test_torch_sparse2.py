@@ -157,8 +157,9 @@ def test_sparse2_duplicate_modes_match_reference(accum):
 
 
 @pytest.mark.parametrize("kw,later", [
-    ({"method": "sharded"}, "item 14"), ({"format": "symcsc"}, "item 9"),
-    ({"mesh": object()}, "item 14"),
+    # format="symcsc" is ported (tests/test_torch_symmetric.py)
+    pytest.param({"method": "sharded"}, "item 14", id="kw0-item 14"),
+    pytest.param({"mesh": object()}, "item 14", id="kw2-item 14"),
 ])
 def test_sparse2_rejects_what_fsparse_rejects(kw, later):
     with pytest.raises(NotImplementedError, match=later):
