@@ -40,15 +40,39 @@
 // B5 replaces repro/kernels/segment_sum/segment_sum.py:blocked_cumsum
 // (_cumsum_kernel): the inclusive prefix sum of x.  The TPU kernel
 // carries a running total across grid steps that run in order; blocks on
-// the card run in no order, so this is reduce-then-scan in three
-// launches over tiles of kScanTile values: (1) each tile's sum, (2) one
-// block scans the tile sums into each tile's exclusive offset, (3) each
-// tile's scan plus its offset.  Bound: bytes, one read and one write of
-// x (8L B in f32) plus a second read in (3); a few adds per element.
-// The sums are taken in another order than a sequential cumsum: on
-// integer-valued data below 2^24 the result is exact, otherwise each
-// output is within (depth of its addition tree, under 64) * eps of the
-// running sum of |x|.
+// the card run in no order.  What bounds it on the H100: bytes, x read
+// once and out written once, 8L B in float32 (16L in float64); one add
+// per element.
+//
+// This design is Merrill and Garland's single-pass scan with decoupled
+// look-back, in one launch.  A tile is 256 threads x 16 values (4,096
+// float32 or float64), loaded and stored as 16 B vectors and transposed
+// through padded shared memory.  Each thread scans its values in
+// registers, the block scans the thread totals with shuffles, and the
+// tile publishes its aggregate at once.  Warp 0 then reads the
+// descriptors of the tiles before it, 32 at a time (status: not yet /
+// aggregate / inclusive prefix), spinning on the ones not yet
+// published, until it meets an inclusive prefix; lane 0 folds the
+// aggregates onto it left to right, the tile publishes its own
+// inclusive prefix and adds the exclusive one to its values.  The fold
+// makes every prefix P(t) = P(t-1) + a(t) whatever the timing, so the
+// result is bit-identical from call to call.  Tiles take their ids from
+// an atomic ticket (zeroed by the wrapper per call), so every tile a
+// look-back waits on has already started: no deadlock.
+//
+// Order of additions, and its bound.  Inside a tile: a sequential sum
+// over the thread's 16 values, a shuffle tree of depth 5, and up to 8
+// warp totals in sequence.  Across tiles the prefixes chain through one
+// addition a tile, which in the data's precision would give an output
+// of tile t a worst-case error of order t eps (running sum of |x|); so
+// the chain is carried in double for float32 data and as a compensated
+// pair for float64 (Chain below), and adds an error of order eps^2.  The
+// exclusive prefix is then rounded to the data's type once and added to
+// the tile's values through one more addition.  To first order an output
+// is within about (15 + 5 + 8 + 3) eps = 31 eps of the running sum of
+// |x| from the exact prefix sum, at any L; the tests hold the kernel to
+// 64 eps of it against its plain version.  On integer-valued data below
+// 2^24 (2^53 in float64) every sum is exact.
 //
 // B6 replaces repro/kernels/segment_sum/segment_sum.py:gather2_masked_cumsum
 // (_gather2_cumsum_kernel) together with its _segment_totals epilogue
@@ -152,9 +176,29 @@ gather_segment_minmax_kernel(const T* __restrict__ vals,
 }
 
 // -- B5 ---------------------------------------------------------------------
-constexpr int kScanPerThread = 16;
-constexpr int kScanTile = kThreads * kScanPerThread;  // values per tile
-constexpr int kOffsetThreads = 1024;                  // the tile-sum scan
+// A thread holds 16 values of a tile, loaded as 16 B vectors
+// (neighbouring threads on neighbouring vectors) and transposed through
+// shared memory padded by one value per 128 B, so both the vector stores
+// and each thread's consecutive values fall in distinct banks.
+template <typename T>
+struct ScanShape {
+  static constexpr int kPer = 16;                // values per thread
+  static constexpr int kTile = kThreads * kPer;  // values per tile
+  static constexpr int kVec = 16 / sizeof(T);    // values per 16 B vector
+  static constexpr int kLoads = kPer / kVec;     // vectors per thread
+  static constexpr int kRow = 128 / sizeof(T);   // values per padding step
+  static constexpr int kPadded = kTile + kTile / kRow;
+  // resident tiles an SM should hold: the scan is bound by the bytes its
+  // resident tiles keep in flight (6 in float32 caps it at 40 registers,
+  // the fastest of 5-8 on an H100; in float64 its 43 KB of shared memory
+  // allow 5)
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 5;
+};
+
+template <typename T>
+__device__ __forceinline__ int scan_pad(int j) {
+  return j + j / ScanShape<T>::kRow;
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive_scan(T x) {
@@ -167,95 +211,248 @@ __device__ __forceinline__ T warp_inclusive_scan(T x) {
   return x;
 }
 
-// Inclusive scan of one value per thread across a block of kN threads;
-// `warps` is kN / 32 values of shared scratch.  Ends synchronised.
-template <typename T, int kN>
-__device__ __forceinline__ T block_inclusive_scan(T x, T* warps) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = warp_inclusive_scan(x);
-  if (lane == 31) warps[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kN / 32 ? warps[lane] : T(0);
-    w = warp_inclusive_scan(w);
-    if (lane < kN / 32) warps[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) x += warps[warp - 1];
-  __syncthreads();
-  return x;
+__device__ __forceinline__ int ld_acquire_s32(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
+__device__ __forceinline__ void st_release_s32(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// A tile's descriptor: status 0 (not yet), kAggregate (its own sum) or
+// kPrefix (the inclusive prefix through it), and the value.
+constexpr int kAggregate = 1, kPrefix = 2;
+// the look-back reads 32 descriptors a window, one a lane, and keeps up
+// to kLookWindows windows of them
+constexpr int kLookWindows = 8;
+
+// The tiles' prefixes chain through one addition a tile, so they are
+// carried with more precision than the data: in double for float32
+// data, as a compensated pair (hi + lo, TwoSum) for float64.  A chain
+// step P(t) = P(t-1) + a(t) then adds an error of order eps^2 P, not
+// eps P.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scan_tile_sums_kernel(const T* __restrict__ x, T* __restrict__ sums,
-                      long long L) {
+struct Chain;
+
+template <>
+struct Chain<float> {
+  using Acc = double;
+  static __device__ Acc of(float a) { return a; }
+  static __device__ Acc add(Acc p, Acc a) { return p + a; }
+  static __device__ float value(Acc p) { return (float)p; }
+};
+
+template <>
+struct Chain<double> {
+  struct Acc {
+    double hi, lo;
+  };
+  static __device__ Acc of(double a) { return {a, 0.0}; }
+  static __device__ Acc add(Acc p, Acc a) {
+    const double s = p.hi + a.hi, v = s - p.hi;
+    const double err = (p.hi - (s - v)) + (a.hi - v);  // s + err == p.hi + a.hi
+    return {s, p.lo + a.lo + err};
+  }
+  static __device__ double value(Acc p) { return p.hi + p.lo; }
+};
+
+// float32: an aggregate word and a prefix word a tile, each one atomic
+// 64-bit load or store of the double value XOR kEmpty, so that the
+// zeroed word reads as not yet: no arithmetic result has kEmpty's bits
+// (a signalling NaN; NaNs computed on the card are quiet).
+struct DescF32 {
+  static constexpr unsigned long long kEmpty = 0x7ff4000000000001ull;
+  unsigned long long* aggregate;
+  unsigned long long* prefix;
+  __device__ void publish(int tile, int status, double v) const {
+    const unsigned long long w =
+        (unsigned long long)__double_as_longlong(v) ^ kEmpty;
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                 :: "l"((status == kAggregate ? aggregate : prefix) + tile),
+                    "l"(w) : "memory");
+  }
+  __device__ int read(int tile, double& v) const {
+    unsigned long long a, p;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(p) : "l"(prefix + tile) : "memory");
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(a) : "l"(aggregate + tile) : "memory");
+    const unsigned long long w = p ? p : a;
+    v = __longlong_as_double((long long)(w ^ kEmpty));
+    return p ? kPrefix : a ? kAggregate : 0;
+  }
+};
+
+// float64: a 16-byte store is not guaranteed atomic, so the status is a
+// flag of its own, stored with release after the value and loaded with
+// acquire before it.  The aggregate and the prefix (hi, lo) have slots of
+// their own and none is ever overwritten, so a reader that saw
+// kAggregate reads the aggregate even if the tile has since moved on to
+// kPrefix.
+struct DescF64 {
+  using Acc = Chain<double>::Acc;
+  int* status;
+  double* aggregate;
+  double* hi;
+  double* lo;
+  __device__ void publish(int tile, int s, Acc v) const {
+    if (s == kAggregate) {
+      __stcg(aggregate + tile, v.hi);
+    } else {
+      __stcg(hi + tile, v.hi);
+      __stcg(lo + tile, v.lo);
+    }
+    st_release_s32(status + tile, s);
+  }
+  __device__ int read(int tile, Acc& v) const {
+    const int s = ld_acquire_s32(status + tile);
+    if (s == kAggregate) v = {__ldcg(aggregate + tile), 0.0};
+    if (s == kPrefix) v = {__ldcg(hi + tile), __ldcg(lo + tile)};
+    return s;
+  }
+};
+
+template <typename T, typename Desc>
+__global__ void __launch_bounds__(kThreads, ScanShape<T>::kMinBlocks)
+scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     long long L, int* __restrict__ ticket, Desc desc,
+                     int vec) {
+  using S = ScanShape<T>;
+  union Vec {
+    uint4 u;
+    T v[S::kVec];
+  };
+  __shared__ T tile[S::kPadded];
   __shared__ T warps[kThreads / 32];
-  const long long t0 = (long long)blockIdx.x * kScanTile;
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kScanPerThread; ++k) {
-    const long long g = t0 + k * kThreads + threadIdx.x;
-    if (g < L) acc += __ldg(x + g);
-  }
-  acc = block_inclusive_scan<T, kThreads>(acc, warps);
-  if (threadIdx.x == kThreads - 1) sums[blockIdx.x] = acc;
-}
+  using C = Chain<T>;
+  using Acc = typename C::Acc;
+  __shared__ Acc look[kLookWindows][32];
+  __shared__ T excl_s;
+  __shared__ int tile_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) tile_s = atomicAdd(ticket, 1);  // the order of the chain
+  __syncthreads();
+  const int id = tile_s;
+  const long long t0 = (long long)id * S::kTile;
+  const bool full = vec && t0 + S::kTile <= L;
 
-template <typename T>
-__global__ void __launch_bounds__(kOffsetThreads)
-scan_tile_offsets_kernel(const T* __restrict__ sums, T* __restrict__ offs,
-                         long long ntiles) {
-  __shared__ T warps[kOffsetThreads / 32];
-  __shared__ T inc[kOffsetThreads];
-  T carry = T(0);
-  for (long long base = 0; base < ntiles; base += kOffsetThreads) {
-    const long long i = base + threadIdx.x;
-    const T v = i < ntiles ? sums[i] : T(0);
-    inc[threadIdx.x] = block_inclusive_scan<T, kOffsetThreads>(v, warps);
-    __syncthreads();
-    if (i < ntiles)
-      offs[i] = carry + (threadIdx.x ? inc[threadIdx.x - 1] : T(0));
-    carry += inc[kOffsetThreads - 1];
-    __syncthreads();
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scan_tile_apply_kernel(const T* __restrict__ x, const T* __restrict__ offs,
-                       T* __restrict__ out, long long L) {
-  __shared__ T tile[kScanTile];
-  __shared__ T warps[kThreads / 32];
-  __shared__ T totals[kThreads];
-  const long long t0 = (long long)blockIdx.x * kScanTile;
+  // -- load, 16 B vectors, and transpose --------------------------------
+  if (full) {
+    const uint4* xv = reinterpret_cast<const uint4*>(x + t0);
 #pragma unroll
-  for (int k = 0; k < kScanPerThread; ++k) {
-    const int idx = k * kThreads + threadIdx.x;
-    const long long g = t0 + idx;
-    tile[idx] = g < L ? __ldg(x + g) : T(0);
+    for (int q = 0; q < S::kLoads; ++q) {
+      Vec w;
+      w.u = __ldcs(xv + q * kThreads + t);  // read once: stream
+#pragma unroll
+      for (int r = 0; r < S::kVec; ++r)
+        tile[scan_pad<T>((q * kThreads + t) * S::kVec + r)] = w.v[r];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      const int j = q * kThreads + t;
+      tile[scan_pad<T>(j)] = t0 + j < L ? x[t0 + j] : T(0);
+    }
   }
   __syncthreads();
-  // each thread scans its own kScanPerThread consecutive values
-  T* mine = tile + threadIdx.x * kScanPerThread;
+
+  // -- the tile's own scan: registers, then shuffles ----------------------
+  // the scanned values wait in shared memory through the look-back, so
+  // few registers stay live and more tiles fit on an SM
   T run = T(0);
 #pragma unroll
-  for (int k = 0; k < kScanPerThread; ++k) {
-    run += mine[k];
-    mine[k] = run;
+  for (int i = 0; i < S::kPer; ++i) {
+    T& y = tile[scan_pad<T>(t * S::kPer + i)];
+    run += y;
+    y = run;
   }
-  totals[threadIdx.x] = block_inclusive_scan<T, kThreads>(run, warps);
+  const T incl = warp_inclusive_scan(run);
+  T ex = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) ex = T(0);
+  if (lane == 31) warps[warp] = incl;
   __syncthreads();
-  const T base =
-      offs[blockIdx.x] + (threadIdx.x ? totals[threadIdx.x - 1] : T(0));
+  T before = T(0), aggregate = T(0);
 #pragma unroll
-  for (int k = 0; k < kScanPerThread; ++k) mine[k] = base + mine[k];
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const T y = warps[w];
+    if (w < warp) before += y;
+    aggregate += y;
+  }
+
+  // -- decoupled look-back: warp 0 finds the tile's exclusive prefix -----
+  // It reads 32 descriptors a window, one a lane, nearest first, keeping
+  // the values in `look`, until a window holds a prefix; past
+  // kLookWindows windows it reads the last one again until one appears.
+  // Then lane 0 folds left to right from the nearest prefix P(s) through
+  // the aggregates a(s+1) .. a(id-1).  Every P(t) is thus P(t-1) + a(t),
+  // whichever prefix the look-back met: the result does not depend on
+  // timing.
+  if (warp == 0) {
+    if (id == 0) {
+      if (lane == 0) {
+        desc.publish(0, kPrefix, C::of(aggregate));
+        excl_s = T(0);
+      }
+    } else {
+      if (lane == 0) desc.publish(id, kAggregate, C::of(aggregate));
+      int w = 0, stop = 0;
+      while (true) {
+        const int pred = id - 1 - w * 32 - lane;  // this lane's descriptor
+        Acc val = C::of(T(0));
+        int st = kPrefix;  // before tile 0: never met, tile 0 is a prefix
+        if (pred >= 0) {
+          st = desc.read(pred, val);
+          while (st == 0) st = desc.read(pred, val);
+        }
+        look[w][lane] = val;
+        const int first =
+            __reduce_min_sync(0xffffffffu, st == kPrefix ? lane : 32);
+        if (first < 32) {
+          stop = first;
+          break;
+        }
+        if (w + 1 < kLookWindows) ++w;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        // only the aggregates after the prefix: each add waits on the last
+        Acc excl = look[w][stop];
+        for (int q = stop - 1; q >= 0; --q) excl = C::add(excl, look[w][q]);
+        for (int u = w - 1; u >= 0; --u)
+          for (int q = 31; q >= 0; --q) excl = C::add(excl, look[u][q]);
+        desc.publish(id, kPrefix, C::add(excl, C::of(aggregate)));
+        excl_s = C::value(excl);
+      }
+    }
+  }
   __syncthreads();
+
+  // -- add, transpose back, store -----------------------------------------
+  const T base = excl_s + (before + ex);
 #pragma unroll
-  for (int k = 0; k < kScanPerThread; ++k) {
-    const int idx = k * kThreads + threadIdx.x;
-    const long long g = t0 + idx;
-    if (g < L) out[g] = tile[idx];
+  for (int i = 0; i < S::kPer; ++i)
+    tile[scan_pad<T>(t * S::kPer + i)] += base;
+  __syncthreads();
+  if (full) {
+    uint4* ov = reinterpret_cast<uint4*>(out + t0);
+#pragma unroll
+    for (int q = 0; q < S::kLoads; ++q) {
+      Vec w;
+#pragma unroll
+      for (int r = 0; r < S::kVec; ++r)
+        w.v[r] = tile[scan_pad<T>((q * kThreads + t) * S::kVec + r)];
+      __stcs(ov + q * kThreads + t, w.u);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < S::kPer; ++q) {
+      const int j = q * kThreads + t;
+      if (t0 + j < L) out[t0 + j] = tile[scan_pad<T>(j)];
+    }
   }
 }
 
@@ -300,21 +497,27 @@ int launch_minmax(const void* vals, const void* perm, const void* slot,
   return (int)cudaGetLastError();
 }
 
+// scratch: 1 + 2 ntiles (float32) or 1 + 4 ntiles (float64) zeroed
+// 64-bit words: the tile ticket, then the descriptors
 template <typename T>
-int launch_cumsum(const void* x, void* sums, void* offs, void* out,
-                  long long L, void* stream) {
-  const long long ntiles = (L + kScanTile - 1) / kScanTile;
+int launch_cumsum(const void* x, void* out, void* scratch, long long L,
+                  void* stream) {
+  using S = ScanShape<T>;
+  const long long ntiles = (L + S::kTile - 1) / S::kTile;
+  unsigned long long* w = (unsigned long long*)scratch;
+  const int vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  scan_tile_sums_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
-      (const T*)x, (T*)sums, L);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  scan_tile_offsets_kernel<T><<<1, kOffsetThreads, 0, s>>>(
-      (const T*)sums, (T*)offs, ntiles);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  scan_tile_apply_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
-      (const T*)x, (const T*)offs, (T*)out, L);
+  if constexpr (sizeof(T) == 4) {
+    scan_lookback_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
+        (const T*)x, (T*)out, L, (int*)w, DescF32{w + 1, w + 1 + ntiles},
+        vec);
+  } else {
+    scan_lookback_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
+        (const T*)x, (T*)out, L, (int*)w,
+        DescF64{(int*)(w + 1), (double*)(w + 1 + ntiles),
+                (double*)(w + 1 + 2 * ntiles), (double*)(w + 1 + 3 * ntiles)},
+        vec);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -366,16 +569,18 @@ extern "C" int gather_segment_minmax_f64_launch(const void* vals,
                                stream);
 }
 
-extern "C" int blocked_cumsum_f32_launch(const void* x, void* sums,
-                                         void* offs, void* out, long long L,
+extern "C" int blocked_cumsum_f32_launch(const void* x, void* out,
+                                         void* scratch, long long L,
                                          void* stream) {
-  return launch_cumsum<float>(x, sums, offs, out, L, stream);
+  return launch_cumsum<float>(x, out, scratch, L, stream);
 }
 
-extern "C" int blocked_cumsum_f64_launch(const void* x, void* sums,
-                                         void* offs, void* out, long long L,
+extern "C" int blocked_cumsum_f64_launch(const void* x, void* out,
+                                         void* scratch, long long L,
                                          void* stream) {
-  return launch_cumsum<double>(x, sums, offs, out, L, stream);
+  return launch_cumsum<double>(x, out, scratch, L, stream);
 }
 
-extern "C" int scan_tile(void) { return kScanTile; }
+static_assert(ScanShape<float>::kTile == ScanShape<double>::kTile,
+              "one tile size for both types");
+extern "C" int scan_tile(void) { return ScanShape<float>::kTile; }

@@ -5,7 +5,11 @@
 ``repro/kernels/counting_sort/counting_sort.py``: the landing position
 of every key given the per-block offsets of
 :func:`repro_torch.kernels.hist.ops.block_offsets` at the same block
-size.
+size.  The kernel cuts each histogram block into tiles of at most
+:data:`~.ref.PLACE_TILE` keys, ranks the equal keys inside a tile in
+parallel, and hands the block's counters from tile to tile in order
+(``csrc/counting_sort.cu``; :func:`.ref.placement_tiled_ref` is the same
+route in plain PyTorch).
 
 The wrapper takes the plain version (:mod:`.ref`) for a CPU tensor and
 launches the kernel for a CUDA tensor; ``.launches`` counts kernel
@@ -20,7 +24,7 @@ import torch
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
 from ..hist.hist import check_keys
-from .ref import placement_ref
+from .ref import PLACE_TILE, placement_ref
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -29,12 +33,15 @@ _FNS: dict = {}
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("counting_sort")
-        bind(lib, "smem_optin_bytes", [])
-        _FNS["smem"] = lib.smem_optin_bytes()
-        if _FNS["smem"] <= 0:
-            raise RuntimeError("cannot read the card's shared-memory size")
+        bind(lib, "placement_tile", [])
+        if lib.placement_tile() != PLACE_TILE:
+            raise RuntimeError("csrc/counting_sort.cu tile differs from "
+                               "PLACE_TILE")
         _FNS["place"] = bind(lib, "placement_launch",
-                             [_P, _P, _P, _LL, _I, _LL, _I, _I, _P])
+                             [_P, _P, _P, _P, _LL, _I, _LL, _I, _P])
+        words = lib.placement_sync_words
+        words.argtypes, words.restype = [_LL], _LL
+        _FNS["sync_words"] = words
     return _FNS
 
 
@@ -43,14 +50,17 @@ def placement(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
     """B11: ``int32[L]`` positions that counting-sort ``keys`` stably
     (``rank[pos[i]] = i``); -1 for keys outside ``[0, nbins)``.
 
-    ``offsets`` is ``int32[nblocks, nbins]``.  When its rows do not fit
-    shared memory the kernel advances them in device memory: on a copy,
-    unless the caller hands the table over with
-    ``consume_offsets=True`` (the counting sort's own temporary), and
-    then the table is left advanced.
+    ``offsets`` is ``int32[nblocks, nbins]``.  The kernel advances its
+    rows in device memory as the block's counters: on a copy, unless the
+    caller hands the table over with ``consume_offsets=True`` (the
+    counting sort's own temporary), and then the table is left advanced.
+    Empty ``keys`` give an empty result with no launch.
     """
     if keys.device.type == "cpu":
         return placement_ref(keys, offsets, nbins=nbins, block_b=block_b)
+    if keys.ndim == 1 and keys.shape[0] == 0:
+        check_cuda_tensor(keys, "keys", (torch.int32,))
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
     L = check_keys(keys, nbins, block_b)
     check_cuda_tensor(offsets, "offsets", (torch.int32,))
     nblocks = cdiv(L, block_b)
@@ -58,12 +68,14 @@ def placement(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
         raise ValueError(f"offsets has shape {tuple(offsets.shape)}, "
                          f"expected (nblocks, nbins) = ({nblocks}, {nbins})")
     fns = _fns()
-    shared = 4 * nbins <= fns["smem"]
-    work = offsets if shared or consume_offsets else offsets.clone()
+    work = offsets if consume_offsets else offsets.clone()
     pos = torch.empty(L, dtype=torch.int32, device=keys.device)
+    # the tile ticket and the handoff flags, zeroed for every call
+    sync = torch.zeros(fns["sync_words"](nblocks), dtype=torch.int32,
+                       device=keys.device)
     check_launch(fns["place"](keys.data_ptr(), work.data_ptr(),
-                              pos.data_ptr(), L, nbins, block_b, nblocks,
-                              int(shared), current_stream(keys.device)),
+                              pos.data_ptr(), sync.data_ptr(), L, nbins,
+                              block_b, nblocks, current_stream(keys.device)),
                  "placement")
     placement.launches += 1
     return pos

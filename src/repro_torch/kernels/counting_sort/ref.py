@@ -9,6 +9,10 @@ from __future__ import annotations
 
 import torch
 
+#: keys per tile of the B11 kernel, at most -- fixed by
+#: ``csrc/counting_sort.cu``
+PLACE_TILE = 8192
+
 
 def placement_ref(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
                   block_b: int) -> torch.Tensor:
@@ -35,6 +39,60 @@ def placement_ref(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
     base = offsets.reshape(-1).long()[g.clamp(max=max(size - 1, 0))]
     pos = torch.empty(L, dtype=torch.int32, device=dev)
     pos[order] = torch.where(g < size, base + rank, -1).to(torch.int32)
+    return pos
+
+
+def placement_tiled_ref(keys: torch.Tensor, offsets: torch.Tensor, *,
+                        nbins: int, block_b: int,
+                        tile: int = PLACE_TILE) -> torch.Tensor:
+    """:func:`placement_ref` by the kernel's route.
+
+    Each block of ``block_b`` keys is cut into tiles of ``min(tile,
+    block_b)`` keys.  Inside a tile, a stable sort gives each key its
+    rank among the equal keys and each run of equal keys its count; then
+    the tiles of every block take their bases in order, ``base =
+    cnt[key]; cnt[key] += count`` for all runs of a tile at once, on a
+    copy of ``offsets`` (one step per tile position, all blocks
+    together).  Out-of-range keys get -1.
+    """
+    L = keys.shape[0]
+    dev = keys.device
+    if L == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    T = min(tile, block_b)
+    i = torch.arange(L, device=dev)
+    block, step = i // block_b, (i % block_b) // T
+    tile_id = block * (-(-block_b // T)) + step
+    inside = (keys >= 0) & (keys < nbins)
+    k = torch.where(inside, keys.long(), nbins)  # the sentinel sorts last
+    # 1. stable sort of each tile by key: ranks and runs
+    order = torch.sort(tile_id * (nbins + 1) + k, stable=True).indices
+    sk, st = k[order], tile_id[order]
+    new = torch.ones(L, dtype=torch.bool, device=dev)
+    new[1:] = (sk[1:] != sk[:-1]) | (st[1:] != st[:-1])
+    start = torch.cummax(torch.where(new, i, 0), 0).values
+    rank = i - start
+    end = torch.ones(L, dtype=torch.bool, device=dev)
+    end[:-1] = new[1:]
+    kept_end = end & (sk < nbins)
+    run_key, run_start = sk[kept_end], start[kept_end]
+    run_count = i[kept_end] - run_start + 1
+    run_block = block[order][kept_end]
+    run_step = step[order][kept_end]
+    # 2. the handoff along each block, one tile position at a time
+    cnt = offsets.reshape(-1).long().clone()
+    flat = run_block * nbins + run_key
+    base = torch.empty_like(run_key)
+    for s in range(int(run_step.max()) + 1 if run_key.numel() else 0):
+        now = run_step == s
+        base[now] = cnt[flat[now]]
+        cnt.index_add_(0, flat[now], run_count[now])
+    # 3. every key's base is its run's; back to input order
+    run_base = torch.zeros(L, dtype=torch.long, device=dev)
+    run_base[run_start] = base
+    pos = torch.empty(L, dtype=torch.int32, device=dev)
+    pos[order] = torch.where(sk < nbins, run_base[start] + rank, -1).to(
+        torch.int32)
     return pos
 
 

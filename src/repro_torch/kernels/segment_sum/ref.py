@@ -15,7 +15,8 @@ import torch
 from ...sparse.pattern import accum_identity, first_flags, last_flags
 from ..common import cdiv, pad_to
 
-#: values per tile of the B5 scan -- fixed by ``csrc/segment_sum.cu``
+#: values per tile of the B5 scan (256 threads x 16) -- fixed by
+#: ``csrc/segment_sum.cu``
 SCAN_TILE = 4096
 
 
@@ -158,10 +159,11 @@ def segment_reduce_sorted_ref(vals: torch.Tensor, perm: torch.Tensor,
 def blocked_cumsum_ref(x: torch.Tensor) -> torch.Tensor:
     """B5: inclusive prefix sum by the kernel's route.
 
-    Tiles of :data:`SCAN_TILE` values: each tile's sum, an exclusive
-    scan of the tile sums, then each tile's own scan plus its offset.
-    The additions run in another order than the kernel's inside a tile
-    and across tiles; exact on integer-valued data below 2^24.
+    Tiles of :data:`SCAN_TILE` values: each tile's sum, the tiles'
+    exclusive prefixes, then each tile's own scan plus its prefix.  The
+    kernel chains the prefixes through a look-back, in more precision
+    than the data, and adds inside a tile in another order; exact on
+    integer-valued data below 2^24.
     """
     L = x.shape[0]
     ntiles = cdiv(L, SCAN_TILE)

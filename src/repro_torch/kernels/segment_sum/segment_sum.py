@@ -12,8 +12,8 @@ instead of differencing a global prefix sum.
 min or max, directly, with 0 in empty slots.
 
 ``blocked_cumsum`` (B5) is the counterpart of ``blocked_cumsum``: an
-inclusive prefix sum, reduce-then-scan in three launches (one call, one
-count).
+inclusive prefix sum, one launch of a single-pass scan with decoupled
+look-back.
 
 ``gather2_segment_sum`` (B6) is the counterpart of
 ``gather2_masked_cumsum`` with its ``_segment_totals`` epilogue: the
@@ -54,7 +54,7 @@ def _fns() -> dict:
                 lib, f"gather_segment_minmax_{sfx}_launch",
                 [_P, _P, _P, _P, _LL, _LL, _I, _P])
             _FNS["cumsum", dtype] = bind(lib, f"blocked_cumsum_{sfx}_launch",
-                                         [_P, _P, _P, _P, _LL, _P])
+                                         [_P, _P, _P, _LL, _P])
             _FNS["sum2", dtype] = bind(
                 lib, f"gather2_segment_sum_{sfx}_launch",
                 [_P, _P, _P, _P, _P, _P, _LL, _LL, _P])
@@ -181,20 +181,26 @@ def gather2_segment_sum(vals_a: torch.Tensor, vals_b: torch.Tensor,
 
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """B5: inclusive prefix sum of a 1-d float32/float64 tensor."""
+    """B5: inclusive prefix sum of a 1-d float32/float64 tensor; empty
+    ``x`` gives an empty result with no launch."""
     if x.device.type == "cpu":
         return blocked_cumsum_ref(x)
     _check_values(x, "the prefix sum")
     L = x.shape[0]
-    if x.ndim != 1 or L == 0 or L >= 2**31:
-        raise ValueError(f"x must be 1-d with 0 < L < 2^31, got "
+    if x.ndim != 1 or L >= 2**31:
+        raise ValueError(f"x must be 1-d with L < 2^31, got "
                          f"{tuple(x.shape)}")
-    ntiles = cdiv(L, SCAN_TILE)
-    scratch = torch.empty(2 * ntiles, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    if L == 0:
+        return out
+    # the tile ticket, then one descriptor a tile: two 64-bit words in
+    # float32, a flag and three values in float64; zeroed for every call
+    ntiles = cdiv(L, SCAN_TILE)
+    words = 1 + ntiles * (2 if x.dtype == torch.float32 else 4)
+    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
     check_launch(_fns()["cumsum", x.dtype](
-        x.data_ptr(), scratch.data_ptr(), scratch[ntiles:].data_ptr(),
-        out.data_ptr(), L, current_stream(x.device)), "blocked_cumsum")
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), L,
+        current_stream(x.device)), "blocked_cumsum")
     blocked_cumsum.launches += 1
     return out
 

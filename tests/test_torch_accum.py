@@ -294,6 +294,25 @@ def test_prefix_sum_matches_reference(L):
                                rtol=0, atol=float(tol[-1]))
 
 
+@pytest.mark.parametrize("L", [4096, 3 * 4096 + 1, 20_000])
+def test_prefix_sum_at_the_scan_tile_on_cancelling_data(L):
+    """B5's plain version at its tile (``SCAN_TILE``) against the JAX
+    scan: a running sum that cancels (+a, -a pairs) within the unchanged
+    ``64 eps`` of the running sum of ``|x|``, and integers bit for bit."""
+    assert ref.SCAN_TILE == 4096
+    rng = np.random.default_rng(L)
+    a = rng.standard_normal(L // 2 + 1).astype(np.float32)
+    x = np.stack([a, -a], 1).reshape(-1)[:L]
+    got = ss.blocked_cumsum(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax_blocked_cumsum(jnp.asarray(x)))
+    tol = 64 * EPS32 * np.cumsum(np.abs(x).astype(np.float64))
+    assert np.all(np.abs(got.astype(np.float64) - want) <= tol)
+    xi = rng.integers(-1000, 1001, L).astype(np.float32)
+    np.testing.assert_array_equal(
+        ss.blocked_cumsum(torch.from_numpy(xi)).numpy(),
+        np.asarray(jax_blocked_cumsum(jnp.asarray(xi))))
+
+
 @pytest.mark.parametrize("slack", [0, 7])
 def test_segment_sum_sorted_matches_reference(slack):
     _, _, pat = _streams(6000, 50, 40, 10, slack)

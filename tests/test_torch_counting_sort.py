@@ -19,6 +19,8 @@ import torch
 
 from repro.core.coo import COO as JaxCOO
 from repro.core.ransparse import dataset
+from repro.kernels.counting_sort.counting_sort import \
+    placement as jax_placement
 from repro.kernels.counting_sort.ops import counting_sort as jax_counting_sort
 from repro.kernels.hist.hist import block_histogram as jax_block_histogram
 from repro.kernels.hist.ops import block_offsets as jax_block_offsets
@@ -29,8 +31,10 @@ from repro_torch import core
 from repro_torch.core.coo import COO
 from repro_torch.kernels.counting_sort import counting_sort as cs
 from repro_torch.kernels.counting_sort.ops import counting_sort
-from repro_torch.kernels.counting_sort.ref import (counting_sort_ref,
-                                                   placement_ref)
+from repro_torch.kernels.counting_sort.ref import (PLACE_TILE,
+                                                   counting_sort_ref,
+                                                   placement_ref,
+                                                   placement_tiled_ref)
 from repro_torch.kernels.hist import hist
 from repro_torch.kernels.hist.ops import (block_offsets, default_block_b,
                                           histogram)
@@ -116,6 +120,61 @@ def test_out_of_range_keys_are_not_placed():
     offsets, _ = block_offsets(keys, nbins=4, block_b=2)
     assert placement_ref(keys, offsets, nbins=4, block_b=2).tolist() == \
         [1, -1, 0, -1, 2]
+
+
+# (L, nbins, block_b, tile): a block below, equal to and above a tile,
+# tiles that straddle nothing and partial last tiles and blocks
+TILED = [(1, 4, 128, 64), (1000, 51, 128, 128), (3000, 700, 512, 100),
+         (5000, 9, 256, 1000), (4099, 51, 1024, 256), (2000, 300, 1000, 64)]
+
+
+@pytest.mark.parametrize("L,nbins,block_b,tile", TILED)
+def test_tiled_placement_mirror_matches_reference_and_jax(L, nbins, block_b,
+                                                           tile):
+    """The kernel's route in plain PyTorch (tile-local ranks, then the
+    chained counter handoff) against ``placement_ref`` and the JAX
+    ``placement`` in interpret mode, bit for bit."""
+    keys = _keys(L, nbins, L + tile)
+    offsets, _ = block_offsets(torch.from_numpy(keys), nbins=nbins,
+                               block_b=block_b)
+    got = placement_tiled_ref(torch.from_numpy(keys), offsets, nbins=nbins,
+                              block_b=block_b, tile=tile)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, placement_ref(torch.from_numpy(keys), offsets,
+                                          nbins=nbins, block_b=block_b))
+    j_off, _ = jax_block_offsets(jnp.asarray(keys), nbins=nbins,
+                                 block_b=block_b)
+    want = jax_placement(jnp.asarray(keys), j_off, nbins=nbins,
+                         block_b=block_b)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("order", ["equal", "sorted", "reversed",
+                                   "out_of_range"])
+@pytest.mark.parametrize("nbins", [51, 50_001, 1_000_001, (1 << 21) + 3])
+def test_tiled_placement_mirror_on_runs_and_wide_keys(order, nbins):
+    """All-equal keys (one run a tile), sorted and reversed keys, and
+    out-of-range keys (-1), at the kernel's tile and at a small one."""
+    rng = np.random.default_rng(nbins)
+    L = 20_003
+    keys = rng.integers(0, nbins, L).astype(np.int32)
+    if order == "equal":
+        keys[:] = nbins // 2
+    elif order == "sorted":
+        keys.sort()
+    elif order == "reversed":
+        keys = np.sort(keys)[::-1].copy()
+    else:
+        keys[rng.integers(0, L, 500)] = -3
+        keys[rng.integers(0, L, 500)] = nbins + rng.integers(0, 9)
+    k = torch.from_numpy(keys)
+    for block_b, tile in ((1 << 14, PLACE_TILE), (5000, 1024)):
+        offsets, _ = block_offsets(k, nbins=nbins, block_b=block_b)
+        want = placement_ref(k, offsets, nbins=nbins, block_b=block_b)
+        assert torch.equal(placement_tiled_ref(k, offsets, nbins=nbins,
+                                               block_b=block_b, tile=tile),
+                           want)
+    assert torch.equal(want < 0, (k < 0) | (k >= nbins))
 
 
 @pytest.mark.parametrize("nbins,block_b", [(1, 1 << 16), (51, 1 << 16),

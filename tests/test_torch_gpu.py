@@ -12,8 +12,11 @@ inputs: the integer kernels (B1, B2, B11, B12) and the min/max fill
 within ``8 * eps * max_s sum|v|`` on random values (the plain version's
 ``index_add_`` adds in another order on the card), the prefix sum (B5)
 bit for bit on integer-valued data and within ``64 * eps`` of the
-running sum of ``|x|`` on random values (both sides add in trees of
-depth under 64).
+running sum of ``|x|`` on random values, zero-mean and same-sign (the
+kernel's first-order worst case is about 31 eps; see
+``csrc/segment_sum.cu``).  B11 is also held
+against the plain mirror of its tiled route
+(``placement_tiled_ref``).
 """
 import numpy as np
 import pytest
@@ -24,13 +27,16 @@ from repro_torch.core.oracle import matlab_sparse_oracle
 from repro_torch.core.ransparse import dataset
 from repro_torch.kernels.counting_sort import counting_sort as cs
 from repro_torch.kernels.counting_sort.ops import counting_sort
-from repro_torch.kernels.counting_sort.ref import placement_ref
+from repro_torch.kernels.counting_sort.ref import (PLACE_TILE,
+                                                   placement_ref,
+                                                   placement_tiled_ref)
 from repro_torch.kernels.hist import hist
 from repro_torch.kernels.hist.ops import block_offsets, default_block_b
 from repro_torch.kernels.hist.ref import block_histogram_ref
 from repro_torch.kernels.radix_sort import ops, radix_sort as rs, ref
 from repro_torch.kernels.segment_sum import segment_sum as ss
-from repro_torch.kernels.segment_sum.ref import (blocked_cumsum_ref,
+from repro_torch.kernels.segment_sum.ref import (SCAN_TILE,
+                                                 blocked_cumsum_ref,
                                                  gather_segment_minmax_ref,
                                                  gather_segment_sum_ref)
 from repro_torch.sparse import matlab
@@ -226,8 +232,8 @@ def test_prefix_sum_kernel_matches_plain_version(dtype, L):
                                            (1_000_001, 1 << 20),
                                            (1_000_001, 4096)])
 def test_counting_sort_kernels_match_plain_versions(nbins, block_b):
-    """B12 and B11 in shared-memory mode (<= 58,112 bins) and in
-    device-memory mode (10^6 + 1 bins)."""
+    """B12 and B11 at Table 4.1's and the 5e7 set's widths, and with
+    the 10^6 + 1 bins cut in blocks of one tile."""
     dev = _cuda()
     rng = np.random.default_rng(nbins)
     L = 300_007
@@ -252,6 +258,169 @@ def test_counting_sort_kernels_match_plain_versions(nbins, block_b):
     assert torch.equal(cs.placement(keys, handed, nbins=nbins,
                                     block_b=block_b, consume_offsets=True),
                        pos)
+
+
+def _placement_case(keys, nbins, block_b):
+    """B11 on ``keys`` against its plain version (and the tiled mirror),
+    one launch, the caller's table untouched."""
+    offsets, _ = block_offsets(keys, nbins=nbins, block_b=block_b)
+    copy = offsets.clone()
+    before = cs.placement.launches
+    pos = cs.placement(keys, offsets, nbins=nbins, block_b=block_b)
+    assert cs.placement.launches == before + 1
+    assert torch.equal(offsets, copy)
+    want = placement_ref(keys, offsets, nbins=nbins, block_b=block_b)
+    assert torch.equal(pos, want)
+    assert torch.equal(placement_tiled_ref(keys, offsets, nbins=nbins,
+                                           block_b=block_b), want)
+    return pos
+
+
+@pytest.mark.parametrize("L,block_b", [
+    (1, 1024), (4095, 1024), (10_001, 1024),           # block below a tile
+    (PLACE_TILE, PLACE_TILE), (3 * PLACE_TILE + 7, PLACE_TILE),  # equal
+    (PLACE_TILE - 1, 5000), (20_003, 5000),            # partial tiles
+    (50_003, PLACE_TILE + 5000),                       # and blocks
+    (300_007, 1 << 16), (2_000_001, 1 << 20)])         # many tiles a block
+def test_placement_tiles_at_every_straddle(L, block_b):
+    dev = _cuda()
+    rng = np.random.default_rng(L + block_b)
+    keys = torch.from_numpy(rng.integers(0, 777, L).astype(np.int32)).to(dev)
+    _placement_case(keys, 777, block_b)
+
+
+@pytest.mark.parametrize("order", ["equal", "sorted", "reversed"])
+@pytest.mark.parametrize("block_b", [1024, 1 << 16])
+def test_placement_on_runs_sorted_and_reversed_keys(order, block_b):
+    """One run a tile (the longest chain of handoffs), and keys whose
+    tiles hold one run each or many."""
+    dev = _cuda()
+    L, nbins = 200_003, 50_001
+    if order == "equal":
+        keys = torch.full((L,), 17, dtype=torch.int32, device=dev)
+    else:
+        keys = torch.sort(torch.from_numpy(np.random.default_rng(1).integers(
+            0, nbins, L).astype(np.int32)).to(dev)).values
+        if order == "reversed":
+            keys = keys.flip(0).contiguous()
+    pos = _placement_case(keys, nbins, block_b)
+    if order != "reversed":  # already stably sorted: the identity
+        assert torch.equal(pos, torch.arange(L, dtype=torch.int32,
+                                             device=dev))
+
+
+@pytest.mark.parametrize("nbins", [51, 50_001, 1_000_001, (1 << 21) + 3])
+def test_placement_with_out_of_range_keys_at_every_width(nbins):
+    """Out-of-range keys (below 0 and at or past nbins) get -1; 2^21 + 3
+    bins sort over 22 key bits (three 8-bit passes)."""
+    dev = _cuda()
+    rng = np.random.default_rng(nbins)
+    L = 400_009
+    keys = rng.integers(-3, nbins + 3, L).astype(np.int32)
+    keys[rng.integers(0, L, 50)] = np.iinfo(np.int32).max
+    keys = torch.from_numpy(keys).to(dev)
+    block_b = default_block_b(nbins)
+    pos = _placement_case(keys, nbins, block_b)
+    inside = (keys >= 0) & (keys < nbins)
+    assert bool(torch.all((pos == -1) == ~inside))
+
+
+@pytest.mark.parametrize("L,nbins", [(5_000_000, 1_000_001),
+                                     (2_500_000, 50_001),
+                                     (50_000_000, 1_000_001)])
+def test_placement_and_prefix_sum_repeat_bit_for_bit(L, nbins):
+    """20 calls back to back, each bit-identical to the first: a stale
+    ticket or flag, or counters read before they were published, would
+    show as a difference.  Tables of 20 MB and 7.8 MB (Table 4.1's width)
+    sit in the L2; the 5e7 set's 192 MB does not."""
+    dev = _cuda()
+    rng = np.random.default_rng(20)
+    keys = torch.from_numpy(rng.integers(0, nbins, L).astype(np.int32)) \
+        .to(dev)
+    block_b = default_block_b(nbins)
+    offsets, _ = block_offsets(keys, nbins=nbins, block_b=block_b)
+    want = placement_ref(keys, offsets, nbins=nbins, block_b=block_b)
+    xs = [torch.from_numpy(rng.standard_normal(L)).to(dev, dtype)
+          for dtype in (torch.float32, torch.float64)]
+    firsts = [ss.blocked_cumsum(x) for x in xs]
+    for _ in range(20):
+        assert torch.equal(cs.placement(keys, offsets, nbins=nbins,
+                                        block_b=block_b), want)
+        handed = offsets.clone()
+        assert torch.equal(cs.placement(keys, handed, nbins=nbins,
+                                        block_b=block_b,
+                                        consume_offsets=True), want)
+        for x, first in zip(xs, firsts):
+            assert torch.equal(ss.blocked_cumsum(x), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [5_000_000, 50_000_000])
+def test_prefix_sum_on_same_sign_data(dtype, L):
+    """Uniform values in [0, 1): no cancellation, so an error that grows
+    with the number of chained tile prefixes would reach the tolerance;
+    within 64 eps of the running sum against the plain version, and in
+    float32 also against a float64 prefix sum."""
+    dev = _cuda()
+    rng = np.random.default_rng(L + 1)
+    x = torch.from_numpy(rng.random(L)).to(dev, dtype)
+    got = ss.blocked_cumsum(x)
+    run = torch.cumsum(x.double(), 0)  # x >= 0: the running sum of |x|
+    tol = 64 * torch.finfo(dtype).eps * run
+    err = (got - blocked_cumsum_ref(x)).double().abs()
+    assert bool(torch.all(err <= tol))
+    if dtype == torch.float32:
+        assert bool(torch.all((got.double() - run).abs() <= tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", ["below", "at", "above"])
+def test_prefix_sum_at_the_tile_edges(dtype, where):
+    dev = _cuda()
+    T = SCAN_TILE
+    L = {"below": T - 1, "at": T, "above": T + 1}[where]
+    rng = np.random.default_rng(L)
+    xi = torch.from_numpy(rng.integers(-8, 9, L)).to(dev, dtype)
+    assert torch.equal(ss.blocked_cumsum(xi), blocked_cumsum_ref(xi))
+    xn = torch.from_numpy(rng.standard_normal(L)).to(dev, dtype)
+    err = (ss.blocked_cumsum(xn) - blocked_cumsum_ref(xn)).abs()
+    tol = 64 * torch.finfo(dtype).eps * torch.cumsum(xn.abs(), 0)
+    assert bool(torch.all(err <= tol))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [5_000_000, 50_000_000])
+def test_prefix_sum_on_cancelling_and_unaligned_data(dtype, L):
+    """A running sum that cancels (+a, -a pairs: every even prefix is
+    0), integer-valued data at 5e7 (exact), and a view that starts 4
+    bytes in (no 16-byte vectors)."""
+    dev = _cuda()
+    rng = np.random.default_rng(L)
+    a = torch.from_numpy(rng.standard_normal(L // 2)).to(dev, dtype)
+    x = torch.stack([a, -a], 1).reshape(-1)
+    got = ss.blocked_cumsum(x)
+    err = (got - blocked_cumsum_ref(x)).abs()
+    tol = 64 * torch.finfo(dtype).eps * torch.cumsum(x.abs(), 0)
+    assert bool(torch.all(err <= tol))
+    xi = torch.from_numpy(rng.integers(-8, 9, L)).to(dev, dtype)
+    assert torch.equal(ss.blocked_cumsum(xi), blocked_cumsum_ref(xi))
+    odd = xi[1:]
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(ss.blocked_cumsum(odd), blocked_cumsum_ref(odd))
+
+
+def test_empty_inputs_launch_nothing():
+    dev = _cuda()
+    before = (cs.placement.launches, ss.blocked_cumsum.launches)
+    keys = torch.zeros(0, dtype=torch.int32, device=dev)
+    offsets = torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    pos = cs.placement(keys, offsets, nbins=5, block_b=1024)
+    assert pos.shape == (0,) and pos.dtype == torch.int32
+    assert pos.device.type == "cuda"
+    for dtype in (torch.float32, torch.float64):
+        c = ss.blocked_cumsum(torch.zeros(0, dtype=dtype, device=dev))
+        assert c.shape == (0,) and c.dtype == dtype
+    assert (cs.placement.launches, ss.blocked_cumsum.launches) == before
 
 
 def test_pallas_plan_equals_radix_plan_through_the_kernels():

@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import nothing of JAX and nothing of the JAX package ``repro``."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
+``kernel_times.py`` import nothing of JAX and nothing of the JAX package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -27,7 +28,8 @@ def _imported_modules(path: Path):
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for must in ("chip_smoke.py", "src/repro_torch/sparse/matlab.py",
+    for must in ("chip_smoke.py", "kernel_times.py",
+                 "src/repro_torch/sparse/matlab.py",
                  "src/repro_torch/kernels/radix_sort/radix_sort.py",
                  "src/repro_torch/kernels/segment_sum/segment_sum.py"):
         assert must in names
