@@ -12,8 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and prints each kernel's ``-Xptxas -v`` report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on the streams its path gives it at L = 2.5e6 and 5e7: B1
-   digit histogram, B2 stable digit placement, B12 block histogram and
-   B11 counting-sort placement bit for bit; B3' fused sum and B5 prefix
+   digit histogram and B2 stable digit placement on every pass of the
+   radix chain (``radix_chain``: B2 with the words it carries), B12
+   block histogram and B11 counting-sort placement bit for bit; B3' fused sum and B5 prefix
    sum bit for bit on integer-valued data and within their stated
    tolerances on random float32/float64 (B5 on zero-mean and on
    same-sign data, and bit for bit from call to call; B11 also on a
@@ -72,20 +73,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stream 1.  Counters (all twelve) are set to 0 before this phase and
    must rise by exactly the expected launches.  Then B7 against its
    plain version and ``torch.searchsorted``, bit for bit, on both call
-   sites' streams, both sides, and edge cases.
+   sites' streams, both sides, and edge cases.  Then complex values
+   (``complex_checks``): fills, SpMVs and a refill on the card, where
+   the float kernels take them one real part at a time, against the
+   CPU's plain versions, each part within the kernel's tolerance.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
    sleep that hides the host's dispatch; B11 as the counting sort calls
    it, on a handed-over table, with the copy a standalone call makes
-   timed apart; B1 against ``torch.bincount`` of (tile, digit), B2
-   against a stable ``torch.sort`` of the digit), and the time of one call as a
+   timed apart; B1 and B2 on the radix chain's second pass, B2 with
+   the words it carries there; B1 against ``torch.bincount`` of (tile,
+   digit), B2 against a stable ``torch.sort`` of the digit; B4 against
+   ``scatter_reduce_`` with the gather ``v[perm]`` inside the timed
+   call; the radix sort against a stable ``torch.sort`` of the int64
+   key ``col * (M + 1) + row``), and the time of one call as a
    caller pays it (device plus dispatch gaps; the ratio of the two is
    the device's idle share); host-clock medians of the whole
    ``fsparse`` call, of a ``sparse2`` miss and hit, and of building
    and hashing the ``sparse2`` key.  For the third path, at its size:
-   B6, B8, B9 and B10 as above (yardsticks ``index_add_`` of the
-   gathered products, cuSPARSE CSR and BSR ``torch.mv``), the plan and
+   B6, B8, B9 and B10 as above (yardsticks ``index_add_`` with the two
+   gathers and the product inside the timed call, cuSPARSE CSR and BSR
+   ``torch.mv``), the plan and
    fill of A, each SpMV, one CG iteration, ``product_plan`` split into
    the host expansion and the device plan, and the B6 refills.  For
    the fourth path: per set and delta share the update against a
@@ -93,9 +102,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    materialisation and Parts 3-4, ``sparse2_update`` of the edge flip
    on the host clock, ``plan_symmetric`` against ``plan`` of A and the
    ``SymPattern`` refill against the full fill, and B7 at both call
-   sites (yardstick ``torch.searchsorted`` of packed int64 keys, the
-   packing timed apart; bound: the queries, the offsets and the
-   targets the ladder reaches).
+   sites (yardstick ``torch.searchsorted`` with the int64 packing of
+   both streams it needs inside the timed call, and each of the two
+   apart; bound: the queries, the offsets and the targets the ladder
+   reaches).
 
 The last lines are the ``{"kernels": [...]}`` summary, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  The script imports nothing
@@ -300,6 +310,43 @@ def numpy_accum(v: np.ndarray, slot, first, last, accum: str):
                             minlength=nnz)
                 / np.bincount(slot, minlength=nnz))
     return v[first if accum == "first" else last]
+
+
+def radix_chain(rows, cols, M: int, N: int, *, upto: int | None = None,
+                check=None):
+    """The radix chain of ``radix_sort_pair`` driven pass by pass on B1
+    and B2, with the words each pass carries.
+
+    ``check(i, pass, args)`` runs after pass ``i`` with ``args = (keys,
+    hist, base, perm, carry, kw, out)``: the pass's inputs, B1's and
+    B2's outputs.
+    With ``upto``, stops before pass ``upto`` and returns its inputs
+    ``(keys, base, perm, carry, kw)``; else returns the permutation.
+    """
+    from repro_torch.kernels.radix_sort import radix_sort as rs
+    from repro_torch.kernels.radix_sort.ops import (carried_words,
+                                                    digit_bases,
+                                                    plan_digit_passes)
+
+    passes = plan_digit_passes(M, N, rows.shape[0])
+    perm = None
+    for i, p in enumerate(passes):
+        keys = cols if p.src_col else rows
+        want = carried_words(passes, i)
+        carry = tuple(w for w, k in zip((rows, cols), want) if k)
+        kw = dict(shift=p.shift, bits=p.bits, nbins=p.nbins)
+        hist = rs.digit_block_histogram(keys, **kw)
+        base = digit_bases(hist)
+        if i == upto:
+            return keys, base, perm, carry, kw
+        out = rs.digit_placement(keys, base, perm, carry=carry, **kw)
+        if check is not None:
+            check(i, p, (keys, hist, base, perm, carry, kw, out))
+        perm, moved = out if carry else (out, ())
+        moved = iter(moved)
+        rows = next(moved) if want[0] else rows
+        cols = next(moved) if want[1] else cols
+    return perm
 
 
 # -- the third path's data: fem_poisson's P1 mesh and a prolongation --------
@@ -730,7 +777,6 @@ def fem_times(fem, cpm, dev):
     pp, Ptc = fem["pp1"], fem["Ptc"]
     st = (pp.sa, pp.sb, pp.pattern.slot)
     nz = dict(num_segments=pp.nzmax)
-    prod = Ptc.data[pp.sa] * A.data[pp.sb]
     slot_l = pp.pattern.slot.long()
     sym_in = (S.indices, S.data, S.indptr, x)
     bcols = slot_columns(Bm.indptr, Bm.nbmax).clamp(0, Bm.Nb - 1)
@@ -743,7 +789,7 @@ def fem_times(fem, cpm, dev):
         "B6": (lambda: ss_mod.gather2_segment_sum(Ptc.data, A.data, *st, **nz),
                lambda: gather2_segment_sum_ref(Ptc.data, A.data, *st, **nz),
                lambda: torch.zeros(pp.nzmax, device=dev).index_add_(
-                   0, slot_l, prod),
+                   0, slot_l, Ptc.data[pp.sa] * A.data[pp.sb]),
                12 * F + 4 * reached[0] + 4 * reached[1] + 4 * pp.nzmax,
                2 * F),
         "B8": (lambda: ell_mod.spmv_ell(cols, vals, x),
@@ -809,6 +855,80 @@ def fem_times(fem, cpm, dev):
     t["galerkin_refill_ms"] = host_ms(
         lambda: ops.matmul(ops.matmul(ops.transpose(P), A), P), 5)
     return rows_k, t
+
+
+def complex_checks(dev, sets, rng, n: int = 199):
+    """Complex values on the card, which the float kernels take one real
+    part at a time (``kernels.common.split_complex``), against the CPU's
+    plain versions on the complex values: the fills of Table 4.1's set 1
+    (sum and mean through B3', ``fill_pallas`` through B5), and on the
+    FEM matrix of an ``n`` x ``n``-cell mesh the ELL, SymCSC and BSR
+    SpMVs (B8, B9, B10) and the refill of ``P' A`` (B6).  Each part
+    within the kernel's own ``c eps sum|terms|`` (a part of a complex
+    product has twice the terms).  Returns the largest error over its
+    tolerance, per result."""
+    from repro_torch import kernels
+    from repro_torch.core.coo import coo_from_matlab
+    from repro_torch.kernels.assembly_ops import fill_pallas
+    from repro_torch.sparse import convert, ops, plan, product_plan
+    from repro_torch.sparse.pattern import plan_coo
+
+    def cplx(k):
+        return (rng.standard_normal(k) + 1j * rng.standard_normal(k)) \
+            .astype(np.complex64)
+
+    ii, jj, ss, siz = sets["1"]
+    v = cplx(ii.shape[0])
+    rows_h, cols_h, vals_h, nv, _, _ = fem_system(n)
+    pr_, pc_, pv_, pshape = bilinear_prolongation(n)
+    w = complex(*rng.standard_normal(2))  # keeps A symmetric
+    x = cplx(nv)
+
+    def run(d):
+        coo = coo_from_matlab(ii, jj, ss, (siz, siz), device=d)
+        pat = plan_coo(coo)
+        vd = torch.from_numpy(v).to(d)
+        out = {"sum": pat.assemble(vd).data,
+               "mean": plan_coo(coo, accum="mean").assemble(vd).data,
+               "fill_pallas": fill_pallas(pat, vd).data}
+        mag = pat.assemble(vd.abs()).data
+        mags = {"sum": 8 * mag,
+                "mean": 8 * plan_coo(coo, accum="mean").assemble(
+                    vd.abs()).data,
+                "fill_pallas": 2 * C_SCAN * torch.cumsum(mag.double(), 0)}
+        A = plan(torch.from_numpy(rows_h).to(d),
+                 torch.from_numpy(cols_h).to(d), (nv, nv)).assemble(
+            torch.from_numpy(vals_h).to(d) * w)
+        P = plan(torch.from_numpy(pr_).to(d), torch.from_numpy(pc_).to(d),
+                 pshape).assemble(torch.from_numpy(pv_).to(d))
+        Pt = convert(ops.transpose(P), "csc")
+        xd = torch.from_numpy(x).to(d)
+        ell_cols, ell_vals, _ = kernels.csc_to_ell(A, max_per_row=FEM_K)
+        out.update(ell=kernels.spmv(ell_cols, ell_vals, xd),
+                   symcsc=ops.matmul(convert(A, "symcsc"), xd),
+                   bsr=ops.matmul(convert(A, "bsr", block=2), xd))
+        spmv_mag = 2 * 8 * kernels.spmv(ell_cols, ell_vals.abs(), xd.abs())
+        mags.update(ell=spmv_mag, symcsc=spmv_mag, bsr=spmv_mag)
+        pp = product_plan(Pt, A)
+        out["product"] = pp.multiply(Pt.data, A.data).data
+        mags["product"] = 2 * 8 * pp.multiply(Pt.data.abs(),
+                                              A.data.abs()).data
+        return ({k: t.cpu() for k, t in out.items()},
+                {k: t.cpu() for k, t in mags.items()})
+
+    got, mags = run(dev)
+    want, _ = run("cpu")
+    ratios = {}
+    for k, g in got.items():
+        require(g.dtype == want[k].dtype == torch.complex64,
+                f"complex {k}: dtype {g.dtype}")
+        tol = EPS32 * mags[k].double() + 1e-30
+        ratios[k] = max(float(((part(g) - part(want[k])).abs().double()
+                               / tol).max())
+                        for part in (torch.real, torch.imag))
+        require(ratios[k] <= 1.0, f"complex {k} on the card differs from "
+                f"the CPU path by {ratios[k]} x its tolerance")
+    return ratios
 
 
 # -- the fourth path: dynamic patterns and symmetric planning --------------
@@ -1232,8 +1352,14 @@ def update_times(sets, fem, ctx, cpm, dev):
                      qr, qc, tr, tc, side=side)),
                  "plain_ms": device_ms(lambda: merge_search_ref(
                      qr, qc, tr, tc, side=side), cpm),
+                 # like for like: searchsorted needs both streams packed
+                 # into int64 keys, so the packing is timed with it
                  "library_ms": device_ms(lambda: torch.searchsorted(
-                     key, qkey, right=right), cpm),
+                     tc.long() * (Mk + 1) + tr.long(),
+                     qc.long() * (Mk + 1) + qr.long(), right=right), cpm),
+                 "searchsorted_alone_ms": device_ms(
+                     lambda: torch.searchsorted(key, qkey, right=right),
+                     cpm),
                  "pack_ms": device_ms(lambda: (
                      tc.long() * (Mk + 1) + tr.long(),
                      qc.long() * (Mk + 1) + qr.long()), cpm),
@@ -1276,8 +1402,7 @@ def main() -> None:
     from repro_torch.sparse.matlab import (_cache_key, expand_indices,
                                            fsparse, plan_cache_clear,
                                            plan_cache_info, sparse2)
-    from repro_torch.sparse.pattern import (first_flags, pattern_from_perm,
-                                            plan_coo)
+    from repro_torch.sparse.pattern import pattern_from_perm, plan_coo
     from repro_torch.core.coo import coo_from_matlab, host_triplets
 
     kind = torch.cuda.get_device_name(0)
@@ -1327,20 +1452,20 @@ def main() -> None:
         ii, jj, ss, siz = sets[name]
         coo = coo_from_matlab(ii, jj, ss, (siz, siz))
         rows, cols, L = coo.rows, coo.cols, coo.L
-        perm = None
-        for p in plan_digit_passes(siz, siz, L):
-            src = cols if p.src_col else rows
-            keys = src if perm is None else src[perm]
-            kw = dict(shift=p.shift, bits=p.bits, nbins=p.nbins)
-            h = hist_k(keys, **kw)
-            require(torch.equal(h, digit_block_histogram_ref(
+
+        def check_pass(i, p, args):
+            keys, hist, base, perm, carry, kw, out = args
+            require(torch.equal(hist, digit_block_histogram_ref(
                 keys, tile=TILE, **kw)), f"B1 differs on set {name}, {p}")
-            base = digit_bases(h)
-            nxt = place_k(keys, base, perm, **kw)
-            require(torch.equal(nxt, digit_placement_ref(
-                keys, base, perm, tile=TILE, **kw)),
-                f"B2 differs on set {name}, {p}")
-            perm = nxt
+            want = digit_placement_ref(keys, base, perm, carry=carry,
+                                       tile=TILE, **kw)
+            got, want = (((out,), (want,)) if not carry else
+                         ((out[0], *out[1]), (want[0], *want[1])))
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"B2 (carrying {len(carry)} words) differs on set "
+                    f"{name}, {p}")
+
+        perm = radix_chain(rows, cols, siz, siz, check=check_pass)
         require(torch.equal(perm, radix_sort_pair_ref(rows, cols, M=siz,
                                                       N=siz)),
                 f"radix permutation differs from the stable sort, set {name}")
@@ -1367,9 +1492,9 @@ def main() -> None:
                   "max_abs_err": err, "atol": atol})
         emit({"check": "B1, B2, B3' vs plain", "set": name, "L": L,
               "passes": len(plan_digit_passes(siz, siz, L)),
-              "B1": "bit-identical", "B2": "bit-identical",
-              "B3_integer": "bit-identical"})
-        del coo, rows, cols, perm, pat, fill_args, keys, nxt, h, base
+              "B1": "bit-identical", "B2": "bit-identical, carried words "
+              "included", "B3_integer": "bit-identical"})
+        del coo, rows, cols, perm, pat, fill_args
     torch.cuda.synchronize()
 
     # -- 3b. kernel vs plain: the second path's kernels ---------------------
@@ -1677,6 +1802,9 @@ def main() -> None:
     emit({"check": "B7 vs plain and torch.searchsorted", "path": "fourth",
           "cases": cases7, "sides": ["left", "right"],
           "B7": "bit-identical"})
+    # complex values through the float kernels, against the CPU path
+    emit({"check": "complex on the card vs the CPU path",
+          "max_err_over_tol": complex_checks(dev, sets, rng)})
 
     # -- 5. times -----------------------------------------------------------
     cpm = sleep_cycles_per_ms()
@@ -1740,15 +1868,17 @@ def main() -> None:
             r_h, c_h, (siz, siz), None, "radix", dev, ("sum", None, 1))),
             host_reps)
         del r_h, c_h
-        # a representative digit pass: the second one, whose payload is
-        # the first pass's permutation (every later pass looks alike)
-        p0, p1 = passes[0], passes[1]
-        kw0 = dict(shift=p0.shift, bits=p0.bits, nbins=p0.nbins)
-        perm0 = place_k(rows, digit_bases(hist_k(rows, **kw0)), None, **kw0)
-        keys = (cols if p1.src_col else rows)[perm0]
-        kw = dict(shift=p1.shift, bits=p1.bits, nbins=p1.nbins)
-        base = digit_bases(hist_k(keys, **kw))
+        # a representative digit pass: the second one as the chain calls
+        # it, its payload the first pass's permutation, with the words it
+        # carries (at 5e7 a row pass carrying rows and cols)
+        keys, base, perm0, carry, kw = radix_chain(rows, cols, siz, siz,
+                                                   upto=1)
+        p1 = passes[1]
         hist_bytes = 4 * p1.nbins * -(-L // TILE)
+        # B2 reads the keys and the payload, writes the payload, and reads
+        # and writes each carried word (a carried key is read once)
+        b2_bytes = 12 * L + hist_bytes + sum(
+            4 * L * (1 + (w is not keys)) for w in carry)
         fill_in = (v, pat.perm, pat.slot)
         nz = dict(num_segments=pat.nzmax)
         # B11/B12 on the counting sort's first pass (rows, M + 1 bins);
@@ -1764,8 +1894,7 @@ def main() -> None:
         # standalone call makes first is timed apart.
         handed = offsets.clone()
         keep = pat.slot < pat.nzmax
-        vp = v[pat.perm]
-        x = torch.where(keep, vp, 0)
+        x = torch.where(keep, v[pat.perm], 0)
         seg = torch.where(keep, pat.slot, pat.nzmax).long()
         # the yardsticks of B1 and B2: bincount of (tile, digit) and a
         # stable sort of the digit
@@ -1777,11 +1906,11 @@ def main() -> None:
                    lambda: digit_block_histogram_ref(keys, tile=TILE, **kw),
                    lambda: torch.bincount(flat1, minlength=nflat1),
                    4 * L + hist_bytes, 3 * L),
-            "B2": (lambda: place_k(keys, base, perm0, **kw),
-                   lambda: digit_placement_ref(keys, base, perm0, tile=TILE,
-                                               **kw),
+            "B2": (lambda: place_k(keys, base, perm0, carry=carry, **kw),
+                   lambda: digit_placement_ref(keys, base, perm0,
+                                               carry=carry, tile=TILE, **kw),
                    lambda: torch.sort(digit, stable=True),
-                   12 * L + hist_bytes, 4 * L),
+                   b2_bytes, 4 * L),
             "B3": (lambda: fill_k(*fill_in, **nz),
                    lambda: gather_segment_sum_ref(*fill_in, **nz),
                    lambda: torch.zeros(pat.nzmax, device=dev).index_add_(
@@ -1791,7 +1920,7 @@ def main() -> None:
                    lambda: gather_segment_minmax_ref(*fill_in, op="max", **nz),
                    lambda: torch.full((pat.nzmax + 1,), float("-inf"),
                                       device=dev).scatter_reduce_(
-                       0, seg, vp, "amax", include_self=False),
+                       0, seg, v[pat.perm], "amax", include_self=False),
                    4 * L + 8 * L + 4 * pat.nzmax, L),
             "B5": (lambda: scan_k(x), lambda: blocked_cumsum_ref(x),
                    lambda: torch.cumsum(x, 0), 8 * L, L),
@@ -1823,8 +1952,9 @@ def main() -> None:
         t["card"] = smi_line
         emit(t)
         per_kernel[name] = rows_k
-        del coo, rows, cols, pat, v, key64, perm0, keys, base, fill_in, fns
-        del offsets, handed, flat, keep, vp, x, seg, digit, flat1
+        del coo, rows, cols, pat, v, key64, perm0, keys, base, carry, fill_in
+        del fns
+        del offsets, handed, flat, keep, x, seg, digit, flat1
         torch.cuda.empty_cache()
 
     big = per_kernel["2x20"]

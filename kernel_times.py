@@ -1,15 +1,25 @@
-"""Device times of B11 (counting-sort placement) and B5 (prefix sum) on
-the card, on ``chip_smoke.py``'s inputs, next to their library calls.
+"""Device times of the kernels redesigned for the H100 (queue D) on the
+card, on ``chip_smoke.py``'s inputs, next to their library calls.
 
     python3 kernel_times.py
 
-Set 2 of Table 4.1 (L = 2.5e6) and the 5e7 set: B11 on the counting
-sort's first pass (the coo rows, M + 1 bins, a handed-over table as the
-counting sort calls it), B5 on L random float32 values.  Each kernel is
-first held against its plain version (B11 bit for bit, B5 within 64 eps
-of the running sum of |x|).  Prints the card's name and power limit, then
-one JSON line a set.  A quicker measure than ``chip_smoke.py`` when two
-versions of these kernels are compared on one card.
+Set 2 of Table 4.1 (L = 2.5e6) and the 5e7 set:
+  - B12 (block histogram) and B11 (counting-sort placement, on a
+    handed-over table as the counting sort calls it) on the counting
+    sort's first pass (the coo rows, M + 1 bins), against
+    ``torch.bincount`` of the flattened (block, key) and a stable
+    ``torch.sort``;
+  - B5 (prefix sum) on L random float32 values, against
+    ``torch.cumsum``;
+  - B2 (digit placement) on the radix chain's second pass as
+    ``radix_sort_pair`` calls it (with its carried words), B1 on the same
+    keys, the whole radix sort against a stable ``torch.sort`` of the
+    int64 key ``col * (M + 1) + row``, and the two plans.
+Each kernel is first held against its plain version (B12, B11, B2 and
+the radix permutation bit for bit, B5 within 64 eps of the running sum
+of |x|).  Prints the card's name and power limit, then one JSON line a
+set.  A quicker measure than ``chip_smoke.py`` when two versions of
+these kernels are compared on one card.
 """
 from __future__ import annotations
 
@@ -32,12 +42,20 @@ def main() -> None:
     from repro_torch.kernels import common
     from repro_torch.kernels.counting_sort.counting_sort import placement
     from repro_torch.kernels.counting_sort.ref import placement_ref
+    from repro_torch.kernels.hist.hist import block_histogram
     from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+    from repro_torch.kernels.hist.ref import block_histogram_ref
+    from repro_torch.kernels.radix_sort import radix_sort as rs
+    from repro_torch.kernels.radix_sort.ops import radix_sort_pair
+    from repro_torch.kernels.radix_sort.ref import (digit_placement_ref,
+                                                    radix_sort_pair_ref)
     from repro_torch.kernels.segment_sum.ref import blocked_cumsum_ref
     from repro_torch.kernels.segment_sum.segment_sum import blocked_cumsum
+    from repro_torch.sparse.pattern import plan_coo
 
     print(smoke.nvidia_smi_line(), flush=True)
-    logs = common.build(["hist", "counting_sort", "segment_sum"])
+    logs = common.build(["hist", "counting_sort", "segment_sum",
+                         "radix_sort"])
     for lib, log in logs.items():
         for line in log.splitlines():
             if "ptxas" in line and ("registers" in line or "spill" in line):
@@ -48,20 +66,45 @@ def main() -> None:
     for name, cfg in (("2", DATA_SETS[2]), ("2x20", smoke.BIG)):
         ii, jj, ss, siz = ransparse(cfg["siz"], cfg["nnz_row"], cfg["nrep"],
                                     seed=smoke.SEED)
-        rows = coo_from_matlab(ii, jj, ss, (siz, siz)).rows
+        coo = coo_from_matlab(ii, jj, ss, (siz, siz))
+        rows, cols = coo.rows, coo.cols
         L = rows.shape[0]
         cnt = dict(nbins=siz + 1, block_b=default_block_b(siz + 1))
+        smoke.require(torch.equal(block_histogram(rows, **cnt),
+                                  block_histogram_ref(rows, **cnt)),
+                      f"B12 differs, set {name}")
         offsets, _ = block_offsets(rows, **cnt)
         smoke.require(torch.equal(placement(rows, offsets, **cnt),
                                   placement_ref(rows, offsets, **cnt)),
                       f"B11 differs, set {name}")
         handed = offsets.clone()
+        flat = (torch.arange(L, device=dev) // cnt["block_b"]) \
+            * cnt["nbins"] + rows.long()
+        nflat = offsets.numel()
         x = torch.from_numpy(rng.standard_normal(L)).to(dev, torch.float32)
         err = (blocked_cumsum(x) - blocked_cumsum_ref(x)).abs().double()
         tol = 64 * smoke.EPS32 * torch.cumsum(x.abs().double(), 0)
         smoke.require(bool(torch.all(err <= tol)), f"B5 error, set {name}")
+        keys, base, perm0, carry, kw = smoke.radix_chain(rows, cols, siz,
+                                                         siz, upto=1)
+        got = rs.digit_placement(keys, base, perm0, carry=carry, **kw)
+        want = digit_placement_ref(keys, base, perm0, carry=carry,
+                                   tile=rs.TILE, **kw)
+        smoke.require(all(torch.equal(a, b) for a, b in zip(
+            (got[0], *got[1]), (want[0], *want[1]))),
+            f"B2 differs on the chain's second pass, set {name}")
+        smoke.require(torch.equal(
+            radix_sort_pair(rows, cols, M=siz, N=siz),
+            radix_sort_pair_ref(rows, cols, M=siz, N=siz)),
+            f"radix permutation differs, set {name}")
+        key64 = cols.long() * (siz + 1) + rows.long()
         print(json.dumps({
-            "set": name, "L": L, **cnt,
+            "set": name, "L": L, **cnt, "B2_pass": kw,
+            "B2_carried_words": len(carry),
+            "B12_ms": smoke.device_ms(
+                lambda: block_histogram(rows, **cnt), cpm),
+            "bincount_ms": smoke.device_ms(
+                lambda: torch.bincount(flat, minlength=nflat), cpm),
             "B11_ms": smoke.device_ms(
                 lambda: placement(rows, handed, consume_offsets=True, **cnt),
                 cpm),
@@ -70,8 +113,21 @@ def main() -> None:
             "B5_f32_ms": smoke.device_ms(lambda: blocked_cumsum(x), cpm),
             "cumsum_f32_ms": smoke.device_ms(lambda: torch.cumsum(x, 0),
                                              cpm),
+            "B1_ms": smoke.device_ms(
+                lambda: rs.digit_block_histogram(keys, **kw), cpm),
+            "B2_ms": smoke.device_ms(
+                lambda: rs.digit_placement(keys, base, perm0, carry=carry,
+                                           **kw), cpm),
+            "radix_sort_device_ms": smoke.device_ms(
+                lambda: radix_sort_pair(rows, cols, M=siz, N=siz), cpm),
+            "sort_key64_stable_ms": smoke.device_ms(
+                lambda: torch.sort(key64, stable=True), cpm),
+            "plan_device_ms": smoke.device_ms(lambda: plan_coo(coo), cpm),
+            "plan_pallas_device_ms": smoke.device_ms(
+                lambda: plan_coo(coo, method="pallas"), cpm),
         }), flush=True)
-        del ii, jj, ss, rows, offsets, handed, x, err, tol
+        del ii, jj, ss, coo, rows, cols, offsets, handed, flat, x, err, tol
+        del keys, base, perm0, carry, got, want, key64
         torch.cuda.empty_cache()
 
 

@@ -16,11 +16,17 @@ from .compat import resolve_method_arg
 from .fsparse import fsparse, fsparse_coo
 from .ransparse import DATA_SETS, dataset
 
+# two-phase API re-exports (canonical home: repro_torch.sparse); submodule
+# imports keep this safe while repro_torch.sparse is mid-initialization
+from ..sparse.formats import CSR, SparseMatrix, convert
+from ..sparse.pattern import SparsePattern, plan, plan_coo
+
 __all__ = [
-    "AssemblyIntermediate", "COO", "CSC", "DATA_SETS", "assemble",
-    "assemble_arrays", "assemble_fused", "assembly_intermediates",
-    "coo_from_matlab", "coo_to_dense", "counting_sort_positions",
-    "csc_to_dense", "dataset", "fsparse", "fsparse_coo", "part1_count_rows",
-    "part2_rank", "part3_unique", "part4_finalize", "postprocess",
+    "AssemblyIntermediate", "COO", "CSC", "CSR", "DATA_SETS",
+    "SparseMatrix", "SparsePattern", "assemble", "assemble_arrays",
+    "assemble_fused", "assembly_intermediates", "convert", "coo_from_matlab",
+    "coo_to_dense", "counting_sort_positions", "csc_to_dense", "dataset",
+    "fsparse", "fsparse_coo", "part1_count_rows", "part2_rank",
+    "part3_unique", "part4_finalize", "plan", "plan_coo", "postprocess",
     "resolve_method_arg", "spmv", "spmv_t",
 ]

@@ -41,6 +41,9 @@ class COO:
     def N(self) -> int:
         return int(self.shape[1])
 
+    def __len__(self) -> int:
+        return self.L
+
     def to_dense(self) -> torch.Tensor:
         """Dense scatter-add (duplicates sum)."""
         return coo_to_dense(self.rows, self.cols, self.vals, M=self.M,

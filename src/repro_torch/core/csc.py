@@ -51,6 +51,14 @@ class CSC:
         return csc_to_dense(self.data, self.indices, self.indptr, M=self.M,
                             N=self.N)
 
+    def __matmul__(self, x):
+        """``A @ x`` via ``repro_torch.sparse.ops.matmul``: one dispatch
+        point, the SpMV/SpMM for a dense operand and the plan-cached
+        SpGEMM for a registered sparse format."""
+        from ..sparse.ops import matmul
+
+        return matmul(self, x)
+
 
 def slot_columns(indptr: torch.Tensor, nzmax: int) -> torch.Tensor:
     """Column index of every storage slot (padded tail -> N)."""

@@ -32,7 +32,8 @@ import types
 _EXPORTS = {
     "assemble_kernels": "assembly_ops", "fill_fused": "assembly_ops",
     "fill_pallas": "assembly_ops", "plan_kernels": "assembly_ops",
-    "multiply_fused": "assembly_ops",
+    "multiply_fused": "assembly_ops", "assemble_pallas": "assembly_ops",
+    "plan_pallas": "assembly_ops",
     "counting_sort": "counting_sort.ops",
     "block_offsets": "hist.ops", "histogram": "hist.ops",
     "plan_digit_passes": "radix_sort.ops",

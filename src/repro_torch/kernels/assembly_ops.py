@@ -2,7 +2,7 @@
 
 Counterparts of ``repro/kernels/assembly_ops.py``'s ``plan_pallas``,
 ``fill_fused`` and ``assemble_pallas``, renamed because nothing in the
-port is Pallas:
+port is Pallas (the reference's names stay as aliases):
 
   Parts 1-3  radix_sort.radix_sort_pair  (B1 histogram + scan + B2
              placement per digit of at most 8 bits)
@@ -116,3 +116,8 @@ def multiply_fused(pattern: ProductPattern, data_A: torch.Tensor,
             f"capacities ({pattern.a_capacity}/{pattern.b_capacity})"
         )
     return pattern.multiply(data_A, data_B)
+
+
+#: the reference's names (``repro.kernels.plan_pallas``/``assemble_pallas``)
+plan_pallas = plan_kernels
+assemble_pallas = assemble_kernels

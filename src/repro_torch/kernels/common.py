@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/common.py``: the integer helpers are the
 same; the ``INTERPRET`` switch has no counterpart.  A kernel wrapper
 takes its plain PyTorch version only for a tensor that lies on the CPU
-and launches its kernel (or raises) for a CUDA tensor.
+and launches its kernel (or raises) for a CUDA tensor.  The kernels take
+float32/float64 values; :func:`split_complex` runs complex values on the
+card through them, one real part at a time.
 
 The kernels live in ``src/repro_torch/csrc/*.cu``.  Each source is
 compiled by ``nvcc`` into its own shared library with a plain C
@@ -15,7 +17,9 @@ rebuilds, an unchanged one loads).  A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -53,6 +57,65 @@ def pad_to(x: torch.Tensor, size: int, fill) -> torch.Tensor:
         return x
     pad = x.new_full(x.shape[:-1] + (size - L,), fill)
     return torch.cat([x, pad], dim=-1)
+
+
+def _parts(x: torch.Tensor):
+    """``(real, imag)`` of ``x``; ``imag`` is ``None`` for a real ``x``."""
+    if x.is_complex():
+        return x.real, x.imag
+    return x, None
+
+
+def _each(op, *outs):
+    """``op`` over results that are tensors or tuples of tensors."""
+    if isinstance(outs[0], tuple):
+        return tuple(op(*z) for z in zip(*outs))
+    return op(*outs)
+
+
+def on_card_complex(dtype: torch.dtype, device: torch.device) -> bool:
+    """Complex values on the card: the kernels take their real parts
+    (:func:`split_complex`); the CPU's plain versions take complex values
+    as they are."""
+    return dtype.is_complex and device.type != "cpu"
+
+
+def split_complex(fn, a: torch.Tensor, b: torch.Tensor | None = None):
+    """``fn`` of complex operands, computed by its real kernels.
+
+    ``fn(a)`` must be real-linear in ``a``, or ``fn(a, b)`` real-linear
+    in each operand (a sum of products): the complex operands are split
+    into their real and imaginary parts, the parts go through ``fn``,
+    and the results are put together again::
+
+        fn(ar + i ai)              = fn(ar) + i fn(ai)
+        fn(ar + i ai, br + i bi)   = fn(ar, br) - fn(ai, bi)
+                                     + i (fn(ar, bi) + fn(ai, br))
+
+    A real operand is not split (two calls where one operand is
+    complex).  ``fn`` may return a tensor or a tuple of tensors; each
+    part of the result has the error of ``fn`` on that part's terms.
+    """
+    parts = [*_parts(a), *(_parts(b) if b is not None else (None, None))]
+    # one real type for every part the kernels see: 16-bit widens
+    real = functools.reduce(torch.promote_types,
+                            [p.dtype for p in parts if p is not None])
+    if real in (torch.float16, torch.bfloat16):
+        real = torch.float32
+    ar, ai, br, bi = (None if p is None else p.to(real).contiguous()
+                      for p in parts)
+    if b is None:
+        return fn(ar) if ai is None else _each(torch.complex, fn(ar),
+                                                fn(ai))
+    if ai is None and bi is None:
+        return fn(ar, br)
+    if ai is None:
+        return _each(torch.complex, fn(ar, br), fn(ar, bi))
+    if bi is None:
+        return _each(torch.complex, fn(ar, br), fn(ai, br))
+    return _each(torch.complex,
+                 _each(operator.sub, fn(ar, br), fn(ai, bi)),
+                 _each(operator.add, fn(ar, bi), fn(ai, br)))
 
 
 def resolve_device(device=None) -> torch.device:

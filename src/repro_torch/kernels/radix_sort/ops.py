@@ -8,15 +8,20 @@ B2 placement with the permutation as payload), so the composition is
 the stable lexicographic (col, row) order for any ``M``/``N``.  Any
 stable LSD schedule gives the same permutation, so the port's digit
 plan may differ from the reference's while ``perm`` stays bit-identical.
+B2 also carries the words later passes read (:func:`carried_words`),
+so the next pass's key is already in order: no pass gathers it through
+the permutation.
 
 The reference's cost-model priors describe TPU VMEM and lane tiles.
 The port keeps its own, below: H100 priors in bytes moved per key,
-**not measured**.  A pass costs about ``PASS_BYTES`` per key (key
-gather 12 B, B1 4 B, B2 12 B), its histogram about ``BIN_BYTES`` per
-bin per key (write, scan, re-read of ``nbins`` counters per tile of
-``TILE`` keys), and a fixed ``LAUNCH_BYTES`` (three launches of about
-5 us at 3.35 TB/s) spread over the L keys.  With digits of at most 8
-bits this picks the fewest passes and splits each word evenly.
+**not measured**.  A pass costs about ``PASS_BYTES`` per key (B1 reads
+the key, 4 B; B2 reads the key and the payload and moves one or two
+carried words, 12-24 B: 22 B a pass on average over the 5e7 set's six),
+its histogram about ``BIN_BYTES`` per bin per key (write, scan, re-read
+of ``nbins`` counters per tile of ``TILE`` keys), and a fixed
+``LAUNCH_BYTES`` (three launches of about 5 us at 3.35 TB/s) spread
+over the L keys.  With digits of at most 8 bits this picks the fewest
+passes and splits each word evenly.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from .radix_sort import (KERNEL_MAX_BITS, TILE, digit_block_histogram,
 
 #: H100 priors (not measured): see the module docstring
 MAX_BITS = KERNEL_MAX_BITS
-PASS_BYTES = 28.0
+PASS_BYTES = 22.0
 BIN_BYTES = 12.0 / TILE
 LAUNCH_BYTES = 50_000.0
 
@@ -94,10 +99,10 @@ def digit_bases(hist: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(flat, 0, dtype=torch.int32) - flat
 
 
-def _pass(keys, payload, *, shift: int, bits: int, nbins: int):
+def _pass(keys, payload, *, carry=(), shift: int, bits: int, nbins: int):
     hist = digit_block_histogram(keys, shift=shift, bits=bits, nbins=nbins)
-    return digit_placement(keys, digit_bases(hist), payload, shift=shift,
-                           bits=bits, nbins=nbins)
+    return digit_placement(keys, digit_bases(hist), payload, carry=carry,
+                           shift=shift, bits=bits, nbins=nbins)
 
 
 def radix_pass_positions(keys: torch.Tensor, *, shift: int, bits: int,
@@ -115,22 +120,39 @@ def radix_pass_positions(keys: torch.Tensor, *, shift: int, bits: int,
     return pos
 
 
+def carried_words(passes, i: int) -> tuple[bool, bool]:
+    """Whether pass ``i`` of ``passes`` carries ``(rows, cols)``: each
+    word that a later pass reads."""
+    later = passes[i + 1:]
+    return (any(not p.src_col for p in later),
+            any(p.src_col for p in later))
+
+
 def radix_sort_pair(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
                     N: int, max_bits: int | None = None) -> torch.Tensor:
     """(col, row)-stable-ordered permutation via LSD radix partitioning.
 
     Bit-identical to the two-pass stable sort for every ``M``/``N``.
-    Per pass the size-L data movement is one key gather through the
-    running permutation (plain PyTorch indexing) and the B1/B2 kernels;
-    the placement scatters the permutation itself, so ``rank`` and the
-    landing positions are never materialized.
+    Per pass, one B1 and one B2: the placement scatters the permutation
+    and carries the words later passes read, so ``rank``, the landing
+    positions and any gather through the permutation never reach device
+    memory.
     """
     L = rows.shape[0]
     rows = rows.to(torch.int32).contiguous()
     cols = cols.to(torch.int32).contiguous()
+    passes = plan_digit_passes(M, N, L, max_bits=max_bits)
     perm = None  # identity until the first pass lands
-    for p in plan_digit_passes(M, N, L, max_bits=max_bits):
-        src = cols if p.src_col else rows
-        keys = src if perm is None else src[perm]
-        perm = _pass(keys, perm, shift=p.shift, bits=p.bits, nbins=p.nbins)
+    for i, p in enumerate(passes):
+        want = carried_words(passes, i)
+        carry = tuple(w for w, k in zip((rows, cols), want) if k)
+        kw = dict(shift=p.shift, bits=p.bits, nbins=p.nbins)
+        out = _pass(cols if p.src_col else rows, perm, carry=carry, **kw)
+        if not carry:
+            perm = out
+            continue
+        perm, moved = out
+        moved = iter(moved)
+        rows = next(moved) if want[0] else rows
+        cols = next(moved) if want[1] else cols
     return perm

@@ -5,8 +5,8 @@ counterparts of the Pallas kernels of the same names in
 ``repro/kernels/radix_sort/radix_sort.py``.  Two layout differences:
 the histogram is digit-major (``[nbins, nblocks]``) so one flat
 exclusive scan yields every block's per-digit base, and the placement
-scatters the payload straight to its landing position instead of
-returning the positions.
+scatters the payload (and any carried words) straight to its landing
+position instead of returning the positions.
 
 Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
 launches its kernel for a CUDA tensor; ``.launches`` counts kernel
@@ -26,6 +26,8 @@ from .ref import digit_block_histogram_ref, digit_placement_ref
 TILE = 4096
 #: widest digit the kernels take: 2^8 bins of shared-memory counters
 KERNEL_MAX_BITS = 8
+#: words B2 carries beside the payload, fixed by the kernel source
+KERNEL_MAX_CARRY = 2
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -35,12 +37,16 @@ def _fns() -> dict:
     if not _FNS:
         lib = load_library("radix_sort")
         bind(lib, "radix_tile", [])
-        if lib.radix_tile() != TILE:
-            raise RuntimeError("csrc/radix_sort.cu tile differs from TILE")
+        bind(lib, "radix_max_carry", [])
+        if (lib.radix_tile() != TILE
+                or lib.radix_max_carry() != KERNEL_MAX_CARRY):
+            raise RuntimeError("csrc/radix_sort.cu tile or carry count "
+                               "differs from TILE or KERNEL_MAX_CARRY")
         _FNS["hist"] = bind(lib, "digit_histogram_launch",
                             [_P, _P, _LL, _I, _I, _I, _I, _P])
         _FNS["place"] = bind(lib, "digit_placement_launch",
-                             [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P])
+                             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                              _I, _I, _I, _P])
     return _FNS
 
 
@@ -77,18 +83,24 @@ def digit_block_histogram(keys: torch.Tensor, *, shift: int, bits: int,
 
 
 def digit_placement(keys: torch.Tensor, base: torch.Tensor,
-                    payload: torch.Tensor | None = None, *, shift: int,
-                    bits: int, nbins: int) -> torch.Tensor:
+                    payload: torch.Tensor | None = None, *,
+                    carry: tuple = (), shift: int, bits: int, nbins: int):
     """B2: one stable counting-sort pass of ``payload`` by the digit.
 
     ``base`` is the exclusive scan of :func:`digit_block_histogram`'s
     flattened output; ``payload=None`` scatters the input positions
     ``0..L-1`` (the first pass of a sort).  Returns the new ``int32[L]``
-    stream.
+    stream.  ``carry`` is up to :data:`KERNEL_MAX_CARRY` more ``int32[L]``
+    words (``keys`` itself among them, if wanted) moved the same way;
+    with any, the return is ``(stream, carried)``, ``carried[c]`` being
+    ``carry[c]`` in the new order.  Positions of keys whose digit is
+    ``>= nbins`` are never written.
     """
+    carry = tuple(carry)
     if keys.device.type == "cpu":
-        return digit_placement_ref(keys, base, payload, shift=shift,
-                                   bits=bits, nbins=nbins, tile=TILE)
+        return digit_placement_ref(keys, base, payload, carry=carry,
+                                   shift=shift, bits=bits, nbins=nbins,
+                                   tile=TILE)
     _check_digit(keys, bits, nbins)
     L = keys.shape[0]
     nblocks = cdiv(L, TILE)
@@ -96,18 +108,26 @@ def digit_placement(keys: torch.Tensor, base: torch.Tensor,
     if base.numel() != nbins * nblocks:
         raise ValueError(f"base has {base.numel()} entries, expected "
                          f"nbins * nblocks = {nbins * nblocks}")
-    if payload is not None:
-        check_cuda_tensor(payload, "payload", (torch.int32,))
-        if payload.shape != keys.shape:
-            raise ValueError("payload must have the keys' shape")
+    if len(carry) > KERNEL_MAX_CARRY:
+        raise ValueError(f"at most {KERNEL_MAX_CARRY} carried words, got "
+                         f"{len(carry)}")
+    for name, word in (("payload", payload),
+                       *((f"carry[{c}]", w) for c, w in enumerate(carry))):
+        if word is not None:
+            check_cuda_tensor(word, name, (torch.int32,))
+            if word.shape != keys.shape:
+                raise ValueError(f"{name} must have the keys' shape")
     out = torch.empty(L, dtype=torch.int32, device=keys.device)
+    moved = tuple(torch.empty_like(out) for _ in carry)
+    ins = [w.data_ptr() for w in carry] + [None] * (2 - len(carry))
+    outs = [w.data_ptr() for w in moved] + [None] * (2 - len(carry))
     check_launch(_fns()["place"](
         keys.data_ptr(), base.data_ptr(),
-        None if payload is None else payload.data_ptr(), out.data_ptr(), L,
-        shift, bits, nbins, nblocks, current_stream(keys.device)),
-        "digit_placement")
+        None if payload is None else payload.data_ptr(), out.data_ptr(),
+        *ins, *outs, len(carry), L, shift, bits, nbins, nblocks,
+        current_stream(keys.device)), "digit_placement")
     digit_placement.launches += 1
-    return out
+    return (out, moved) if carry else out
 
 
 digit_block_histogram.launches = 0

@@ -37,15 +37,18 @@ def digit_block_histogram_ref(keys: torch.Tensor, *, shift: int, bits: int,
 
 
 def digit_placement_ref(keys: torch.Tensor, base: torch.Tensor,
-                        payload: torch.Tensor | None = None, *, shift: int,
-                        bits: int, nbins: int, tile: int) -> torch.Tensor:
+                        payload: torch.Tensor | None = None, *,
+                        carry: tuple = (), shift: int, bits: int,
+                        nbins: int, tile: int):
     """``out[base[d_i, b_i] + rank_i] = payload[i]`` (identity payload if
     ``None``), where ``rank_i`` counts the earlier keys of ``i``'s block
     with ``i``'s digit ``d_i``.
 
     ``base`` is ``int32[nbins, nblocks]`` (or its flat view).  With the
     exclusive scan of the digit-major histogram as ``base`` this is one
-    stable counting-sort pass of the payload by the digit.
+    stable counting-sort pass of the payload by the digit.  Each word of
+    ``carry`` is moved the same way; with any, the return is ``(out,
+    carried)``.
     """
     L = keys.shape[0]
     nblocks = cdiv(L, tile)
@@ -64,10 +67,16 @@ def digit_placement_ref(keys: torch.Tensor, base: torch.Tensor,
     pos = torch.where(g < size,
                       base.reshape(-1).long()[at.clamp(max=size - 1)] + rank,
                       L)
-    src = order.to(torch.int32) if payload is None else payload[order]
-    out = torch.empty(L + 1, dtype=torch.int32, device=dev)
-    out[pos] = src
-    return out[:L]
+
+    def place(src: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(L + 1, dtype=torch.int32, device=dev)
+        out[pos] = src
+        return out[:L]
+
+    out = place(order.to(torch.int32) if payload is None else payload[order])
+    if not carry:
+        return out
+    return out, tuple(place(w[order]) for w in carry)
 
 
 def digit_rank_ref(keys: torch.Tensor, *, shift: int,

@@ -7,7 +7,9 @@ are one collision-free scatter of the boundary-flagged elements (no
 kernel, as in the reference).  :func:`segment_sum_sorted` is the
 unfused reduce: a prefix sum (B5) and the differences at segment
 boundaries.  :func:`gather2_segment_sum_sorted` is the SpGEMM numeric
-phase (B6).
+phase (B6).  Complex values on the card run through the float kernels
+one real part at a time (sums and products are real-linear in each
+part); ``min``/``max`` refuse complex values, as in the reference.
 
 The reference's VMEM residency guard has no counterpart: its fused
 kernels keep ``vals`` resident in an 8 MB VMEM budget and fall back to
@@ -21,6 +23,7 @@ import torch
 
 from ...sparse.pattern import (_slot_counts, accum_dtype, fill_dtype,
                                first_flags, last_flags, validate_accum)
+from ..common import on_card_complex, split_complex
 from .ref import segment_ends as _segment_ends  # noqa: F401
 from .segment_sum import (blocked_cumsum, gather2_segment_sum,
                           gather_segment_minmax, gather_segment_sum)
@@ -58,7 +61,10 @@ def segment_sum_sorted(vals: torch.Tensor, first: torch.Tensor, *,
     prefix sum (B5) and two size-``num_segments`` gathers."""
     if vals.shape[0] == 0:
         return vals.new_zeros(num_segments)
-    c = blocked_cumsum(vals.contiguous())
+    if on_card_complex(vals.dtype, vals.device):
+        c = split_complex(blocked_cumsum, vals)
+    else:
+        c = blocked_cumsum(vals.contiguous())
     return _segment_totals(c, first, num_segments=num_segments)
 
 
@@ -98,6 +104,10 @@ def gather2_segment_sum_sorted(vals_a: torch.Tensor, vals_b: torch.Tensor,
     if sa.shape[0] == 0:
         return torch.zeros(num_segments, dtype=dtype, device=vals_a.device)
     acc = accum_dtype(dtype)
+    if on_card_complex(dtype, sa.device):
+        return split_complex(lambda a, b: gather2_segment_sum(
+            a, b, sa, sb, slot, num_segments=num_segments), vals_a,
+            vals_b).to(dtype)
     return gather2_segment_sum(vals_a.to(acc).contiguous(),
                                vals_b.to(acc).contiguous(), sa, sb, slot,
                                num_segments=num_segments).to(dtype)
@@ -148,7 +158,12 @@ def gather_segment_reduce_sorted(vals: torch.Tensor, perm: torch.Tensor,
         out = gather_segment_minmax(v, perm, slot, num_segments=num_segments,
                                     op=accum)
     else:
-        out = gather_segment_sum(v, perm, slot, num_segments=num_segments)
+        if on_card_complex(v.dtype, v.device):
+            out = split_complex(lambda x: gather_segment_sum(
+                x, perm, slot, num_segments=num_segments), v)
+        else:
+            out = gather_segment_sum(v, perm, slot,
+                                     num_segments=num_segments)
         if accum == "mean":
             out = out / _slot_counts(num_segments, slot).clamp(min=1).to(acc)
     return out.to(dtype)

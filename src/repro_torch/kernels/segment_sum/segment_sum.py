@@ -64,8 +64,8 @@ def _fns() -> dict:
 def _check_values(vals: torch.Tensor, what: str) -> None:
     if vals.is_complex():
         raise NotImplementedError(
-            f"complex values on CUDA are not ported yet ({what} takes "
-            "float32/float64); run it on the CPU"
+            f"{what} takes float32/float64: complex values reach it as "
+            "real parts through the ops layer (common.split_complex)"
         )
     check_cuda_tensor(vals, "vals", tuple(_SUFFIX))
 
@@ -99,7 +99,7 @@ def gather_segment_sum(vals: torch.Tensor, perm: torch.Tensor,
 
     ``perm``/``slot`` are a plan's int32 streams (equal slots adjacent);
     ``vals`` is float32 or float64 on the card (the caller casts 16-bit
-    values to float32 first; complex fills on CUDA are not ported).
+    values to float32 first and splits complex ones into real parts).
 
     Each kept slot (``< num_segments``) must be one run of adjacent
     positions: the thread at a run's first position writes its slot.
@@ -152,7 +152,7 @@ def gather2_segment_sum(vals_a: torch.Tensor, vals_b: torch.Tensor,
     ``sa``/``sb``/``slot`` are a product plan's int32 sorted-order
     streams; ``vals_a``/``vals_b`` are the operands' ``data`` vectors, of
     one dtype, float32 or float64 on the card (the caller casts 16-bit
-    values to float32; complex products on CUDA are not ported).  The
+    values to float32 and splits complex ones into real parts).  The
     kernel reads ``vals_a[sa[k]]`` and ``vals_b[sb[k]]`` unchecked: the
     caller checks the operand lengths against the plan's capacities.
     Same run contract as :func:`gather_segment_sum` (``num_segments <=``

@@ -10,6 +10,7 @@ import torch
 
 from ...core.csc import CSC, slot_columns
 from ...sparse.pattern import accum_dtype
+from ..common import on_card_complex, split_complex
 from .spmv import spmv_ell
 
 
@@ -57,10 +58,14 @@ def spmv(cols: torch.Tensor, vals: torch.Tensor,
     fixed :data:`~.spmv.BLOCK_R` = 256 rows per CUDA block (one row a
     thread) and there is no ``block_r`` argument.  The result has the
     promoted dtype of ``vals`` and ``x``; 16-bit operands run in float32
-    and are cast back.
+    and are cast back; complex ones run on the card as real parts.
     """
     dtype = torch.promote_types(vals.dtype, x.dtype)
     work = accum_dtype(dtype)
-    y = spmv_ell(cols.to(torch.int32).contiguous(),
-                 vals.to(work).contiguous(), x.to(work).contiguous())
+    cols = cols.to(torch.int32).contiguous()
+    if on_card_complex(dtype, vals.device):
+        # complex on the card: four real products (split_complex)
+        return split_complex(lambda a, b: spmv_ell(cols, a, b), vals,
+                             x).to(dtype)
+    y = spmv_ell(cols, vals.to(work).contiguous(), x.to(work).contiguous())
     return y.to(dtype)

@@ -41,8 +41,8 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,
         return spmv_ell_ref(cols, vals, x)
     if vals.is_complex():
         raise NotImplementedError(
-            "complex values on CUDA are not ported yet (the ELL SpMV "
-            "takes float32/float64); run it on the CPU")
+            "the ELL SpMV takes float32/float64: complex values reach it "
+            "as real parts through spmv.ops (common.split_complex)")
     check_cuda_tensor(vals, "vals", tuple(_SUFFIX))
     check_cuda_tensor(x, "x", (vals.dtype,))
     check_cuda_tensor(cols, "cols", (torch.int32,))

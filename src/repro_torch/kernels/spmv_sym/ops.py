@@ -6,7 +6,9 @@ budget and its ``ref.py`` past it (``spmv_sym/ops.py:29-44``); the
 port's kernels gather ``x`` from device memory and serve every size, so
 that guard has no counterpart.  On CPU tensors the kernels run their
 plain versions.  The result has the promoted dtype of the matrix and
-``x``; 16-bit operands run in float32 and are cast back.
+``x``; 16-bit operands run in float32 and are cast back, and complex
+ones run on the card through the float kernels one real part at a time
+(:func:`~repro_torch.kernels.common.split_complex`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ...core.csc import scatter_add, slot_columns
 from ...sparse.pattern import accum_dtype
+from ..common import on_card_complex, split_complex
 from .spmv_sym import bsr_tiles, sym_streams
 
 
@@ -33,10 +36,14 @@ def spmv_sym(diag, data, indices, indptr, x) -> torch.Tensor:
     if M == 0 or nzmax == 0:
         return y
     work = accum_dtype(dtype)
-    up, ct = sym_streams(indices.to(torch.int32).contiguous(),
-                         data.to(work).contiguous(),
-                         indptr.to(torch.int32).contiguous(),
-                         x.to(work).contiguous())
+    rows = indices.to(torch.int32).contiguous()
+    ptr = indptr.to(torch.int32).contiguous()
+    if on_card_complex(dtype, data.device):
+        up, ct = split_complex(lambda a, b: sym_streams(rows, a, ptr, b),
+                               data, x)
+    else:
+        up, ct = sym_streams(rows, data.to(work).contiguous(), ptr,
+                             x.to(work).contiguous())
     # SymCSC streams are compact (``csc_to_symcsc`` stores exactly nnz
     # entries): the rare sentinel adds into one scratch slot
     out = y.to(work) + ct + scatter_add(M, indices, up, indices < M,
@@ -56,10 +63,14 @@ def spmv_bsr(data, indices, indptr, x, *, shape, block: int) -> torch.Tensor:
     Mb, Nb = M // b, N // b
     work = accum_dtype(dtype)
     bcols = slot_columns(indptr, nbmax).clamp(0, max(Nb - 1, 0))
-    tiles = bsr_tiles(indices.to(torch.int32).contiguous(),
-                      bcols.to(torch.int32).contiguous(),
-                      data.to(work).contiguous(), x.to(work).contiguous(),
-                      Mb=Mb)
+    brows = indices.to(torch.int32).contiguous()
+    bcols = bcols.to(torch.int32).contiguous()
+    if on_card_complex(dtype, data.device):
+        tiles = split_complex(lambda a, b: bsr_tiles(brows, bcols, a, b,
+                                                     Mb=Mb), data, x)
+    else:
+        tiles = bsr_tiles(brows, bcols, data.to(work).contiguous(),
+                          x.to(work).contiguous(), Mb=Mb)
     # compact too (``csc_to_bsr``): padding blocks add into one scratch
     # block row
     y = scatter_add(Mb, indices, tiles, indices < Mb, scratch=1)

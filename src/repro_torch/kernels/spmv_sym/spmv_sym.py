@@ -42,8 +42,8 @@ def _fns() -> dict:
 def _check_values(t: torch.Tensor, name: str, what: str) -> None:
     if t.is_complex():
         raise NotImplementedError(
-            f"complex values on CUDA are not ported yet ({what} takes "
-            "float32/float64); run it on the CPU")
+            f"{what} takes float32/float64: complex values reach it as "
+            "real parts through spmv_sym.ops (common.split_complex)")
     check_cuda_tensor(t, name, tuple(_SUFFIX))
 
 

@@ -40,6 +40,7 @@ from .matlab import (PlanUpdate, expand_indices, find, fsparse, fsparse_coo,
                      plan_lookup, plan_update, sparse2, sparse2_update)
 from .pattern import (ACCUM_MODES, SparsePattern, SymPattern, accum_identity,
                       detect_block, detect_symmetry, pattern_from_arrays,
+                      pattern_from_perm, pattern_from_sorted,
                       pattern_symmetric, plan, plan_coo, plan_symmetric,
                       sym_pattern_from_arrays, trivial_pattern)
 from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
@@ -47,8 +48,16 @@ from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
                      product_pattern_from_arrays, retire_structure)
 from . import ops
 
+
+def assemble(coo: COO, *, nzmax: int | None = None,
+             method: str | None = None) -> CSC:
+    """One-shot assembly: ``plan`` + numeric fill in a single call."""
+    return plan_coo(coo, nzmax=nzmax, method=method).assemble(coo.vals)
+
+
 __all__ = [
     "ACCUM_MODES", "BSR", "COO", "CSC", "CSR", "CacheCorruptionWarning",
+    "assemble", "pattern_from_perm", "pattern_from_sorted",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
     "PlanUpdate", "ProductPattern", "ReproWarning", "SparseMatrix",
     "SparsePattern", "SymCSC", "SymPattern", "accum_identity",

@@ -664,8 +664,11 @@ def test_slice3_wrong_lengths_and_types_raise_on_card():
         pp.multiply(Pt.data, A.data[:7])
     with pytest.raises(ValueError, match="do not match the planned"):
         multiply_fused(pp, Pt.data[:-1], A.data)
-    with pytest.raises(NotImplementedError, match="complex"):
-        pp.multiply(Pt.data.to(torch.complex64), A.data)
+    # complex operands run as real parts through B6 (no longer refused)
+    got = pp.multiply(Pt.data.to(torch.complex64), A.data)
+    want = pp.multiply(Pt.data, A.data)
+    assert torch.equal(got.data.real, want.data)
+    assert not bool(got.data.imag.any())
     i = torch.zeros((4, 2), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         ell.spmv_ell(i, torch.zeros((4, 3), device=dev),
@@ -859,3 +862,193 @@ def test_symmetric_planning_on_card_matches_cpu():
         for f in ("data", "indices", "indptr", "nnz"):
             assert torch.equal(getattr(on_card, f).cpu(),
                                getattr(on_cpu, f)), (fmt, f)
+
+
+# -- queue D, second pair: B2 with carried words, B12's key-ordered grid --
+
+def _b2_case(dev, keys, kw, ncarry, payload):
+    """B2 and its plain version on one pass, carrying ``ncarry`` words
+    (the keys first); the placed prefix bit for bit."""
+    base = ops.digit_bases(rs.digit_block_histogram(keys, **kw))
+    rng = np.random.default_rng(keys.shape[0] + ncarry)
+    other = torch.from_numpy(rng.integers(-9, 9, keys.shape[0])
+                             .astype(np.int32)).to(dev)
+    carry = (keys, other)[:ncarry]
+    before = rs.digit_placement.launches
+    got = rs.digit_placement(keys, base, payload, carry=carry, **kw)
+    assert rs.digit_placement.launches == before + 1
+    want = ref.digit_placement_ref(keys, base, payload, carry=carry,
+                                   tile=rs.TILE, **kw)
+    if carry:
+        got, want = (got[0], *got[1]), (want[0], *want[1])
+    else:
+        got, want = (got,), (want,)
+    d = (keys >> kw["shift"]) & ((1 << kw["bits"]) - 1)
+    n = int((d < kw["nbins"]).sum())  # keys past nbins are never placed
+    for a, b in zip(got, want):
+        assert torch.equal(a[:n], b[:n])
+
+
+@pytest.mark.parametrize("ncarry", [0, 1, 2])
+@pytest.mark.parametrize("L", [1, rs.TILE - 1, 100_003])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_placement_with_carried_words_matches_plain_version(bits, L, ncarry):
+    dev = _cuda()
+    rng = np.random.default_rng(bits * 7 + L)
+    keys = torch.from_numpy(rng.integers(0, 1 << 20, L).astype(np.int32)) \
+        .to(dev)
+    payload = torch.from_numpy(rng.permutation(L).astype(np.int32)).to(dev)
+    for nbins in {1 << bits, max(1, (1 << bits) - 3)}:
+        kw = dict(shift=5, bits=bits, nbins=nbins)
+        for p in (None, payload):
+            _b2_case(dev, keys, kw, ncarry, p)
+
+
+def test_placement_at_the_5e7_sets_digits_carrying_words():
+    """The 5e7 set's plan (M = N = 10^6: three 7/7/6-bit passes a word)
+    on keys in [0, 10^6], each pass with the words the chain carries."""
+    dev = _cuda()
+    rng = np.random.default_rng(20)
+    L, M = 3_000_017, 10**6
+    keys = torch.from_numpy(rng.integers(0, M + 1, L).astype(np.int32)) \
+        .to(dev)
+    payload = torch.from_numpy(rng.permutation(L).astype(np.int32)).to(dev)
+    passes = ops.plan_digit_passes(M, M, 5 * 10**7)
+    assert [p.nbins for p in passes] == [128, 128, 62] * 2
+    for i, p in enumerate(passes):
+        ncarry = sum(ops.carried_words(passes, i))
+        kw = dict(shift=p.shift, bits=p.bits, nbins=p.nbins)
+        _b2_case(dev, keys, kw, ncarry, payload if i else None)
+
+
+@pytest.mark.parametrize("M,N", [(700, 900), (10**6, 10**6), (3, 70_000)])
+def test_carried_radix_sort_pair_on_card_counts_one_pair_per_pass(M, N):
+    """One B1 and one B2 a planned pass, nothing else launched by the
+    port's kernels, and the stable (col, row) order."""
+    dev = _cuda()
+    rng = np.random.default_rng(M + N)
+    L = 1_000_003
+    r = torch.from_numpy(rng.integers(0, M + 1, L).astype(np.int32)).to(dev)
+    c = torch.from_numpy(rng.integers(0, N, L).astype(np.int32)).to(dev)
+    before = _launches()
+    perm = ops.radix_sort_pair(r, c, M=M, N=N)
+    npass = len(ops.plan_digit_passes(M, N, L))
+    assert _launches() == (before[0] + npass, before[1] + npass, before[2])
+    assert torch.equal(perm, ref.radix_sort_pair_ref(r, c, M=M, N=N))
+
+
+@pytest.mark.parametrize("L,block_b", [
+    (1000, 1 << 20),              # L below one chunk of the grid
+    (300_007, 100_003),           # block_b not a power of two
+    (300_007, 3 * (1 << 14) + 5),  # a row of three chunks and a ragged one
+    (50_007, 1000),               # rows shorter than a chunk
+    (5_000_000, 1 << 20),         # the 5e7 set's block size
+])
+def test_block_histogram_global_path_matches_plain_version(L, block_b):
+    """B12 past the shared-memory width (10^6 + 1 bins), with keys
+    below 0 and at or past nbins, which count nowhere."""
+    dev = _cuda()
+    nbins = 1_000_001
+    rng = np.random.default_rng(L + block_b)
+    keys = rng.integers(-3, nbins + 3, L).astype(np.int32)
+    keys[rng.integers(0, L, 20)] = np.iinfo(np.int32).max
+    keys = torch.from_numpy(keys).to(dev)
+    before = hist.block_histogram.launches
+    h = hist.block_histogram(keys, nbins=nbins, block_b=block_b)
+    assert hist.block_histogram.launches == before + 1
+    assert torch.equal(h, block_histogram_ref(keys, nbins=nbins,
+                                              block_b=block_b))
+    inside = int(((keys >= 0) & (keys < nbins)).sum())
+    assert int(h.sum()) == inside
+
+
+# -- complex values through the float kernels (split into real parts) ----
+
+@pytest.mark.parametrize("ints", [True, False])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_fills_spmvs_and_refills_on_card_match_cpu(dtype, ints):
+    """``plan(...).assemble`` (sum, mean), ``fill_pallas``, the ELL,
+    SymCSC and BSR SpMVs and a SpGEMM refill on complex values: the
+    card's results (B3', B5, B8, B9, B10, B6 on the real parts) against
+    the CPU's plain versions on the complex values; bit for bit on
+    integer-valued data, each part within c eps sum|terms| otherwise."""
+    from repro_torch import kernels
+    from repro_torch.sparse import convert, ops, product_plan
+
+    dev = _cuda()
+    rng = np.random.default_rng(40 + int(ints))
+    M, L = 2000, 30_000
+    flat = rng.choice(M * M, size=L, replace=False)
+    r, c = np.minimum(flat // M, flat % M), np.maximum(flat // M, flat % M)
+    _, first = np.unique(r * M + c, return_index=True)
+    r, c = r[np.sort(first)], c[np.sort(first)]
+    draw = (lambda n: rng.integers(-4, 5, n)) if ints else \
+        (lambda n: rng.standard_normal(n))
+    v = draw(r.size) + 1j * draw(r.size)
+    x = draw(M) + 1j * draw(M)
+    rows_h = np.concatenate([r, c]).astype(np.int32)
+    cols_h = np.concatenate([c, r]).astype(np.int32)
+    vals_h = np.concatenate([v, v])
+
+    def run(d):
+        rows = torch.from_numpy(rows_h).to(d)
+        cols = torch.from_numpy(cols_h).to(d)
+        vals = torch.from_numpy(vals_h).to(d, dtype)
+        xd = torch.from_numpy(x).to(d, dtype)
+        pat = plan(rows, cols, (M, M))
+        A = pat.assemble(vals)
+        out = {"sum": A.data, "mean": plan(rows, cols, (M, M),
+                                           accum="mean").assemble(vals).data,
+               "fill_pallas": kernels.fill_pallas(pat, vals).data,
+               "symcsc": ops.matmul(convert(A, "symcsc"), xd),
+               "bsr": ops.matmul(convert(A, "bsr", block=2), xd)}
+        ell_cols, ell_vals, _ = kernels.csc_to_ell(A, max_per_row=64)
+        out["ell"] = kernels.spmv(ell_cols, ell_vals, xd)
+        pp = product_plan(A, A)
+        out["product"] = pp.multiply(A.data, A.data).data
+        # sum|terms| of each result: the fills' |v|, the SpMVs' |A| |x|,
+        # the product's |A| |A|
+        fill_mag = pat.assemble(vals.abs()).data
+        spmv_mag = kernels.spmv(ell_cols, ell_vals.abs(), xd.abs())
+        mags = {"sum": fill_mag, "mean": fill_mag,
+                "fill_pallas": vals.abs().sum().expand(fill_mag.shape),
+                "ell": spmv_mag, "symcsc": spmv_mag, "bsr": spmv_mag,
+                "product": pp.multiply(A.data.abs(), A.data.abs()).data}
+        return ({k: t.cpu() for k, t in out.items()},
+                {k: t.cpu() for k, t in mags.items()})
+
+    got, mag = run(dev)
+    want, _ = run("cpu")
+    eps = torch.finfo(got["sum"].real.dtype).eps
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype == dtype, k
+        if ints:
+            assert torch.equal(g, w), k
+            continue
+        # each part within c eps sum|terms| (a part of a complex product
+        # has twice the terms); fill_pallas differences B5's prefix sums,
+        # whose error grows with the running sum (2 x 64 eps, bounded by
+        # the total)
+        c = 2 * 64 if k == "fill_pallas" else 16
+        for part in (torch.real, torch.imag):
+            err = (part(g) - part(w)).abs()
+            assert bool(torch.all(err <= c * eps * 2 * mag[k] + 1e-30)), k
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_placement_on_words_not_16_byte_aligned(offset):
+    """Views that start ``offset`` words into their storage take B2's
+    4-byte copies instead of its 16-byte ones: the same result."""
+    dev = _cuda()
+    rng = np.random.default_rng(50 + offset)
+    L = 100_003
+    big = torch.from_numpy(rng.integers(0, 1 << 20, L + offset)
+                           .astype(np.int32)).to(dev)
+    keys = big[offset:]
+    assert keys.data_ptr() % 16 != 0
+    payload = torch.from_numpy(rng.permutation(L + offset)
+                               .astype(np.int32)).to(dev)[offset:]
+    kw = dict(shift=4, bits=7, nbins=128)
+    for ncarry in (0, 1, 2):
+        _b2_case(dev, keys, kw, ncarry, payload)

@@ -147,3 +147,86 @@ def test_cpu_tensors_never_launch():
                         M=8, N=8)
     assert (rs.digit_block_histogram.launches,
             rs.digit_placement.launches) == before
+
+
+def _stable_placement(keys, payload, carry, shift, bits, nbins):
+    """numpy: the placed words of one stable pass, digits >= nbins left
+    out."""
+    d = (keys >> shift) & ((1 << bits) - 1)
+    order = np.argsort(np.where(d < nbins, d, 1 << 30), kind="stable")
+    order = order[:int((d < nbins).sum())]
+    return [w[order] for w in (payload, *carry)]
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("L,tile", [(1, rs.TILE), (1000, rs.TILE),
+                                    (3 * 256 + 17, 256),
+                                    (2 * rs.TILE + 5, rs.TILE)])
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_placement_carries_words_in_stable_order(bits, L, tile, full):
+    """B2's plain version with two carried words (the keys among them)
+    against a numpy stable argsort: every digit width, a ragged tile,
+    L below one tile, and digits >= nbins (never placed)."""
+    rng = np.random.default_rng(bits * 1000 + L)
+    shift = 3
+    keys = rng.integers(0, 1 << 20, L).astype(np.int32)
+    nbins = 1 << bits if full else max(1, (1 << bits) - 2)
+    payload = rng.permutation(L).astype(np.int32)
+    other = rng.integers(-5, 5, L).astype(np.int32)
+    kw = dict(shift=shift, bits=bits, nbins=nbins, tile=tile)
+    tk = torch.from_numpy(keys)
+    base = ops.digit_bases(ref.digit_block_histogram_ref(tk, **kw))
+    out, carried = ref.digit_placement_ref(
+        tk, base, torch.from_numpy(payload),
+        carry=(tk, torch.from_numpy(other)), **kw)
+    want = _stable_placement(keys, payload, (keys, other), shift, bits,
+                             nbins)
+    n = want[0].shape[0]
+    for got, w in zip((out, *carried), want):
+        assert got.dtype == torch.int32 and got.shape == (L,)
+        np.testing.assert_array_equal(got[:n].numpy(), w)
+    # without a payload the placed word is the input position
+    rank = ref.digit_placement_ref(tk, base, None, **kw)
+    np.testing.assert_array_equal(
+        rank[:n].numpy(), _stable_placement(keys, np.arange(L, dtype=np.int32),
+                                            (), shift, bits, nbins)[0])
+
+
+def test_placement_wrapper_returns_carried_words_on_cpu():
+    keys = torch.from_numpy(_keys(5000, 5000, 9))
+    kw = dict(shift=0, bits=7, nbins=128)
+    base = ops.digit_bases(rs.digit_block_histogram(keys, **kw))
+    plain = rs.digit_placement(keys, base, None, **kw)
+    out, (moved,) = rs.digit_placement(keys, base, None, carry=(keys,), **kw)
+    assert torch.equal(out, plain)
+    assert torch.equal(moved, keys[plain])
+
+
+@pytest.mark.parametrize("L,M,N", [
+    (5000, 200, 100),        # one pass a word
+    (5000, 70_000, 3),       # three row passes, one column pass
+    (5000, 3, 70_000),       # one row pass, three column passes
+    (4099, 1 << 20, 1 << 20),  # three and three (the 5e7 set's plan)
+])
+def test_carried_radix_sort_pair_matches_reference_and_stable_sort(L, M, N):
+    rows, cols = _pair(L, M, N)
+    got = ops.radix_sort_pair(torch.from_numpy(rows), torch.from_numpy(cols),
+                              M=M, N=N)
+    want = jax_radix_sort_pair(jnp.asarray(rows), jnp.asarray(cols), M=M,
+                               N=N, block_b=256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), np.lexsort((rows, cols)).astype(np.int32))
+
+
+@pytest.mark.parametrize("M,N,want", [
+    (200, 100, [(False, True), (False, False)]),
+    (70_000, 3, [(True, True), (True, True), (False, True),
+                 (False, False)]),
+    (3, 70_000, [(False, True), (False, True), (False, True),
+                 (False, False)]),
+])
+def test_each_pass_carries_the_words_later_passes_read(M, N, want):
+    passes = ops.plan_digit_passes(M, N, 5000)
+    assert [ops.carried_words(passes, i)
+            for i in range(len(passes))] == want
