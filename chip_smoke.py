@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. device: the card's name and count, and its power limit from
    nvidia-smi; no CUDA device is a failure.
 2. build: compiles every kernel of the four paths from
-   ``src/repro_torch/csrc`` (one nvcc per source, all started together)
-   and prints each kernel's ``-Xptxas -v`` report.
+   ``src/repro_torch/csrc`` (one nvcc per source, all started together),
+   and the timing probes of ``segment_sum_probe.cu``, and prints each
+   kernel's ``-Xptxas -v`` report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on the streams its path gives it at L = 2.5e6 and 5e7: B1
    digit histogram and B2 stable digit placement on every pass of the
@@ -24,6 +25,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain versions right after phase 4c, on the streams it gave them:
    bit for bit on integer-valued data (B6 with a NaN too), within
    ``c * eps * sum|terms|`` on random float32 for c terms an output.
+3c. B3' and B4 on runs that cross their tiles: L = 5e7 positions in
+   runs of 2^20 (``run_lengths``: each after short runs, so they start
+   mid-tile) and in runs of random length 1..10^4, under a random
+   permutation, with ``num_segments`` at nnz and cut mid-stream: B3' bit
+   for bit on integer-valued data, bit for bit from call to call and
+   within ``C_SEG * eps * sum|terms|`` of each slot's exact sum
+   (``exact_segment_sums``) on random float32 and float64; B4 bit for
+   bit, NaN included.
 4. main path: ``repro_torch.sparse.fsparse`` (Matlab ``sparse``) on the
    paper's Table 4.1 sets 1-3 at full scale and on set 2 scaled to
    L = 5e7, each matched bit for bit against the port's numpy oracle,
@@ -86,8 +95,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the words it carries there; B1 against ``torch.bincount`` of (tile,
    digit), B2 against a stable ``torch.sort`` of the digit; B4 against
    ``scatter_reduce_`` with the gather ``v[perm]`` inside the timed
-   call; the radix sort against a stable ``torch.sort`` of the int64
-   key ``col * (M + 1) + row``), and the time of one call as a
+   call; B3' and B4 beside the gather floor, ``gather_floor``: their
+   loads without the reduction; the radix sort against a stable
+   ``torch.sort`` of the int64 key ``col * (M + 1) + row``), B3' and B4
+   on one run of 2^20 duplicates and on L = 5e7 in runs of 2^20, each
+   against the same positions with every slot once (``*_longrun*``,
+   ``*_runs1*``), and the time of one call as a
    caller pays it (device plus dispatch gaps; the ratio of the two is
    the device's idle share); host-clock medians of the whole
    ``fsparse`` call, of a ``sparse2`` miss and hit, and of building
@@ -113,6 +126,7 @@ of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import subprocess
@@ -151,6 +165,13 @@ CG_ITERS = 50
 #: in float64 on the host by CG_RTOL of it, plus CG_ATOL (float32's
 #: floor, for a system that converges in fewer iterations)
 CG_RTOL, CG_ATOL = 1e-3, 1e-5
+#: B3''s tolerance: each slot within C_SEG * eps * sum|terms| of the
+#: exact sum (the kernel's first-order worst case is (K + 12) eps / 2 =
+#: 10 eps at K = 8, see csrc/segment_sum.cu)
+C_SEG = 16
+#: the long run of B3''s and B4's run-length checks and of
+#: ``B3_longrun_ms``
+LONG_RUN = 1 << 20
 ACCUM_SETS = ("1", "3")
 ACCUM_MODES = ("min", "max", "mean", "first", "last")
 #: phase 4d: the appended delta as a share of L (``benchmarks/
@@ -310,6 +331,166 @@ def numpy_accum(v: np.ndarray, slot, first, last, accum: str):
                             minlength=nnz)
                 / np.bincount(slot, minlength=nnz))
     return v[first if accum == "first" else last]
+
+
+def _cut(lengths: np.ndarray, L: int) -> np.ndarray:
+    """The run lengths (int64) up to position L, the last run cut there."""
+    ends = np.cumsum(lengths)
+    k = int(np.searchsorted(ends, L))  # the run that reaches L
+    lengths = lengths[:k + 1].astype(np.int64)
+    lengths[k] -= ends[k] - L
+    return lengths
+
+
+def run_lengths(L: int, rng, kind: str) -> np.ndarray:
+    """Run lengths of a sorted slot stream of L positions.
+
+    ``"long"``: runs of LONG_RUN, each after a stretch of about 2,000
+    positions in short runs (1-3), so the long runs start mid-tile;
+    ``"random"``: lengths uniform in 1..10^4.
+    """
+    if kind == "random":
+        return _cut(rng.integers(1, 10**4 + 1, L // 2500 + 2), L)
+    n = L // LONG_RUN + 1
+    short = rng.integers(1, 4, (n, 1000))
+    return _cut(np.concatenate([short, np.full((n, 1), LONG_RUN)],
+                               1).reshape(-1), L)
+
+
+def ragged_slots(kind: str, tile: int, rng) -> np.ndarray:
+    """int32 slot streams that break a design of tiles of ``tile``
+    positions; the kept slots count 0, 1, ... in stream order.
+
+    ``"one_run"``: one run of LONG_RUN between about 2,000 positions of
+    short runs on either side; ``"random"``: 2^21 positions in runs of
+    1..10^4; ``"tile_edge"``: single slots up to a tile's last position,
+    where a run of 2 tiles + 1 starts (it ends at the last position of
+    the tile after next), a single at the following tile's first
+    position, then runs of 1..7; ``"dropped_tile"``: runs of 1..7, then
+    dropped slots (-1, then 2^30) from 3 positions before a tile to 5
+    after it, then runs of 1..7 around a run of 3 tiles.
+    """
+    if kind == "one_run":
+        lengths = run_lengths(LONG_RUN + 4000, rng, "long")
+    elif kind == "random":
+        lengths = run_lengths(1 << 21, rng, "random")
+    elif kind == "tile_edge":
+        lengths = np.concatenate([np.ones(tile - 1, np.int64),
+                                  [2 * tile + 1, 1],
+                                  rng.integers(1, 8, tile // 2)])
+    else:
+        before = _cut(rng.integers(1, 8, 2 * tile), 4 * tile - 3)
+        after = np.concatenate([rng.integers(1, 8, tile // 4), [3 * tile],
+                                rng.integers(1, 8, tile // 4)])
+        dropped = np.full(tile + 8, 2**30, np.int64)
+        dropped[:tile // 2] = -1
+        return np.concatenate([
+            np.repeat(np.arange(len(before)), before), dropped,
+            np.repeat(np.arange(len(after)) + len(before), after)
+        ]).astype(np.int32)
+    return np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+
+
+def slot_stream(slot: np.ndarray, dev, seed: int):
+    """``(perm, slot)`` int32 streams on ``dev`` as a plan gives them: the
+    slot stream and a random permutation of its positions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(slot.shape[0], generator=gen, device=dev)
+    return perm.to(torch.int32), torch.from_numpy(slot).to(dev)
+
+
+def run_stream(lengths: np.ndarray, dev, seed: int):
+    """:func:`slot_stream` of slot s repeated ``lengths[s]`` times."""
+    return slot_stream(np.repeat(np.arange(len(lengths), dtype=np.int32),
+                                 lengths), dev, seed)
+
+
+def exact_segment_sums(v: torch.Tensor, slot: torch.Tensor, n: int):
+    """Each slot's sum of ``v`` over its kept positions (``0 <= slot <
+    n``, each slot one run) and its sum of ``|v|``, float64 on the host.
+
+    The sums are taken in extended precision (``np.longdouble``): chunks
+    of at most 1,024 positions of a run, then the chunks of the run, so
+    a total of m terms is within (1023 + m / 1024) u sum|terms| (u =
+    2^-64 on x86-64) before it is rounded to float64: within eps64 of
+    sum|terms| in all for m <= 2^20.
+    """
+    if np.finfo(np.longdouble).eps > 2.0**-60:
+        raise RuntimeError("np.longdouble is no wider than float64 here")
+    out, mag = np.zeros(n), np.zeros(n)
+    x, s = v.double().cpu().numpy(), slot.cpu().numpy()
+    kept = np.flatnonzero((s >= 0) & (s < n))
+    if kept.size == 0:
+        return out, mag
+    x, s = x[kept], s[kept]
+    pos = np.arange(x.size)
+    start = np.ones(x.size, bool)
+    start[1:] = s[1:] != s[:-1]
+    run0 = np.maximum.accumulate(np.where(start, pos, 0))
+    chunks = np.flatnonzero(start | ((pos - run0) % 1024 == 0))
+    runs = np.flatnonzero(start)
+    first = np.searchsorted(chunks, runs)  # each run's first chunk
+    out[s[runs]] = np.add.reduceat(np.add.reduceat(
+        x.astype(np.longdouble), chunks), first).astype(np.float64)
+    mag[s[runs]] = np.add.reduceat(np.abs(x), runs)
+    return out, mag
+
+
+def seg_err_over_eps(got: torch.Tensor, vals: torch.Tensor,
+                     perm: torch.Tensor, slot: torch.Tensor,
+                     eps: float) -> float:
+    """The largest |got - exact| / (eps sum|terms|) over the slots of a
+    B3' result, the sums of ``vals[perm]`` (0 where a slot's terms are
+    all 0 and got is exact)."""
+    want, mag = exact_segment_sums(vals[perm.long()], slot, got.numel())
+    err = np.abs(got.double().cpu().numpy() - want)
+    return float((err / np.maximum(eps * mag, 1e-300)).max(initial=0.0))
+
+
+_PROBE: dict = {}
+
+
+def probe_fn(name: str):
+    """A launcher of ``csrc/segment_sum_probe.cu``, for timing only (the
+    gather floor, B3''s and B4's variants and the design they
+    replaced)."""
+    if not _PROBE:
+        from repro_torch.kernels import common
+        lib = common.load_library("segment_sum_probe")
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        for key, fn in (("sum", "probe_segment_sum_f32_launch"),
+                        ("max", "probe_segment_max_f32_launch")):
+            _PROBE[key] = common.bind(lib, fn, [I, P, P, P, P, P, LL, LL, P])
+        _PROBE["floor"] = common.bind(lib, "probe_gather_floor_f32_launch",
+                                      [I, P, P, P, P, LL, LL, P])
+    return _PROBE[name]
+
+
+def probe_fill(variant: int, vals, perm, slot, n: int, op: str = "sum"):
+    """B3' (``op="sum"``) or B4's max (``"max"``) on float32 by a variant
+    of the probe: 0 the replaced design (one thread walks each run), 1
+    K = 4, 2 as shipped, 3 K = 16, 4 the index streams through __ldg."""
+    L = slot.numel()
+    out = torch.zeros(n, dtype=torch.float32, device=vals.device)
+    scratch = out if variant == 0 else torch.zeros(
+        1 + 2 * -(-L // 1024), dtype=torch.int64, device=vals.device)
+    rc = probe_fn(op)(variant, vals.data_ptr(), perm.data_ptr(),
+                      slot.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                      L, n, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"probe {op} variant {variant}: CUDA error {rc}")
+    return out
+
+
+def gather_floor(vals, perm, slot, n: int, variant: int = 2):
+    """The gather floor: ``y[j] = vals[perm[j]]`` where ``slot[j]`` is
+    kept, with B3''s loads (variant 2) or at K = 16 (3); float32."""
+    L = slot.numel()
+    y = torch.empty(L, dtype=torch.float32, device=vals.device)
+    rc = probe_fn("floor")(variant, vals.data_ptr(), perm.data_ptr(),
+                           slot.data_ptr(), y.data_ptr(), L, n,
+                           torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"gather floor variant {variant}: CUDA error {rc}")
+    return y
 
 
 def radix_chain(rows, cols, M: int, N: int, *, upto: int | None = None,
@@ -1414,7 +1595,8 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
-                         "counting_sort", "spmv", "spmv_sym", "merge"])
+                         "counting_sort", "spmv", "spmv_sym", "merge",
+                         "segment_sum_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1570,6 +1752,56 @@ def main() -> None:
               "B5_integer": "bit-identical", "B11": "bit-identical",
               "B12": "bit-identical"})
         del coo, arange, pat, v, got, keep, vi, xi, vn, x, err, tol
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+    # -- 3c. B3' and B4 on long runs and runs of random length -------------
+    # L = 5e7 positions in runs of 2^20 (each after short runs, so they
+    # start mid-tile) or of 1..10^4, a random permutation, num_segments at
+    # nnz and cut mid-stream: sums bit for bit on integer-valued data,
+    # bit for bit from call to call and within C_SEG eps sum|terms| of
+    # the exact sum on random data; min/max bit for bit, NaN included
+    seg_rng = np.random.default_rng([SEED, 3])
+    L5 = BIG["siz"] * BIG["nnz_row"]
+    for runs in ("long", "random"):
+        lengths = run_lengths(L5, seg_rng, runs)
+        perm, slot = run_stream(lengths, dev, SEED)
+        nnz = len(lengths)
+        row = {"check": "B3', B4 vs plain", "runs": runs, "L": L5,
+               "nnz": nnz, "longest_run": int(lengths.max())}
+        for n in (nnz, nnz // 2):
+            nz = dict(num_segments=n)
+            vi = torch.from_numpy(
+                seg_rng.integers(-8, 9, L5).astype(np.float32)).to(dev)
+            require(torch.equal(fill_k(vi, perm, slot, **nz),
+                                gather_segment_sum_ref(vi, perm, slot, **nz)),
+                    f"B3' differs on integer-valued data, {runs} runs, "
+                    f"num_segments {n}")
+            for dtype, eps in ((torch.float32, EPS32),
+                               (torch.float64, EPS64)):
+                vn = torch.from_numpy(seg_rng.standard_normal(L5)).to(
+                    dev, dtype)
+                got = fill_k(vn, perm, slot, **nz)
+                require(torch.equal(fill_k(vn, perm, slot, **nz), got),
+                        f"B3' {dtype} differs from call to call, {runs} runs")
+                if n == nnz:
+                    r = seg_err_over_eps(got, vn, perm, slot, eps)
+                    require(r <= C_SEG, f"B3' {dtype} error {r} eps x "
+                            f"sum|terms| > {C_SEG}, {runs} runs")
+                    row[f"B3_{dtype}_max_err_over_eps_sum_abs"] = r
+                vn[[3, L5 // 2]] = float("nan")
+                for op in ("min", "max"):
+                    require(same_bits(
+                        minmax_k(vn, perm, slot, op=op, **nz),
+                        gather_segment_minmax_ref(vn, perm, slot, op=op,
+                                                  **nz)),
+                        f"B4 {op} {dtype} differs, {runs} runs, "
+                        f"num_segments {n}")
+        row.update(B3_integer="bit-identical", B3_repeat="bit-identical",
+                   B4="bit-identical (NaN included)",
+                   num_segments=[nnz, nnz // 2], tolerance_eps=C_SEG)
+        emit(row)
+        del perm, slot, vi, vn, got
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -1946,6 +2178,9 @@ def main() -> None:
             rows_k[k] = r
         rows_k["B11"]["table_copy_ms"] = device_ms(lambda: offsets.clone(),
                                                    cpm)
+        # no design that gathers vals[perm] beats the gather alone
+        rows_k["B3"]["gather_floor_ms"] = rows_k["B4"]["gather_floor_ms"] = \
+            device_ms(lambda: gather_floor(*fill_in, pat.nzmax), cpm)
         rows_k["B11"]["standalone_ms"] = device_ms(
             lambda: cplace_k(rows, offsets, **cnt), cpm)
         t["kernels"] = rows_k
@@ -1956,6 +2191,31 @@ def main() -> None:
         del fns
         del offsets, handed, flat, keep, x, seg, digit, flat1
         torch.cuda.empty_cache()
+
+    # B3' and B4 on one run of 2^20 duplicates, and on L = 5e7 in runs of
+    # 2^20, each against the same positions with every slot once (one
+    # permutation for both): no run is reduced by one thread, so a long
+    # run should cost a small factor of runs of 1
+    lr = {"times": "long runs", "card": smi_line}
+    for size, tag in ((LONG_RUN, ""), (L5, "_5e7")):
+        long_runs = np.array([LONG_RUN]) if size == LONG_RUN else \
+            run_lengths(L5, seg_rng, "long")
+        vl = torch.from_numpy(
+            seg_rng.standard_normal(size).astype(np.float32)).to(dev)
+        for runs, lengths in (("longrun", long_runs),
+                              ("runs1", np.ones(size, np.int64))):
+            perm, slot = run_stream(lengths, dev, SEED)
+            nz = dict(num_segments=len(lengths))
+            lr[f"B3_{runs}{tag}_ms"] = device_ms(
+                lambda: fill_k(vl, perm, slot, **nz), cpm)
+            lr[f"B3_{runs}{tag}_plain_ms"] = device_ms(
+                lambda: gather_segment_sum_ref(vl, perm, slot, **nz), cpm)
+            lr[f"B4_{runs}{tag}_ms"] = device_ms(
+                lambda: minmax_k(vl, perm, slot, op="max", **nz), cpm)
+            del perm, slot
+        del vl
+        torch.cuda.empty_cache()
+    emit(lr)
 
     big = per_kernel["2x20"]
     meta = {
@@ -1999,7 +2259,10 @@ def main() -> None:
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],
          "bound_ms": big[k]["bound_ms"], "bound_by": big[k]["bound_by"],
-         "library_ms": big[k]["library_ms"]}
+         "library_ms": big[k]["library_ms"],
+         **({"gather_floor_ms": big[k]["gather_floor_ms"],
+             "longrun_ms": lr[f"{k}_longrun_ms"],
+             "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4") else {})}
         for k, (n, src, rep, err) in meta.items()
     ]})
     print(smi_line, flush=True)

@@ -17,9 +17,24 @@ Set 2 of Table 4.1 (L = 2.5e6) and the 5e7 set:
     int64 key ``col * (M + 1) + row``, and the two plans.
 Each kernel is first held against its plain version (B12, B11, B2 and
 the radix permutation bit for bit, B5 within 64 eps of the running sum
-of |x|).  Prints the card's name and power limit, then one JSON line a
-set.  A quicker measure than ``chip_smoke.py`` when two versions of
-these kernels are compared on one card.
+of |x|).
+
+Then B3' (fused fill) and B4 (fused min/max, as max) on the streams of
+sets 1, 2 and 2x20's plans, of the FEM matrix A's plan (1.79e7 triplets
+in element order: a local gather) and of one run of 2^20 duplicates
+against the same positions with every slot once, each stream's variants
+timed in turns (forward, then backward) in one call: the wrapper as
+shipped, the probe's variants (``csrc/segment_sum_probe.cu``: the
+kernel as shipped, K = 4, 8, 12, 16 with and without a bound on the
+registers, the index streams through __ldg, and the design B3' and B4
+replaced, one thread walking each run), the gather floor (B3''s loads, no
+reduction) at K = 8 and 16, and ``index_add_`` with the gather.  Each
+variant is first held against the plain version (integer-valued data
+bit for bit, B4 bit for bit).
+
+Prints the card's name and power limit, then one JSON line a set and
+one a stream.  A quicker measure than ``chip_smoke.py`` when two
+versions of these kernels are compared on one card.
 """
 from __future__ import annotations
 
@@ -55,10 +70,11 @@ def main() -> None:
 
     print(smoke.nvidia_smi_line(), flush=True)
     logs = common.build(["hist", "counting_sort", "segment_sum",
-                         "radix_sort"])
+                         "radix_sort", "segment_sum_probe"])
     for lib, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line):
+            if "ptxas" in line and ("registers" in line or "spill" in line
+                                    or "Compiling" in line):
                 print(f"ptxas[{lib}]: {line.strip()}", flush=True)
     cpm = smoke.sleep_cycles_per_ms()
     dev = torch.device("cuda")
@@ -131,5 +147,88 @@ def main() -> None:
         torch.cuda.empty_cache()
 
 
+def segment_times(cpm, dev) -> None:
+    """B3', B4, their variants and the gather floor, per stream."""
+    from repro_torch.core.coo import coo_from_matlab
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.kernels.segment_sum import segment_sum as ss
+    from repro_torch.kernels.segment_sum.ref import (
+        gather_segment_minmax_ref, gather_segment_sum_ref)
+    from repro_torch.sparse.pattern import plan, plan_coo
+
+    rng = np.random.default_rng(smoke.SEED)
+
+    def streams():
+        for name in ("1", "2", "2x20"):
+            cfg = smoke.BIG if name == "2x20" else DATA_SETS[int(name)]
+            ii, jj, ss_, siz = ransparse(cfg["siz"], cfg["nnz_row"],
+                                         cfg["nrep"], seed=smoke.SEED)
+            pat = plan_coo(coo_from_matlab(ii, jj, ss_, (siz, siz)))
+            yield name, pat.perm, pat.slot, pat.nzmax
+        rows, cols, _, nv, _, _ = smoke.fem_system(smoke.FEM_N)
+        pat = plan(torch.from_numpy(rows).to(dev),
+                   torch.from_numpy(cols).to(dev), (nv, nv))
+        yield "fem_A", pat.perm, pat.slot, pat.nzmax
+        for kind, lengths in (
+                ("one_run_2^20", np.array([smoke.LONG_RUN])),
+                ("runs_of_1_2^20", np.ones(smoke.LONG_RUN, np.int64))):
+            perm, slot = smoke.run_stream(lengths, dev, smoke.SEED)
+            yield kind, perm, slot, len(lengths)
+
+    for name, perm, slot, n in streams():
+        L = slot.numel()
+        nz = dict(num_segments=n)
+        v = torch.from_numpy(rng.standard_normal(L).astype(np.float32)) \
+            .to(dev)
+        vi = torch.from_numpy(rng.integers(-8, 9, L).astype(np.float32)) \
+            .to(dev)
+        want_i = gather_segment_sum_ref(vi, perm, slot, **nz)
+        want_max = gather_segment_minmax_ref(v, perm, slot, op="max", **nz)
+        variants = {
+            "B3_ms": lambda x: ss.gather_segment_sum(x, perm, slot, **nz),
+            **{f"B3_{tag}_ms": (lambda x, k=k: smoke.probe_fill(
+                k, x, perm, slot, n))
+               for k, tag in ((0, "replaced"), (1, "K4"), (2, "shipped"),
+                              (3, "K16"), (4, "ldg"), (5, "K8_min6"),
+                              (6, "K16_min4"), (7, "K12"), (8, "K8"),
+                              (9, "K4_min8"), (10, "K12_min5"))},
+            "B4_ms": lambda x: ss.gather_segment_minmax(x, perm, slot,
+                                                        op="max", **nz),
+            "B4_replaced_ms": lambda x: smoke.probe_fill(0, x, perm, slot, n,
+                                                         op="max"),
+        }
+        for key, fn in variants.items():
+            if key.startswith("B3"):
+                smoke.require(torch.equal(fn(vi), want_i),
+                              f"{key} differs on integer-valued data, {name}")
+            else:
+                smoke.require(smoke.same_bits(fn(v), want_max),
+                              f"{key} differs, {name}")
+        timed = {k: (lambda f=f: f(v)) for k, f in variants.items()}
+        timed.update({
+            "gather_floor_K8_ms": lambda: smoke.gather_floor(v, perm, slot,
+                                                             n, 2),
+            "gather_floor_K16_ms": lambda: smoke.gather_floor(v, perm, slot,
+                                                              n, 3),
+            "index_add_ms": lambda: torch.zeros(n, device=dev).index_add_(
+                0, slot, v[perm]),
+        })
+        # the replaced design walks a long run on one thread: a few calls
+        reps = {k: 3 if k.endswith("replaced_ms") and name.startswith("one")
+                else smoke.REPS for k in timed}
+        row = {"stream": name, "L": L, "num_segments": n,
+               "longest_run": int(torch.bincount(slot).max())}
+        row["bound_ms"], _ = smoke.bound_ms(12 * L + 4 * n, L)
+        order = list(timed)
+        for turn, keys in (("fwd", order), ("bwd", order[::-1])):
+            for k in keys:
+                row.setdefault(k, {})[turn] = smoke.device_ms(
+                    timed[k], cpm, reps=reps[k])
+        print(json.dumps(row), flush=True)
+        del perm, slot, v, vi, want_i, want_max
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
     main()
+    segment_times(smoke.sleep_cycles_per_ms(), torch.device("cuda"))

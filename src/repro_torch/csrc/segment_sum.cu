@@ -5,37 +5,71 @@
 // B3' replaces repro/kernels/segment_sum/segment_sum.py:gather_masked_cumsum
 // (_gather_cumsum_kernel) together with its _segment_totals epilogue
 // (repro/kernels/segment_sum/ops.py): out[s] = sum of vals[perm[j]] over
-// the sorted positions j with slot[j] == s, for every s < nzmax.
+// the sorted positions j with slot[j] == s, for every s < nzmax.  B4
+// replaces gather_masked_segscan (_gather_segscan_kernel) together with
+// the segment-end gather of gather_segment_reduce_sorted: out[s] is the
+// min (or max) of the same values.  The compare propagates NaN as
+// jnp.minimum/jnp.maximum do (fminf/fmaxf would drop it), and a fold
+// starts from the identity +inf (min) or -inf (max), as accum_identity
+// does.  Slots < 0 or >= nzmax are dropped wherever they fall; the
+// caller's zeros stand in every empty slot.  Contract: every kept slot
+// is one run of adjacent positions.
 //
-// What bounds it on the H100: bytes.  It reads perm and slot once
-// (8L B), gathers each value once (4L B in f32, at random addresses, so
-// in 32 B sectors once vals outgrows the 50 MB L2) and writes nzmax sums.
-// There is one add per element.
+// What bounds them on the H100: bytes.  They read slot and perm once
+// (8L B), gather each kept value once (4L B in float32) and write one
+// value a kept slot (4 nzmax B): 12L + 4 nzmax B, one add (or compare)
+// an element.  Where perm is random (a randomly ordered input) each
+// value costs a 32-byte sector, from HBM once vals outgrows the 50 MB
+// L2, so no design that gathers beats (8L + 32L + 4 nzmax) B at 3.35
+// TB/s, nor the gather alone (the gather floor of
+// segment_sum_probe.cu, timed by kernel_times.py and chip_smoke.py).
 //
-// What the simple design does about it: one thread per sorted position.
-// The thread at the start of a kept segment (slot[i] < nzmax and
-// slot[i] != slot[i-1]) walks its segment in sorted order and writes the
-// total once: no atomics, no carry between blocks, a deterministic sum
-// order, and no global running total (a float32 running sum past 2^24
-// would drop low bits from every later segment, which the TPU kernel's
-// cumsum-and-difference pays).  Every slot >= nzmax is dropped, so a
-// capacity below nnz truncates exactly as the reference's mode="drop".
-// Known limit: a long run of duplicates serialises on one thread (runs
-// are 1-10 long on the paper's data sets).
+// The design is Merrill and Garland's single-pass segmented reduction:
+// one launch, on B5's ticketed tiles and decoupled look-back.  A tile is
+// 256 threads x K (kSegPer = 8) sorted positions.
+//  1. Load, striped: each thread reads its share of slot and perm, as
+//     16 B vectors where both are aligned, streaming (__ldcs, evict
+//     first: the one-touch index streams should not push the value
+//     vector out of the L2), then issues its K gathers of vals before it
+//     uses any, so K random loads are in flight a thread.  The slots and
+//     the gathered values (the identity at a dropped slot) go to shared
+//     memory, padded as in B5.
+//  2. Reduce inside the tile: each thread folds K consecutive positions
+//     run by run (a run is a maximal stretch of equal slots).  The
+//     thread descriptors (has a run start; the partial of the run open
+//     at its end) go through a segmented warp scan (shuffles) and a pass
+//     across the 8 warps, under (f1, v1) o (f2, v2) = (f1 | f2, f2 ? v2 :
+//     v1 + v2).
+//  3. Carry across tiles: a tile that holds a run start publishes its
+//     inclusive prefix at once (the run open at its end started inside
+//     it); a tile inside one run publishes its aggregate.  A tile whose
+//     first position continues a run looks back, warp 0 reading 32
+//     descriptors a window, to the nearest prefix and folds the
+//     aggregates after it left to right.  Chains are as long as the runs
+//     that cross tiles, and a run of any length is reduced by all the
+//     tiles it spans, never by one thread or one warp.
+//  4. Write: each position that ends a kept run (the next slot differs)
+//     stores out[slot], striped, so a warp's stores of consecutive slots
+//     coalesce.
+// Every order above is fixed by the tile ids; a tile's prefix is P(t) =
+// a(t) if it holds a run start, else P(t - 1) + a(t), whichever prefix
+// the look-back met, so the result is bit-identical from call to call.
 //
-// B4 replaces repro/kernels/segment_sum/segment_sum.py:gather_masked_segscan
-// (_gather_segscan_kernel) together with the segment-end gather of
-// gather_segment_reduce_sorted (repro/kernels/segment_sum/ops.py): out[s]
-// is the min (or max) of vals[perm[j]] over the kept positions j with
-// slot[j] == s; the caller's zeros stand in every empty slot.  The TPU
-// kernel's Hillis-Steele ladder and its carry across in-order grid steps
-// have no use here: the op's result is computed directly, on B3''s
-// design (one thread walks each segment), with the same bound (12L B
-// plus 4 nzmax B, one compare per element).  Min/max is exact and does
-// not depend on order, so the result is bit-identical to the plain
-// version.  The compare propagates NaN as jnp.minimum/jnp.maximum do
-// (fminf/fmaxf would drop it), and the fold starts from the identity
-// +inf (min) or -inf (max), as accum_identity does.
+// Order of additions, and its bound (B3').  A term reaches its slot's
+// total through at most K - 1 additions in its thread, 5 in the warp
+// scan, 6 in the fold of the warps before it and 1 joining that to the
+// lanes before it (or 7 in the fold of an earlier tile's aggregate), and
+// one rounding of the carried total to the data's type: K + 12
+// roundings, each of at most u = eps / 2 of a partial.  The carry across
+// tiles chains in double for float32 data and as a compensated pair for
+// float64 (Chain, as in B5), which adds an error of order eps^2 at any
+// run length.  So each total is
+// within (K + 12) u sum|terms| = 10 eps sum|terms| of the exact sum to
+// first order (K = 8), however long its run; the tests hold the kernel
+// to C_SEG = 16 eps sum|terms| per slot (any K <= 20).  On
+// integer-valued data below 2^24 (2^53 in float64) every sum is exact.
+// Min and max are exact and do not depend on order: B4 is bit-identical
+// to its plain version.
 //
 // B5 replaces repro/kernels/segment_sum/segment_sum.py:blocked_cumsum
 // (_cumsum_kernel): the inclusive prefix sum of x.  The TPU kernel
@@ -76,23 +110,23 @@
 //
 // B6 replaces repro/kernels/segment_sum/segment_sum.py:gather2_masked_cumsum
 // (_gather2_cumsum_kernel) together with its _segment_totals epilogue
-// (repro/kernels/segment_sum/ops.py:gather2_segment_sum_sorted): out[s] is
-// the sum of va[sa[j]] * vb[sb[j]] over the sorted product-stream positions
-// j with slot[j] == s, for every s < nzmax.  The TPU kernel keeps both
-// operand vectors resident in VMEM and carries a running prefix sum across
-// in-order grid steps; here it is B3''s design with two gathers: the thread
-// at the start of a kept run walks it and writes the total once (no
-// carry, no atomics, deterministic order, no float32 running total past
-// 2^24).  Each product is rounded before the add (no FMA contraction), as
-// the plain version rounds it.  Bound: bytes, sa, sb and slot once (12F B),
-// each operand value the streams reach once (4 |sa| + 4 |sb| B for the
-// distinct sa and sb, gathered in 32 B sectors from L2 or HBM; an
-// operand's padded tail is never read) and nzmax totals (4 nzmax B): 12F +
-// 4 |sa| + 4 |sb| + 4 nzmax B in all; one multiply and one add per
-// product.  Contract: every kept slot is one run of adjacent positions;
-// a product plan's streams meet it for nzmax equal to the plan's (its
-// compaction gives dropped products slot == nzmax, whose runs are not
-// adjacent, and nothing ever writes out[nzmax]).
+// (repro/kernels/segment_sum/ops.py:gather2_segment_sum_sorted): out[s] is the
+// sum of va[sa[j]] * vb[sb[j]] over the sorted product-stream positions j with
+// slot[j] == s, for every s < nzmax.  The TPU kernel keeps both operand vectors
+// resident in VMEM and carries a running prefix sum across in-order grid steps;
+// here one thread a sorted position, and the thread at the start of a kept run
+// walks it and writes the total once (no carry, no atomics, deterministic
+// order, no float32 running total past 2^24; a long run serialises on its
+// thread, as B3' and B4 did before their single-pass design).  Each product is
+// rounded before the add (no FMA contraction), as the plain version rounds
+// it.  Bound: bytes, sa, sb and slot once (12F B), each operand value the
+// streams reach once (4 |sa| + 4 |sb| B for the distinct sa and sb, gathered in
+// 32 B sectors from L2 or HBM; an operand's padded tail is never read) and
+// nzmax totals (4 nzmax B): 12F + 4 |sa| + 4 |sb| + 4 nzmax B in all; one
+// multiply and one add per product.  Contract: every kept slot is one run of
+// adjacent positions; a product plan's streams meet it for nzmax equal to the
+// plan's (its compaction gives dropped products slot == nzmax, whose runs are
+// not adjacent, and nothing ever writes out[nzmax]).
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -100,22 +134,14 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
+// Shared-memory index of value j of a tile, padded by one value per
+// 128 B, so both a thread's consecutive values and the vector stores of
+// neighbouring threads fall in distinct banks.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gather_segment_sum_kernel(const T* __restrict__ vals,
-                          const int32_t* __restrict__ perm,
-                          const int32_t* __restrict__ slot,
-                          T* __restrict__ out, long long L, long long nzmax) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= L) return;
-  const int s = __ldg(slot + i);
-  if (s < 0 || s >= nzmax) return;              // padding / over capacity
-  if (i > 0 && __ldg(slot + i - 1) == s) return;  // not a segment start
-  T acc = T(0);
-  for (long long j = i; j < L && __ldg(slot + j) == s; ++j)
-    acc += __ldg(vals + __ldg(perm + j));
-  out[s] = acc;
+__device__ __forceinline__ int pad(int j) {
+  return j + j / (128 / (int)sizeof(T));
 }
 
 // Products rounded before they are added: no FMA contraction.
@@ -155,62 +181,7 @@ __device__ __forceinline__ T pick_max(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
-template <typename T, bool kMax>
-__global__ void __launch_bounds__(kThreads)
-gather_segment_minmax_kernel(const T* __restrict__ vals,
-                             const int32_t* __restrict__ perm,
-                             const int32_t* __restrict__ slot,
-                             T* __restrict__ out, long long L,
-                             long long nzmax) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= L) return;
-  const int s = __ldg(slot + i);
-  if (s < 0 || s >= nzmax) return;
-  if (i > 0 && __ldg(slot + i - 1) == s) return;
-  T acc = kMax ? T(-CUDART_INF) : T(CUDART_INF);
-  for (long long j = i; j < L && __ldg(slot + j) == s; ++j) {
-    const T v = __ldg(vals + __ldg(perm + j));
-    acc = kMax ? pick_max(acc, v) : pick_min(acc, v);
-  }
-  out[s] = acc;
-}
-
-// -- B5 ---------------------------------------------------------------------
-// A thread holds 16 values of a tile, loaded as 16 B vectors
-// (neighbouring threads on neighbouring vectors) and transposed through
-// shared memory padded by one value per 128 B, so both the vector stores
-// and each thread's consecutive values fall in distinct banks.
-template <typename T>
-struct ScanShape {
-  static constexpr int kPer = 16;                // values per thread
-  static constexpr int kTile = kThreads * kPer;  // values per tile
-  static constexpr int kVec = 16 / sizeof(T);    // values per 16 B vector
-  static constexpr int kLoads = kPer / kVec;     // vectors per thread
-  static constexpr int kRow = 128 / sizeof(T);   // values per padding step
-  static constexpr int kPadded = kTile + kTile / kRow;
-  // resident tiles an SM should hold: the scan is bound by the bytes its
-  // resident tiles keep in flight (6 in float32 caps it at 40 registers,
-  // the fastest of 5-8 on an H100; in float64 its 43 KB of shared memory
-  // allow 5)
-  static constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 5;
-};
-
-template <typename T>
-__device__ __forceinline__ int scan_pad(int j) {
-  return j + j / ScanShape<T>::kRow;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_inclusive_scan(T x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const T y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
+// -- the look-back, shared by B3', B4 and B5 ---------------------------------
 __device__ __forceinline__ int ld_acquire_s32(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
@@ -234,7 +205,7 @@ constexpr int kLookWindows = 8;
 // carried with more precision than the data: in double for float32
 // data, as a compensated pair (hi + lo, TwoSum) for float64.  A chain
 // step P(t) = P(t-1) + a(t) then adds an error of order eps^2 P, not
-// eps P.
+// eps P.  lead() is the leading part, exact for a value made by of().
 template <typename T>
 struct Chain;
 
@@ -244,6 +215,7 @@ struct Chain<float> {
   static __device__ Acc of(float a) { return a; }
   static __device__ Acc add(Acc p, Acc a) { return p + a; }
   static __device__ float value(Acc p) { return (float)p; }
+  static __device__ float lead(Acc p) { return (float)p; }
 };
 
 template <>
@@ -258,12 +230,44 @@ struct Chain<double> {
     return {s, p.lo + a.lo + err};
   }
   static __device__ double value(Acc p) { return p.hi + p.lo; }
+  static __device__ double lead(Acc p) { return p.hi; }
+};
+
+// The reductions the look-back kernels run: op() in the data's type
+// (earlier operand first), combine() on the carried type.
+template <typename T>
+struct SumOp {
+  using C = Chain<T>;
+  using Acc = typename C::Acc;
+  static __device__ T identity() { return T(0); }
+  static __device__ T op(T a, T b) { return a + b; }
+  static __device__ Acc of(T a) { return C::of(a); }
+  static __device__ Acc combine(Acc a, Acc b) { return C::add(a, b); }
+  static __device__ T value(Acc a) { return C::value(a); }
+};
+
+template <typename T, bool kMax>
+struct MinMaxOp {
+  using C = Chain<T>;
+  using Acc = typename C::Acc;
+  static __device__ T identity() {
+    return kMax ? T(-CUDART_INF) : T(CUDART_INF);
+  }
+  static __device__ T op(T a, T b) {
+    return kMax ? pick_max(a, b) : pick_min(a, b);
+  }
+  static __device__ Acc of(T a) { return C::of(a); }
+  static __device__ Acc combine(Acc a, Acc b) {
+    return C::of(op(C::lead(a), C::lead(b)));
+  }
+  static __device__ T value(Acc a) { return C::lead(a); }
 };
 
 // float32: an aggregate word and a prefix word a tile, each one atomic
 // 64-bit load or store of the double value XOR kEmpty, so that the
-// zeroed word reads as not yet: no arithmetic result has kEmpty's bits
-// (a signalling NaN; NaNs computed on the card are quiet).
+// zeroed word reads as not yet: no value carried here has kEmpty's bits
+// (a signalling NaN whose low bits no float32 value converted to double
+// has; NaNs computed on the card are quiet).
 struct DescF32 {
   static constexpr unsigned long long kEmpty = 0x7ff4000000000001ull;
   unsigned long long* aggregate;
@@ -316,6 +320,308 @@ struct DescF64 {
   }
 };
 
+// The descriptors in the wrapper's zeroed scratch, after the ticket
+// word: 2 words a tile (float32) or 4 (float64).
+template <typename T>
+struct DescOf;
+
+template <>
+struct DescOf<float> {
+  static DescF32 at(unsigned long long* w, long long ntiles) {
+    return {w + 1, w + 1 + ntiles};
+  }
+};
+
+template <>
+struct DescOf<double> {
+  static DescF64 at(unsigned long long* w, long long ntiles) {
+    return {(int*)(w + 1), (double*)(w + 1 + ntiles),
+            (double*)(w + 1 + 2 * ntiles), (double*)(w + 1 + 3 * ntiles)};
+  }
+};
+
+// Warp 0 of tile id > 0: the exclusive prefix of the tiles before it,
+// written to `excl` by lane 0.  It reads 32 descriptors a window, one a
+// lane, nearest first, keeping the values in `look`, until a window
+// holds a prefix; past kLookWindows windows it reads the last one again
+// until one appears.  Then lane 0 folds left to right from the nearest
+// prefix P(s) through the aggregates a(s+1) .. a(id-1).  Every P(t) is
+// thus P(t-1) + a(t), whichever prefix the look-back met: the result
+// does not depend on timing.  Tiles take their ids from an atomic
+// ticket, so every tile waited on has started: no deadlock.
+template <typename Op, typename Desc>
+__device__ __forceinline__ void look_back(const Desc& desc, int id,
+                                          typename Op::Acc (*look)[32],
+                                          typename Op::Acc& excl) {
+  using Acc = typename Op::Acc;
+  const int lane = threadIdx.x & 31;
+  int w = 0, stop = 0;
+  while (true) {
+    const int pred = id - 1 - w * 32 - lane;  // this lane's descriptor
+    Acc val = Op::of(Op::identity());
+    int st = kPrefix;  // before tile 0: never met, tile 0 is a prefix
+    if (pred >= 0) {
+      st = desc.read(pred, val);
+      while (st == 0) st = desc.read(pred, val);
+    }
+    look[w][lane] = val;
+    const int first =
+        __reduce_min_sync(0xffffffffu, st == kPrefix ? lane : 32);
+    if (first < 32) {
+      stop = first;
+      break;
+    }
+    if (w + 1 < kLookWindows) ++w;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    // only the aggregates after the prefix: each combine waits on the last
+    Acc e = look[w][stop];
+    for (int q = stop - 1; q >= 0; --q) e = Op::combine(e, look[w][q]);
+    for (int u = w - 1; u >= 0; --u)
+      for (int q = 31; q >= 0; --q) e = Op::combine(e, look[u][q]);
+    excl = e;
+  }
+}
+
+// -- B3', B4 -----------------------------------------------------------------
+// positions a thread reduces; the tile is kThreads x kSegPer
+constexpr int kSegPer = 8;
+// resident tiles an SM should hold: 5 caps float32 at 48 registers (the
+// compiler takes 56 unbounded, 4 tiles an SM, and the fill of the FEM
+// matrix runs 7% slower; 6 tiles spill), 4 caps float64 at 64
+template <typename T>
+constexpr int kSegMinBlocks = sizeof(T) == 4 ? 5 : 4;
+
+// Loads of the one-touch index streams: streaming (evict first), or
+// through the read-only cache (a variant the timing probe compares).
+struct LdStream {
+  static __device__ int32_t one(const int32_t* p) { return __ldcs(p); }
+  static __device__ int4 four(const int4* p) { return __ldcs(p); }
+};
+
+struct LdCached {
+  static __device__ int32_t one(const int32_t* p) { return __ldg(p); }
+  static __device__ int4 four(const int4* p) { return __ldg(p); }
+};
+
+// Register i of a thread holds tile position seg_at(i): 16 B vectors
+// striped across the threads, or single values striped.
+template <bool kVec>
+__device__ __forceinline__ int seg_at(int i) {
+  return kVec ? 4 * ((i / 4) * kThreads + (int)threadIdx.x) + (i & 3)
+              : i * kThreads + (int)threadIdx.x;
+}
+
+// Step 1: the tile's slots and their gathered values (the identity at a
+// dropped slot, and slot -1 past L) into shared memory, striped.
+template <typename T, typename Op, int K, typename Ld, bool kVec>
+__device__ __forceinline__ void seg_load(const T* __restrict__ vals,
+                                         const int32_t* __restrict__ perm,
+                                         const int32_t* __restrict__ slot,
+                                         long long t0, long long L,
+                                         long long nzmax, int32_t* ss,
+                                         T* vv) {
+  int32_t s[K], p[K];
+  if (kVec) {
+    const int4* sv = reinterpret_cast<const int4*>(slot + t0);
+    const int4* pv = reinterpret_cast<const int4*>(perm + t0);
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const int4 a = Ld::four(sv + q * kThreads + threadIdx.x);
+      const int4 b = Ld::four(pv + q * kThreads + threadIdx.x);
+      s[4 * q] = a.x;
+      s[4 * q + 1] = a.y;
+      s[4 * q + 2] = a.z;
+      s[4 * q + 3] = a.w;
+      p[4 * q] = b.x;
+      p[4 * q + 1] = b.y;
+      p[4 * q + 2] = b.z;
+      p[4 * q + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const long long pos = t0 + seg_at<false>(i);
+      s[i] = pos < L ? Ld::one(slot + pos) : -1;
+      p[i] = pos < L ? Ld::one(perm + pos) : 0;
+    }
+  }
+  T x[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)  // all K gathers before any use
+    x[i] = (s[i] >= 0 && s[i] < nzmax) ? __ldg(vals + p[i]) : Op::identity();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int j = seg_at<kVec>(i);
+    ss[pad<int32_t>(j)] = s[i];
+    vv[pad<T>(j)] = x[i];
+  }
+}
+
+// Segmented inclusive scan of (flag, value) across a warp.
+template <typename Op, typename T>
+__device__ __forceinline__ void warp_segscan(int& f, T& v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int fu = __shfl_up_sync(0xffffffffu, f, d);
+    const T vu = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) {
+      if (!f) v = Op::op(vu, v);
+      f |= fu;
+    }
+  }
+}
+
+template <typename T, typename Op, int K, typename Ld, int kMinBlocks,
+          typename Desc>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+segment_reduce_kernel(const T* __restrict__ vals,
+                      const int32_t* __restrict__ perm,
+                      const int32_t* __restrict__ slot, T* __restrict__ out,
+                      long long L, long long nzmax, int* __restrict__ ticket,
+                      Desc desc, int vec) {
+  constexpr int kTile = kThreads * K;
+  using Acc = typename Op::Acc;
+  __shared__ int32_t ss[kTile + kTile / 32];
+  __shared__ T vv[kTile + kTile / (128 / sizeof(T))];
+  __shared__ int warp_f[kWarps];
+  __shared__ T warp_v[kWarps];
+  __shared__ Acc look[kLookWindows][32];
+  __shared__ Acc excl_s;
+  __shared__ int tile_s, prev_s, next_s, need_s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) tile_s = atomicAdd(ticket, 1);  // the order of the chain
+  __syncthreads();
+  const int id = tile_s;
+  const long long t0 = (long long)id * kTile;
+
+  // -- 1. load: the slots either side of the tile, then the tile ---------
+  if (t == 0) prev_s = t0 > 0 ? Ld::one(slot + t0 - 1) : 0;
+  if (t == kThreads - 1)
+    next_s = t0 + kTile < L ? Ld::one(slot + t0 + kTile) : -1;
+  if (vec && t0 + kTile <= L)
+    seg_load<T, Op, K, Ld, true>(vals, perm, slot, t0, L, nzmax, ss, vv);
+  else
+    seg_load<T, Op, K, Ld, false>(vals, perm, slot, t0, L, nzmax, ss, vv);
+  __syncthreads();
+
+  // -- 2. reduce inside the tile -------------------------------------------
+  // the thread's K positions, run by run; the partials wait in shared
+  // memory.  `first` is the thread's first run start (K: none).
+  const int b = t * K;
+  int prev = t > 0 ? ss[pad<int32_t>(b - 1)] : prev_s;
+  int first = K;
+  T run = Op::identity();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = ss[pad<int32_t>(b + k)];
+    const T y = vv[pad<T>(b + k)];
+    const bool head = s != prev || (k == 0 && t == 0 && t0 == 0);
+    if (head && first == K) first = k;
+    run = (head || k == 0) ? y : Op::op(run, y);
+    vv[pad<T>(b + k)] = run;
+    prev = s;
+  }
+  int f = first < K;
+  T v = run;
+  warp_segscan<Op>(f, v);
+  int fx = __shfl_up_sync(0xffffffffu, f, 1);
+  T vx = __shfl_up_sync(0xffffffffu, v, 1);
+  if (lane == 0) {
+    fx = 0;
+    vx = Op::identity();
+  }
+  if (lane == 31) {
+    warp_f[warp] = f;
+    warp_v[warp] = v;
+  }
+  if (t == 0) need_s = first != 0;  // the tile continues a run
+  __syncthreads();
+  // the warps before this one, and the tile's aggregate
+  int fb = 0, F = 0;
+  T vb = Op::identity(), A = Op::identity();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int fw = warp_f[w];
+    const T yw = warp_v[w];
+    if (w < warp) {
+      vb = fw ? yw : Op::op(vb, yw);
+      fb |= fw;
+    }
+    A = fw ? yw : Op::op(A, yw);
+    F |= fw;
+  }
+  const int fe = fb | fx;                   // a run starts before the thread
+  const T ce = fx ? vx : Op::op(vb, vx);    // the run open there
+
+  // -- 3. carry across tiles: publish, and look back if a run comes in ---
+  if (warp == 0) {
+    if (lane == 0) desc.publish(id, F ? kPrefix : kAggregate, Op::of(A));
+    if (need_s) {
+      Acc e;
+      look_back<Op>(desc, id, look, e);
+      if (lane == 0) {
+        if (!F) desc.publish(id, kPrefix, Op::combine(e, Op::of(A)));
+        excl_s = e;
+      }
+    }
+  }
+  __syncthreads();
+  if (first > 0) {  // the run the thread's first positions continue
+    Acc carry = Op::of(ce);
+    if (!fe) carry = Op::combine(excl_s, carry);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k < first)
+        vv[pad<T>(b + k)] =
+            Op::value(Op::combine(carry, Op::of(vv[pad<T>(b + k)])));
+  }
+  __syncthreads();
+
+  // -- 4. write each kept run's total at its last position, striped -------
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int j = q * kThreads + t;
+    const int s = ss[pad<int32_t>(j)];
+    if (s >= 0 && s < nzmax) {
+      const int next = j + 1 < kTile ? ss[pad<int32_t>(j + 1)] : next_s;
+      if (next != s) out[s] = vv[pad<T>(j)];
+    }
+  }
+}
+
+// -- B5 ---------------------------------------------------------------------
+// A thread holds 16 values of a tile, loaded as 16 B vectors
+// (neighbouring threads on neighbouring vectors) and transposed through
+// shared memory padded by one value per 128 B (pad), so both the vector
+// stores and each thread's consecutive values fall in distinct banks.
+template <typename T>
+struct ScanShape {
+  static constexpr int kPer = 16;                // values per thread
+  static constexpr int kTile = kThreads * kPer;  // values per tile
+  static constexpr int kVec = 16 / sizeof(T);    // values per 16 B vector
+  static constexpr int kLoads = kPer / kVec;     // vectors per thread
+  static constexpr int kPadded = kTile + kTile / (128 / sizeof(T));
+  // resident tiles an SM should hold: the scan is bound by the bytes its
+  // resident tiles keep in flight (6 in float32 caps it at 40 registers,
+  // the fastest of 5-8 on an H100; in float64 its 43 KB of shared memory
+  // allow 5)
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 6 : 5;
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_scan(T x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
 template <typename T, typename Desc>
 __global__ void __launch_bounds__(kThreads, ScanShape<T>::kMinBlocks)
 scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -349,13 +655,13 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
       w.u = __ldcs(xv + q * kThreads + t);  // read once: stream
 #pragma unroll
       for (int r = 0; r < S::kVec; ++r)
-        tile[scan_pad<T>((q * kThreads + t) * S::kVec + r)] = w.v[r];
+        tile[pad<T>((q * kThreads + t) * S::kVec + r)] = w.v[r];
     }
   } else {
 #pragma unroll
     for (int q = 0; q < S::kPer; ++q) {
       const int j = q * kThreads + t;
-      tile[scan_pad<T>(j)] = t0 + j < L ? x[t0 + j] : T(0);
+      tile[pad<T>(j)] = t0 + j < L ? x[t0 + j] : T(0);
     }
   }
   __syncthreads();
@@ -366,7 +672,7 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
   T run = T(0);
 #pragma unroll
   for (int i = 0; i < S::kPer; ++i) {
-    T& y = tile[scan_pad<T>(t * S::kPer + i)];
+    T& y = tile[pad<T>(t * S::kPer + i)];
     run += y;
     y = run;
   }
@@ -384,13 +690,6 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 
   // -- decoupled look-back: warp 0 finds the tile's exclusive prefix -----
-  // It reads 32 descriptors a window, one a lane, nearest first, keeping
-  // the values in `look`, until a window holds a prefix; past
-  // kLookWindows windows it reads the last one again until one appears.
-  // Then lane 0 folds left to right from the nearest prefix P(s) through
-  // the aggregates a(s+1) .. a(id-1).  Every P(t) is thus P(t-1) + a(t),
-  // whichever prefix the look-back met: the result does not depend on
-  // timing.
   if (warp == 0) {
     if (id == 0) {
       if (lane == 0) {
@@ -399,31 +698,9 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
       }
     } else {
       if (lane == 0) desc.publish(id, kAggregate, C::of(aggregate));
-      int w = 0, stop = 0;
-      while (true) {
-        const int pred = id - 1 - w * 32 - lane;  // this lane's descriptor
-        Acc val = C::of(T(0));
-        int st = kPrefix;  // before tile 0: never met, tile 0 is a prefix
-        if (pred >= 0) {
-          st = desc.read(pred, val);
-          while (st == 0) st = desc.read(pred, val);
-        }
-        look[w][lane] = val;
-        const int first =
-            __reduce_min_sync(0xffffffffu, st == kPrefix ? lane : 32);
-        if (first < 32) {
-          stop = first;
-          break;
-        }
-        if (w + 1 < kLookWindows) ++w;
-      }
-      __syncwarp();
+      Acc excl;
+      look_back<SumOp<T>>(desc, id, look, excl);
       if (lane == 0) {
-        // only the aggregates after the prefix: each add waits on the last
-        Acc excl = look[w][stop];
-        for (int q = stop - 1; q >= 0; --q) excl = C::add(excl, look[w][q]);
-        for (int u = w - 1; u >= 0; --u)
-          for (int q = 31; q >= 0; --q) excl = C::add(excl, look[u][q]);
         desc.publish(id, kPrefix, C::add(excl, C::of(aggregate)));
         excl_s = C::value(excl);
       }
@@ -435,7 +712,7 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
   const T base = excl_s + (before + ex);
 #pragma unroll
   for (int i = 0; i < S::kPer; ++i)
-    tile[scan_pad<T>(t * S::kPer + i)] += base;
+    tile[pad<T>(t * S::kPer + i)] += base;
   __syncthreads();
   if (full) {
     uint4* ov = reinterpret_cast<uint4*>(out + t0);
@@ -444,27 +721,16 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
       Vec w;
 #pragma unroll
       for (int r = 0; r < S::kVec; ++r)
-        w.v[r] = tile[scan_pad<T>((q * kThreads + t) * S::kVec + r)];
+        w.v[r] = tile[pad<T>((q * kThreads + t) * S::kVec + r)];
       __stcs(ov + q * kThreads + t, w.u);
     }
   } else {
 #pragma unroll
     for (int q = 0; q < S::kPer; ++q) {
       const int j = q * kThreads + t;
-      if (t0 + j < L) out[t0 + j] = tile[scan_pad<T>(j)];
+      if (t0 + j < L) out[t0 + j] = tile[pad<T>(j)];
     }
   }
-}
-
-template <typename T>
-int launch_sum(const void* vals, const void* perm, const void* slot,
-               void* out, long long L, long long nzmax, void* stream) {
-  const long long blocks = (L + kThreads - 1) / kThreads;
-  gather_segment_sum_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      (const T*)vals, (const int32_t*)perm, (const int32_t*)slot, (T*)out, L,
-      nzmax);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -479,26 +745,35 @@ int launch_sum2(const void* va, const void* vb, const void* sa,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_minmax(const void* vals, const void* perm, const void* slot,
-                  void* out, long long L, long long nzmax, int is_max,
-                  void* stream) {
-  const long long blocks = (L + kThreads - 1) / kThreads;
-  if (is_max)
-    gather_segment_minmax_kernel<T, true><<<(unsigned)blocks, kThreads, 0,
-                                            (cudaStream_t)stream>>>(
-        (const T*)vals, (const int32_t*)perm, (const int32_t*)slot, (T*)out,
-        L, nzmax);
-  else
-    gather_segment_minmax_kernel<T, false><<<(unsigned)blocks, kThreads, 0,
-                                             (cudaStream_t)stream>>>(
-        (const T*)vals, (const int32_t*)perm, (const int32_t*)slot, (T*)out,
-        L, nzmax);
+// scratch: 1 + 2 ntiles (float32) or 1 + 4 ntiles (float64) zeroed
+// 64-bit words, ntiles = ceil(L / (kThreads * K)): the tile ticket, then
+// the descriptors
+template <typename T, typename Op, int K = kSegPer, typename Ld = LdStream,
+          int kMinBlocks = kSegMinBlocks<T>>
+int launch_segment(const void* vals, const void* perm, const void* slot,
+                   void* out, void* scratch, long long L, long long nzmax,
+                   void* stream) {
+  const long long ntiles = (L + kThreads * K - 1) / (kThreads * K);
+  unsigned long long* w = (unsigned long long*)scratch;
+  const int vec = (((uintptr_t)perm | (uintptr_t)slot) & 15) == 0;
+  segment_reduce_kernel<T, Op, K, Ld, kMinBlocks>
+      <<<(unsigned)ntiles, kThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)vals, (const int32_t*)perm, (const int32_t*)slot, (T*)out,
+          L, nzmax, (int*)w, DescOf<T>::at(w, ntiles), vec);
   return (int)cudaGetLastError();
 }
 
-// scratch: 1 + 2 ntiles (float32) or 1 + 4 ntiles (float64) zeroed
-// 64-bit words: the tile ticket, then the descriptors
+template <typename T>
+int launch_minmax(const void* vals, const void* perm, const void* slot,
+                  void* out, void* scratch, long long L, long long nzmax,
+                  int is_max, void* stream) {
+  return is_max ? launch_segment<T, MinMaxOp<T, true>>(
+                      vals, perm, slot, out, scratch, L, nzmax, stream)
+                : launch_segment<T, MinMaxOp<T, false>>(
+                      vals, perm, slot, out, scratch, L, nzmax, stream);
+}
+
+// scratch as launch_segment's, ntiles = ceil(L / ScanShape<T>::kTile)
 template <typename T>
 int launch_cumsum(const void* x, void* out, void* scratch, long long L,
                   void* stream) {
@@ -506,18 +781,9 @@ int launch_cumsum(const void* x, void* out, void* scratch, long long L,
   const long long ntiles = (L + S::kTile - 1) / S::kTile;
   unsigned long long* w = (unsigned long long*)scratch;
   const int vec = (((uintptr_t)x | (uintptr_t)out) & 15) == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (sizeof(T) == 4) {
-    scan_lookback_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
-        (const T*)x, (T*)out, L, (int*)w, DescF32{w + 1, w + 1 + ntiles},
-        vec);
-  } else {
-    scan_lookback_kernel<T><<<(unsigned)ntiles, kThreads, 0, s>>>(
-        (const T*)x, (T*)out, L, (int*)w,
-        DescF64{(int*)(w + 1), (double*)(w + 1 + ntiles),
-                (double*)(w + 1 + 2 * ntiles), (double*)(w + 1 + 3 * ntiles)},
-        vec);
-  }
+  scan_lookback_kernel<T><<<(unsigned)ntiles, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const T*)x, (T*)out, L, (int*)w, DescOf<T>::at(w, ntiles), vec);
   return (int)cudaGetLastError();
 }
 
@@ -526,17 +792,19 @@ int launch_cumsum(const void* x, void* out, void* scratch, long long L,
 extern "C" int gather_segment_sum_f32_launch(const void* vals,
                                              const void* perm,
                                              const void* slot, void* out,
-                                             long long L, long long nzmax,
-                                             void* stream) {
-  return launch_sum<float>(vals, perm, slot, out, L, nzmax, stream);
+                                             void* scratch, long long L,
+                                             long long nzmax, void* stream) {
+  return launch_segment<float, SumOp<float>>(vals, perm, slot, out, scratch,
+                                             L, nzmax, stream);
 }
 
 extern "C" int gather_segment_sum_f64_launch(const void* vals,
                                              const void* perm,
                                              const void* slot, void* out,
-                                             long long L, long long nzmax,
-                                             void* stream) {
-  return launch_sum<double>(vals, perm, slot, out, L, nzmax, stream);
+                                             void* scratch, long long L,
+                                             long long nzmax, void* stream) {
+  return launch_segment<double, SumOp<double>>(vals, perm, slot, out,
+                                               scratch, L, nzmax, stream);
 }
 
 extern "C" int gather2_segment_sum_f32_launch(
@@ -551,22 +819,18 @@ extern "C" int gather2_segment_sum_f64_launch(
   return launch_sum2<double>(va, vb, sa, sb, slot, out, L, nzmax, stream);
 }
 
-extern "C" int gather_segment_minmax_f32_launch(const void* vals,
-                                                const void* perm,
-                                                const void* slot, void* out,
-                                                long long L, long long nzmax,
-                                                int is_max, void* stream) {
-  return launch_minmax<float>(vals, perm, slot, out, L, nzmax, is_max,
-                              stream);
+extern "C" int gather_segment_minmax_f32_launch(
+    const void* vals, const void* perm, const void* slot, void* out,
+    void* scratch, long long L, long long nzmax, int is_max, void* stream) {
+  return launch_minmax<float>(vals, perm, slot, out, scratch, L, nzmax,
+                              is_max, stream);
 }
 
-extern "C" int gather_segment_minmax_f64_launch(const void* vals,
-                                                const void* perm,
-                                                const void* slot, void* out,
-                                                long long L, long long nzmax,
-                                                int is_max, void* stream) {
-  return launch_minmax<double>(vals, perm, slot, out, L, nzmax, is_max,
-                               stream);
+extern "C" int gather_segment_minmax_f64_launch(
+    const void* vals, const void* perm, const void* slot, void* out,
+    void* scratch, long long L, long long nzmax, int is_max, void* stream) {
+  return launch_minmax<double>(vals, perm, slot, out, scratch, L, nzmax,
+                               is_max, stream);
 }
 
 extern "C" int blocked_cumsum_f32_launch(const void* x, void* out,
@@ -584,3 +848,4 @@ extern "C" int blocked_cumsum_f64_launch(const void* x, void* out,
 static_assert(ScanShape<float>::kTile == ScanShape<double>::kTile,
               "one tile size for both types");
 extern "C" int scan_tile(void) { return ScanShape<float>::kTile; }
+extern "C" int segment_tile(void) { return kThreads * kSegPer; }

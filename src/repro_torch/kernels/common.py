@@ -11,8 +11,9 @@ The kernels live in ``src/repro_torch/csrc/*.cu``.  Each source is
 compiled by ``nvcc`` into its own shared library with a plain C
 interface and bound with :mod:`ctypes`; the build happens at first use,
 into ``build/repro_torch/`` at the root of the checkout, under a name
-that carries a hash of the source and the flags (a changed source
-rebuilds, an unchanged one loads).  A failed build raises.
+that carries a hash of the source, the ``csrc`` files it includes and
+the flags (a changed source rebuilds, an unchanged one loads).  A failed
+build raises.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import functools
 import hashlib
 import operator
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -150,6 +152,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # a source that includes another of csrc/ rebuilds when that one does
+    for inc in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        src += (CSRC_DIR / inc.decode()).read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -18,6 +18,9 @@ from ..common import cdiv, pad_to
 #: values per tile of the B5 scan (256 threads x 16) -- fixed by
 #: ``csrc/segment_sum.cu``
 SCAN_TILE = 4096
+#: sorted positions per tile of B3' and B4 (256 threads x 8) -- fixed by
+#: ``csrc/segment_sum.cu``
+SEG_TILE = 2048
 
 
 def cumsum_ref(x: torch.Tensor) -> torch.Tensor:

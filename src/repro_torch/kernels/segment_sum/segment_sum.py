@@ -4,12 +4,16 @@
 ``gather_masked_cumsum`` of ``repro/kernels/segment_sum/segment_sum.py``
 feeds into its ``_segment_totals`` epilogue, in one kernel: the
 per-segment sums of ``vals[perm]`` over a sorted slot stream, with
-every ``slot >= num_segments`` dropped.  It sums each segment directly
-instead of differencing a global prefix sum.
+every ``slot >= num_segments`` dropped.  It reduces each segment
+directly instead of differencing a global prefix sum: one launch of a
+single-pass segmented reduction whose tiles carry the run open at their
+end through a decoupled look-back, so a run of any length is reduced by
+every tile it spans.
 
 ``gather_segment_minmax`` (B4) is the counterpart of
 ``gather_masked_segscan`` read at each segment's end: the per-segment
-min or max, directly, with 0 in empty slots.
+min or max on B3''s kernel with the min/max operator, with 0 in empty
+slots.
 
 ``blocked_cumsum`` (B5) is the counterpart of ``blocked_cumsum``: an
 inclusive prefix sum, one launch of a single-pass scan with decoupled
@@ -32,8 +36,9 @@ import torch
 
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
-from .ref import (SCAN_TILE, blocked_cumsum_ref, gather2_segment_sum_ref,
-                  gather_segment_minmax_ref, gather_segment_sum_ref)
+from .ref import (SCAN_TILE, SEG_TILE, blocked_cumsum_ref,
+                  gather2_segment_sum_ref, gather_segment_minmax_ref,
+                  gather_segment_sum_ref)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -43,16 +48,18 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("segment_sum")
-        bind(lib, "scan_tile", [])
-        if lib.scan_tile() != SCAN_TILE:
-            raise RuntimeError("csrc/segment_sum.cu tile differs from "
-                               "SCAN_TILE")
+        for fn, want in (("scan_tile", SCAN_TILE),
+                         ("segment_tile", SEG_TILE)):
+            bind(lib, fn, [])
+            if getattr(lib, fn)() != want:
+                raise RuntimeError(f"csrc/segment_sum.cu: {fn}() differs "
+                                   "from ref.py")
         for dtype, sfx in _SUFFIX.items():
             _FNS["sum", dtype] = bind(lib, f"gather_segment_sum_{sfx}_launch",
-                                      [_P, _P, _P, _P, _LL, _LL, _P])
+                                      [_P, _P, _P, _P, _P, _LL, _LL, _P])
             _FNS["minmax", dtype] = bind(
                 lib, f"gather_segment_minmax_{sfx}_launch",
-                [_P, _P, _P, _P, _LL, _LL, _I, _P])
+                [_P, _P, _P, _P, _P, _LL, _LL, _I, _P])
             _FNS["cumsum", dtype] = bind(lib, f"blocked_cumsum_{sfx}_launch",
                                          [_P, _P, _P, _LL, _P])
             _FNS["sum2", dtype] = bind(
@@ -92,6 +99,23 @@ def _check_stream(vals, perm, slot, what: str) -> int:
     return L
 
 
+def _scratch_words(L: int, tile: int, dtype: torch.dtype) -> int:
+    """64-bit words of a look-back kernel's zeroed scratch: the tile
+    ticket, then one descriptor a tile (two words in float32, a flag and
+    three values in float64)."""
+    return 1 + cdiv(L, tile) * (2 if dtype == torch.float32 else 4)
+
+
+def _zeros_and_scratch(n: int, dtype: torch.dtype, L: int, device):
+    """A zeroed output of ``n`` values and B3''s/B4's zeroed scratch,
+    cut from one allocation so that a call zeroes memory once."""
+    words = _scratch_words(L, SEG_TILE, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    buf = torch.zeros(words + cdiv(n * size, 8), dtype=torch.int64,
+                      device=device)
+    return buf[words:].view(dtype)[:n], buf[:words]
+
+
 def gather_segment_sum(vals: torch.Tensor, perm: torch.Tensor,
                        slot: torch.Tensor, *,
                        num_segments: int) -> torch.Tensor:
@@ -102,19 +126,21 @@ def gather_segment_sum(vals: torch.Tensor, perm: torch.Tensor,
     values to float32 first and splits complex ones into real parts).
 
     Each kept slot (``< num_segments``) must be one run of adjacent
-    positions: the thread at a run's first position writes its slot.
-    A plan's streams meet that for ``num_segments <= nzmax`` only; with
-    more, the dropped inputs' ``slot == nzmax`` runs (one per column)
-    would all write that slot.
+    positions: the position that ends a run writes its slot.  A plan's
+    streams meet that for ``num_segments <= nzmax`` only; with more, the
+    dropped inputs' ``slot == nzmax`` runs (one per column) would all
+    write that slot.  Deterministic: the same inputs give the same bits.
     """
     if vals.device.type == "cpu":
         return gather_segment_sum_ref(vals, perm, slot,
                                       num_segments=num_segments)
     L = _check_stream(vals, perm, slot, "the fused fill")
-    out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
+    out, scratch = _zeros_and_scratch(num_segments, vals.dtype, L,
+                                      vals.device)
     check_launch(_fns()["sum", vals.dtype](
         vals.data_ptr(), perm.data_ptr(), slot.data_ptr(), out.data_ptr(),
-        L, num_segments, current_stream(vals.device)), "gather_segment_sum")
+        scratch.data_ptr(), L, num_segments, current_stream(vals.device)),
+        "gather_segment_sum")
     gather_segment_sum.launches += 1
     return out
 
@@ -133,11 +159,12 @@ def gather_segment_minmax(vals: torch.Tensor, perm: torch.Tensor,
         return gather_segment_minmax_ref(vals, perm, slot,
                                          num_segments=num_segments, op=op)
     L = _check_stream(vals, perm, slot, "the min/max fill")
-    out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
+    out, scratch = _zeros_and_scratch(num_segments, vals.dtype, L,
+                                      vals.device)
     check_launch(_fns()["minmax", vals.dtype](
         vals.data_ptr(), perm.data_ptr(), slot.data_ptr(), out.data_ptr(),
-        L, num_segments, int(op == "max"), current_stream(vals.device)),
-        "gather_segment_minmax")
+        scratch.data_ptr(), L, num_segments, int(op == "max"),
+        current_stream(vals.device)), "gather_segment_minmax")
     gather_segment_minmax.launches += 1
     return out
 
@@ -193,11 +220,8 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if L == 0:
         return out
-    # the tile ticket, then one descriptor a tile: two 64-bit words in
-    # float32, a flag and three values in float64; zeroed for every call
-    ntiles = cdiv(L, SCAN_TILE)
-    words = 1 + ntiles * (2 if x.dtype == torch.float32 else 4)
-    scratch = torch.zeros(words, dtype=torch.int64, device=x.device)
+    scratch = torch.zeros(_scratch_words(L, SCAN_TILE, x.dtype),
+                          dtype=torch.int64, device=x.device)
     check_launch(_fns()["cumsum", x.dtype](
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), L,
         current_stream(x.device)), "blocked_cumsum")

@@ -10,7 +10,10 @@ Each kernel is held against its plain PyTorch version on the same
 inputs: the integer kernels (B1, B2, B11, B12) and the min/max fill
 (B4) bit for bit, the fill (B3') bit for bit on integer-valued data and
 within ``8 * eps * max_s sum|v|`` on random values (the plain version's
-``index_add_`` adds in another order on the card), the prefix sum (B5)
+``index_add_`` adds in another order on the card); on runs that cross
+its tiles, within ``16 * eps`` of each slot's sum|terms| of the exact
+sum (``chip_smoke.exact_segment_sums``) and bit for bit from call to
+call; the prefix sum (B5)
 bit for bit on integer-valued data and within ``64 * eps`` of the
 running sum of ``|x|`` on random values, zero-mean and same-sign (the
 kernel's first-order worst case is about 31 eps; see
@@ -35,7 +38,7 @@ from repro_torch.kernels.hist.ops import block_offsets, default_block_b
 from repro_torch.kernels.hist.ref import block_histogram_ref
 from repro_torch.kernels.radix_sort import ops, radix_sort as rs, ref
 from repro_torch.kernels.segment_sum import segment_sum as ss
-from repro_torch.kernels.segment_sum.ref import (SCAN_TILE,
+from repro_torch.kernels.segment_sum.ref import (SCAN_TILE, SEG_TILE,
                                                  blocked_cumsum_ref,
                                                  gather_segment_minmax_ref,
                                                  gather_segment_sum_ref)
@@ -1052,3 +1055,69 @@ def test_placement_on_words_not_16_byte_aligned(offset):
     kw = dict(shift=4, bits=7, nbins=128)
     for ncarry in (0, 1, 2):
         _b2_case(dev, keys, kw, ncarry, payload)
+
+
+# ---------------------------------------------------------------------------
+# B3' and B4 (single-pass segmented reduction) on the streams that break a
+# tile design, from chip_smoke.ragged_slots: one run of 2^20, runs of
+# random length 1..10^4, a run that starts at a tile's last position, a
+# tile of only dropped slots, and the random stream on views that start 4
+# bytes into their storage (4-byte loads instead of 16-byte ones).
+# ---------------------------------------------------------------------------
+def _smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _unaligned(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    assert buf[1:].data_ptr() % 16 != 0
+    return buf[1:]
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stream", ["one_run", "random", "tile_edge",
+                                    "dropped_tile", "unaligned"])
+def test_segment_kernels_on_runs_that_cross_tiles(stream, dtype, cut):
+    """num_segments at nnz, or cut mid-stream (``cut``).  Sums bit for
+    bit on integer-valued data, bit for bit from call to call on random
+    data and there within C_SEG = 16 eps of each slot's sum|terms| of the
+    exact sum (the kernel's first-order bound is (K + 12) eps / 2 = 10
+    eps, K = 8: csrc/segment_sum.cu); min/max bit for bit, NaN
+    included.  One launch a call."""
+    dev = _cuda()
+    smoke = _smoke()
+    rng = np.random.default_rng(70)
+    slot_np = smoke.ragged_slots("random" if stream == "unaligned"
+                                 else stream, SEG_TILE, rng)
+    perm, slot = smoke.slot_stream(slot_np, dev, 70)
+    if stream == "unaligned":
+        perm, slot = _unaligned(perm), _unaligned(slot)
+    L = slot.numel()
+    nnz = int(slot_np[slot_np < 2**30].max()) + 1
+    n = nnz // 2 if cut else nnz
+    kw = dict(num_segments=n)
+    vi = torch.from_numpy(rng.integers(-8, 9, L)).to(dev, dtype)
+    before = ss.gather_segment_sum.launches
+    assert torch.equal(ss.gather_segment_sum(vi, perm, slot, **kw),
+                       gather_segment_sum_ref(vi, perm, slot, **kw))
+    assert ss.gather_segment_sum.launches == before + 1
+    vn = torch.from_numpy(rng.standard_normal(L)).to(dev, dtype)
+    got = ss.gather_segment_sum(vn, perm, slot, **kw)
+    assert torch.equal(ss.gather_segment_sum(vn, perm, slot, **kw), got)
+    eps = torch.finfo(dtype).eps
+    assert smoke.seg_err_over_eps(got, vn, perm, slot, eps) <= smoke.C_SEG
+    vn[[5, L // 3, L - 1]] = float("nan")
+    for op in ("min", "max"):
+        before = ss.gather_segment_minmax.launches
+        got = ss.gather_segment_minmax(vn, perm, slot, op=op, **kw)
+        assert ss.gather_segment_minmax.launches == before + 1
+        assert _same(got, gather_segment_minmax_ref(vn, perm, slot, op=op,
+                                                    **kw))
