@@ -9,8 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    nvidia-smi; no CUDA device is a failure.
 2. build: compiles every kernel of the four paths from
    ``src/repro_torch/csrc`` (one nvcc per source, all started together),
-   and the timing probes of ``segment_sum_probe.cu``, and prints each
-   kernel's ``-Xptxas -v`` report.
+   and the timing probes of ``segment_sum_probe.cu``, ``merge_probe.cu``
+   and ``spmv_sym_probe.cu``, and prints each kernel's ``-Xptxas -v``
+   report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on the streams its path gives it at L = 2.5e6 and 5e7: B1
    digit histogram and B2 stable digit placement on every pass of the
@@ -25,6 +26,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain versions right after phase 4c, on the streams it gave them:
    bit for bit on integer-valued data (B6 with a NaN too), within
    ``c * eps * sum|terms|`` on random float32 for c terms an output.
+   B9 also on the streams that cross its tiles (``sym_stream``: the
+   arrow matrix, with a column of 2^20 entries; a column whose first
+   slot is a tile's last item; runs of empty columns with sentinel rows
+   and a padded tail), float32 and float64: ``up`` and ``ct`` bit for
+   bit on integer-valued data, ``up`` bit for bit and ``ct`` bit for bit
+   from call to call on random data and there within ``C_SEG * eps *
+   sum|terms|`` of each column's exact sum; each variant of its timing
+   probe bit for bit on integer-valued data.
 3c. B3' and B4 on runs that cross their tiles: L = 5e7 positions in
    runs of 2^20 (``run_lengths``: each after short runs, so they start
    mid-tile) and in runs of random length 1..10^4, under a random
@@ -82,7 +91,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stream 1.  Counters (all twelve) are set to 0 before this phase and
    must rise by exactly the expected launches.  Then B7 against its
    plain version and ``torch.searchsorted``, bit for bit, on both call
-   sites' streams, both sides, and edge cases.  Then complex values
+   sites' streams, both sides, on edge cases and on ``merge_streams``
+   (random queries, ties and sentinels at the narrowed ranges' edges,
+   queries below and above every target, n = 2^k +- 1), each variant of
+   its timing probe too.  Then complex values
    (``complex_checks``): fills, SpMVs and a refill on the card, where
    the float kernels take them one real part at a time, against the
    CPU's plain versions, each part within the kernel's tolerance.
@@ -118,7 +130,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    sites (yardstick ``torch.searchsorted`` with the int64 packing of
    both streams it needs inside the timed call, and each of the two
    apart; bound: the queries, the offsets and the targets the ladder
-   reaches).
+   reaches), beside the design it replaced and the other shapes of
+   ``merge_probe``; B9 on the FEM stream, the arrow matrix and short
+   columns of as many slots, beside the design it replaced (with its
+   zeroing of ``up``) and the other shapes of ``sym_probe``.
 
 The last lines are the ``{"kernels": [...]}`` summary, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  The script imports nothing
@@ -391,6 +406,167 @@ def ragged_slots(kind: str, tile: int, rng) -> np.ndarray:
     return np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
 
 
+def merge_streams(kind: str, rng, block: int):
+    """``(q_rows, q_cols, t_rows, t_cols, M)`` int32 numpy streams for B7,
+    whose blocks of ``block`` queries narrow their search together; the
+    targets are (col, row)-sorted, ``M`` is the sentinel row.
+
+    ``"sorted_few"``: 3,001 sorted queries into 2^23 + 3 targets (Lq <<
+    n, as the update's delta); ``"sorted_all"``: Lq = n = 2^17 + 3,
+    sorted; ``"random"``: 4 blocks and 7 unsorted queries into 2^13
+    targets, so a block's range is all of n; ``"sparse_random"``: 3,001
+    of them into 2^23 + 3;
+    ``"edges"``: each block's least and greatest key equal to targets of
+    a long run of one key, rows M (the sentinel) among them, and queries
+    on the ties at the splitters of the narrowed range; ``"below"`` and
+    ``"above"``: every query under or over every target;
+    ``"n_<n>"``: n targets (1, 2^k - 1, 2^k, 2^k + 1) and a ragged Lq
+    (half a block and 37).
+    """
+    M, N = 997, 1 << 12
+
+    def targets(n):
+        tr = rng.integers(0, M + 1, n)
+        tc = rng.integers(0, N, n)
+        o = np.lexsort((tr, tc))
+        return tr[o], tc[o]
+
+    def queries(Lq):
+        return rng.integers(0, M + 1, Lq), rng.integers(0, N, Lq)
+
+    def sort(qr, qc):
+        o = np.lexsort((qr, qc))
+        return qr[o], qc[o]
+
+    if kind == "sorted_few":
+        tr, tc = targets((1 << 23) + 3)
+        qr, qc = sort(*queries(3001))
+    elif kind == "sorted_all":
+        tr, tc = targets((1 << 17) + 3)
+        qr, qc = sort(*queries((1 << 17) + 3))
+    elif kind == "random":
+        tr, tc = targets(1 << 13)
+        qr, qc = queries(4 * block + 7)
+    elif kind == "sparse_random":
+        tr, tc = targets((1 << 23) + 3)
+        qr, qc = queries(3001)
+    elif kind == "edges":
+        tr, tc = targets(1 << 13)
+        # a run of 5,000 equal keys (col 7, row M) and rows M around it
+        tc = np.concatenate([tc, np.full(5000, 7)])
+        tr = np.concatenate([tr, np.full(5000, M)])
+        o = np.lexsort((tr, tc))
+        tr, tc = tr[o], tc[o]
+        k = int(np.flatnonzero((tc == 7) & (tr == M))[0])
+        # every block: its first and last query on targets, the rest on
+        # ties with targets at evenly spaced positions
+        pick = np.sort(rng.integers(0, tr.size, 9 * block + 5))
+        pick[::block] = k
+        pick[block - 1::block] = k + 4999
+        qr, qc = tr[pick], tc[pick]
+    elif kind in ("below", "above"):
+        tr, tc = targets(1 << 12)
+        tc = tc + 10
+        qr, qc = queries(2 * block + 1)
+        qc = qc % 10 if kind == "below" else qc + N + 10
+    else:
+        n = int(kind.split("_")[1])
+        tr, tc = targets(n)
+        qr, qc = queries(block // 2 + 37)
+        k = min(n, qr.size) // 2
+        qr[:k], qc[:k] = tr[:k], tc[:k]
+    return tuple(np.asarray(a, np.int32) for a in (qr, qc, tr, tc)) + (M,)
+
+
+#: the kinds of ``merge_streams`` (B7's sparse shape takes sorted_few and
+#: sparse_random, its ladder n_4095 .. n_4097, its dense shape the others)
+MERGE_KINDS = ("sorted_few", "sorted_all", "random", "sparse_random",
+               "edges", "below", "above", "n_1", "n_4095", "n_4096",
+               "n_4097")
+#: B9's arrow matrix: one dense column of ARROW_DENSE strict-upper entries
+ARROW_DENSE = 1 << 20
+#: the slots of ``sym_lengths``' sweep streams, about the FEM matrix's
+SWEEP_SLOTS = 3_000_000
+
+
+def sym_lengths(kind: str, tile: int, rng, dense: int = ARROW_DENSE):
+    """Column lengths of SymCSC strict-upper streams that break a design of
+    tiles of ``tile`` merge items (each column end and each slot one).
+
+    ``"arrow"``: dense + 1 columns, column c < dense with min(c, 3)
+    entries (as the FEM matrix's few), the last with ``dense`` (every row
+    above it: the row and column of a bordered system's Lagrange
+    multiplier); ``"short"``: min(c, 3) entries a column and as many
+    slots as ``"arrow"`` (its yardstick); ``"tile_edge"``: a column of
+    2 tiles + 1 entries whose first slot is the last item of the fourth
+    tile, a column of 1 after it and short ones around;
+    ``"empty_runs"``: runs of 1 to 3 tiles of empty columns between
+    stretches of short ones; ``"width_<w>"``: min(c, w) entries a column
+    and ``"mixed_<w>"``: min(c, 3) with every 64th column of w (or c),
+    each about ``SWEEP_SLOTS`` slots (the FEM matrix's 2.98e6), for
+    timing the shapes of B9 against the longest column.
+    """
+    if kind == "arrow":
+        return np.concatenate([np.minimum(np.arange(dense), 3), [dense]])
+    if kind == "short":
+        n = dense + 1 + dense // 3
+        return np.minimum(np.arange(n), 3)
+    if kind == "tile_edge":
+        x = 3 * tile
+        # columns 1 .. s hold one entry: the long column x starts at item
+        # x + s = 3 tile - 1 + tile k
+        s = 4 * tile - 1 - x
+        return np.concatenate([[0], np.ones(s, np.int64),
+                               np.zeros(x - 1 - s, np.int64),
+                               [2 * tile + 1, 1],
+                               np.minimum(rng.integers(0, 4, tile), 3)])
+    if kind.startswith(("width_", "mixed_")):
+        w = int(kind.split("_")[1])
+        if kind.startswith("width_"):
+            return np.minimum(np.arange(SWEEP_SLOTS // w), w)
+        n = int(SWEEP_SLOTS // (3 + w / 64))
+        lengths = np.minimum(np.arange(n), 3)
+        lengths[63::64] = w
+        return np.minimum(lengths, np.arange(n))
+    runs = []
+    for _ in range(8):
+        runs.append(np.zeros(int(rng.integers(tile, 3 * tile)), np.int64))
+        runs.append(rng.integers(1, 4, int(rng.integers(1, tile))))
+    lengths = np.concatenate([[0]] + runs)
+    return np.minimum(lengths, np.arange(lengths.size))
+
+
+def sym_stream(kind: str, tile: int, rng, dense: int = ARROW_DENSE):
+    """``(rows, indptr, M)``, int32 numpy, of ``sym_lengths(kind)``: column
+    c of length l holds rows c - l .. c - 1.  ``"empty_runs"`` also has a
+    row M (the sentinel) at every 64th slot and a padded tail of 37 slots
+    of row M past indptr[M]."""
+    lengths = sym_lengths(kind, tile, rng, dense)
+    M = lengths.size
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = np.repeat(np.arange(M), lengths)
+    rows = col - lengths[col] + (np.arange(col.size) - indptr[col])
+    if kind == "empty_runs":
+        rows[::64] = M
+        rows = np.concatenate([rows, np.full(37, M)])
+    return rows.astype(np.int32), indptr, M
+
+
+def sym_err_over_eps(ct: torch.Tensor, rows, data, indptr, x,
+                     eps: float) -> float:
+    """The largest |ct - exact| / (eps sum|terms|) over the columns of a B9
+    result: each column's terms a_s * x[r_s] as the kernel rounds them,
+    summed exactly (``exact_segment_sums``)."""
+    M, nz = x.shape[0], data.shape[0]
+    s = torch.arange(nz, device=data.device)
+    col = torch.searchsorted(indptr[1:].long(), s, right=True)
+    valid = (col < M) & (rows >= 0) & (rows < M)
+    lo = torch.where(valid, data * x[torch.where(valid, rows, 0).long()], 0)
+    want, mag = exact_segment_sums(lo, torch.where(valid, col, -1), M)
+    err = np.abs(ct.double().cpu().numpy() - want)
+    return float((err / np.maximum(eps * mag, 1e-300)).max(initial=0.0))
+
+
 def slot_stream(slot: np.ndarray, dev, seed: int):
     """``(perm, slot)`` int32 streams on ``dev`` as a plan gives them: the
     slot stream and a random permutation of its positions."""
@@ -454,7 +630,7 @@ def probe_fn(name: str):
     """A launcher of ``csrc/segment_sum_probe.cu``, for timing only (the
     gather floor, B3''s and B4's variants and the design they
     replaced)."""
-    if not _PROBE:
+    if name not in _PROBE:
         from repro_torch.kernels import common
         lib = common.load_library("segment_sum_probe")
         P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -491,6 +667,106 @@ def gather_floor(vals, perm, slot, n: int, variant: int = 2):
                            torch.cuda.current_stream().cuda_stream)
     require(rc == 0, f"gather floor variant {variant}: CUDA error {rc}")
     return y
+
+
+def merge_probe(variant: int, qr, qc, tr, tc, side: str):
+    """B7 by a variant of ``csrc/merge_probe.cu`` (``MERGE_VARIANTS``),
+    for timing only: 0 the replaced design (one thread walks a query's
+    whole ladder), 1 as shipped, the others other shapes of the kernel."""
+    if "merge" not in _PROBE:
+        from repro_torch.kernels import common
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        _PROBE["merge"] = common.bind(common.load_library("merge_probe"),
+                                      "probe_merge_search_launch",
+                                      [I, P, P, P, P, P, LL, I, I, P])
+    out = torch.empty(qr.numel(), dtype=torch.int32, device=qr.device)
+    rc = _PROBE["merge"](variant, qr.data_ptr(), qc.data_ptr(),
+                         tr.data_ptr(), tc.data_ptr(), out.data_ptr(),
+                         qr.numel(), tr.numel(), int(side == "right"),
+                         torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"merge probe variant {variant}: CUDA error {rc}")
+    return out
+
+
+#: the variants of ``merge_probe`` and of ``sym_probe``, by name
+MERGE_VARIANTS = {"replaced": 0, "shipped": 1, "sparse": 2, "dense": 3,
+                  "ladder_tie": 4, "split": 5, "narrow_only": 6,
+                  "dense_tie": 7, "sparse_q2": 8, "ladder": 9}
+SYM_VARIANTS = {"replaced": 0, "tiles": 1, "tiles_K4": 2, "tiles_K12": 3,
+                "tiles_lookback_only": 4, "groups": 5, "columns": 6}
+#: B9's phases, as ``sym_phase_stamps`` reads them
+SYM_PHASES = ("search", "load", "walk", "carry", "write")
+
+
+def sym_probe(variant: int, rows, data, indptr, x):
+    """B9 on float32 by a variant of ``csrc/spmv_sym_probe.cu``
+    (``SYM_VARIANTS``), for timing only: 0 the replaced design (one thread
+    a column; ``up`` zeroed first, as its wrapper did), 1 the merge-path
+    tiles as shipped, 6 one thread a column as shipped, 5 the column
+    groups, the others other shapes of the tiles."""
+    if "sym" not in _PROBE:
+        from repro_torch.kernels import common
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib = common.load_library("spmv_sym_probe")
+        _PROBE["sym"] = common.bind(lib, "probe_sym_streams_f32_launch",
+                                    [I, P, P, P, P, P, P, P, LL, LL, P])
+        lib.probe_sym_tile.argtypes = [I]
+        lib.probe_sym_tile.restype = LL
+        _PROBE["sym_tile"] = lib.probe_sym_tile
+    M, nz = x.numel(), data.numel()
+    tile = _PROBE["sym_tile"](variant)
+    up = (torch.zeros if variant == 0 else torch.empty)(
+        nz, dtype=torch.float32, device=x.device)
+    ct = torch.empty(M, dtype=torch.float32, device=x.device)
+    # the tiles' ticket and descriptors (the others take none)
+    scratch = torch.zeros(1 + 2 * -(-(M + nz) // tile), dtype=torch.int64,
+                          device=x.device) if tile else None
+    rc = _PROBE["sym"](variant, rows.data_ptr(), data.data_ptr(),
+                       indptr.data_ptr(), x.data_ptr(), up.data_ptr(),
+                       ct.data_ptr(), scratch.data_ptr() if tile else None,
+                       M, nz, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"sym probe variant {variant}: CUDA error {rc}")
+    return up, ct
+
+
+def sym_phase_stamps(rows, data, indptr, x) -> dict:
+    """B9 as shipped on float32 with the probe's phase stamps: the mean
+    device time of the ticket and of each phase of a tile
+    (``SYM_PHASES``: the merge-path search, the loads, the walk, the
+    carry with its look-back, the writes; thread 0's clock), a tile's
+    mean lifetime, the kernel's span and the mean number of tiles in
+    flight (lifetimes over span), in us."""
+    if "sym_stamped" not in _PROBE:
+        from repro_torch.kernels import common
+        P, LL = ctypes.c_void_p, ctypes.c_longlong
+        _PROBE["sym_stamped"] = common.bind(
+            common.load_library("spmv_sym_probe"),
+            "probe_sym_streams_stamped_f32_launch",
+            [P, P, P, P, P, P, P, LL, LL, P, P])
+    from repro_torch.kernels.spmv_sym.ref import SYM_TILE
+    M, nz = x.numel(), data.numel()
+    ntiles = -(-(M + nz) // SYM_TILE)
+    stamps = torch.zeros(8 * ntiles, dtype=torch.int64, device=x.device)
+    for _ in range(2):  # the second call is read
+        up = torch.empty(nz, dtype=torch.float32, device=x.device)
+        ct = torch.empty(M, dtype=torch.float32, device=x.device)
+        scratch = torch.zeros(1 + 2 * ntiles, dtype=torch.int64,
+                              device=x.device)
+        rc = _PROBE["sym_stamped"](
+            rows.data_ptr(), data.data_ptr(), indptr.data_ptr(),
+            x.data_ptr(), up.data_ptr(), ct.data_ptr(), scratch.data_ptr(),
+            M, nz, stamps.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"stamped sym probe: CUDA error {rc}")
+    raw = stamps.view(ntiles, 8).double().cpu().numpy() / 1e3
+    st = raw[:, :6]
+    d = np.diff(st, axis=1)
+    life = st[:, 5] - raw[:, 6]
+    span = st[:, 5].max() - raw[:, 6].min()
+    return {"ticket_us": float((st[:, 0] - raw[:, 6]).mean()),
+            **{f"{k}_us": float(d[:, i].mean())
+               for i, k in enumerate(SYM_PHASES)},
+            "tile_us": float(life.mean()), "span_us": float(span),
+            "tiles_in_flight": float(life.sum() / span), "tiles": ntiles}
 
 
 def radix_chain(rows, cols, M: int, N: int, *, upto: int | None = None,
@@ -902,6 +1178,19 @@ def fem_kernel_checks(fem, rng, dev):
     _, mag = sym_streams_ref(S.indices, S.data.abs(), S.indptr, x.abs())
     errs["B9"] = within(ct, ct0, mag, int(torch.diff(S.indptr).max()),
                         "B9 column totals, float32")
+    # the same in the shape the path takes on it (SymCSC.longest: one
+    # thread a column); the lines above run the tiles
+    lw = dict(longest=S.longest)
+    for got, want in zip(sym_mod.sym_streams(*st, xi, **lw),
+                         sym_streams_ref(*st, xi)):
+        require(torch.equal(got, want), "B9 differs on integer-valued data "
+                "(one thread a column)")
+    up, ct = sym_mod.sym_streams(*st, x, **lw)
+    require(torch.equal(up, up0), "B9's up stream differs (one thread a "
+            "column)")
+    errs["B9"] = max(errs["B9"], within(
+        ct, ct0, mag, S.longest, "B9 column totals, float32, one thread a "
+        "column"))
     # B10 on the 2 x 2 BSR blocks
     Bm = fem["Bm"]
     bcols = slot_columns(Bm.indptr, Bm.nbmax).clamp(0, Bm.Nb - 1)
@@ -977,7 +1266,7 @@ def fem_times(fem, cpm, dev):
                lambda: spmv_ell_ref(cols, vals, x),
                lambda: torch.mv(A_t, x), 8 * M * K + 4 * nv + 4 * M,
                2 * M * K),
-        "B9": (lambda: sym_mod.sym_streams(*sym_in),
+        "B9": (lambda: sym_mod.sym_streams(*sym_in, longest=S.longest),
                lambda: sym_streams_ref(*sym_in),
                lambda: torch.mv(A_t, x), 12 * nzh + 12 * M + 4, 3 * nzh),
         "B10": (lambda: sym_mod.bsr_tiles(*bsr_in, Mb=Bm.Mb),
@@ -1364,8 +1653,10 @@ def merge_kernel_checks(ctx, rng, dev):
     """Phase 3 for B7: the kernel against its plain version, bit for bit,
     on both call sites' streams (the update's sorted delta into the 5e7
     set's survivors at each delta share; the FEM structure's mirrors)
-    and both sides, and on edge cases (ties, sentinel rows, n = 1, a
-    query count that is no multiple of the block), each also against
+    and both sides, on edge cases (ties, sentinel rows, n = 1, a query
+    count that is no multiple of the block) and on ``merge_streams``
+    (random queries, ties at the narrowed ranges' edges, queries below
+    and above every target, n = 2^k +- 1), each also against
     ``torch.searchsorted`` of the packed keys."""
     from repro_torch.kernels.merge import merge as mg
     from repro_torch.kernels.merge.ref import merge_search_ref
@@ -1392,6 +1683,10 @@ def merge_kernel_checks(ctx, rng, dev):
                                      i32(tr_e), i32(tc_e), M)
     cases["n = 1"] = (i32([3, 4, 5, 4]), i32([2, 2, 2, 1]), i32([4]),
                       i32([2]), M)
+    # the streams that break a search narrowed by blocks of queries
+    for kind in MERGE_KINDS:
+        qr, qc, tr, tc, Mk = merge_streams(kind, rng, mg.BLOCK_Q)
+        cases[kind] = (i32(qr), i32(qc), i32(tr), i32(tc), Mk)
     for name, (qr, qc, tr, tc, Mk) in cases.items():
         key = tc.long() * (Mk + 1) + tr.long()
         qkey = qc.long() * (Mk + 1) + qr.long()
@@ -1403,8 +1698,112 @@ def merge_kernel_checks(ctx, rng, dev):
             require(torch.equal(got.long(), torch.searchsorted(
                 key, qkey, right=side == "right")),
                 f"B7 differs from searchsorted, {name}, {side}")
+            for v, k in MERGE_VARIANTS.items():  # what phase 5 times
+                require(torch.equal(merge_probe(k, qr, qc, tr, tc, side),
+                                    got),
+                        f"B7's probe variant {v} differs, {name}, {side}")
     torch.cuda.synchronize()
     return list(cases)
+
+
+def sym_kernel_checks(fem, rng, dev):
+    """Phase 3 for B9 on the streams that break its shapes (``sym_stream``:
+    the arrow matrix with a column of 2^20 entries, a column starting at
+    a tile's last item, runs of empty columns with sentinel rows and a
+    padded tail), both shapes, float32 and float64: ``up`` and ``ct`` bit
+    for bit on integer-valued data, ``up`` bit for bit and ``ct`` bit for
+    bit from call to call on random data, ``ct`` there within C_SEG eps
+    of each column's sum|terms| of the exact sum.  Returns the largest
+    error over eps sum|terms| per stream, shape and dtype."""
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    from repro_torch.kernels.spmv_sym.ref import (SYM_TILE, sym_shape,
+                                                  sym_streams_ref)
+
+    out = {}
+    for kind in ("arrow", "tile_edge", "empty_runs"):
+        rows_h, indptr_h, M = sym_stream(kind, SYM_TILE, rng)
+        rows = torch.from_numpy(rows_h).to(dev)
+        indptr = torch.from_numpy(indptr_h).to(dev)
+        nz = rows.numel()
+        for dtype, eps in ((torch.float32, EPS32), (torch.float64, EPS64)):
+            def draw(k, ints):
+                v = rng.integers(-8, 9, k) if ints else \
+                    rng.standard_normal(k)
+                return torch.from_numpy(v).to(dev, dtype)
+
+            sti = (rows, draw(nz, True), indptr)
+            xi = draw(M, True)
+            stf = (rows, draw(nz, False), indptr)
+            x = draw(M, False)
+            # a longest column of 1 takes one thread a column (these
+            # streams hold at most 4 slots a column on average), an unknown
+            # one the tiles, whatever the stream
+            require(sym_shape(1, M, nz) == "columns",
+                    f"{kind} takes the tiles whatever its longest column")
+            for shape, hint in (("columns", 1), ("tiles", None)):
+                kw = dict(longest=hint)
+                for got, want in zip(sym_mod.sym_streams(*sti, xi, **kw),
+                                     sym_streams_ref(*sti, xi)):
+                    require(torch.equal(got, want), f"B9 ({shape}) differs on "
+                            f"integer-valued data, {kind}, {dtype}")
+                up, ct = sym_mod.sym_streams(*stf, x, **kw)
+                up0, _ = sym_streams_ref(*stf, x)
+                require(torch.equal(up, up0),
+                        f"B9's up ({shape}) differs, {kind}, {dtype}")
+                require(torch.equal(sym_mod.sym_streams(*stf, x, **kw)[1],
+                                    ct), f"B9's ct ({shape}) differs from "
+                        f"call to call, {kind}, {dtype}")
+                r = sym_err_over_eps(ct, *stf, x, eps)
+                require(r <= C_SEG, f"B9's ct ({shape}) {dtype} error {r} "
+                        f"eps x sum|terms| > {C_SEG}, {kind}")
+                out[f"{kind}_{shape}_{dtype}"] = r
+            if dtype == torch.float32:  # what phase 5 times
+                want = sym_streams_ref(*sti, xi)
+                for v, k in SYM_VARIANTS.items():
+                    require(all(torch.equal(a, b) for a, b in zip(
+                        sym_probe(k, *sti, xi), want)),
+                        f"B9's probe variant {v} differs, {kind}")
+        del rows, indptr, sti, stf, x, up, ct, up0
+    torch.cuda.synchronize()
+    return out
+
+
+def sym_times(fem, cpm, dev):
+    """Phase 5 for B9 beside the design it replaced (``sym_probe``, with
+    the zeroing of ``up`` its wrapper did) and the probe's other tile
+    depths, on the FEM matrix's SymCSC stream, on the arrow matrix and on
+    a stream of as many slots in short columns (``sym_stream``), float32;
+    device ms, back to back."""
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    from repro_torch.kernels.spmv_sym.ref import SYM_TILE
+
+    S, x = fem["S"], fem["x"]
+    streams = {"fem": (S.indices, S.data, S.indptr, x)}
+    g = np.random.default_rng([SEED, 9])
+    for kind in ("arrow", "short"):
+        rows_h, indptr_h, M = sym_stream(kind, SYM_TILE, g)
+        streams[kind] = (
+            torch.from_numpy(rows_h).to(dev),
+            torch.from_numpy(g.standard_normal(rows_h.size).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(indptr_h).to(dev),
+            torch.from_numpy(g.standard_normal(M).astype(np.float32)).to(dev))
+    t = {"times": "B9 streams"}
+    for name, st in streams.items():
+        M, nz = st[3].numel(), st[1].numel()
+        longest = int(torch.diff(st[2]).max())
+        row = {"M": M, "nzmax": nz, "longest_column": longest,
+               "ms": device_ms(lambda: sym_mod.sym_streams(
+                   *st, longest=longest), cpm)}
+        for v, k in SYM_VARIANTS.items():
+            # on the arrow matrix the shapes that walk a column on one
+            # thread or one warp take 20-150 ms a call: a few calls
+            slow = name == "arrow" and v in ("replaced", "groups", "columns")
+            row[f"{v}_ms"] = device_ms(lambda: sym_probe(k, *st), cpm,
+                                       reps=3 if slow else REPS)
+        row["bound_ms"], _ = bound_ms(12 * nz + 12 * M + 4, 3 * nz)
+        t[name] = row
+    return t
 
 
 def update_times(sets, fem, ctx, cpm, dev):
@@ -1544,6 +1943,9 @@ def update_times(sets, fem, ctx, cpm, dev):
                  "pack_ms": device_ms(lambda: (
                      tc.long() * (Mk + 1) + tr.long(),
                      qc.long() * (Mk + 1) + qr.long()), cpm),
+                 **{f"{v}_ms": device_ms(lambda: merge_probe(
+                     k, qr, qc, tr, tc, side), cpm)
+                    for v, k in MERGE_VARIANTS.items()},
                  "targets_reached": reached, "bytes": nbytes, "ops": 0,
                  "bound_all_targets_ms": (12 * Lq + 8 * n)
                  / HBM_BYTES_PER_S * 1e3}
@@ -1596,7 +1998,8 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
                          "counting_sort", "spmv", "spmv_sym", "merge",
-                         "segment_sum_probe"])
+                         "segment_sum_probe", "merge_probe",
+                         "spmv_sym_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -2011,6 +2414,11 @@ def main() -> None:
     emit({"check": "B6, B8, B9, B10 vs plain", "path": "third",
           "integer_data": "bit-identical", "B6_nan": "bit-identical",
           "max_abs_err_float32": errs3})
+    emit({"check": "B9 vs plain on the arrow matrix, a column at a tile's "
+                   "last item, runs of empty columns",
+          "integer_data": "bit-identical", "up": "bit-identical",
+          "ct_repeat": "bit-identical", "tolerance_eps": C_SEG,
+          "ct_max_err_over_eps_sum_abs": sym_kernel_checks(fem, rng, dev)})
 
     # -- 4d. fourth path: update, the edge flip, symmetric planning ---------
     kernels4 = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B4": minmax_k,
@@ -2043,6 +2451,15 @@ def main() -> None:
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
     emit(t3)
+    t9 = sym_times(fem, cpm, dev)
+    t9["card"] = smi_line
+    emit(t9)
+    fem_k["B9"].update(replaced_ms=t9["fem"]["replaced_ms"],
+                       columns_ms=t9["fem"]["columns_ms"],
+                       tiles_ms=t9["fem"]["tiles_ms"],
+                       arrow_ms=t9["arrow"]["ms"],
+                       arrow_replaced_ms=t9["arrow"]["replaced_ms"],
+                       short_ms=t9["short"]["ms"])
     b7_row, t4 = update_times(sets, fem, upd, cpm, dev)
     t4["card"] = smi_line
     emit(t4)
@@ -2262,7 +2679,9 @@ def main() -> None:
          "library_ms": big[k]["library_ms"],
          **({"gather_floor_ms": big[k]["gather_floor_ms"],
              "longrun_ms": lr[f"{k}_longrun_ms"],
-             "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4") else {})}
+             "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4") else {}),
+         **({"replaced_ms": big[k]["replaced_ms"]} if k in ("B7", "B9")
+            else {})}
         for k, (n, src, rep, err) in meta.items()
     ]})
     print(smi_line, flush=True)

@@ -32,9 +32,30 @@ reduction) at K = 8 and 16, and ``index_add_`` with the gather.  Each
 variant is first held against the plain version (integer-valued data
 bit for bit, B4 bit for bit).
 
-Prints the card's name and power limit, then one JSON line a set and
-one a stream.  A quicker measure than ``chip_smoke.py`` when two
-versions of these kernels are compared on one card.
+Then B7 (merge search) at its two call sites, the updates of set 2 and
+of the 5e7 set by their last 1% and 10% (sorted delta into the plan of
+the rest, side "right") and the FEM matrix's symmetry probe (its
+mirrored keys into its structure, both sides), and B9 (symmetric
+streams) on the FEM matrix's SymCSC stream, on the arrow matrix (a
+column of 2^20 entries) and on as many slots in short columns
+(``chip_smoke.sym_stream``): each beside the design it replaced and
+the probes' other shapes
+(``csrc/merge_probe.cu``, ``csrc/spmv_sym_probe.cu``), timed in turns
+(forward, then backward) in one call, with ``torch.searchsorted`` on
+keys packed beforehand beside B7 and the mean time of each phase of a
+B9 tile (``chip_smoke.sym_phase_stamps``).  Then the sweeps that set
+the shapes' thresholds: B7's kernels over n = 2^21 .. 2^25 and n / Lq =
+1 .. 128, and B9's two shapes over the longest column (4 .. 256, every
+column that long or one in 64) at about 3e6 slots.  Each variant is
+first held against the plain version (B7 bit for bit, B9 bit for bit on
+integer-valued data).
+
+    python3 kernel_times.py [queue_d] [segment] [merge_sym]
+
+runs the named sections (all three without arguments).  Prints the
+card's name and power limit, then one JSON line a set, a stream or a
+site.  A quicker measure than ``chip_smoke.py`` when two versions of
+these kernels are compared on one card.
 """
 from __future__ import annotations
 
@@ -49,12 +70,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import chip_smoke as smoke  # noqa: E402  (also puts src/ on the path)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        sys.exit("torch.cuda.is_available() is false: no CUDA device")
+def queue_d_times() -> None:
+    """B12, B11, B5, B1, B2, the radix sort and the plans, per set."""
     from repro_torch.core.coo import coo_from_matlab
     from repro_torch.core.ransparse import DATA_SETS, ransparse
-    from repro_torch.kernels import common
     from repro_torch.kernels.counting_sort.counting_sort import placement
     from repro_torch.kernels.counting_sort.ref import placement_ref
     from repro_torch.kernels.hist.hist import block_histogram
@@ -68,14 +87,6 @@ def main() -> None:
     from repro_torch.kernels.segment_sum.segment_sum import blocked_cumsum
     from repro_torch.sparse.pattern import plan_coo
 
-    print(smoke.nvidia_smi_line(), flush=True)
-    logs = common.build(["hist", "counting_sort", "segment_sum",
-                         "radix_sort", "segment_sum_probe"])
-    for lib, log in logs.items():
-        for line in log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "Compiling" in line):
-                print(f"ptxas[{lib}]: {line.strip()}", flush=True)
     cpm = smoke.sleep_cycles_per_ms()
     dev = torch.device("cuda")
     rng = np.random.default_rng(smoke.SEED)
@@ -229,6 +240,227 @@ def segment_times(cpm, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _turns(row: dict, timed: dict, cpm) -> None:
+    """Each of ``timed`` into ``row``, forward then backward."""
+    order = list(timed)
+    for turn, keys in (("fwd", order), ("bwd", order[::-1])):
+        for k in keys:
+            row.setdefault(k, {})[turn] = smoke.device_ms(timed[k], cpm)
+
+
+def merge_sym_times(cpm, dev) -> None:
+    """B7 at both call sites and B9 on three streams, each beside its
+    probe's variants."""
+    from repro_torch.core.coo import host_triplets
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.kernels.merge.ref import merge_search_ref
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    from repro_torch.kernels.spmv_sym.ref import SYM_TILE, sym_streams_ref
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.sparse import convert, plan
+    from repro_torch.sparse.dispatch import sorted_permutation
+
+    sites = {}
+    for name, cfg in (("2", DATA_SETS[2]), ("2x20", smoke.BIG)):
+        ii, jj, ss_, siz = ransparse(cfg["siz"], cfg["nnz_row"], cfg["nrep"],
+                                     seed=smoke.SEED)
+        r_h, c_h, _, _ = host_triplets(ii, jj, ss_, (siz, siz))
+        r, c = torch.from_numpy(r_h).to(dev), torch.from_numpy(c_h).to(dev)
+        L = r.numel()
+        for frac in smoke.UPDATE_FRACS:
+            Lb = L - round(frac * L)
+            base = plan(r[:Lb], c[:Lb], (siz, siz), nzmax=L)
+            d = sorted_permutation(r[Lb:], c[Lb:], M=siz, N=siz).long()
+            sites[f"update_{name}_{frac}"] = (
+                r[Lb:][d], c[Lb:][d], base.srows, base.scols, siz,
+                ("right",))
+        del ii, jj, ss_, r_h, c_h, r, c, d, base
+    rows_f, cols_f, vals_f, nv, _, _ = smoke.fem_system(smoke.FEM_N)
+    pat = plan(torch.from_numpy(rows_f).to(dev),
+               torch.from_numpy(cols_f).to(dev), (nv, nv))
+    sr = pat.srows[pat.first].contiguous()
+    sc = pat.scols[pat.first].contiguous()
+    sites["symmetric"] = (sc, sr, sr, sc, nv, ("left", "right"))
+    for site, (qr, qc, tr, tc, Mk, sides) in sites.items():
+        key = tc.long() * (Mk + 1) + tr.long()
+        qkey = qc.long() * (Mk + 1) + qr.long()
+        for side in sides:
+            want = merge_search_ref(qr, qc, tr, tc, side=side)
+            timed = {"B7_ms": lambda: mg.merge_search_kernel(
+                qr, qc, tr, tc, side=side)}
+            for v, k in smoke.MERGE_VARIANTS.items():
+                timed[f"{v}_ms"] = (lambda k=k: smoke.merge_probe(
+                    k, qr, qc, tr, tc, side))
+            for k, fn in timed.items():
+                smoke.require(torch.equal(fn(), want),
+                              f"{k} differs, {site}, {side}")
+            timed["searchsorted_alone_ms"] = lambda: torch.searchsorted(
+                key, qkey, right=side == "right")
+            row = {"B7_site": site, "side": side, "Lq": qr.numel(),
+                   "n": tr.numel()}
+            _turns(row, timed, cpm)
+            print(json.dumps(row), flush=True)
+    del sites, key, qkey
+    torch.cuda.empty_cache()
+
+    A = pat.assemble(torch.from_numpy(vals_f).to(dev))
+    S = convert(A, "symcsc")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(nv).astype(
+        np.float32)).to(dev)
+    streams = {"fem": (S.indices, S.data, S.indptr, x)}
+    g = np.random.default_rng([smoke.SEED, 9])
+    for kind in ("arrow", "short"):
+        rows_h, indptr_h, M = smoke.sym_stream(kind, SYM_TILE, g)
+        streams[kind] = (
+            torch.from_numpy(rows_h).to(dev),
+            torch.from_numpy(g.standard_normal(rows_h.size).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(indptr_h).to(dev),
+            torch.from_numpy(g.standard_normal(M).astype(np.float32)).to(dev))
+    for name, (rows, data, indptr, xs) in streams.items():
+        di = data.round()
+        xi = xs.mul(4).round()
+        want = sym_streams_ref(rows, di, indptr, xi)
+        longest = int(torch.diff(indptr).max())
+        kw = dict(longest=longest)
+        timed = {"B9_ms": lambda: sym_mod.sym_streams(rows, data, indptr, xs,
+                                                      **kw)}
+        checks = {"B9_ms": lambda: sym_mod.sym_streams(rows, di, indptr, xi,
+                                                       **kw)}
+        for v, k in smoke.SYM_VARIANTS.items():
+            timed[f"{v}_ms"] = (lambda k=k: smoke.sym_probe(
+                k, rows, data, indptr, xs))
+            checks[f"{v}_ms"] = (lambda k=k: smoke.sym_probe(
+                k, rows, di, indptr, xi))
+        for k, fn in checks.items():
+            smoke.require(all(torch.equal(a, b) for a, b in zip(fn(), want)),
+                          f"{k} differs on integer-valued data, {name}")
+        M, nz = xs.numel(), data.numel()
+        row = {"B9_stream": name, "M": M, "nzmax": nz,
+               "longest_column": longest}
+        row["bound_ms"], _ = smoke.bound_ms(12 * nz + 12 * M + 4, 3 * nz)
+        _turns(row, timed, cpm)
+        row["phases"] = smoke.sym_phase_stamps(rows, data, indptr, xs)
+        print(json.dumps(row), flush=True)
+    del streams
+    torch.cuda.empty_cache()
+    merge_sweep(cpm, dev)
+    sym_sweep(cpm, dev)
+
+
+def merge_sweep(cpm, dev) -> None:
+    """B7's kernels whatever Lq and n (the dense kernel, the ladder
+    reading rows on ties, the ladder reading both arrays) over n = 2^21 ..
+    2^25 random (col, row) targets, about 50 a column, and n / Lq = 1 ..
+    128 sorted random queries, side "right": the thresholds the launcher
+    chooses by."""
+    from repro_torch.kernels.merge.ref import merge_shape
+
+    g = torch.Generator(device=dev).manual_seed(smoke.SEED)
+
+    def keys(k, cols):
+        c = torch.randint(0, cols, (k,), device=dev, generator=g,
+                          dtype=torch.int32)
+        r = torch.randint(0, 10**6 + 1, (k,), device=dev, generator=g,
+                          dtype=torch.int32)
+        o = torch.sort(c.long() * (10**6 + 1) + r.long()).indices
+        return r[o].contiguous(), c[o].contiguous()
+
+    for lg in range(21, 26):
+        n = 1 << lg
+        tr, tc = keys(n, n // 50)
+        tk = tc.long() * (10**6 + 1) + tr.long()
+        for ratio in (1, 2, 4, 8, 16, 32, 64, 128):
+            qr, qc = keys(n // ratio, n // 50)
+            want = torch.searchsorted(tk, qc.long() * (10**6 + 1)
+                                      + qr.long(), right=True).int()
+            timed = {f"{v}_ms": (lambda k=smoke.MERGE_VARIANTS[v]:
+                                 smoke.merge_probe(k, qr, qc, tr, tc,
+                                                   "right"))
+                     for v in ("dense", "sparse", "ladder")}
+            for k, fn in timed.items():
+                smoke.require(torch.equal(fn(), want),
+                              f"{k} differs, n {n}, n / Lq {ratio}")
+            row = {"B7_sweep": lg, "n": n, "Lq": qr.numel(),
+                   "shipped": merge_shape(qr.numel(), n)}
+            _turns(row, timed, cpm)
+            print(json.dumps(row), flush=True)
+        del tr, tc, tk, qr, qc, want
+    torch.cuda.empty_cache()
+
+
+def sym_sweep(cpm, dev) -> None:
+    """B9's two shapes (one thread a column, the merge-path tiles; the
+    probe's variants) against the longest column w = 4 .. 256 at about
+    the FEM matrix's slots: every column of min(c, w) entries
+    (``width_<w>``) and columns of 3 with every 64th of w
+    (``mixed_<w>``; ``chip_smoke.sym_lengths``)."""
+    from repro_torch.kernels.spmv_sym.ref import (SYM_TILE, sym_shape,
+                                                  sym_streams_ref)
+
+    g = np.random.default_rng([smoke.SEED, 10])
+    for kind in ("width", "mixed"):
+        for w in (4, 8, 12, 16, 24, 32, 64, 256):
+            rows_h, indptr_h, M = smoke.sym_stream(f"{kind}_{w}", SYM_TILE, g)
+            rows = torch.from_numpy(rows_h).to(dev)
+            indptr = torch.from_numpy(indptr_h).to(dev)
+            nz = rows.numel()
+            data = torch.from_numpy(g.standard_normal(nz).astype(
+                np.float32)).to(dev)
+            x = torch.from_numpy(g.standard_normal(M).astype(
+                np.float32)).to(dev)
+            di, xi = data.round(), x.mul(4).round()
+            want = sym_streams_ref(rows, di, indptr, xi)
+            timed = {f"{v}_ms": (lambda k=smoke.SYM_VARIANTS[v], d=data, y=x:
+                                 smoke.sym_probe(k, rows, d, indptr, y))
+                     for v in ("columns", "tiles")}
+            for v in ("columns", "tiles"):
+                got = smoke.sym_probe(smoke.SYM_VARIANTS[v], rows, di, indptr,
+                                      xi)
+                smoke.require(all(torch.equal(a, b)
+                                  for a, b in zip(got, want)),
+                              f"B9 {v} differs on integer-valued data, "
+                              f"{kind}_{w}")
+            row = {"B9_sweep": kind, "longest_column": w, "M": M,
+                   "nzmax": nz, "shipped": sym_shape(w, M, nz)}
+            row["bound_ms"], _ = smoke.bound_ms(12 * nz + 12 * M + 4, 3 * nz)
+            _turns(row, timed, cpm)
+            print(json.dumps(row), flush=True)
+
+
+SECTIONS = ("queue_d", "segment", "merge_sym")
+
+
+def main(sections) -> None:
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is false: no CUDA device")
+    from repro_torch.kernels import common
+
+    unknown = set(sections) - set(SECTIONS)
+    if unknown:
+        sys.exit(f"unknown sections {sorted(unknown)}; choose from "
+                 f"{SECTIONS}")
+    print(smoke.nvidia_smi_line(), flush=True)
+    libs = {"queue_d": ["hist", "counting_sort", "segment_sum",
+                        "radix_sort"],
+            "segment": ["segment_sum", "segment_sum_probe", "radix_sort"],
+            "merge_sym": ["merge", "merge_probe", "spmv_sym",
+                          "spmv_sym_probe", "radix_sort", "segment_sum"]}
+    logs = common.build(sorted({n for s in sections for n in libs[s]}))
+    for lib, log in logs.items():
+        for line in log.splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line
+                                    or "Compiling" in line):
+                print(f"ptxas[{lib}]: {line.strip()}", flush=True)
+    cpm = smoke.sleep_cycles_per_ms()
+    dev = torch.device("cuda")
+    if "queue_d" in sections:
+        queue_d_times()
+    if "segment" in sections:
+        segment_times(cpm, dev)
+    if "merge_sym" in sections:
+        merge_sym_times(cpm, dev)
+
+
 if __name__ == "__main__":
-    main()
-    segment_times(smoke.sleep_cycles_per_ms(), torch.device("cuda"))
+    main(sys.argv[1:] or SECTIONS)

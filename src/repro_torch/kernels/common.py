@@ -150,11 +150,20 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    # a source that includes another of csrc/ rebuilds when that one does
+def _with_includes(path: Path, seen: set) -> bytes:
+    """The bytes of a source and of every ``csrc`` file it includes,
+    at any depth, each once."""
+    seen.add(path.name)
+    src = path.read_bytes()
     for inc in re.findall(rb'^#include "([^"]+)"', src, re.M):
-        src += (CSRC_DIR / inc.decode()).read_bytes()
+        if inc.decode() not in seen:
+            src += _with_includes(CSRC_DIR / inc.decode(), seen)
+    return src
+
+
+def _lib_path(name: str) -> Path:
+    # a source that includes another of csrc/ rebuilds when that one does
+    src = _with_includes(CSRC_DIR / f"{name}.cu", set())
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -2,11 +2,19 @@
 
 ``merge_search_kernel`` computes what the Pallas ``merge_search_pallas``
 of ``repro/kernels/merge/merge.py`` computes: each query's insertion
-offset in a ``(col, row)``-sorted target stream, one thread per query
-walking the reference's ladder.  There is no residency budget: the
-targets are read from device memory, so every ``n`` is served.  It takes
-its plain version (:mod:`.ref`) for a CPU tensor and launches the kernel
-for a CUDA tensor; ``.launches`` counts kernel launches only.
+offset in a ``(col, row)``-sorted target stream, in the shape
+:func:`.ref.merge_shape` names for ``Lq`` and ``n``.  Where the queries
+are about as many as the targets (``"dense"``) a block of them narrows
+the search together (its least and greatest key, splitters in shared
+memory) before each query finishes on its own interval
+(:func:`.ref.merge_search_narrowed_ref` is that route in plain
+PyTorch).  Elsewhere one thread a query walks the ladder, reading the
+row only on a column tie (``"sparse"``: few queries into targets past
+the L2) or both arrays at every probe (``"ladder"``).
+There is no residency budget: the targets are read from device memory,
+so every ``n`` is served.  It takes its plain version (:mod:`.ref`) for a
+CPU tensor and launches the kernel for a CUDA tensor; ``.launches``
+counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -16,18 +24,31 @@ import torch
 
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
-from .ref import _check_side, merge_search_ref, search_steps
+from .ref import (BLOCK_Q, SPLITTERS, _check_side, merge_search_ref,
+                  merge_shape)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
-#: queries (threads) per CUDA block, fixed by ``csrc/merge.cu``
-BLOCK_Q = 256
 
 
 def _fn():
     if not _FNS:
-        _FNS["search"] = bind(load_library("merge"), "merge_search_launch",
-                              [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P])
+        lib = load_library("merge")
+        for fn, want in (("merge_block_queries", BLOCK_Q),
+                         ("merge_splitters", SPLITTERS)):
+            bind(lib, fn, [])
+            if getattr(lib, fn)() != want:
+                raise RuntimeError(f"csrc/merge.cu: {fn}() differs from "
+                                   "ref.py")
+        bind(lib, "merge_shape", [_LL, _I])
+        names = ("ladder", "sparse", "dense")
+        for Lq, n in ((1, 1), (2, 8), (2, 9), (10, 2**23 - 1), (10, 2**23),
+                      (2**19, 2**23), (2**19 - 1, 2**23)):
+            if names[lib.merge_shape(Lq, n)] != merge_shape(Lq, n):
+                raise RuntimeError("csrc/merge.cu: merge_shape() differs "
+                                   "from ref.py")
+        _FNS["search"] = bind(lib, "merge_search_launch",
+                              [_P, _P, _P, _P, _P, _LL, _I, _I, _P])
     return _FNS["search"]
 
 
@@ -62,8 +83,8 @@ def merge_search_kernel(q_rows: torch.Tensor, q_cols: torch.Tensor,
         raise ValueError(f"streams too large for B7: Lq = {Lq}, n = {n}")
     check_launch(_fn()(
         q_rows.data_ptr(), q_cols.data_ptr(), t_rows.data_ptr(),
-        t_cols.data_ptr(), out.data_ptr(), Lq, n, search_steps(n),
-        int(side == "right"), current_stream(q_rows.device)),
+        t_cols.data_ptr(), out.data_ptr(), Lq, n, int(side == "right"),
+        current_stream(q_rows.device)),
         "merge_search")
     merge_search_kernel.launches += 1
     return out

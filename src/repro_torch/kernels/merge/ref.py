@@ -11,10 +11,36 @@ compare steps.  Keys order lexicographically by ``(col, row)`` with the
 
 ``merge_search_ref`` is the CPU path of :func:`.merge.merge_search_kernel`
 and the version ``chip_smoke.py`` holds B7 against, bit for bit.
+:func:`merge_search_narrowed_ref` is the route of B7's dense shape in
+plain PyTorch (blocks of queries narrowed together, splitters, then the
+ladder), which the CPU tests hold against ``merge_search_ref``.
 """
 from __future__ import annotations
 
 import torch
+
+#: B7's shapes (``csrc/merge.cu``, :func:`merge_shape`): the dense shape's
+#: queries a block and splitters a block, and the thresholds on Lq and n
+#: that choose the shape (timed over a sweep of Lq and n in ``PERF.md``)
+BLOCK_Q = 1024
+SPLITTERS = 256
+DENSE_RATIO = 4
+SPARSE_RATIO = 16
+SPARSE_TARGETS = 1 << 23
+
+
+def merge_shape(Lq: int, n: int) -> str:
+    """The shape B7 takes for ``Lq`` queries into ``n`` targets:
+    ``"dense"`` (queries about as many as targets: blocks narrowed
+    together, :func:`merge_search_narrowed_ref`), ``"sparse"`` (few
+    queries into targets past the L2: the ladder, the row read on column
+    ties) or ``"ladder"`` (the ladder, both arrays at every probe).  All
+    three give :func:`merge_search_ref`'s counts."""
+    if Lq * DENSE_RATIO >= n:
+        return "dense"
+    if Lq * SPARSE_RATIO < n and n >= SPARSE_TARGETS:
+        return "sparse"
+    return "ladder"
 
 
 def search_steps(n: int) -> int:
@@ -65,3 +91,94 @@ def merge_search_ref(q_rows: torch.Tensor, q_cols: torch.Tensor,
         lo = torch.where(active & below, mid + 1, lo)
         hi = torch.where(active & ~below, mid, hi)
     return lo
+
+
+def pack_keys(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is the ``(col, row)`` order of int32 pairs
+    (B7's packing: the column in the high word, the row offset by 2^31
+    in the low one)."""
+    return (cols.long() << 32) + (rows.long() + 2**31)
+
+
+def _count_below(tk, key, lo, hi, inclusive, probes):
+    """The targets below ``key`` in ``[lo, hi)`` by rounds of ``probes``
+    evenly spaced probes (B7's 32-ary warp search: 31 probes a round
+    until 32 or fewer targets are left, then all of them); 1-d tensors
+    of one length."""
+    lanes = torch.arange(1, probes + 1, device=tk.device)
+    while True:
+        wide = hi - lo > probes + 1
+        if not bool(wide.any()):
+            break
+        span = (hi - lo)[:, None]
+        p = lo[:, None] + span * lanes // (probes + 1)
+        p = torch.where(wide[:, None], p,
+                        lo[:, None].clamp(max=tk.numel() - 1))
+        b = _below_key(tk[p], key[:, None], inclusive)
+        j = b.sum(1)
+        pl = p.gather(1, (j - 1).clamp(min=0)[:, None])[:, 0]
+        ph = p.gather(1, j.clamp(max=probes - 1)[:, None])[:, 0]
+        lo = torch.where(wide & (j > 0), pl + 1, lo)
+        hi = torch.where(wide & (j < probes), ph, hi)
+    k = torch.arange(probes + 1, device=tk.device)
+    p = (lo[:, None] + k).clamp(max=tk.numel() - 1)
+    b = _below_key(tk[p], key[:, None], inclusive) & (k < (hi - lo)[:, None])
+    return lo + b.sum(1)
+
+
+def _below_key(tk, qk, inclusive):
+    return tk <= qk if inclusive else tk < qk
+
+
+def merge_search_narrowed_ref(q_rows: torch.Tensor, q_cols: torch.Tensor,
+                              t_rows: torch.Tensor, t_cols: torch.Tensor, *,
+                              side: str = "left", block_q: int = BLOCK_Q,
+                              splitters: int = SPLITTERS) -> torch.Tensor:
+    """B7's dense route, step by step, in plain PyTorch: the same counts
+    as :func:`merge_search_ref` on sorted targets.
+
+    Each block of ``block_q`` queries takes its least and greatest key
+    and finds their counts ``lo0``, ``hi0`` by the 32-ary search; past
+    ``splitters`` targets it reads the keys at ``lo0 + R s // splitters``
+    (``R = hi0 - lo0``, ``s = 1 .. splitters - 1``) and each query keeps
+    the interval between the splitters around it, which the ladder then
+    halves to its end.
+    """
+    _check_side(side)
+    n, Lq = int(t_rows.shape[0]), int(q_rows.shape[0])
+    dev = q_rows.device
+    if n == 0 or Lq == 0:
+        return torch.zeros(Lq, dtype=torch.int32, device=dev)
+    inclusive = side == "right"
+    tk = pack_keys(t_rows, t_cols)
+    qk = pack_keys(q_rows, q_cols)
+    nb = -(-Lq // block_q)
+    pad = nb * block_q - Lq
+    blk = torch.cat([qk, qk[-1:].expand(pad)]).view(nb, block_q)
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    ends = torch.full((nb,), n, dtype=torch.int64, device=dev)
+    lo0 = _count_below(tk, blk.min(1).values, zeros, ends, inclusive, 31)
+    hi0 = _count_below(tk, blk.max(1).values, zeros, ends, inclusive, 31)
+    b = torch.arange(Lq, device=dev) // block_q
+    lo, hi = lo0[b], hi0[b]
+    R = hi0 - lo0
+    split = R > splitters
+    if splitters > 1 and bool(split.any()):
+        s = torch.arange(1, splitters, device=dev)
+        pos = lo0[:, None] + R[:, None] * s // splitters
+        pos = torch.where(split[:, None], pos, 0).clamp(max=n - 1)
+        keys = tk[pos]                                   # [nb, S - 1]
+        a = torch.searchsorted(keys[b], qk[:, None], right=inclusive)[:, 0]
+        Rb, lb, sb = R[b], lo0[b], split[b]
+        lo = torch.where(sb & (a > 0), lb + Rb * a // splitters + 1, lo)
+        hi = torch.where(sb & (a < splitters - 1),
+                         lb + Rb * (a + 1) // splitters, hi)
+    while True:
+        wide = hi > lo
+        if not bool(wide.any()):
+            break
+        mid = lo + (hi - lo) // 2
+        below = _below_key(tk[mid.clamp(max=n - 1)], qk, inclusive)
+        lo = torch.where(wide & below, mid + 1, lo)
+        hi = torch.where(wide & ~below, mid, hi)
+    return lo.to(torch.int32)

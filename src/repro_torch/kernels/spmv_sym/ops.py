@@ -20,7 +20,8 @@ from ..common import on_card_complex, split_complex
 from .spmv_sym import bsr_tiles, sym_streams
 
 
-def spmv_sym(diag, data, indices, indptr, x) -> torch.Tensor:
+def spmv_sym(diag, data, indices, indptr, x, *,
+             longest: int | None = None) -> torch.Tensor:
     """Fused both-triangles symmetric SpMV over strict-upper storage.
 
     ``y = diag * x + ct + scatter_add(rows, up)``: B9 reads the halved
@@ -28,6 +29,8 @@ def spmv_sym(diag, data, indices, indptr, x) -> torch.Tensor:
     each column's total ``ct`` (summed directly, where the reference
     differences a running sum); the row-direction scatter stays outside
     the kernel, as the reference's ``y.at[rows].add(up)`` does.
+    ``longest`` (the most entries a column holds, ``SymCSC.longest``)
+    picks B9's shape; every value gives the same result.
     """
     M = diag.shape[0]
     nzmax = data.shape[-1]
@@ -39,11 +42,12 @@ def spmv_sym(diag, data, indices, indptr, x) -> torch.Tensor:
     rows = indices.to(torch.int32).contiguous()
     ptr = indptr.to(torch.int32).contiguous()
     if on_card_complex(dtype, data.device):
-        up, ct = split_complex(lambda a, b: sym_streams(rows, a, ptr, b),
-                               data, x)
+        up, ct = split_complex(
+            lambda a, b: sym_streams(rows, a, ptr, b, longest=longest),
+            data, x)
     else:
         up, ct = sym_streams(rows, data.to(work).contiguous(), ptr,
-                             x.to(work).contiguous())
+                             x.to(work).contiguous(), longest=longest)
     # SymCSC streams are compact (``csc_to_symcsc`` stores exactly nnz
     # entries): the rare sentinel adds into one scratch slot
     out = y.to(work) + ct + scatter_add(M, indices, up, indices < M,

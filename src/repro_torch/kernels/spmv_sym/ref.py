@@ -6,13 +6,36 @@ and :func:`spmv_bsr_ref` are the reference's whole-operator oracles
 global cumsum, as there).  :func:`sym_streams_ref` and
 :func:`bsr_tiles_ref` are the plain versions of the port's kernels B9
 and B10: the CPU path of their wrappers and what ``chip_smoke.py`` holds
-them against.
+them against.  :func:`sym_streams_tiled_ref` is the route of B9's tiles
+(the merge of column ends and slots cut into tiles, the column totals
+carried across them), which the CPU tests hold against
+:func:`sym_streams_ref`; B9's other shape, one thread a column adding
+its slots in order, is the plain version's own order.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core.csc import slot_columns
+
+#: B9's shapes (``csrc/spmv_sym.cu``): merge items (column ends and
+#: slots) a thread and a tile of 256 threads; the longest column and the
+#: slots a column on average that one thread a column takes (the
+#: crossings timed over streams of about 3e6 slots in ``PERF.md``)
+SYM_PER = 8
+SYM_TILE = 256 * SYM_PER
+SHORT_COLUMN = 32
+SHORT_MEAN = 4
+
+
+def sym_shape(longest: int | None, M: int, nzmax: int) -> str:
+    """B9's shape for ``M`` columns over ``nzmax`` slots whose columns
+    hold at most ``longest`` slots: ``"columns"`` (one thread a column)
+    where ``longest <= SHORT_COLUMN`` and ``nzmax <= SHORT_MEAN * M``,
+    else, or where ``longest`` is not known (``None``), ``"tiles"``."""
+    if longest is None or longest > SHORT_COLUMN or nzmax > SHORT_MEAN * M:
+        return "tiles"
+    return "columns"
 
 
 def _zero(t: torch.Tensor) -> torch.Tensor:
@@ -82,6 +105,69 @@ def sym_streams_ref(rows, data, indptr, x):
     ct = torch.zeros(M + 1, dtype=data.dtype, device=data.device)
     ct.index_add_(0, torch.where(valid, c, M), lo)
     return up, ct[:M]
+
+
+def sym_streams_tiled_ref(rows, data, indptr, x, *, tile: int = SYM_TILE):
+    """The route of B9's merge-path shape in plain PyTorch: the same
+    ``(up, ct)`` as :func:`sym_streams_ref`, bit for bit on
+    integer-valued data.
+
+    The work is the merge of the column ends ``indptr[1..M]`` with the
+    slots ``0 .. nzmax - 1`` (slot ``s`` comes before column ``c``'s end
+    iff ``s < indptr[c + 1]``), cut into tiles of ``tile`` items.  A
+    slot's column is the one whose end comes next after it; slots past
+    ``indptr[M]`` and sentinel rows add nothing and get ``up = 0``.  Each
+    tile sums its slots' products by column in slot order (the data's
+    type); a column's pieces from the tiles before the one that holds
+    its end are carried, in tile order and in float64, and added to that
+    tile's piece last.
+    """
+    M, nzmax = x.shape[0], data.shape[0]
+    dev = data.device
+    if M == 0:
+        return (torch.zeros(nzmax, dtype=data.dtype, device=dev),
+                torch.zeros(0, dtype=data.dtype, device=dev))
+    s, ends, col, valid, up, lo = _slot_streams(rows, data, indptr, x)
+    end_tile = (ends + torch.arange(M, device=dev)) // tile
+    ct = _carried_pieces(lo[valid], col[valid], ((s + col) // tile)[valid],
+                         end_tile, M, data.dtype)
+    return up, ct
+
+
+def _carried_pieces(lo, col, piece, end_piece, M, dtype):
+    """Column totals from pieces: each slot's product goes to its
+    ``(column, piece)`` in slot order (``dtype``); a column's pieces
+    before ``end_piece[c]`` are carried in float64, in piece order, and
+    added to that piece's sum last."""
+    dev = lo.device
+    npieces = int(torch.cat([piece, end_piece]).max()) + 1
+    key = col * npieces + piece
+    uniq, inv = torch.unique(key, return_inverse=True)
+    pieces = torch.zeros(uniq.numel(), dtype=dtype, device=dev)
+    pieces.index_add_(0, inv, lo)
+    pc, pt = uniq // npieces, uniq % npieces
+    last = pt == end_piece[pc]
+    carried = torch.zeros(M, dtype=torch.float64, device=dev)
+    carried.index_add_(0, pc[~last], pieces[~last].double())
+    at_end = torch.zeros(M, dtype=torch.float64, device=dev)
+    at_end[pc[last]] = pieces[last].double()
+    return torch.zeros(M, dtype=dtype, device=dev) + \
+        (carried + at_end).to(dtype)
+
+
+def _slot_streams(rows, data, indptr, x):
+    """Each slot's column (the end after it), validity, ``up`` and the
+    product ``a_s * x[r_s]`` (0 where it adds nothing)."""
+    M, nzmax = x.shape[0], data.shape[0]
+    ends = indptr[1:].long()
+    s = torch.arange(nzmax, device=data.device)
+    col = torch.searchsorted(ends, s, right=True)
+    valid = (col < M) & (rows >= 0) & (rows < M)
+    r = torch.where(valid, rows, 0).long()
+    c = torch.where(valid, col, 0)
+    up = torch.where(valid, data * x[c], _zero(data))
+    lo = torch.where(valid, data * x[r], _zero(data))
+    return s, ends, col, valid, up, lo
 
 
 def bsr_tiles_ref(brows, bcols, data, x, *, Mb: int) -> torch.Tensor:

@@ -5,9 +5,16 @@
 ``repro/kernels/spmv_sym/spmv_sym.py`` feeds into ``spmv_sym``: the row
 direction ``up[s] = a_s * x[col_s]`` and, where the reference emits a
 running sum to be differenced at the ``indptr`` boundaries, each
-column's total of ``a_s * x[row_s]`` directly.  ``bsr_tiles`` (B10) is
-the counterpart of ``bsr_tiles``: the partial product of every stored
-block with its slice of ``x``.
+column's total of ``a_s * x[row_s]`` directly.  It has two shapes, one
+launch either way, picked from the longest column the caller passes
+and the mean (:func:`.ref.sym_shape`): where no column holds more than
+``SHORT_COLUMN`` slots and they average at most ``SHORT_MEAN``, one
+thread a column; else tiles that split the merge of the column ends with
+the slots and carry a column that crosses them by a look-back, so a
+column of any length is spread over many blocks.
+:func:`.ref.sym_streams_tiled_ref` is the tiles' route in plain PyTorch.
+``bsr_tiles`` (B10) is the counterpart of ``bsr_tiles``: the partial
+product of every stored block with its slice of ``x``.
 
 Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
 launches its kernel for a CUDA tensor; ``.launches`` counts kernel
@@ -19,9 +26,9 @@ import ctypes
 
 import torch
 
-from ..common import (bind, check_cuda_tensor, check_launch, current_stream,
-                      load_library)
-from .ref import bsr_tiles_ref, sym_streams_ref
+from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
+                      current_stream, load_library)
+from .ref import SYM_TILE, bsr_tiles_ref, sym_shape, sym_streams_ref
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -31,9 +38,14 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("spmv_sym")
+        bind(lib, "sym_tile", [])
+        if lib.sym_tile() != SYM_TILE:
+            raise RuntimeError("csrc/spmv_sym.cu: sym_tile() differs from "
+                               "ref.py")
         for dtype, sfx in _SUFFIX.items():
             _FNS["sym", dtype] = bind(lib, f"sym_streams_{sfx}_launch",
-                                      [_P, _P, _P, _P, _P, _P, _LL, _P])
+                                      [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                       _I, _P])
             _FNS["bsr", dtype] = bind(lib, f"bsr_tiles_{sfx}_launch",
                                       [_P, _P, _P, _P, _P, _LL, _LL, _I, _P])
     return _FNS
@@ -48,13 +60,19 @@ def _check_values(t: torch.Tensor, name: str, what: str) -> None:
 
 
 def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
-                x: torch.Tensor):
+                x: torch.Tensor, *, longest: int | None = None):
     """B9: ``(up [nzmax], ct [M])`` over SymCSC's strict-upper stream.
 
     ``rows``/``data`` are the stream (``M`` is the sentinel row),
-    ``indptr`` int32 ``[M + 1]`` its column pointer (values within the
-    stream), ``x`` ``[M]`` of ``data``'s dtype, float32 or float64 on
-    the card.  ``up`` is 0 on sentinel rows and in the padded tail.
+    ``indptr`` int32 ``[M + 1]`` its column pointer (non-decreasing from
+    0, values within the stream), ``x`` ``[M]`` of ``data``'s dtype,
+    float32 or float64 on the card.  ``up`` is 0 on sentinel rows and in
+    the padded tail.  The kernel writes every value of ``up`` and ``ct``;
+    the scratch it takes its tile tickets and carries from is zeroed.
+    ``longest`` is the most slots any column holds, as the caller knows
+    it (``SymCSC.longest``); it picks the shape (:func:`.ref.sym_shape`;
+    ``None``: the tiles, which serve any stream).  Every value gives the
+    same results: a wrong one costs time only.
     """
     if data.device.type == "cpu":
         return sym_streams_ref(rows, data, indptr, x)
@@ -69,14 +87,22 @@ def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
             f"rows/data must be equal 1-d streams and indptr [M + 1] for x "
             f"[M], got {tuple(rows.shape)}, {tuple(data.shape)}, "
             f"{tuple(indptr.shape)} and {tuple(x.shape)}")
-    up = torch.zeros(nzmax, dtype=data.dtype, device=data.device)
-    ct = torch.empty(M, dtype=data.dtype, device=data.device)
     if M == 0:
-        return up, ct
+        return torch.zeros(nzmax, dtype=data.dtype, device=data.device), \
+            torch.empty(0, dtype=data.dtype, device=data.device)
+    shape = sym_shape(longest, M, nzmax)
+    up = torch.empty(nzmax, dtype=data.dtype, device=data.device)
+    ct = torch.empty(M, dtype=data.dtype, device=data.device)
+    scratch = None
+    if shape == "tiles":
+        words = 1 + cdiv(M + nzmax, SYM_TILE) * (
+            2 if data.dtype == torch.float32 else 4)
+        scratch = torch.zeros(words, dtype=torch.int64, device=data.device)
     check_launch(_fns()["sym", data.dtype](
         rows.data_ptr(), data.data_ptr(), indptr.data_ptr(), x.data_ptr(),
-        up.data_ptr(), ct.data_ptr(), M, current_stream(data.device)),
-        "sym_streams")
+        up.data_ptr(), ct.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), M, nzmax,
+        int(shape == "columns"), current_stream(data.device)), "sym_streams")
     sym_streams.launches += 1
     return up, ct
 

@@ -249,6 +249,13 @@ def _host_entries(A: CSC):
 # ---------------------------------------------------------------------------
 # SymCSC: upper-triangle-only storage for structurally symmetric matrices
 # ---------------------------------------------------------------------------
+def longest_column(indptr: torch.Tensor) -> int:
+    """The most slots a column of a column pointer holds,
+    ``max(diff(indptr))`` (0 for no column); a synchronisation on the
+    card."""
+    return int(torch.diff(indptr).max()) if indptr.numel() > 1 else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class SymCSC:
     """Symmetric matrix stored as a dense diagonal + strict upper triangle.
@@ -263,6 +270,9 @@ class SymCSC:
     indptr  : int32[N+1]     -- column pointer over the strict upper part
     nnz     : int32 0-d      -- structural strict-upper count
     shape   : (M, M)         -- always square
+    longest : int            -- the most strict-upper slots a column
+                                holds (picks B9's shape); read from
+                                ``indptr`` when not given
     """
 
     diag: torch.Tensor
@@ -271,6 +281,11 @@ class SymCSC:
     indptr: torch.Tensor
     nnz: torch.Tensor
     shape: tuple[int, int]
+    longest: int | None = None
+
+    def __post_init__(self):
+        if self.longest is None:
+            object.__setattr__(self, "longest", longest_column(self.indptr))
 
     @property
     def nzmax(self) -> int:
@@ -343,7 +358,7 @@ def csc_to_symcsc(A: CSC) -> SymCSC:
         indices=torch.from_numpy(r[up].astype(np.int32)).to(dev),
         indptr=torch.from_numpy(indptr).to(dev),
         nnz=torch.tensor(int(up.sum()), dtype=torch.int32, device=dev),
-        shape=(M, N),
+        shape=(M, N), longest=int(counts.max(initial=0)),
     )
 
 

@@ -116,12 +116,12 @@ class _SpmvSym(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, diag, data, indices, indptr, x, M):
+    def forward(ctx, diag, data, indices, indptr, x, M, longest):
         from ..kernels.spmv_sym.ops import spmv_sym
 
         ctx.save_for_backward(diag, data, indices, indptr, x)
-        ctx.M = M
-        return spmv_sym(diag, data, indices, indptr, x)
+        ctx.M, ctx.longest = M, longest
+        return spmv_sym(diag, data, indices, indptr, x, longest=longest)
 
     @staticmethod
     def backward(ctx, g):
@@ -129,7 +129,8 @@ class _SpmvSym(torch.autograd.Function):
 
         diag, data, indices, indptr, x = ctx.saved_tensors
         M = ctx.M
-        g_x = spmv_sym(diag, data, indices, indptr, g).to(x.dtype)
+        g_x = spmv_sym(diag, data, indices, indptr, g,
+                       longest=ctx.longest).to(x.dtype)
         g_diag = (x * g).to(diag.dtype)
         cols = slot_columns(indptr, data.shape[-1])
         valid = indices < M
@@ -137,11 +138,12 @@ class _SpmvSym(torch.autograd.Function):
         c = torch.where(valid, cols.clamp(0, max(M - 1, 0)), 0).long()
         g_data = torch.where(valid, x[c] * g[r] + x[r] * g[c],
                              _zero(data.dtype, g.device)).to(data.dtype)
-        return g_diag, g_data, None, None, g_x, None
+        return g_diag, g_data, None, None, g_x, None, None
 
 
 def _symcsc_spmv(A: SymCSC, x: torch.Tensor) -> torch.Tensor:
-    return _SpmvSym.apply(A.diag, A.data, A.indices, A.indptr, x, A.M)
+    return _SpmvSym.apply(A.diag, A.data, A.indices, A.indptr, x, A.M,
+                          A.longest)
 
 
 class _SpmvBsr(torch.autograd.Function):

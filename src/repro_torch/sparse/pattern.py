@@ -33,6 +33,7 @@ Not ported yet: ``reduce_rows`` (ROADMAP queue A, item 15) and the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 
 import numpy as np
@@ -733,6 +734,14 @@ class SymPattern:
     def nnz(self) -> torch.Tensor:
         return self.upat.nnz
 
+    @functools.cached_property
+    def longest(self) -> int:
+        """The most strict-upper slots a column holds, read from the
+        plan once (a synchronisation on the card) and kept with it."""
+        from .formats import longest_column
+
+        return longest_column(self.upat.indptr)
+
     def assemble(self, vals: torch.Tensor):
         """Half-stream numeric fill -> :class:`SymCSC`.
 
@@ -756,7 +765,8 @@ class SymPattern:
             .index_add(0, self.drow.long(), v[self.dsel.long()].to(acc)) \
             .to(dtype)
         return SymCSC(diag=diag, data=upper.data, indices=upper.indices,
-                      indptr=upper.indptr, nnz=upper.nnz, shape=self.shape)
+                      indptr=upper.indptr, nnz=upper.nnz, shape=self.shape,
+                      longest=self.longest)
 
 
 def plan_symmetric(rows, cols, shape: tuple[int, int], *,

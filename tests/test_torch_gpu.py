@@ -1121,3 +1121,91 @@ def test_segment_kernels_on_runs_that_cross_tiles(stream, dtype, cut):
         assert ss.gather_segment_minmax.launches == before + 1
         assert _same(got, gather_segment_minmax_ref(vn, perm, slot, op=op,
                                                     **kw))
+
+
+# ---------------------------------------------------------------------------
+# B7 narrowed by blocks of queries and B9 on tiles of the merge of column
+# ends and slots, on the streams that break those designs
+# (chip_smoke.merge_streams, chip_smoke.sym_stream).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("kind", ["sorted_few", "sorted_all", "random",
+                                  "sparse_random", "edges", "below",
+                                  "above", "n_1", "n_4095", "n_4096",
+                                  "n_4097"])
+def test_merge_search_kernel_on_block_narrowed_streams(kind, side):
+    """Sorted queries (Lq << n and Lq = n), random ones (dense: a block's
+    range is all of n; and sparse), ties and sentinel rows at the
+    narrowed ranges' edges, every query below or above every target,
+    n = 1, 2^k - 1, 2^k, 2^k + 1 and a ragged Lq: bit for bit against
+    the plain ladder, torch.searchsorted of the packed keys and the
+    dense shape's route in plain PyTorch; one launch a call."""
+    from repro_torch.kernels.merge import merge as mg
+    from repro_torch.kernels.merge.ref import (merge_search_narrowed_ref,
+                                               merge_search_ref, pack_keys)
+
+    dev = _cuda()
+    smoke = _smoke()
+    streams = smoke.merge_streams(kind, np.random.default_rng(81), mg.BLOCK_Q)
+    qr, qc, tr, tc = (torch.from_numpy(a).to(dev) for a in streams[:4])
+    before = mg.merge_search_kernel.launches
+    got = mg.merge_search_kernel(qr, qc, tr, tc, side=side)
+    torch.cuda.synchronize()
+    assert mg.merge_search_kernel.launches == before + 1
+    assert torch.equal(got, merge_search_ref(qr, qc, tr, tc, side=side))
+    assert torch.equal(got, merge_search_narrowed_ref(qr, qc, tr, tc,
+                                                      side=side))
+    want = torch.searchsorted(pack_keys(tr, tc), pack_keys(qr, qc),
+                              right=side == "right")
+    assert torch.equal(got.long(), want)
+
+
+@pytest.mark.parametrize("shape", ["path", "columns", "tiles"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["arrow", "tile_edge", "empty_runs"])
+def test_sym_streams_kernel_on_streams_that_cross_tiles(kind, dtype, shape):
+    """The arrow matrix (a column of 2^20 entries beside columns of 3), a
+    column whose first slot is a tile's last item, runs of empty columns
+    with sentinel rows and a padded tail: up and ct bit for bit on
+    integer-valued data (also against the kernel's route in plain
+    PyTorch); on random data up bit for bit, ct bit for bit from call to
+    call and within C_SEG = 16 eps of each column's sum|terms| of the
+    exact sum (first-order bound 10 eps: csrc/spmv_sym.cu); one launch a
+    call.  In the shape the stream's longest column picks ("path"), and
+    forced: a longest column of 1 takes one thread a column, an unknown
+    one the tiles."""
+    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    from repro_torch.kernels.spmv_sym.ref import (SYM_TILE, sym_shape,
+                                                  sym_streams_ref,
+                                                  sym_streams_tiled_ref)
+
+    dev = _cuda()
+    smoke = _smoke()
+    rng = np.random.default_rng(82)
+    rows_h, indptr_h, M = smoke.sym_stream(kind, SYM_TILE, rng)
+    rows = torch.from_numpy(rows_h).to(dev)
+    indptr = torch.from_numpy(indptr_h).to(dev)
+    nz = rows.numel()
+
+    def draw(k, ints):
+        v = rng.integers(-8, 9, k) if ints else rng.standard_normal(k)
+        return torch.from_numpy(v).to(dev, dtype)
+
+    longest = int(torch.diff(indptr).max())
+    long = kind in ("arrow", "tile_edge")  # a column of over 2 tiles
+    assert sym_shape(longest, M, nz) == ("tiles" if long else "columns")
+    assert sym_shape(1, M, nz) == "columns"
+    kw = dict(longest={"path": longest, "columns": 1, "tiles": None}[shape])
+    di, xi = draw(nz, True), draw(M, True)
+    before = sym.sym_streams.launches
+    got = sym.sym_streams(rows, di, indptr, xi, **kw)
+    assert sym.sym_streams.launches == before + 1
+    for want in (sym_streams_ref(rows, di, indptr, xi),
+                 sym_streams_tiled_ref(rows, di, indptr, xi)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    d, x = draw(nz, False), draw(M, False)
+    up, ct = sym.sym_streams(rows, d, indptr, x, **kw)
+    assert torch.equal(up, sym_streams_ref(rows, d, indptr, x)[0])
+    assert torch.equal(sym.sym_streams(rows, d, indptr, x, **kw)[1], ct)
+    eps = torch.finfo(dtype).eps
+    assert smoke.sym_err_over_eps(ct, rows, d, indptr, x, eps) <= smoke.C_SEG
