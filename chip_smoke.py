@@ -42,6 +42,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    within ``C_SEG * eps * sum|terms|`` of each slot's exact sum
    (``exact_segment_sums``) on random float32 and float64; B4 bit for
    bit, NaN included.
+3d. B6 on product runs that cross its tiles (``product_stream``: one
+   run of 2^20 products, runs of random length 1..10^4, a run that
+   starts at a tile's last position, a tile of only dropped slots, sa
+   and sb random into operands of 2^20 values; and ``B' B`` of the arrow
+   matrix, ``arrow_gram``: one run of 2^20, 1.68e7 products), float32
+   and float64: bit for bit on integer-valued data with and without a
+   NaN, bit for bit from call to call and within ``C_SEG * eps *
+   sum|terms|`` of each slot's exact sum on random data, one launch a
+   call; each variant of its timing probe bit for bit on integer-valued
+   data.
 4. main path: ``repro_torch.sparse.fsparse`` (Matlab ``sparse``) on the
    paper's Table 4.1 sets 1-3 at full scale and on set 2 scaled to
    L = 5e7, each matched bit for bit against the port's numpy oracle,
@@ -119,7 +129,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and hashing the ``sparse2`` key.  For the third path, at its size:
    B6, B8, B9 and B10 as above (yardsticks ``index_add_`` with the two
    gathers and the product inside the timed call, cuSPARSE CSR and BSR
-   ``torch.mv``), the plan and
+   ``torch.mv``); B6 on both products of the Galerkin operator (``P'
+   A`` and ``(P' A) P``, each with its own bytes and bound) beside the
+   design it replaced, its two-gather floor (``gather2_floor``) and each
+   variant of its timing probe (``PRODUCT_VARIANTS``: tile depths and
+   register bounds, the sweep), and on one run of 2^20 products against
+   2^20 runs of one; the plan and
    fill of A, each SpMV, one CG iteration, ``product_plan`` split into
    the host expansion and the device plan, and the B6 refills.  For
    the fourth path: per set and delta share the update against a
@@ -357,27 +372,29 @@ def _cut(lengths: np.ndarray, L: int) -> np.ndarray:
     return lengths
 
 
-def run_lengths(L: int, rng, kind: str) -> np.ndarray:
+def run_lengths(L: int, rng, kind: str,
+                long_run: int = LONG_RUN) -> np.ndarray:
     """Run lengths of a sorted slot stream of L positions.
 
-    ``"long"``: runs of LONG_RUN, each after a stretch of about 2,000
+    ``"long"``: runs of ``long_run``, each after a stretch of about 2,000
     positions in short runs (1-3), so the long runs start mid-tile;
     ``"random"``: lengths uniform in 1..10^4.
     """
     if kind == "random":
         return _cut(rng.integers(1, 10**4 + 1, L // 2500 + 2), L)
-    n = L // LONG_RUN + 1
+    n = L // long_run + 1
     short = rng.integers(1, 4, (n, 1000))
-    return _cut(np.concatenate([short, np.full((n, 1), LONG_RUN)],
+    return _cut(np.concatenate([short, np.full((n, 1), long_run)],
                                1).reshape(-1), L)
 
 
-def ragged_slots(kind: str, tile: int, rng) -> np.ndarray:
+def ragged_slots(kind: str, tile: int, rng,
+                 long_run: int = LONG_RUN) -> np.ndarray:
     """int32 slot streams that break a design of tiles of ``tile``
     positions; the kept slots count 0, 1, ... in stream order.
 
-    ``"one_run"``: one run of LONG_RUN between about 2,000 positions of
-    short runs on either side; ``"random"``: 2^21 positions in runs of
+    ``"one_run"``: one run of ``long_run`` between about 2,000 positions
+    of short runs on either side; ``"random"``: 2^21 positions in runs of
     1..10^4; ``"tile_edge"``: single slots up to a tile's last position,
     where a run of 2 tiles + 1 starts (it ends at the last position of
     the tile after next), a single at the following tile's first
@@ -386,7 +403,7 @@ def ragged_slots(kind: str, tile: int, rng) -> np.ndarray:
     after it, then runs of 1..7 around a run of 3 tiles.
     """
     if kind == "one_run":
-        lengths = run_lengths(LONG_RUN + 4000, rng, "long")
+        lengths = run_lengths(long_run + 4000, rng, "long", long_run)
     elif kind == "random":
         lengths = run_lengths(1 << 21, rng, "random")
     elif kind == "tile_edge":
@@ -552,6 +569,60 @@ def sym_stream(kind: str, tile: int, rng, dense: int = ARROW_DENSE):
     return rows.astype(np.int32), indptr, M
 
 
+PRODUCT_KINDS = ("one_run", "random", "tile_edge", "dropped_tile")
+#: the host expansion of B' B for the arrow matrix is checked against this
+#: before it is planned (B6's run check and times skip it above)
+ARROW_GRAM_MAX_FLOPS = 2 * 10**7
+
+
+def product_stream(kind: str, tile: int, rng, operands: int,
+                   long_run: int = LONG_RUN):
+    """``(sa, sb, slot)`` int32 numpy streams of B6 that break a design of
+    tiles of ``tile`` positions: ``ragged_slots(kind)`` with ``sa`` and
+    ``sb`` uniform into two operand vectors of ``operands`` values."""
+    slot = ragged_slots(kind, tile, rng, long_run)
+    sa, sb = (rng.integers(0, operands, slot.size).astype(np.int32)
+              for _ in range(2))
+    return sa, sb, slot
+
+
+def arrow_gram_flops(dense: int = ARROW_DENSE) -> int:
+    """The products of ``B' B`` for the arrow matrix ``B`` of
+    ``sym_stream("arrow")``: the sum over its rows of their counts
+    squared."""
+    rows, _, M = sym_stream("arrow", 1, None, dense)
+    return int(np.sum(np.bincount(rows, minlength=M).astype(np.int64) ** 2))
+
+
+def arrow_gram(dev, rng, dense: int = ARROW_DENSE):
+    """The product plan of ``B' B`` on ``dev``, ``B`` the arrow matrix of
+    ``sym_stream("arrow")`` (random values): its slot for entry (M-1,
+    M-1) is one run of ``dense`` products, the dense column's dot product
+    with itself.  Returns ``(plan, B', B)``."""
+    from repro_torch.core.csc import CSC
+    from repro_torch.sparse import convert, ops, product_plan
+
+    rows, indptr, M = sym_stream("arrow", 1, rng, dense)
+    nz = rows.size
+    B = CSC(data=torch.from_numpy(rng.standard_normal(nz).astype(
+        np.float32)).to(dev), indices=torch.from_numpy(rows).to(dev),
+        indptr=torch.from_numpy(indptr).to(dev),
+        nnz=torch.tensor(nz, dtype=torch.int32, device=dev), shape=(M, M))
+    Bt = convert(ops.transpose(B), "csc")
+    return product_plan(Bt, B), Bt, B
+
+
+def product_err_over_eps(got: torch.Tensor, va, vb, sa, sb, slot,
+                         eps: float) -> float:
+    """The largest |got - exact| / (eps sum|terms|) over the slots of a B6
+    result: each slot's rounded products va[sa] * vb[sb], summed exactly
+    (``exact_segment_sums``)."""
+    terms = va[sa.long()] * vb[sb.long()]
+    want, mag = exact_segment_sums(terms, slot, got.numel())
+    err = np.abs(got.double().cpu().numpy() - want)
+    return float((err / np.maximum(eps * mag, 1e-300)).max(initial=0.0))
+
+
 def sym_err_over_eps(ct: torch.Tensor, rows, data, indptr, x,
                      eps: float) -> float:
     """The largest |ct - exact| / (eps sum|terms|) over the columns of a B9
@@ -628,7 +699,7 @@ _PROBE: dict = {}
 
 def probe_fn(name: str):
     """A launcher of ``csrc/segment_sum_probe.cu``, for timing only (the
-    gather floor, B3''s and B4's variants and the design they
+    gather floors, B3''s, B4's and B6's variants and the design they
     replaced)."""
     if name not in _PROBE:
         from repro_torch.kernels import common
@@ -639,6 +710,11 @@ def probe_fn(name: str):
             _PROBE[key] = common.bind(lib, fn, [I, P, P, P, P, P, LL, LL, P])
         _PROBE["floor"] = common.bind(lib, "probe_gather_floor_f32_launch",
                                       [I, P, P, P, P, LL, LL, P])
+        _PROBE["sum2"] = common.bind(lib, "probe_product_sum_f32_launch",
+                                     [I, P, P, P, P, P, P, P, LL, LL, P])
+        _PROBE["floor2"] = common.bind(
+            lib, "probe_gather2_floor_f32_launch",
+            [I, P, P, P, P, P, P, LL, LL, P])
     return _PROBE[name]
 
 
@@ -666,6 +742,44 @@ def gather_floor(vals, perm, slot, n: int, variant: int = 2):
                            slot.data_ptr(), y.data_ptr(), L, n,
                            torch.cuda.current_stream().cuda_stream)
     require(rc == 0, f"gather floor variant {variant}: CUDA error {rc}")
+    return y
+
+
+#: B6's variants in ``csrc/segment_sum_probe.cu``: the replaced design
+#: (one thread walks each run), the kernel as shipped, and its tile depth
+#: K and least resident blocks an SM (unbounded: the compiler's choice),
+#: or its index streams through __ldg
+PRODUCT_VARIANTS = {"replaced": 0, "shipped": 1, "K4": 2, "K4_min8": 3,
+                    "K8": 4, "K8_min5": 5, "K8_min4": 6, "K12": 7,
+                    "K12_min4": 8, "K12_min3": 9, "ldg": 10, "K8_min6": 11,
+                    "K12_min5": 12}
+
+
+def product_probe(variant: int, va, vb, sa, sb, slot, n: int):
+    """B6 on float32 by a variant of the probe (``PRODUCT_VARIANTS``)."""
+    L = slot.numel()
+    out = torch.zeros(n, dtype=torch.float32, device=va.device)
+    scratch = torch.zeros(1 + 2 * -(-L // 1024), dtype=torch.int64,
+                          device=va.device)
+    rc = probe_fn("sum2")(variant, va.data_ptr(), vb.data_ptr(),
+                          sa.data_ptr(), sb.data_ptr(), slot.data_ptr(),
+                          out.data_ptr(), scratch.data_ptr(), L, n,
+                          torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"B6 probe variant {variant}: CUDA error {rc}")
+    return out
+
+
+def gather2_floor(va, vb, sa, sb, slot, n: int, variant: int = 1):
+    """The two-gather floor: ``y[j] = va[sa[j]] * vb[sb[j]]`` where
+    ``slot[j]`` is kept, with B6's loads (variant 1), at K = 4 (2) or
+    K = 12 (3); float32."""
+    L = slot.numel()
+    y = torch.empty(L, dtype=torch.float32, device=va.device)
+    rc = probe_fn("floor2")(variant, va.data_ptr(), vb.data_ptr(),
+                            sa.data_ptr(), sb.data_ptr(), slot.data_ptr(),
+                            y.data_ptr(), L, n,
+                            torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"two-gather floor variant {variant}: CUDA error {rc}")
     return y
 
 
@@ -1207,6 +1321,82 @@ def fem_kernel_checks(fem, rng, dev):
     return errs
 
 
+def product_run_checks(dev, rng) -> dict:
+    """Phase 3d: B6 on streams that cross its tiles (``product_stream``:
+    one run of 2^20 products, runs of random length 1..10^4, a run that
+    starts at a tile's last position, a tile of only dropped slots; and
+    ``B' B`` of the arrow matrix, whose dense column gives one run of
+    2^20, where its host expansion stays under ``ARROW_GRAM_MAX_FLOPS``),
+    float32 and float64: bit for bit against the plain version on
+    integer-valued data, with and without a NaN; bit for bit from call to
+    call on random data and there within ``C_SEG`` eps of each slot's
+    sum|terms| of the exact sum of its rounded products; one launch a
+    call.  Each variant of the probe bit for bit on integer-valued data
+    on the random stream.  Returns the largest error over eps sum|terms|
+    per stream and dtype."""
+    from repro_torch.kernels.segment_sum import segment_sum as ss_mod
+    from repro_torch.kernels.segment_sum.ref import (PRODUCT_TILE,
+                                                     gather2_segment_sum_ref)
+
+    kern = ss_mod.gather2_segment_sum
+    streams = {}
+    for kind in PRODUCT_KINDS:
+        sa, sb, slot = product_stream(kind, PRODUCT_TILE, rng,
+                                      operands=1 << 20)
+        n = int(slot[(slot >= 0) & (slot < 2**30)].max()) + 1
+        streams[kind] = ((1 << 20, 1 << 20), *(torch.from_numpy(x).to(dev)
+                                               for x in (sa, sb, slot)), n)
+    flops = arrow_gram_flops()
+    if flops <= ARROW_GRAM_MAX_FLOPS:
+        pp, Bt, B = arrow_gram(dev, rng)
+        streams["arrow_gram"] = ((Bt.nzmax, B.nzmax), pp.sa, pp.sb,
+                                 pp.pattern.slot, pp.nzmax)
+    out = {"arrow_gram_flops": flops}
+    for name, ((na, nb), sa, sb, slot, n) in streams.items():
+        st, nz = (sa, sb, slot), dict(num_segments=n)
+        row = {"L": int(slot.numel()), "num_segments": n,
+               "longest_run": int(torch.bincount(
+                   slot[(slot >= 0) & (slot < n)].long()).max())}
+        for dtype, eps in ((torch.float32, EPS32), (torch.float64, EPS64)):
+            def draw(k, ints):
+                x = rng.integers(-8, 9, k) if ints else \
+                    rng.standard_normal(k)
+                return torch.from_numpy(x).to(dev, dtype)
+
+            va, vb = draw(na, True), draw(nb, True)
+            before = kern.launches
+            got = kern(va, vb, *st, **nz)
+            require(kern.launches == before + 1, "B6: not one launch a call")
+            require(torch.equal(got, gather2_segment_sum_ref(va, vb, *st,
+                                                             **nz)),
+                    f"B6 {dtype} differs on integer-valued data, {name}")
+            kept = torch.nonzero((slot >= 0) & (slot < n)).flatten()
+            va[int(sa[kept[kept.numel() // 2]])] = float("nan")
+            got = kern(va, vb, *st, **nz)
+            require(bool(torch.isnan(got).any()) and same_bits(
+                got, gather2_segment_sum_ref(va, vb, *st, **nz)),
+                f"B6 {dtype} differs with a NaN, {name}")
+            va, vb = draw(na, False), draw(nb, False)
+            got = kern(va, vb, *st, **nz)
+            require(torch.equal(kern(va, vb, *st, **nz), got),
+                    f"B6 {dtype} differs from call to call, {name}")
+            r = product_err_over_eps(got, va, vb, sa, sb, slot, eps)
+            require(r <= C_SEG, f"B6 {dtype} error {r} eps x sum|terms| > "
+                    f"{C_SEG}, {name}")
+            row[f"{dtype}_max_err_over_eps_sum_abs"] = r
+        out[name] = row
+    # the probe's variants, bit for bit on integer-valued data
+    (na, nb), sa, sb, slot, n = streams["random"]
+    va, vb = (torch.from_numpy(rng.integers(-8, 9, k).astype(np.float32))
+              .to(dev) for k in (na, nb))
+    want = gather2_segment_sum_ref(va, vb, sa, sb, slot, num_segments=n)
+    for v, i in PRODUCT_VARIANTS.items():
+        require(torch.equal(product_probe(i, va, vb, sa, sb, slot, n), want),
+                f"B6 probe variant {v} differs on integer-valued data")
+    torch.cuda.synchronize()
+    return out
+
+
 def fem_times(fem, cpm, dev):
     """Phase 5 for the third path: each kernel (device time back to back,
     one call, its plain version, a PyTorch yardstick, the byte bound) and
@@ -1253,15 +1443,30 @@ def fem_times(fem, cpm, dev):
     bsr_in = (Bm.indices, bcols, Bm.data, x)
     F, M, K, nzh, b = pp.flops, nv, FEM_K, S.nzmax, Bm.block
     # B6 gathers operand values, so it reads those the streams reach (A's
-    # padded tail is never read), not whole operand vectors
-    reached = [int(torch.unique(i).numel()) for i in (pp.sa, pp.sb)]
+    # padded tail is never read), not whole operand vectors; on both
+    # products of the Galerkin operator (B6_Ac: (P' A) P)
+    pp2, PtA, P = fem["pp2"], fem["PtA"], fem["P"]
+    st2 = (pp2.sa, pp2.sb, pp2.pattern.slot)
+    nz2 = dict(num_segments=pp2.nzmax)
+    slot2_l = pp2.pattern.slot.long()
+
+    def b6_bytes(q):
+        reached = [int(torch.unique(i).numel()) for i in (q.sa, q.sb)]
+        return 12 * q.flops + 4 * sum(reached) + 4 * q.nzmax
+
     fns = {
         "B6": (lambda: ss_mod.gather2_segment_sum(Ptc.data, A.data, *st, **nz),
                lambda: gather2_segment_sum_ref(Ptc.data, A.data, *st, **nz),
                lambda: torch.zeros(pp.nzmax, device=dev).index_add_(
                    0, slot_l, Ptc.data[pp.sa] * A.data[pp.sb]),
-               12 * F + 4 * reached[0] + 4 * reached[1] + 4 * pp.nzmax,
-               2 * F),
+               b6_bytes(pp), 2 * F),
+        "B6_Ac": (lambda: ss_mod.gather2_segment_sum(PtA.data, P.data, *st2,
+                                                     **nz2),
+                  lambda: gather2_segment_sum_ref(PtA.data, P.data, *st2,
+                                                  **nz2),
+                  lambda: torch.zeros(pp2.nzmax, device=dev).index_add_(
+                      0, slot2_l, PtA.data[pp2.sa] * P.data[pp2.sb]),
+                  b6_bytes(pp2), 2 * pp2.flops),
         "B8": (lambda: ell_mod.spmv_ell(cols, vals, x),
                lambda: spmv_ell_ref(cols, vals, x),
                lambda: torch.mv(A_t, x), 8 * M * K + 4 * nv + 4 * M,
@@ -1284,6 +1489,20 @@ def fem_times(fem, cpm, dev):
         r["GBps"] = nbytes / r["ms"] / 1e6
         r["share_of_3.35TBps"] = r["GBps"] / (HBM_BYTES_PER_S / 1e9)
         rows_k[k] = r
+    # B6 beside the design it replaced, its two-gather floor (its loads and
+    # products, no reduction) and the probe's tile depths and register
+    # bounds (the sweep), on both products
+    for k, (a, bm, q) in (("B6", (Ptc, A, pp)), ("B6_Ac", (PtA, P, pp2))):
+        args = (a.data, bm.data, q.sa, q.sb, q.pattern.slot)
+        r = rows_k[k]
+        r["flops"], r["nzmax"] = q.flops, q.nzmax
+        r["gather2_floor_ms"] = device_ms(
+            lambda: gather2_floor(*args, q.nzmax), cpm)
+        r["sweep_ms"] = {v: device_ms(
+            lambda i=i: product_probe(i, *args, q.nzmax), cpm)
+            for v, i in PRODUCT_VARIANTS.items()}
+        r["replaced_ms"] = r["sweep_ms"].pop("replaced")
+        r["sweep_winner"] = min(r["sweep_ms"], key=r["sweep_ms"].get)
     t["kernels"] = rows_k
     # the path: plan and fill of A, each SpMV, one CG iteration
     pat, vals_d = fem["pat"], fem["vals_d"]
@@ -1305,7 +1524,6 @@ def fem_times(fem, cpm, dev):
         t[f"cg_iteration_{name}_ms"] = call_ms(
             lambda: cg(op, fem["b"], 10), reps=5) / 10
     # product_plan: the host expansion and the device plan, both products
-    P, PtA = fem["P"], fem["PtA"]
     for what, (a, bm, pq) in (("PtA", (Ptc, A, pp)),
                               ("Ac", (PtA, P, fem["pp2"]))):
         ir_a, jc_a, _, _ = spgemm._csc_structure(a)
@@ -1979,7 +2197,8 @@ def main() -> None:
         digit_block_histogram_ref, digit_placement_ref, radix_sort_pair_ref)
     from repro_torch.kernels.segment_sum import segment_sum as ss_mod
     from repro_torch.kernels.segment_sum.ref import (
-        blocked_cumsum_ref, gather_segment_minmax_ref, gather_segment_sum_ref)
+        PRODUCT_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
+        gather_segment_sum_ref)
     from repro_torch.kernels.spmv import spmv as ell_mod
     from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
     from repro_torch.sparse.matlab import (_cache_key, expand_indices,
@@ -2207,6 +2426,15 @@ def main() -> None:
         del perm, slot, vi, vn, got
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
+
+    # -- 3d. B6 on product runs that cross its tiles -----------------------
+    emit({"check": "B6 vs plain on runs that cross its tiles",
+          "integer_data": "bit-identical", "nan": "bit-identical",
+          "repeat": "bit-identical", "tolerance_eps": C_SEG,
+          "probe_variants": "bit-identical on integer-valued data",
+          "streams": product_run_checks(dev, np.random.default_rng(
+              [SEED, 4]))})
+    torch.cuda.empty_cache()
 
     # -- 4. main path -------------------------------------------------------
     counters = (hist_k, place_k, fill_k)
@@ -2632,6 +2860,25 @@ def main() -> None:
             del perm, slot
         del vl
         torch.cuda.empty_cache()
+    # B6 on one run of 2^20 products against 2^20 runs of one, sa and sb
+    # random into operands of 2^20 values; the replaced design too (one
+    # thread walks the long run: a few calls)
+    va, vb = (torch.from_numpy(seg_rng.standard_normal(LONG_RUN).astype(
+        np.float32)).to(dev) for _ in range(2))
+    sa, sb = (torch.from_numpy(seg_rng.integers(0, LONG_RUN, LONG_RUN).astype(
+        np.int32)).to(dev) for _ in range(2))
+    for runs, n in (("longrun", 1), ("runs1", LONG_RUN)):
+        slot = torch.arange(LONG_RUN, dtype=torch.int32, device=dev) \
+            if n > 1 else torch.zeros(LONG_RUN, dtype=torch.int32, device=dev)
+        nz = dict(num_segments=n)
+        lr[f"B6_{runs}_ms"] = device_ms(
+            lambda: sum2_k(va, vb, sa, sb, slot, **nz), cpm)
+        lr[f"B6_{runs}_replaced_ms"] = device_ms(
+            lambda: product_probe(PRODUCT_VARIANTS["replaced"], va, vb, sa,
+                                  sb, slot, n), cpm, reps=3)
+        lr[f"B6_{runs}_gather2_floor_ms"] = device_ms(
+            lambda: gather2_floor(va, vb, sa, sb, slot, n), cpm)
+    del va, vb, sa, sb, slot
     emit(lr)
 
     big = per_kernel["2x20"]
@@ -2667,7 +2914,7 @@ def main() -> None:
     # fourth (4d); times at 5e7 for the first seven, at the third path's
     # size for B6 and B8-B10, B7 at the update of the 5e7 set (1% delta)
     path_launches = {**launches2, **launches,
-                     **{k: launches3[k] for k in fem_k},
+                     **{k: launches3[k] for k in fem_k if k in launches3},
                      "B7": launches4["B7"]}
     big = {**big, **fem_k, "B7": b7_row}
     emit({"kernels": [
@@ -2677,11 +2924,21 @@ def main() -> None:
          "plain_ms": big[k]["plain_ms"],
          "bound_ms": big[k]["bound_ms"], "bound_by": big[k]["bound_by"],
          "library_ms": big[k]["library_ms"],
-         **({"gather_floor_ms": big[k]["gather_floor_ms"],
-             "longrun_ms": lr[f"{k}_longrun_ms"],
-             "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4") else {}),
-         **({"replaced_ms": big[k]["replaced_ms"]} if k in ("B7", "B9")
-            else {})}
+         **({"gather_floor_ms": big[k]["gather_floor_ms"]}
+            if k in ("B3", "B4") else {}),
+         **({"longrun_ms": lr[f"{k}_longrun_ms"],
+             "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4", "B6")
+            else {}),
+         **({"replaced_ms": big[k]["replaced_ms"]} if k in ("B6", "B7", "B9")
+            else {}),
+         **({"gather2_floor_ms": big[k]["gather2_floor_ms"],
+             "shipped": f"K = {PRODUCT_TILE // 256}",
+             "sweep_winner": big[k]["sweep_winner"],
+             "second_product": {
+                 "what": "(P' A) P", **{f: big["B6_Ac"][f] for f in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "bytes", "flops", "replaced_ms", "gather2_floor_ms",
+                     "sweep_winner")}}} if k == "B6" else {})}
         for k, (n, src, rep, err) in meta.items()
     ]})
     print(smi_line, flush=True)

@@ -50,9 +50,20 @@ column that long or one in 64) at about 3e6 slots.  Each variant is
 first held against the plain version (B7 bit for bit, B9 bit for bit on
 integer-valued data).
 
-    python3 kernel_times.py [queue_d] [segment] [merge_sym]
+Then B6 (product fill) on the Galerkin operator's two products at 10^6
+DOFs (``P' A`` and ``(P' A) P``), on one run of 2^20 products against
+2^20 runs of one, on runs of random length 1..10^4 and on ``B' B`` of
+the arrow matrix (``chip_smoke.arrow_gram``: one run of 2^20): the
+wrapper, each variant of its probe (``chip_smoke.PRODUCT_VARIANTS``:
+the replaced design, tile depths K = 4, 8, 12 at several register
+bounds, the index streams through __ldg), the two-gather floor at K =
+4, 8, 12 and ``index_add_`` with both gathers and the product, timed in
+turns (forward, then backward), each variant first held against the
+plain version bit for bit on integer-valued data.
 
-runs the named sections (all three without arguments).  Prints the
+    python3 kernel_times.py [queue_d] [segment] [merge_sym] [product]
+
+runs the named sections (all four without arguments).  Prints the
 card's name and power limit, then one JSON line a set, a stream or a
 site.  A quicker measure than ``chip_smoke.py`` when two versions of
 these kernels are compared on one card.
@@ -237,6 +248,96 @@ def segment_times(cpm, dev) -> None:
                     timed[k], cpm, reps=reps[k])
         print(json.dumps(row), flush=True)
         del perm, slot, v, vi, want_i, want_max
+        torch.cuda.empty_cache()
+
+
+def product_times(cpm, dev) -> None:
+    """B6 (product fill), its probe's variants and the two-gather floor,
+    per product stream."""
+    from repro_torch.kernels.segment_sum import segment_sum as ss
+    from repro_torch.kernels.segment_sum.ref import (PRODUCT_TILE,
+                                                     gather2_segment_sum_ref)
+    from repro_torch.sparse import convert, ops, plan, product_plan
+
+    rng = np.random.default_rng(smoke.SEED)
+    n_ops = smoke.LONG_RUN
+
+    def streams():
+        # the Galerkin operator's two products at 10^6 DOFs
+        rows, cols, vals, nv, _, _ = smoke.fem_system(smoke.FEM_N)
+        A = plan(torch.from_numpy(rows).to(dev),
+                 torch.from_numpy(cols).to(dev), (nv, nv)).assemble(
+            torch.from_numpy(vals).to(dev))
+        pr, pc, pv, pshape = smoke.bilinear_prolongation(smoke.FEM_N)
+        P = plan(torch.from_numpy(pr).to(dev), torch.from_numpy(pc).to(dev),
+                 pshape).assemble(torch.from_numpy(pv).to(dev))
+        Ptc = convert(ops.transpose(P), "csc")
+        pp = product_plan(Ptc, A)
+        yield "PtA", (Ptc.nzmax, A.nzmax), pp.sa, pp.sb, pp.pattern.slot, \
+            pp.nzmax
+        PtA = pp.multiply(Ptc.data, A.data)
+        pp = product_plan(PtA, P)
+        yield "PtA_P", (PtA.nzmax, P.nzmax), pp.sa, pp.sb, \
+            pp.pattern.slot, pp.nzmax
+        del A, P, Ptc, PtA, pp
+        # one run of 2^20 products and 2^20 runs of one, sa and sb random
+        sa, sb = (torch.from_numpy(rng.integers(0, n_ops, n_ops).astype(
+            np.int32)).to(dev) for _ in range(2))
+        for kind, slot in (
+                ("one_run_2^20", torch.zeros(n_ops, dtype=torch.int32,
+                                             device=dev)),
+                ("runs_of_1_2^20", torch.arange(n_ops, dtype=torch.int32,
+                                                device=dev))):
+            yield kind, (n_ops, n_ops), sa, sb, slot, int(slot.max()) + 1
+        st = smoke.product_stream("random", PRODUCT_TILE, rng, n_ops)
+        sa, sb, slot = (torch.from_numpy(x).to(dev) for x in st)
+        yield "random_runs", (n_ops, n_ops), sa, sb, slot, \
+            int(st[2].max()) + 1
+        flops = smoke.arrow_gram_flops()
+        if flops <= smoke.ARROW_GRAM_MAX_FLOPS:
+            pp, Bt, B = smoke.arrow_gram(dev, rng)
+            yield "arrow_gram", (Bt.nzmax, B.nzmax), pp.sa, pp.sb, \
+                pp.pattern.slot, pp.nzmax
+
+    for name, (na, nb), sa, sb, slot, n in streams():
+        L = slot.numel()
+        st, nz = (sa, sb, slot), dict(num_segments=n)
+        va, vb = (torch.from_numpy(rng.standard_normal(k).astype(
+            np.float32)).to(dev) for k in (na, nb))
+        vai, vbi = (torch.from_numpy(rng.integers(-8, 9, k).astype(
+            np.float32)).to(dev) for k in (na, nb))
+        want = gather2_segment_sum_ref(vai, vbi, *st, **nz)
+        variants = {
+            "B6_ms": lambda a, b: ss.gather2_segment_sum(a, b, *st, **nz),
+            **{f"B6_{v}_ms": (lambda a, b, i=i: smoke.product_probe(
+                i, a, b, *st, n)) for v, i in smoke.PRODUCT_VARIANTS.items()},
+        }
+        for key, fn in variants.items():
+            smoke.require(torch.equal(fn(vai, vbi), want),
+                          f"{key} differs on integer-valued data, {name}")
+        timed = {k: (lambda f=f: f(va, vb)) for k, f in variants.items()}
+        for v, tag in ((1, "K8"), (2, "K4"), (3, "K12")):
+            timed[f"gather2_floor_{tag}_ms"] = \
+                lambda v=v: smoke.gather2_floor(va, vb, *st, n, v)
+        slot_l = slot.long()
+        timed["index_add_ms"] = lambda: torch.zeros(n, device=dev) \
+            .index_add_(0, slot_l, va[sa] * vb[sb])
+        reps = {k: 3 if k == "B6_replaced_ms" and name.startswith(
+            ("one", "arrow")) else smoke.REPS for k in timed}
+        reached = [int(torch.unique(i).numel()) for i in (sa, sb)]
+        row = {"stream": name, "L": L, "num_segments": n,
+               "longest_run": int(torch.bincount(
+                   slot[(slot >= 0) & (slot < n)].long()).max()),
+               "reached": reached}
+        row["bound_ms"], _ = smoke.bound_ms(
+            12 * L + 4 * sum(reached) + 4 * n, 2 * L)
+        order = list(timed)
+        for turn, keys in (("fwd", order), ("bwd", order[::-1])):
+            for k in keys:
+                row.setdefault(k, {})[turn] = smoke.device_ms(
+                    timed[k], cpm, reps=reps[k])
+        print(json.dumps(row), flush=True)
+        del sa, sb, slot, slot_l, va, vb, vai, vbi, want, st
         torch.cuda.empty_cache()
 
 
@@ -428,7 +529,7 @@ def sym_sweep(cpm, dev) -> None:
             print(json.dumps(row), flush=True)
 
 
-SECTIONS = ("queue_d", "segment", "merge_sym")
+SECTIONS = ("queue_d", "segment", "merge_sym", "product")
 
 
 def main(sections) -> None:
@@ -445,7 +546,8 @@ def main(sections) -> None:
                         "radix_sort"],
             "segment": ["segment_sum", "segment_sum_probe", "radix_sort"],
             "merge_sym": ["merge", "merge_probe", "spmv_sym",
-                          "spmv_sym_probe", "radix_sort", "segment_sum"]}
+                          "spmv_sym_probe", "radix_sort", "segment_sum"],
+            "product": ["segment_sum", "segment_sum_probe", "radix_sort"]}
     logs = common.build(sorted({n for s in sections for n in libs[s]}))
     for lib, log in logs.items():
         for line in log.splitlines():
@@ -460,6 +562,8 @@ def main(sections) -> None:
         segment_times(cpm, dev)
     if "merge_sym" in sections:
         merge_sym_times(cpm, dev)
+    if "product" in sections:
+        product_times(cpm, dev)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,9 @@
 //     vector out of the L2), then issues its K gathers of vals before it
 //     uses any, so K random loads are in flight a thread.  The slots and
 //     the gathered values (the identity at a dropped slot) go to shared
-//     memory, padded as in B5.
+//     memory, padded as in B5.  What a position's term is comes from the
+//     kernel's value source (Gather here, Gather2 for B6); steps 2-4 do
+//     not depend on it.
 //  2. Reduce inside the tile: each thread folds K consecutive positions
 //     run by run (a run is a maximal stretch of equal slots).  The
 //     thread descriptors (has a run start; the partial of the run open
@@ -114,20 +116,30 @@
 // (repro/kernels/segment_sum/ops.py:gather2_segment_sum_sorted): out[s] is the
 // sum of va[sa[j]] * vb[sb[j]] over the sorted product-stream positions j with
 // slot[j] == s, for every s < nzmax.  The TPU kernel keeps both operand vectors
-// resident in VMEM and carries a running prefix sum across in-order grid steps;
-// here one thread a sorted position, and the thread at the start of a kept run
-// walks it and writes the total once (no carry, no atomics, deterministic
-// order, no float32 running total past 2^24; a long run serialises on its
-// thread, as B3' and B4 did before their single-pass design).  Each product is
-// rounded before the add (no FMA contraction), as the plain version rounds
-// it.  Bound: bytes, sa, sb and slot once (12F B), each operand value the
-// streams reach once (4 |sa| + 4 |sb| B for the distinct sa and sb, gathered in
-// 32 B sectors from L2 or HBM; an operand's padded tail is never read) and
-// nzmax totals (4 nzmax B): 12F + 4 |sa| + 4 |sb| + 4 nzmax B in all; one
-// multiply and one add per product.  Contract: every kept slot is one run of
-// adjacent positions; a product plan's streams meet it for nzmax equal to the
-// plan's (its compaction gives dropped products slot == nzmax, whose runs are
-// not adjacent, and nothing ever writes out[nzmax]).
+// resident in VMEM and carries a running prefix sum across in-order grid
+// steps; here it is B3''s kernel with another value source (Gather2): three
+// index streams read striped (16 B __ldcs vectors where slot, sa, sb and the
+// tile start are aligned), all 2K gathers of a thread issued before any is
+// used, each product rounded before it is added (no FMA contraction, as the
+// plain version rounds it), and the same reduction, carry and striped write.
+// A dropped slot contributes 0 and launches no gather.  Its tile depth and
+// register bound (kSum2Per, kSum2MinBlocks) are B6's own, set by the timed
+// sweep of segment_sum_probe.cu.  Bound: bytes, sa, sb and slot once (12F B),
+// each operand value the streams reach once (4 |sa| + 4 |sb| B for the
+// distinct sa and sb, gathered in 32 B sectors from L2 or HBM; an operand's
+// padded tail is never read) and nzmax totals (4 nzmax B): 12F + 4 |sa| + 4
+// |sb| + 4 nzmax B in all; one multiply and one add per product.  No design
+// that gathers both operands beats the two-gather floor of the probe (B6's
+// loads and products with the reduction removed).  Order of additions: as
+// B3''s, on the rounded products, so each total is within (K + 12) u
+// sum|terms| of the exact sum of the rounded products; and since a run of r
+// terms meets r - 1 additions (a tree of r leaves has r - 1 inner nodes, the
+// rest add the identity) and one rounding of the carried total, within r u
+// sum|terms| as well.  On integer-valued data below 2^24 (2^53 in float64)
+// the totals are exact.  Contract: every kept slot is one run of adjacent
+// positions; a product plan's streams meet it for nzmax equal to the plan's
+// (its compaction gives dropped products slot == nzmax, whose runs are not
+// adjacent, and nothing ever writes out[nzmax]).
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -153,24 +165,6 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
 }
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gather2_segment_sum_kernel(const T* __restrict__ va, const T* __restrict__ vb,
-                           const int32_t* __restrict__ sa,
-                           const int32_t* __restrict__ sb,
-                           const int32_t* __restrict__ slot,
-                           T* __restrict__ out, long long L, long long nzmax) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= L) return;
-  const int s = __ldg(slot + i);
-  if (s < 0 || s >= nzmax) return;              // padding / dropped
-  if (i > 0 && __ldg(slot + i - 1) == s) return;  // not a run start
-  T acc = T(0);
-  for (long long j = i; j < L && __ldg(slot + j) == s; ++j)
-    acc += mul_rn(__ldg(va + __ldg(sa + j)), __ldg(vb + __ldg(sb + j)));
-  out[s] = acc;
 }
 
 // NaN-propagating selections: a NaN on either side wins.
@@ -202,7 +196,7 @@ struct MinMaxOp {
   static __device__ T value(Acc a) { return C::lead(a); }
 };
 
-// -- B3', B4 -------------------------------------------------------------------
+// -- B3', B4, B6 ---------------------------------------------------------------
 // positions a thread reduces; the tile is kThreads x kSegPer
 constexpr int kSegPer = 8;
 // resident tiles an SM should hold: 5 caps float32 at 48 registers (the
@@ -210,6 +204,51 @@ constexpr int kSegPer = 8;
 // matrix runs 7% slower; 6 tiles spill), 4 caps float64 at 64
 template <typename T>
 constexpr int kSegMinBlocks = sizeof(T) == 4 ? 5 : 4;
+// B6's, from the probe's sweep on an H100 (K = 4, 8, 12; 1-8 tiles an
+// SM; float32): K = 8 at 5 tiles an SM (48 registers, 12 bytes of spill
+// loads) is within 2% of the fastest on both products of the Galerkin
+// operator (K = 12 at 4 tiles) and the fastest on the arrow matrix's
+// B' B and one long run, where K = 12 loses 2%; on runs of 1..10^4 it
+// is 4-6% behind K = 8 at 4 tiles and 6-8% ahead of K = 12; the
+// compiler takes 78 registers unbounded (3 tiles an SM), 20% slower.
+// float64 at 3 tiles an SM (80 registers; not swept).
+constexpr int kSum2Per = 8;
+template <typename T>
+constexpr int kSum2MinBlocks = sizeof(T) == 4 ? 5 : 3;
+
+// The value sources of the fill kernels.  A source names its kIdx index
+// streams (read striped as slot is), fetches a position's operands into
+// registers and makes its term from them once every gather of the thread
+// is in flight.  Gather: vals[perm[j]] (B3', B4).  Gather2: va[sa[j]] *
+// vb[sb[j]], rounded (B6).
+template <typename T>
+struct Gather {
+  static constexpr int kIdx = 1;
+  const T* vals;
+  const int32_t* perm;
+  __host__ uintptr_t bits() const { return (uintptr_t)perm; }
+  __device__ const int32_t* idx(int) const { return perm; }
+  __device__ void fetch(const int32_t (&p)[1], T (&r)[1]) const {
+    r[0] = __ldg(vals + p[0]);
+  }
+  static __device__ T term(const T (&r)[1]) { return r[0]; }
+};
+
+template <typename T>
+struct Gather2 {
+  static constexpr int kIdx = 2;
+  const T* va;
+  const T* vb;
+  const int32_t* sa;
+  const int32_t* sb;
+  __host__ uintptr_t bits() const { return (uintptr_t)sa | (uintptr_t)sb; }
+  __device__ const int32_t* idx(int n) const { return n ? sb : sa; }
+  __device__ void fetch(const int32_t (&p)[2], T (&r)[2]) const {
+    r[0] = __ldg(va + p[0]);
+    r[1] = __ldg(vb + p[1]);
+  }
+  static __device__ T term(const T (&r)[2]) { return mul_rn(r[0], r[1]); }
+};
 
 // Loads of the one-touch index streams: streaming (evict first), or
 // through the read-only cache (a variant the timing probe compares).
@@ -231,60 +270,66 @@ __device__ __forceinline__ int seg_at(int i) {
               : i * kThreads + (int)threadIdx.x;
 }
 
-// Step 1: the tile's slots and their gathered values (the identity at a
-// dropped slot, and slot -1 past L) into shared memory, striped.
-template <typename T, typename Op, int K, typename Ld, bool kVec>
-__device__ __forceinline__ void seg_load(const T* __restrict__ vals,
-                                         const int32_t* __restrict__ perm,
+// Step 1: the tile's slots and their terms (the identity at a dropped
+// slot, and slot -1 past L) into shared memory, striped.
+template <typename T, typename Op, int K, typename Ld, bool kVec,
+          typename Src>
+__device__ __forceinline__ void seg_load(const Src& src,
                                          const int32_t* __restrict__ slot,
                                          long long t0, long long L,
                                          long long nzmax, int32_t* ss,
                                          T* vv) {
-  int32_t s[K], p[K];
+  constexpr int N = Src::kIdx;
+  int32_t s[K], p[K][N];
   if (kVec) {
     const int4* sv = reinterpret_cast<const int4*>(slot + t0);
-    const int4* pv = reinterpret_cast<const int4*>(perm + t0);
 #pragma unroll
     for (int q = 0; q < K / 4; ++q) {
       const int4 a = Ld::four(sv + q * kThreads + threadIdx.x);
-      const int4 b = Ld::four(pv + q * kThreads + threadIdx.x);
       s[4 * q] = a.x;
       s[4 * q + 1] = a.y;
       s[4 * q + 2] = a.z;
       s[4 * q + 3] = a.w;
-      p[4 * q] = b.x;
-      p[4 * q + 1] = b.y;
-      p[4 * q + 2] = b.z;
-      p[4 * q + 3] = b.w;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const int4 b = Ld::four(reinterpret_cast<const int4*>(src.idx(n) +
+                                                              t0) +
+                                q * kThreads + threadIdx.x);
+        p[4 * q][n] = b.x;
+        p[4 * q + 1][n] = b.y;
+        p[4 * q + 2][n] = b.z;
+        p[4 * q + 3][n] = b.w;
+      }
     }
   } else {
 #pragma unroll
     for (int i = 0; i < K; ++i) {
       const long long pos = t0 + seg_at<false>(i);
       s[i] = pos < L ? Ld::one(slot + pos) : -1;
-      p[i] = pos < L ? Ld::one(perm + pos) : 0;
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        p[i][n] = pos < L ? Ld::one(src.idx(n) + pos) : 0;
     }
   }
-  T x[K];
+  T r[K][N];
 #pragma unroll
-  for (int i = 0; i < K; ++i)  // all K gathers before any use
-    x[i] = (s[i] >= 0 && s[i] < nzmax) ? __ldg(vals + p[i]) : Op::identity();
+  for (int i = 0; i < K; ++i)  // all K N gathers before any use
+    if (s[i] >= 0 && s[i] < nzmax) src.fetch(p[i], r[i]);
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     const int j = seg_at<kVec>(i);
     ss[pad<int32_t>(j)] = s[i];
-    vv[pad<T>(j)] = x[i];
+    vv[pad<T>(j)] =
+        (s[i] >= 0 && s[i] < nzmax) ? Src::term(r[i]) : Op::identity();
   }
 }
 
 template <typename T, typename Op, int K, typename Ld, int kMinBlocks,
-          typename Desc>
+          typename Src, typename Desc>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-segment_reduce_kernel(const T* __restrict__ vals,
-                      const int32_t* __restrict__ perm,
-                      const int32_t* __restrict__ slot, T* __restrict__ out,
-                      long long L, long long nzmax, int* __restrict__ ticket,
-                      Desc desc, int vec) {
+segment_reduce_kernel(Src src, const int32_t* __restrict__ slot,
+                      T* __restrict__ out, long long L, long long nzmax,
+                      int* __restrict__ ticket, Desc desc, int vec) {
   constexpr int kTile = kThreads * K;
   using Acc = typename Op::Acc;
   __shared__ int32_t ss[kTile + kTile / 32];
@@ -305,9 +350,9 @@ segment_reduce_kernel(const T* __restrict__ vals,
   if (t == kThreads - 1)
     next_s = t0 + kTile < L ? Ld::one(slot + t0 + kTile) : -1;
   if (vec && t0 + kTile <= L)
-    seg_load<T, Op, K, Ld, true>(vals, perm, slot, t0, L, nzmax, ss, vv);
+    seg_load<T, Op, K, Ld, true>(src, slot, t0, L, nzmax, ss, vv);
   else
-    seg_load<T, Op, K, Ld, false>(vals, perm, slot, t0, L, nzmax, ss, vv);
+    seg_load<T, Op, K, Ld, false>(src, slot, t0, L, nzmax, ss, vv);
   __syncthreads();
 
   // -- 2. reduce inside the tile -------------------------------------------
@@ -536,34 +581,43 @@ scan_lookback_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-template <typename T>
-int launch_sum2(const void* va, const void* vb, const void* sa,
-                const void* sb, const void* slot, void* out, long long L,
-                long long nzmax, void* stream) {
-  const long long blocks = (L + kThreads - 1) / kThreads;
-  gather2_segment_sum_kernel<T><<<(unsigned)blocks, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      (const T*)va, (const T*)vb, (const int32_t*)sa, (const int32_t*)sb,
-      (const int32_t*)slot, (T*)out, L, nzmax);
-  return (int)cudaGetLastError();
-}
-
 // scratch: 1 + 2 ntiles (float32) or 1 + 4 ntiles (float64) zeroed
 // 64-bit words, ntiles = ceil(L / (kThreads * K)): the tile ticket, then
 // the descriptors
+template <typename T, typename Op, int K, typename Ld, int kMinBlocks,
+          typename Src>
+int launch_reduce(const Src& src, const void* slot, void* out, void* scratch,
+                  long long L, long long nzmax, void* stream) {
+  const long long ntiles = (L + kThreads * K - 1) / (kThreads * K);
+  unsigned long long* w = (unsigned long long*)scratch;
+  const int vec = ((src.bits() | (uintptr_t)slot) & 15) == 0;
+  segment_reduce_kernel<T, Op, K, Ld, kMinBlocks>
+      <<<(unsigned)ntiles, kThreads, 0, (cudaStream_t)stream>>>(
+          src, (const int32_t*)slot, (T*)out, L, nzmax, (int*)w,
+          DescOf<T>::at(w, ntiles), vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename Op, int K = kSegPer, typename Ld = LdStream,
           int kMinBlocks = kSegMinBlocks<T>>
 int launch_segment(const void* vals, const void* perm, const void* slot,
                    void* out, void* scratch, long long L, long long nzmax,
                    void* stream) {
-  const long long ntiles = (L + kThreads * K - 1) / (kThreads * K);
-  unsigned long long* w = (unsigned long long*)scratch;
-  const int vec = (((uintptr_t)perm | (uintptr_t)slot) & 15) == 0;
-  segment_reduce_kernel<T, Op, K, Ld, kMinBlocks>
-      <<<(unsigned)ntiles, kThreads, 0, (cudaStream_t)stream>>>(
-          (const T*)vals, (const int32_t*)perm, (const int32_t*)slot, (T*)out,
-          L, nzmax, (int*)w, DescOf<T>::at(w, ntiles), vec);
-  return (int)cudaGetLastError();
+  return launch_reduce<T, Op, K, Ld, kMinBlocks>(
+      Gather<T>{(const T*)vals, (const int32_t*)perm}, slot, out, scratch, L,
+      nzmax, stream);
+}
+
+// scratch as launch_reduce's, at B6's tile
+template <typename T, int K = kSum2Per, typename Ld = LdStream,
+          int kMinBlocks = kSum2MinBlocks<T>>
+int launch_sum2(const void* va, const void* vb, const void* sa,
+                const void* sb, const void* slot, void* out, void* scratch,
+                long long L, long long nzmax, void* stream) {
+  return launch_reduce<T, SumOp<T>, K, Ld, kMinBlocks>(
+      Gather2<T>{(const T*)va, (const T*)vb, (const int32_t*)sa,
+                 (const int32_t*)sb},
+      slot, out, scratch, L, nzmax, stream);
 }
 
 template <typename T>
@@ -612,14 +666,18 @@ extern "C" int gather_segment_sum_f64_launch(const void* vals,
 
 extern "C" int gather2_segment_sum_f32_launch(
     const void* va, const void* vb, const void* sa, const void* sb,
-    const void* slot, void* out, long long L, long long nzmax, void* stream) {
-  return launch_sum2<float>(va, vb, sa, sb, slot, out, L, nzmax, stream);
+    const void* slot, void* out, void* scratch, long long L, long long nzmax,
+    void* stream) {
+  return launch_sum2<float>(va, vb, sa, sb, slot, out, scratch, L, nzmax,
+                            stream);
 }
 
 extern "C" int gather2_segment_sum_f64_launch(
     const void* va, const void* vb, const void* sa, const void* sb,
-    const void* slot, void* out, long long L, long long nzmax, void* stream) {
-  return launch_sum2<double>(va, vb, sa, sb, slot, out, L, nzmax, stream);
+    const void* slot, void* out, void* scratch, long long L, long long nzmax,
+    void* stream) {
+  return launch_sum2<double>(va, vb, sa, sb, slot, out, scratch, L, nzmax,
+                             stream);
 }
 
 extern "C" int gather_segment_minmax_f32_launch(
@@ -652,3 +710,4 @@ static_assert(ScanShape<float>::kTile == ScanShape<double>::kTile,
               "one tile size for both types");
 extern "C" int scan_tile(void) { return ScanShape<float>::kTile; }
 extern "C" int segment_tile(void) { return kThreads * kSegPer; }
+extern "C" int product_tile(void) { return kThreads * kSum2Per; }

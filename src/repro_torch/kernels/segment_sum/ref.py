@@ -21,6 +21,9 @@ SCAN_TILE = 4096
 #: sorted positions per tile of B3' and B4 (256 threads x 8) -- fixed by
 #: ``csrc/segment_sum.cu``
 SEG_TILE = 2048
+#: sorted product positions per tile of B6 (256 threads x 8) -- fixed by
+#: ``csrc/segment_sum.cu``
+PRODUCT_TILE = 2048
 
 
 def cumsum_ref(x: torch.Tensor) -> torch.Tensor:
@@ -62,8 +65,12 @@ def gather2_segment_sum_ref(vals_a: torch.Tensor, vals_b: torch.Tensor,
                             num_segments: int) -> torch.Tensor:
     """B6: ``out[s] = sum(vals_a[sa[j]] * vals_b[sb[j]] for j with
     slot[j] == s)`` for every ``0 <= s < num_segments``; every other
-    slot is dropped.  Each product is rounded before it is added; on
-    the CPU the sums run in sorted-stream order, as the kernel's do."""
+    slot is dropped.  Each product is rounded before it is added, as the
+    kernel rounds it.  On the CPU ``index_add_`` adds in sorted-stream
+    order; the kernel adds each run in its tiles' order (B3''s), so the
+    two agree bit for bit where every sum is exact (integer-valued data
+    below 2^24, 2^53 in float64) and within r eps sum|terms| for a run of
+    r terms elsewhere."""
     keep = (slot >= 0) & (slot < num_segments)
     out = torch.zeros(num_segments + 1, dtype=vals_a.dtype,
                       device=vals_a.device)

@@ -22,7 +22,8 @@ look-back.
 ``gather2_segment_sum`` (B6) is the counterpart of
 ``gather2_masked_cumsum`` with its ``_segment_totals`` epilogue: the
 SpGEMM numeric phase, per-segment sums of ``vals_a[sa] * vals_b[sb]``
-over a product plan's sorted slot stream, summed directly as B3' sums.
+over a product plan's sorted slot stream, on B3''s kernel with two
+gathers a position (tiles of ``PRODUCT_TILE`` positions).
 
 Each wrapper takes its plain version (:mod:`.ref`) for a CPU tensor and
 launches its kernel for a CUDA tensor; ``.launches`` counts kernel
@@ -36,7 +37,7 @@ import torch
 
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
-from .ref import (SCAN_TILE, SEG_TILE, blocked_cumsum_ref,
+from .ref import (PRODUCT_TILE, SCAN_TILE, SEG_TILE, blocked_cumsum_ref,
                   gather2_segment_sum_ref, gather_segment_minmax_ref,
                   gather_segment_sum_ref)
 
@@ -49,7 +50,8 @@ def _fns() -> dict:
     if not _FNS:
         lib = load_library("segment_sum")
         for fn, want in (("scan_tile", SCAN_TILE),
-                         ("segment_tile", SEG_TILE)):
+                         ("segment_tile", SEG_TILE),
+                         ("product_tile", PRODUCT_TILE)):
             bind(lib, fn, [])
             if getattr(lib, fn)() != want:
                 raise RuntimeError(f"csrc/segment_sum.cu: {fn}() differs "
@@ -64,7 +66,7 @@ def _fns() -> dict:
                                          [_P, _P, _P, _LL, _P])
             _FNS["sum2", dtype] = bind(
                 lib, f"gather2_segment_sum_{sfx}_launch",
-                [_P, _P, _P, _P, _P, _P, _LL, _LL, _P])
+                [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _P])
     return _FNS
 
 
@@ -106,10 +108,13 @@ def _scratch_words(L: int, tile: int, dtype: torch.dtype) -> int:
     return 1 + cdiv(L, tile) * (2 if dtype == torch.float32 else 4)
 
 
-def _zeros_and_scratch(n: int, dtype: torch.dtype, L: int, device):
-    """A zeroed output of ``n`` values and B3''s/B4's zeroed scratch,
-    cut from one allocation so that a call zeroes memory once."""
-    words = _scratch_words(L, SEG_TILE, dtype)
+def _zeros_and_scratch(n: int, dtype: torch.dtype, L: int, device,
+                       tile: int = SEG_TILE):
+    """A zeroed output of ``n`` values and a fill kernel's zeroed scratch
+    for tiles of ``tile`` positions (B3''s and B4's by default, B6's
+    ``PRODUCT_TILE``), cut from one allocation so that a call zeroes
+    memory once."""
+    words = _scratch_words(L, tile, dtype)
     size = torch.empty((), dtype=dtype).element_size()
     buf = torch.zeros(words + cdiv(n * size, 8), dtype=torch.int64,
                       device=device)
@@ -183,7 +188,8 @@ def gather2_segment_sum(vals_a: torch.Tensor, vals_b: torch.Tensor,
     kernel reads ``vals_a[sa[k]]`` and ``vals_b[sb[k]]`` unchecked: the
     caller checks the operand lengths against the plan's capacities.
     Same run contract as :func:`gather_segment_sum` (``num_segments <=``
-    the plan's ``nzmax``).
+    the plan's ``nzmax``).  One launch; deterministic, each product
+    rounded before it is added.
     """
     if vals_a.device.type == "cpu":
         return gather2_segment_sum_ref(vals_a, vals_b, sa, sb, slot,
@@ -197,11 +203,11 @@ def gather2_segment_sum(vals_a: torch.Tensor, vals_b: torch.Tensor,
     if sb.shape != sa.shape:
         raise ValueError(f"sb has shape {tuple(sb.shape)}, expected "
                          f"{tuple(sa.shape)}")
-    out = torch.zeros(num_segments, dtype=vals_a.dtype,
-                      device=vals_a.device)
+    out, scratch = _zeros_and_scratch(num_segments, vals_a.dtype, L,
+                                      vals_a.device, PRODUCT_TILE)
     check_launch(_fns()["sum2", vals_a.dtype](
         vals_a.data_ptr(), vals_b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-        slot.data_ptr(), out.data_ptr(), L, num_segments,
+        slot.data_ptr(), out.data_ptr(), scratch.data_ptr(), L, num_segments,
         current_stream(vals_a.device)), "gather2_segment_sum")
     gather2_segment_sum.launches += 1
     return out

@@ -1209,3 +1209,96 @@ def test_sym_streams_kernel_on_streams_that_cross_tiles(kind, dtype, shape):
     assert torch.equal(sym.sym_streams(rows, d, indptr, x, **kw)[1], ct)
     eps = torch.finfo(dtype).eps
     assert smoke.sym_err_over_eps(ct, rows, d, indptr, x, eps) <= smoke.C_SEG
+
+
+# ---------------------------------------------------------------------------
+# B6 (B3''s single-pass segmented reduction with two gathers) on the product
+# streams that break a tile design (chip_smoke.product_stream: one run of
+# 2^20, runs of random length 1..10^4, a run that starts at a tile's last
+# position, a tile of only dropped slots, the random stream on views that
+# start 4 bytes into their storage) and on B' B of the arrow matrix (a run
+# of 2^16 products: its dense column's dot product with itself).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stream", ["one_run", "random", "tile_edge",
+                                    "dropped_tile", "unaligned",
+                                    "arrow_gram"])
+def test_product_fill_kernel_on_runs_that_cross_tiles(stream, dtype):
+    """Bit for bit against the plain version on integer-valued data, with
+    and without a NaN; bit for bit from call to call on random data and
+    there within C_SEG = 16 eps of each slot's sum|terms| of the exact
+    sum of its rounded products (the first-order bound is (K + 12) eps /
+    2: csrc/segment_sum.cu); one launch a call."""
+    from repro_torch.kernels.segment_sum.ref import (PRODUCT_TILE,
+                                                     gather2_segment_sum_ref)
+
+    dev = _cuda()
+    smoke = _smoke()
+    rng = np.random.default_rng(90)
+    if stream == "arrow_gram":
+        pp, Bt, B = smoke.arrow_gram(dev, rng, dense=1 << 16)
+        sa, sb, slot = pp.sa, pp.sb, pp.pattern.slot
+        na, nb, n = Bt.nzmax, B.nzmax, pp.nzmax
+    else:
+        na = nb = 1 << 20
+        st = smoke.product_stream("random" if stream == "unaligned"
+                                  else stream, PRODUCT_TILE, rng, na)
+        sa, sb, slot = (torch.from_numpy(x).to(dev) for x in st)
+        if stream == "unaligned":
+            sa, sb, slot = _unaligned(sa), _unaligned(sb), _unaligned(slot)
+        n = int(st[2][st[2] < 2**30].max()) + 1
+    kw = dict(num_segments=n)
+
+    def draw(k, ints):
+        x = rng.integers(-8, 9, k) if ints else rng.standard_normal(k)
+        return torch.from_numpy(x).to(dev, dtype)
+
+    va, vb = draw(na, True), draw(nb, True)
+    before = ss.gather2_segment_sum.launches
+    got = ss.gather2_segment_sum(va, vb, sa, sb, slot, **kw)
+    assert ss.gather2_segment_sum.launches == before + 1
+    assert torch.equal(got, gather2_segment_sum_ref(va, vb, sa, sb, slot,
+                                                    **kw))
+    kept = torch.nonzero((slot >= 0) & (slot < n)).flatten()
+    va[int(sa[kept[kept.numel() // 2]])] = float("nan")
+    got = ss.gather2_segment_sum(va, vb, sa, sb, slot, **kw)
+    assert bool(torch.isnan(got).any())
+    assert _same(got, gather2_segment_sum_ref(va, vb, sa, sb, slot, **kw))
+    va, vb = draw(na, False), draw(nb, False)
+    got = ss.gather2_segment_sum(va, vb, sa, sb, slot, **kw)
+    assert torch.equal(ss.gather2_segment_sum(va, vb, sa, sb, slot, **kw),
+                       got)
+    eps = torch.finfo(dtype).eps
+    assert smoke.product_err_over_eps(got, va, vb, sa, sb, slot,
+                                      eps) <= smoke.C_SEG
+
+
+@pytest.mark.parametrize("variant", ["replaced", "shipped", "K4", "K4_min8",
+                                     "K8", "K8_min5", "K8_min4", "K12",
+                                     "K12_min4", "K12_min3", "ldg",
+                                     "K8_min6", "K12_min5"])
+def test_product_probe_variants_match_plain_version(variant):
+    """Each of B6's timing variants (csrc/segment_sum_probe.cu), and the
+    two-gather floor's products, bit for bit on integer-valued data
+    against the plain version, on runs of random length."""
+    from repro_torch.kernels.segment_sum.ref import (PRODUCT_TILE,
+                                                     gather2_segment_sum_ref)
+
+    dev = _cuda()
+    smoke = _smoke()
+    assert set(smoke.PRODUCT_VARIANTS) == {
+        "replaced", "shipped", "K4", "K4_min8", "K8", "K8_min5", "K8_min4",
+        "K12", "K12_min4", "K12_min3", "ldg", "K8_min6", "K12_min5"}
+    rng = np.random.default_rng(91)
+    st = smoke.product_stream("random", PRODUCT_TILE, rng, 1 << 16)
+    sa, sb, slot = (torch.from_numpy(x).to(dev) for x in st)
+    n = int(st[2].max()) + 1
+    va, vb = (torch.from_numpy(rng.integers(-8, 9, 1 << 16)).to(
+        dev, torch.float32) for _ in range(2))
+    want = gather2_segment_sum_ref(va, vb, sa, sb, slot, num_segments=n)
+    got = smoke.product_probe(smoke.PRODUCT_VARIANTS[variant], va, vb, sa,
+                              sb, slot, n)
+    assert torch.equal(got, want)
+    for v in (1, 2, 3):
+        assert torch.equal(smoke.gather2_floor(va, vb, sa, sb, slot, n, v),
+                           va[sa.long()] * vb[sb.long()])
