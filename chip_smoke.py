@@ -108,6 +108,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (``complex_checks``): fills, SpMVs and a refill on the card, where
    the float kernels take them one real part at a time, against the
    CPU's plain versions, each part within the kernel's tolerance.
+4e. the policy and analysis layers (``repro_torch.sparse.tuning`` and
+   ``.analysis``): every family resolves to its priors on ``cuda`` and
+   each build-time prior equals what its library exports; the resource
+   report (registers, spills, shared bytes and blocks an SM of every
+   kernel instance, read from each library) against its declared
+   columns, and ``--prior-only`` consuming every row of it; the
+   ``--measure`` sweep in-process (set 1 at 2.5e6 for the sorts and B7,
+   the 5e7 set for ``plan``, phase 4c's FEM SymCSC for B9, whose
+   cut-offs it straddles; device ms per candidate, one candidate per
+   distinct call-site decision, each candidate's output held against
+   the prior's: bit for bit, B9 within 16 eps; no plain method is a
+   candidate on the card), its table saved and loaded through
+   ``REPRO_TUNING_CACHE_DIR`` in a child process
+   (``--loaded-table-check``) that checks each recorded entry steers its
+   call site to the sweep's winner and runs ``fsparse`` on sets 1-3 bit
+   for bit against the oracle; the host cost of one
+   memoised ``resolve_policy`` and the plan and fill call ms at sets
+   1-3 beside those before the policy layer;
+   ``validate_pattern``/``validate_matrix`` on the plans and formats of
+   phases 4-4d, a ``SymPattern``, and one ``update`` under
+   ``REPRO_VALIDATE=1``; ``audit_default_paths`` on CUDA tensors.  All twelve counters are set to 0 before the sweep and
+   must be above 0 after the audit; the phase must end within 90 s.
+   The rest of the run resolves from the priors again.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -2176,6 +2199,303 @@ def update_times(sets, fem, ctx, cpm, dev):
     return rows_k["update_right"], t
 
 
+#: phase 4e: the plan and fill call ms on sets 1-3 before the policy
+#: layer (NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5), printed
+#: beside this run's
+CALL_MS_BEFORE = {"1": (0.9400, 0.1146), "2": (1.097, 0.09291),
+                 "3": (1.437, 0.1076)}
+#: phase 4e's time limit, in seconds
+PHASE_4E_LIMIT_S = 90
+#: host calls timed for one memoised resolve_policy
+RESOLVE_CALLS = 100_000
+
+
+def priors_match_builds() -> dict:
+    """Phase 4e: every family resolved on ``cuda`` (an empty table: the
+    priors) and each build-time prior against what its library exports."""
+    from repro_torch.kernels.common import bind, load_library
+    from repro_torch.sparse import tuning
+
+    def export(lib: str, fn: str) -> int:
+        return int(bind(load_library(lib), fn, [])())
+
+    for fam in tuning.registered_families():
+        require(tuning.resolve_policy(fam, backend="cuda")
+                == tuning.prior_policy(fam, "cuda"),
+                f"{fam} does not resolve to its priors on cuda")
+    rk, sk, mk, ck, yk = (tuning.build_knobs(f) for f in (
+        "radix_sort", "segment_sum", "merge", "counting_sort", "spmv_sym"))
+    pairs = {
+        "radix_sort.tile": (rk["tile"], export("radix_sort", "radix_tile")),
+        "radix_sort.kernel_max_bits": (1 << rk["kernel_max_bits"], export(
+            "radix_sort", "radix_max_bins")),
+        "segment_sum.seg_per": (sk["threads"] * sk["seg_per"], export(
+            "segment_sum", "segment_tile")),
+        "segment_sum.sum2_per": (sk["threads"] * sk["sum2_per"], export(
+            "segment_sum", "product_tile")),
+        "segment_sum.scan_per": (sk["threads"] * sk["scan_per"], export(
+            "segment_sum", "scan_tile")),
+        "merge.block_q": (mk["block_q"], export("merge",
+                                                "merge_block_queries")),
+        "merge.splitters": (mk["splitters"], export("merge",
+                                                    "merge_splitters")),
+        "counting_sort.place_tile": (ck["place_tile"], export(
+            "counting_sort", "placement_tile")),
+        "spmv.block_r": (tuning.build_knobs("spmv")["block_r"], export(
+            "spmv", "spmv_block_rows")),
+        "spmv_sym.sym_per": (yk["threads"] * yk["sym_per"], export(
+            "spmv_sym", "sym_tile")),
+    }
+    for k, (want, got) in pairs.items():
+        require(want == got, f"build-time prior {k}: the registry gives "
+                f"{want}, the library {got}")
+    return {k: got for k, (_, got) in pairs.items()}
+
+
+def loaded_table_check(fingerprint: str, n_entries: int,
+                       reach: str) -> None:
+    """Phase 4e's child process: the table of the sweep, loaded through
+    ``REPRO_TUNING_CACHE_DIR``, steers each recorded family's call site
+    to the sweep's winner (``reach``: a JSON list of the recorded
+    families' dataset sizes and winning decisions) and ``fsparse`` on
+    sets 1-3, each bit for bit against the oracle."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.sparse import fsparse, tuning
+    from repro_torch.sparse.analysis import validate_tuning_table
+    from repro_torch.sparse.tuning.measure import decision
+
+    table = tuning.get_table()
+    require(tuning.default_cache_path() is not None
+            and table.fingerprint() == fingerprint
+            and len(table) == n_entries,
+            f"the loaded table ({len(table)} entries, "
+            f"{table.fingerprint()}) is not the sweep's ({n_entries}, "
+            f"{fingerprint})")
+    validate_tuning_table(table)
+    won = json.loads(Path(reach).read_text())
+    require(len(won) == n_entries, f"{len(won)} winners for {n_entries} "
+            "entries")
+    for w in won:
+        got = decision(w["family"], w["dims"], None, "cuda")
+        require(got == w["decision"], f"the loaded {w['family']} entry "
+                f"steers its call site to {got}, not the sweep's "
+                f"{w['decision']}")
+    out = {"loaded_table": fingerprint, "entries": n_entries,
+           "call_sites_reached": [f"{w['family']}: {w['decision']}"
+                                  for w in won], "sets": {}}
+    for k, cfg in DATA_SETS.items():
+        ii, jj, ss, siz = ransparse(cfg["siz"], cfg["nnz_row"], cfg["nrep"],
+                                    seed=SEED)
+        S = fsparse(ii, jj, ss, (siz, siz))
+        pr, ir, jc = matlab_sparse_oracle(ii - 1, jj - 1, ss, siz, siz)
+        nnz = pr.shape[0]
+        require(int(S.nnz) == nnz
+                and np.array_equal(S.indptr.cpu().numpy(), jc)
+                and np.array_equal(S.indices[:nnz].cpu().numpy(), ir)
+                and np.array_equal(S.data[:nnz].cpu().numpy(),
+                                   pr.astype(np.float32)),
+                f"fsparse under the loaded table differs from the oracle, "
+                f"set {k}")
+        pol = {f: tuning.resolve_policy(f, backend="cuda", M=siz, N=siz,
+                                        L=ii.shape[0])
+               for f in ("plan", "radix_sort")}
+        out["sets"][str(k)] = {
+            "plan_method": pol["plan"]["method"],
+            "radix_max_bits": pol["radix_sort"]["max_bits"],
+            "fsparse": "bit-identical to oracle"}
+    emit(out)
+
+
+def policy_phase(dev, sets, fem, kernels, refill, smi_line) -> dict:
+    """Phase 4e: the policy and analysis layers on the card (the module
+    docstring); returns the phase's launch counts."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core.coo import coo_from_matlab
+    from repro_torch.sparse import (convert, plan, plan_coo, plan_symmetric,
+                                    tuning, validate_matrix,
+                                    validate_pattern)
+    from repro_torch.sparse.analysis import (audit_default_paths,
+                                             invariants,
+                                             validate_tuning_table)
+    from repro_torch.sparse.analysis.vmem import (check_report, dump_json,
+                                                  format_table, vmem_report)
+    from repro_torch.sparse.tuning.__main__ import main as tuning_cli
+    from repro_torch.sparse.tuning.__main__ import run_measure
+    from repro_torch.sparse.tuning.measure import (MEASURABLE_FAMILIES,
+                                                   make_dataset)
+
+    t_phase = time.perf_counter()
+    require(os.environ.get("REPRO_TUNING_CACHE_DIR") is None,
+            "phase 4e runs under the priors: unset REPRO_TUNING_CACHE_DIR")
+    tuning.set_table(tuning.TuningTable())
+    row = {"phase": "4e", "card": smi_line,
+           "build_time_priors": priors_match_builds()}
+    # the resource report, measured, against its declared columns
+    report = vmem_report()
+    print(f"resource report ({smi_line}):\n{format_table(report)}",
+          flush=True)
+    bad = check_report(report)
+    require(not bad, "resource report: " + "; ".join(bad))
+    # the autotuner's prior-only mode consumes every row of it
+    with tempfile.TemporaryDirectory(prefix="repro-report-") as tmp:
+        dump_json(report, f"{tmp}/report.json")
+        require(tuning_cli(["--prior-only", "--vmem-report",
+                            f"{tmp}/report.json", "--json",
+                            f"{tmp}/table.json"]) == 0,
+                "--prior-only did not consume the resource report")
+        artifact = json.loads(Path(f"{tmp}/table.json").read_text())
+    require(artifact["consumed_vmem_rows"] == len(report)
+            and artifact["fingerprint"] == "prior",
+            f"--prior-only consumed {artifact['consumed_vmem_rows']} of "
+            f"{len(report)} rows")
+    row["resource_report"] = [
+        {k: r[k] for k in ("kernel", "name", "threads", "registers",
+                           "max_registers", "spill_bytes", "static_smem",
+                           "static_smem_measured", "dynamic_smem",
+                           "blocks_per_sm")} for r in report]
+    for f in kernels.values():
+        f.launches = 0
+    # the sweep: set 1 at 2.5e6 for every family, the 5e7 set for plan;
+    # every candidate held against the prior's output
+    t0 = time.perf_counter()
+    on_set1 = tuple(f for f in MEASURABLE_FAMILIES if f != "spmv_sym")
+    d1 = make_dataset(triplets=sets["1"], families=on_set1)
+    d5 = make_dataset(triplets=sets["2x20"], families=("plan",))
+    # B9 on the FEM SymCSC: about 3 slots a column, so the candidates of
+    # short_mean fall on both sides of its cut-off (set 1 has about 25 a
+    # column: every candidate would take the tiles)
+    rows_f, cols_f, vals_f = fem["host"]
+    dF = make_dataset(triplets=(rows_f + 1, cols_f + 1, vals_f, fem["nv"]),
+                      sym=fem["S"], families=("spmv_sym",))
+    results = run_measure(
+        datasets=[(d1, on_set1), (d5, ("plan",)), (dF, ("spmv_sym",))],
+        log=lambda s: print(f"sweep: {s}", flush=True))
+    del d1, d5, dF
+    require({r["family"] for r in results} == set(MEASURABLE_FAMILIES),
+            "the sweep missed a family")
+    require(all(len(r["candidates"]) > 1 for r in results),
+            "the sweep timed no alternative for some family")
+    table = tuning.get_table()
+    require(validate_tuning_table(table) == len(table), "the swept table "
+            "does not validate")
+    cache = tempfile.mkdtemp(prefix="repro-tuning-")
+    try:
+        table.save(Path(cache) / tuning.TABLE_FILENAME)
+        fp, n = table.fingerprint(), len(table)
+        row["sweep"] = {
+            "s": time.perf_counter() - t0, "fingerprint": fp, "entries": n,
+            "chosen": table.entries(),
+            "families": [{k: r[k] for k in ("family", "L", "prior_ms",
+                                            "best_ms", "gain", "recorded",
+                                            "key")}
+                         | {"best": {k: v for k, v in r["best"].items()
+                                     if v != r["prior"][k]},
+                            "timed": len(r["candidates"])}
+                         for r in results]}
+        reach = Path(cache) / "reach.json"
+        reach.write_text(json.dumps(
+            [{k: r[k] for k in ("family", "dims", "decision")}
+             for r in results if r["recorded"]]))
+        # the table through REPRO_TUNING_CACHE_DIR in a fresh process
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--loaded-table-check", fp, str(n), str(reach)],
+            env=dict(os.environ, REPRO_TUNING_CACHE_DIR=cache),
+            capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, "the loaded-table check failed:\n"
+                + proc.stdout[-2000:] + proc.stderr[-4000:])
+        row["loaded_table"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    tuning.reset_table()  # the rest of the run: the priors
+    require(tuning.tuning_fingerprint() == "prior", "priors not restored")
+    # hot-path cost: one memoised resolution, the plan and fill calls
+    ii, jj, _, siz = sets["1"]
+    t0 = time.perf_counter()
+    for _ in range(RESOLVE_CALLS):
+        tuning.resolve_policy("plan", backend="cuda", M=siz, N=siz,
+                              L=ii.shape[0])
+    row["resolve_policy_host_us"] = \
+        (time.perf_counter() - t0) / RESOLVE_CALLS * 1e6
+    calls = {}
+    for name in ("1", "2", "3"):
+        ii, jj, ss, siz = sets[name]
+        coo = coo_from_matlab(ii, jj, ss, (siz, siz))
+        pat = plan_coo(coo)
+        v = torch.from_numpy(refill[name]).to(dev)
+        calls[name] = {"plan_ms": call_ms(lambda: plan_coo(coo)),
+                       "fill_ms": call_ms(lambda: pat.assemble(v)),
+                       "before_policy_layer_ms": CALL_MS_BEFORE[name]}
+    row["hot_path"] = calls
+    # validators on the structures phases 4-4d built (the FEM path's
+    # plans, products and formats; the plans of sets 1 and 2x20), a
+    # SymPattern, and one update under REPRO_VALIDATE=1
+    checked = []
+    for name in ("1", "2x20"):
+        ii, jj, ss, siz = sets[name]
+        coo = coo_from_matlab(ii, jj, ss, (siz, siz))
+        pat = validate_pattern(plan_coo(coo))
+        validate_matrix(pat.assemble(coo.vals))
+        checked += [f"SparsePattern, CSC (set {name})"]
+    A = fem["A"]
+    for label, obj in (("pat", fem["pat"]), ("pp1", fem["pp1"]),
+                       ("pp2", fem["pp2"])):
+        validate_pattern(obj, subject=f"FEM {label}")
+    for label, obj in (("A", A), ("S", fem["S"]), ("Bm", fem["Bm"]),
+                       ("P", fem["P"]), ("Ptc", fem["Ptc"]),
+                       ("PtA", fem["PtA"]), ("CSR", convert(A, "csr")),
+                       ("COO", convert(A, "coo"))):
+        validate_matrix(obj, subject=f"FEM {label}")
+    r_s, c_s, _, nv_s, _, _ = fem_system(199)
+    validate_pattern(plan_symmetric(r_s, c_s, (nv_s, nv_s)))
+    checked += ["FEM: SparsePattern, 2 ProductPattern, CSC x4, SymCSC, "
+                "BSR, CSR, COO", "SymPattern (199 x 199 cells)"]
+    ii, jj, ss, siz = sets["1"]
+    r = torch.from_numpy(ii - 1).to(dev, torch.int32)
+    c = torch.from_numpy(jj - 1).to(dev, torch.int32)
+    L = r.shape[0]
+    Lb = L - L // 100
+    base = plan(r[:Lb], c[:Lb], (siz, siz), nzmax=L)
+    seen = []
+    real = invariants.validate_pattern
+    invariants.validate_pattern = \
+        lambda p, subject=None: seen.append(subject) or real(p,
+                                                             subject=subject)
+    os.environ["REPRO_VALIDATE"] = "1"
+    try:
+        got = base.update(r[Lb:], c[Lb:])
+    finally:
+        del os.environ["REPRO_VALIDATE"]
+        invariants.validate_pattern = real
+    require(seen == ["SparsePattern.update"], f"the update under "
+            f"REPRO_VALIDATE=1 validated {seen}")
+    full = plan(r, c, (siz, siz))
+    require(all(torch.equal(getattr(got, f), getattr(full, f)) for f in (
+        "perm", "slot", "indices", "indptr", "nnz")),
+        "the validated update differs from the plan of the whole set")
+    checked.append("update of set 1 (1%) under REPRO_VALIDATE=1")
+    row["validators"] = checked
+    # the contract audit on CUDA tensors
+    reports = audit_default_paths()
+    row["contracts"] = {"paths": [x["name"] for x in reports],
+                        "verdict": "clean"}
+    launches = {k: f.launches for k, f in kernels.items()}
+    row["launches"] = launches
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} never launched on phase 4e's path")
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4E_LIMIT_S,
+            f"phase 4e took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4E_LIMIT_S} s")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2674,6 +2994,10 @@ def main() -> None:
     emit({"check": "complex on the card vs the CPU path",
           "max_err_over_tol": complex_checks(dev, sets, rng)})
 
+    # -- 4e. the policy and analysis layers: priors against the builds,
+    #    the sweep, a loaded table, validators, the contract audit -------
+    policy_phase(dev, sets, fem, kernels4, refill, smi_line)
+
     # -- 5. times -----------------------------------------------------------
     cpm = sleep_cycles_per_ms()
     fem_k, t3 = fem_times(fem, cpm, dev)
@@ -2947,4 +3271,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--loaded-table-check"]:
+        loaded_table_check(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

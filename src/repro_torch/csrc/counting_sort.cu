@@ -62,6 +62,7 @@
 // sectors, and each handoff waits on its sectors.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 namespace {
 
@@ -350,3 +351,11 @@ extern "C" long long placement_sync_words(long long nblocks) {
 }
 
 extern "C" int placement_tile(void) { return kTile; }
+
+namespace {
+const KernelResource kResources[] = {
+    {"placement", (const void*)placement_tiles_kernel, kThreads,
+     (long long)sizeof(Smem)},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

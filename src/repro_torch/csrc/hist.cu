@@ -35,6 +35,7 @@
 // for 5e7 adds to scattered words (about 7e10 a second), not the bytes.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 namespace {
 
@@ -123,3 +124,13 @@ extern "C" int block_histogram_launch(const void* keys, void* hist,
       (const int32_t*)keys, (int32_t*)hist, L, nbins, block_b, chunk, per_row);
   return (int)cudaGetLastError();
 }
+
+// the shared-counter instance at Table 4.1 set 2's 50,001 bins
+namespace {
+const KernelResource kResources[] = {
+    {"block_histogram_shared", (const void*)hist_shared_kernel, kThreads,
+     50001LL * 4},
+    {"block_histogram_global", (const void*)hist_global_kernel, kThreads, 0},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

@@ -50,6 +50,7 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 namespace {
 
@@ -278,13 +279,14 @@ int shape_of(long long Lq, int n) {
   return 0;
 }
 
+// shape < 0: the one shape_of gives (the priors'); else the caller's
 template <bool kInclusive>
 void launch(const int32_t* qr, const int32_t* qc, const int32_t* tr,
             const int32_t* tc, int32_t* out, long long Lq, int n,
-            cudaStream_t s) {
+            cudaStream_t s, int shape = -1) {
   const long long per = kThreads * kQueries;
   const unsigned blocks = (unsigned)((Lq + kThreads - 1) / kThreads);
-  switch (shape_of(Lq, n)) {
+  switch (shape < 0 ? shape_of(Lq, n) : shape) {
     case 2:
       dense_search_kernel<kInclusive>
           <<<(unsigned)((Lq + per - 1) / per), kThreads, 0, s>>>(
@@ -303,17 +305,21 @@ void launch(const int32_t* qr, const int32_t* qc, const int32_t* tr,
 }  // namespace
 
 // side: 0 = "left" (targets strictly below), 1 = "right" (at or below).
+// shape: as merge_shape() numbers them, chosen by the caller from its
+// resolved thresholds (kernels/merge/ref.py merge_shape); -1 takes
+// shape_of's.
 extern "C" int merge_search_launch(const void* qr, const void* qc,
                                    const void* tr, const void* tc, void* out,
-                                   long long Lq, int n, int side,
+                                   long long Lq, int n, int side, int shape,
                                    void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (shape > 2) return (int)cudaErrorInvalidValue;
   if (side) {
     launch<true>((const int32_t*)qr, (const int32_t*)qc, (const int32_t*)tr,
-                 (const int32_t*)tc, (int32_t*)out, Lq, n, s);
+                 (const int32_t*)tc, (int32_t*)out, Lq, n, s, shape);
   } else {
     launch<false>((const int32_t*)qr, (const int32_t*)qc, (const int32_t*)tr,
-                  (const int32_t*)tc, (int32_t*)out, Lq, n, s);
+                  (const int32_t*)tc, (int32_t*)out, Lq, n, s, shape);
   }
   return (int)cudaGetLastError();
 }
@@ -324,3 +330,15 @@ extern "C" int merge_search_launch(const void* qr, const void* qc,
 extern "C" int merge_shape(long long Lq, int n) { return shape_of(Lq, n); }
 extern "C" int merge_block_queries(void) { return kThreads * kQueries; }
 extern "C" int merge_splitters(void) { return kSplitters; }
+
+// the three shapes (side "left"; "right" is the same code)
+namespace {
+const KernelResource kResources[] = {
+    {"merge_dense", (const void*)dense_search_kernel<false>, kThreads, 0},
+    {"merge_sparse", (const void*)ladder_search_kernel<false, true>,
+     kThreads, 0},
+    {"merge_ladder", (const void*)ladder_search_kernel<false, false>,
+     kThreads, 0},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

@@ -43,6 +43,7 @@
 // wgmma/TMA do not apply to a counting pass.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 namespace {
 
@@ -330,3 +331,21 @@ extern "C" int digit_placement_launch(const void* keys, const void* base,
 extern "C" int radix_tile(void) { return kTile; }
 extern "C" int radix_max_bins(void) { return kMaxBins; }
 extern "C" int radix_max_carry(void) { return kMaxCarry; }
+
+// the instances the radix chain launches (B2 with the keys not among the
+// carried words: its largest staging)
+namespace {
+constexpr long long placement_smem(int nc) {
+  return (long long)(nc + 2) * kTile * 4 + kTile * 3;
+}
+const KernelResource kResources[] = {
+    {"digit_histogram", (const void*)digit_histogram_kernel, kThreads, 0},
+    {"digit_placement_c0", (const void*)digit_placement_kernel<0>, kThreads,
+     placement_smem(0)},
+    {"digit_placement_c1", (const void*)digit_placement_kernel<1>, kThreads,
+     placement_smem(1)},
+    {"digit_placement_c2", (const void*)digit_placement_kernel<2>, kThreads,
+     placement_smem(2)},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

@@ -142,6 +142,7 @@
 // adjacent, and nothing ever writes out[nzmax]).
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 #include <math_constants.h>
 
 #include "lookback.cuh"
@@ -711,3 +712,44 @@ static_assert(ScanShape<float>::kTile == ScanShape<double>::kTile,
 extern "C" int scan_tile(void) { return ScanShape<float>::kTile; }
 extern "C" int segment_tile(void) { return kThreads * kSegPer; }
 extern "C" int product_tile(void) { return kThreads * kSum2Per; }
+
+namespace {
+template <typename T>
+using DescT = decltype(DescOf<T>::at(nullptr, 0));
+template <typename T, typename Op, int K, int kMinBlocks, typename Src>
+inline const void* reduce_fn() {
+  return (const void*)segment_reduce_kernel<T, Op, K, LdStream, kMinBlocks,
+                                            Src, DescT<T>>;
+}
+const KernelResource kResources[] = {
+    {"gather_segment_sum_f32",
+     reduce_fn<float, SumOp<float>, kSegPer, kSegMinBlocks<float>,
+               Gather<float>>(), kThreads, 0},
+    {"gather_segment_sum_f64",
+     reduce_fn<double, SumOp<double>, kSegPer, kSegMinBlocks<double>,
+               Gather<double>>(), kThreads, 0},
+    {"gather_segment_max_f32",
+     reduce_fn<float, MinMaxOp<float, true>, kSegPer, kSegMinBlocks<float>,
+               Gather<float>>(), kThreads, 0},
+    {"gather_segment_max_f64",
+     reduce_fn<double, MinMaxOp<double, true>, kSegPer,
+               kSegMinBlocks<double>, Gather<double>>(), kThreads, 0},
+    {"gather_segment_min_f32",
+     reduce_fn<float, MinMaxOp<float, false>, kSegPer, kSegMinBlocks<float>,
+               Gather<float>>(), kThreads, 0},
+    {"gather_segment_min_f64",
+     reduce_fn<double, MinMaxOp<double, false>, kSegPer,
+               kSegMinBlocks<double>, Gather<double>>(), kThreads, 0},
+    {"gather2_segment_sum_f32",
+     reduce_fn<float, SumOp<float>, kSum2Per, kSum2MinBlocks<float>,
+               Gather2<float>>(), kThreads, 0},
+    {"gather2_segment_sum_f64",
+     reduce_fn<double, SumOp<double>, kSum2Per, kSum2MinBlocks<double>,
+               Gather2<double>>(), kThreads, 0},
+    {"blocked_cumsum_f32",
+     (const void*)scan_lookback_kernel<float, DescT<float>>, kThreads, 0},
+    {"blocked_cumsum_f64",
+     (const void*)scan_lookback_kernel<double, DescT<double>>, kThreads, 0},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

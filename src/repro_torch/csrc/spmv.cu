@@ -19,6 +19,7 @@
 // rounds it; the sum runs in slot order.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 namespace {
 
@@ -72,3 +73,14 @@ extern "C" int spmv_ell_f64_launch(const void* cols, const void* vals,
                                    long long N, void* stream) {
   return launch<double>(cols, vals, x, y, M, K, N, stream);
 }
+
+// rows (threads) a block: the spmv tuning spec's build-time block_r
+extern "C" int spmv_block_rows(void) { return kThreads; }
+
+namespace {
+const KernelResource kResources[] = {
+    {"spmv_ell_f32", (const void*)spmv_ell_kernel<float>, kThreads, 0},
+    {"spmv_ell_f64", (const void*)spmv_ell_kernel<double>, kThreads, 0},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

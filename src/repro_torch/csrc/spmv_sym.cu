@@ -84,6 +84,7 @@
 // contraction), as the plain versions round it.
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "resources.cuh"
 
 #include "lookback.cuh"
 
@@ -518,3 +519,24 @@ extern "C" int bsr_tiles_f64_launch(const void* brows, const void* bcols,
 
 // merge items a tile: the shape ref.py's sym_streams_tiled_ref follows
 extern "C" int sym_tile(void) { return kThreads * kSymPer; }
+
+// B9's two shapes and B10 at 2 x 2 blocks (the FEM matrix's)
+namespace {
+template <typename T>
+using DescT = decltype(DescOf<T>::at(nullptr, 0));
+const KernelResource kResources[] = {
+    {"sym_streams_tiles_f32",
+     (const void*)sym_streams_kernel<float, DescT<float>>, kThreads, 0},
+    {"sym_streams_tiles_f64",
+     (const void*)sym_streams_kernel<double, DescT<double>>, kThreads, 0},
+    {"sym_streams_columns_f32", (const void*)sym_threads_kernel<float>,
+     kThreads, 0},
+    {"sym_streams_columns_f64", (const void*)sym_threads_kernel<double>,
+     kThreads, 0},
+    {"bsr_tiles_b2_f32", (const void*)bsr_tiles_kernel<float, 2>, kThreads,
+     0},
+    {"bsr_tiles_b2_f64", (const void*)bsr_tiles_kernel<double, 2>, kThreads,
+     0},
+};
+}  // namespace
+REPRO_RESOURCE_TABLE(kResources)

@@ -21,10 +21,11 @@ import ctypes
 
 import torch
 
+from ...sparse import tuning
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
 from ..hist.hist import check_keys
-from .ref import PLACE_TILE, placement_ref
+from .ref import placement_ref
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -34,9 +35,10 @@ def _fns() -> dict:
     if not _FNS:
         lib = load_library("counting_sort")
         bind(lib, "placement_tile", [])
-        if lib.placement_tile() != PLACE_TILE:
+        if lib.placement_tile() != tuning.build_knobs(
+                "counting_sort")["place_tile"]:
             raise RuntimeError("csrc/counting_sort.cu tile differs from "
-                               "PLACE_TILE")
+                               "the counting_sort tuning spec")
         _FNS["place"] = bind(lib, "placement_launch",
                              [_P, _P, _P, _P, _LL, _I, _LL, _I, _P])
         words = lib.placement_sync_words

@@ -19,15 +19,16 @@ def counting_sort(keys: torch.Tensor, *, nbins: int,
 
     Returns ``(rank, positions)``: ``keys[rank]`` is sorted stably and
     ``rank[positions[i]] == i``.  ``block_b=None`` takes
-    :func:`~repro_torch.kernels.hist.ops.default_block_b`; the result
-    does not depend on it.
+    :func:`~repro_torch.kernels.hist.ops.default_block_b` (the
+    ``counting_sort`` tuning policy); the result does not depend on it.
     """
     L = keys.shape[0]
     keys = keys.to(torch.int32).contiguous()
     if L == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=keys.device)
         return empty, empty.clone()
-    block_b = default_block_b(nbins) if block_b is None else block_b
+    if block_b is None:
+        block_b = default_block_b(nbins, L=L, backend=keys.device)
     offsets, _ = block_offsets(keys, nbins=nbins, block_b=block_b)
     pos = placement(keys, offsets, nbins=nbins, block_b=block_b,
                     consume_offsets=True)

@@ -9,9 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from ...sparse import tuning
+
 #: keys per tile of the B11 kernel, at most -- fixed by
-#: ``csrc/counting_sort.cu``
-PLACE_TILE = 8192
+#: ``csrc/counting_sort.cu`` (the ``counting_sort`` spec's build-time
+#: ``place_tile``)
+PLACE_TILE = tuning.prior_value("counting_sort", "place_tile")
 
 
 def placement_ref(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,

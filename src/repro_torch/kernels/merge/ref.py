@@ -19,26 +19,50 @@ from __future__ import annotations
 
 import torch
 
+from ...sparse import tuning
+
 #: B7's shapes (``csrc/merge.cu``, :func:`merge_shape`): the dense shape's
-#: queries a block and splitters a block, and the thresholds on Lq and n
-#: that choose the shape (timed over a sweep of Lq and n in ``PERF.md``)
-BLOCK_Q = 1024
-SPLITTERS = 256
-DENSE_RATIO = 4
-SPARSE_RATIO = 16
-SPARSE_TARGETS = 1 << 23
+#: queries a block and splitters a block (build-time), and the thresholds
+#: on Lq and n that choose the shape (timed over a sweep of Lq and n in
+#: ``PERF.md``): aliases of the ``merge`` tuning priors
+BLOCK_Q = tuning.prior_value("merge", "block_q")
+SPLITTERS = tuning.prior_value("merge", "splitters")
+DENSE_RATIO = tuning.prior_value("merge", "dense_ratio")
+SPARSE_RATIO = tuning.prior_value("merge", "sparse_ratio")
+SPARSE_TARGETS = tuning.prior_value("merge", "sparse_targets")
+#: the number ``csrc/merge.cu`` gives each shape
+SHAPES = ("ladder", "sparse", "dense")
 
 
-def merge_shape(Lq: int, n: int) -> str:
+def policy_key(n: int) -> dict:
+    """The size the ``merge`` policy (method and shape) resolves at, and
+    the autotuner records a measured entry at: ``L`` the targets."""
+    return {"L": n}
+
+
+def merge_shape(Lq: int, n: int, *, dense_ratio: int | None = None,
+                sparse_ratio: int | None = None,
+                sparse_targets: int | None = None, backend=None) -> str:
     """The shape B7 takes for ``Lq`` queries into ``n`` targets:
     ``"dense"`` (queries about as many as targets: blocks narrowed
     together, :func:`merge_search_narrowed_ref`), ``"sparse"`` (few
     queries into targets past the L2: the ladder, the row read on column
     ties) or ``"ladder"`` (the ladder, both arrays at every probe).  All
-    three give :func:`merge_search_ref`'s counts."""
-    if Lq * DENSE_RATIO >= n:
+    three give :func:`merge_search_ref`'s counts.  The thresholds left
+    ``None`` resolve through the ``merge`` tuning policy at ``L = n`` on
+    ``backend`` (``None``: CUDA)."""
+    if None in (dense_ratio, sparse_ratio, sparse_targets):
+        pol = tuning.resolve_policy("merge", backend=backend,
+                                    **policy_key(n))
+        dense_ratio = pol["dense_ratio"] if dense_ratio is None \
+            else dense_ratio
+        sparse_ratio = pol["sparse_ratio"] if sparse_ratio is None \
+            else sparse_ratio
+        sparse_targets = pol["sparse_targets"] if sparse_targets is None \
+            else sparse_targets
+    if Lq * dense_ratio >= n:
         return "dense"
-    if Lq * SPARSE_RATIO < n and n >= SPARSE_TARGETS:
+    if Lq * sparse_ratio < n and n >= sparse_targets:
         return "sparse"
     return "ladder"
 

@@ -12,16 +12,15 @@ B2 also carries the words later passes read (:func:`carried_words`),
 so the next pass's key is already in order: no pass gathers it through
 the permutation.
 
-The reference's cost-model priors describe TPU VMEM and lane tiles.
-The port keeps its own, below: H100 priors in bytes moved per key,
-**not measured**.  A pass costs about ``PASS_BYTES`` per key (B1 reads
-the key, 4 B; B2 reads the key and the payload and moves one or two
-carried words, 12-24 B: 22 B a pass on average over the 5e7 set's six),
-its histogram about ``BIN_BYTES`` per bin per key (write, scan, re-read
-of ``nbins`` counters per tile of ``TILE`` keys), and a fixed
-``LAUNCH_BYTES`` (three launches of about 5 us at 3.35 TB/s) spread
-over the L keys.  With digits of at most 8 bits this picks the fewest
-passes and splits each word evenly.
+The reference picks its digit plan with a cost model of TPU VMEM and
+lane tiles.  On the card every digit of at most 8 bits costs one B1 and
+one B2 launch over the whole stream, and a wider digit adds at most
+1.5 B per key of histogram traffic (256 counters per tile of ``TILE``
+keys) against the 12-24 B a pass moves, so the fewest passes always
+win: each word takes the fewest digits no wider than ``max_bits``,
+split evenly.  ``max_bits`` is the planner's one knob, the
+``radix_sort`` tuning policy's (:mod:`repro_torch.sparse.tuning`;
+``MAX_BITS`` is an alias of its prior).
 """
 from __future__ import annotations
 
@@ -29,14 +28,12 @@ from typing import NamedTuple
 
 import torch
 
-from .radix_sort import (KERNEL_MAX_BITS, TILE, digit_block_histogram,
+from ...sparse import tuning
+from .radix_sort import (KERNEL_MAX_BITS, digit_block_histogram,
                          digit_placement)
 
-#: H100 priors (not measured): see the module docstring
-MAX_BITS = KERNEL_MAX_BITS
-PASS_BYTES = 22.0
-BIN_BYTES = 12.0 / TILE
-LAUNCH_BYTES = 50_000.0
+#: alias of the ``radix_sort`` tuning prior (see the module docstring)
+MAX_BITS = tuning.prior_value("radix_sort", "max_bits")
 
 
 class DigitPass(NamedTuple):
@@ -48,22 +45,14 @@ class DigitPass(NamedTuple):
     nbins: int      # exact bin count (<= 2**bits)
 
 
-def _word_cost(npass: int, width: int, L: int) -> float:
-    return npass * (PASS_BYTES + BIN_BYTES * (1 << width)
-                    + LAUNCH_BYTES / max(L, 1))
-
-
-def _word_passes(vmax: int, L: int, max_bits: int,
+def _word_passes(vmax: int, max_bits: int,
                  src_col: bool) -> list[DigitPass]:
-    """Cheapest equal-width LSD digit split of one index word with values
-    ``0..vmax`` (inclusive: ``vmax`` is the rows' padding sentinel)."""
+    """The fewest equal-width LSD digits of at most ``max_bits`` bits of
+    one index word with values ``0..vmax`` (inclusive: ``vmax`` is the
+    rows' padding sentinel)."""
     bits_total = max(1, int(vmax).bit_length())
-    _, width = min(
-        (_word_cost(npass, -(-bits_total // npass), L),
-         -(-bits_total // npass))
-        for npass in range(1, bits_total + 1)
-        if -(-bits_total // npass) <= max_bits
-    )
+    npass = -(-bits_total // max_bits)
+    width = -(-bits_total // npass)
     passes = []
     shift = 0
     while shift < bits_total:
@@ -75,21 +64,33 @@ def _word_passes(vmax: int, L: int, max_bits: int,
     return passes
 
 
+def policy_key(M: int, N: int, L: int) -> dict:
+    """The sizes the planner resolves the ``radix_sort`` policy at (and
+    the autotuner records a measured entry at)."""
+    return {"M": M, "N": N, "L": L}
+
+
 def plan_digit_passes(M: int, N: int, L: int, *,
-                      max_bits: int | None = None) -> tuple[DigitPass, ...]:
+                      max_bits: int | None = None,
+                      backend=None) -> tuple[DigitPass, ...]:
     """LSD pass schedule for the two-word key (col hi, row lo).
 
     Rows span ``0..M`` (``M`` is the padding sentinel) and cols are
-    sized for ``0..N``; ``max_bits`` caps the digit width (default and
-    upper bound: the kernels' 8 bits).
+    sized for ``0..N``; ``max_bits`` caps the digit width (upper bound:
+    the kernels' 8 bits).  Left ``None``, it resolves through the
+    ``radix_sort`` tuning policy at ``(M, N, L)`` on ``backend`` (a
+    device; ``None`` is CUDA).
     """
-    max_bits = MAX_BITS if max_bits is None else max_bits
+    if max_bits is None:
+        max_bits = tuning.resolve_policy(
+            "radix_sort", backend=backend, **policy_key(M, N, L))["max_bits"]
+    max_bits = int(max_bits)
     if not 1 <= max_bits <= KERNEL_MAX_BITS:
         raise ValueError(
             f"max_bits must be in [1, {KERNEL_MAX_BITS}], got {max_bits}"
         )
-    return tuple(_word_passes(M, L, max_bits, False)
-                 + _word_passes(N, L, max_bits, True))
+    return tuple(_word_passes(M, max_bits, False)
+                 + _word_passes(N, max_bits, True))
 
 
 def digit_bases(hist: torch.Tensor) -> torch.Tensor:
@@ -132,16 +133,18 @@ def radix_sort_pair(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
                     N: int, max_bits: int | None = None) -> torch.Tensor:
     """(col, row)-stable-ordered permutation via LSD radix partitioning.
 
-    Bit-identical to the two-pass stable sort for every ``M``/``N``.
-    Per pass, one B1 and one B2: the placement scatters the permutation
-    and carries the words later passes read, so ``rank``, the landing
+    Bit-identical to the two-pass stable sort for every ``M``/``N`` and
+    every digit plan (``max_bits``, :func:`plan_digit_passes`).  Per
+    pass, one B1 and one B2: the placement scatters the permutation and
+    carries the words later passes read, so ``rank``, the landing
     positions and any gather through the permutation never reach device
     memory.
     """
     L = rows.shape[0]
     rows = rows.to(torch.int32).contiguous()
     cols = cols.to(torch.int32).contiguous()
-    passes = plan_digit_passes(M, N, L, max_bits=max_bits)
+    passes = plan_digit_passes(M, N, L, max_bits=max_bits,
+                               backend=rows.device)
     perm = None  # identity until the first pass lands
     for i, p in enumerate(passes):
         want = carried_words(passes, i)

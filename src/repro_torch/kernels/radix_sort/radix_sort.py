@@ -18,14 +18,16 @@ import ctypes
 
 import torch
 
+from ...sparse import tuning
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
 from .ref import digit_block_histogram_ref, digit_placement_ref
 
-#: keys per thread block (256 threads x 16) -- fixed by the kernel source
-TILE = 4096
+#: keys per thread block (256 threads x 16) -- fixed by the kernel source;
+#: the ``radix_sort`` spec's build-time ``tile``
+TILE = tuning.prior_value("radix_sort", "tile")
 #: widest digit the kernels take: 2^8 bins of shared-memory counters
-KERNEL_MAX_BITS = 8
+KERNEL_MAX_BITS = tuning.prior_value("radix_sort", "kernel_max_bits")
 #: words B2 carries beside the payload, fixed by the kernel source
 KERNEL_MAX_CARRY = 2
 
@@ -36,12 +38,15 @@ _FNS: dict = {}
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("radix_sort")
-        bind(lib, "radix_tile", [])
-        bind(lib, "radix_max_carry", [])
-        if (lib.radix_tile() != TILE
+        for fn in ("radix_tile", "radix_max_bins", "radix_max_carry"):
+            bind(lib, fn, [])
+        built = tuning.build_knobs("radix_sort")
+        if (lib.radix_tile() != built["tile"]
+                or lib.radix_max_bins() != 1 << built["kernel_max_bits"]
                 or lib.radix_max_carry() != KERNEL_MAX_CARRY):
-            raise RuntimeError("csrc/radix_sort.cu tile or carry count "
-                               "differs from TILE or KERNEL_MAX_CARRY")
+            raise RuntimeError("csrc/radix_sort.cu tile, bins or carry "
+                               "count differs from the radix_sort tuning "
+                               "spec or KERNEL_MAX_CARRY")
         _FNS["hist"] = bind(lib, "digit_histogram_launch",
                             [_P, _P, _LL, _I, _I, _I, _I, _P])
         _FNS["place"] = bind(lib, "digit_placement_launch",

@@ -12,18 +12,18 @@ from __future__ import annotations
 
 import torch
 
+from ...sparse import tuning
 from ...sparse.pattern import accum_identity, first_flags, last_flags
 from ..common import cdiv, pad_to
 
+_BUILT = tuning.build_knobs("segment_sum")
 #: values per tile of the B5 scan (256 threads x 16) -- fixed by
-#: ``csrc/segment_sum.cu``
-SCAN_TILE = 4096
-#: sorted positions per tile of B3' and B4 (256 threads x 8) -- fixed by
-#: ``csrc/segment_sum.cu``
-SEG_TILE = 2048
-#: sorted product positions per tile of B6 (256 threads x 8) -- fixed by
-#: ``csrc/segment_sum.cu``
-PRODUCT_TILE = 2048
+#: ``csrc/segment_sum.cu`` (the ``segment_sum`` spec's build-time knobs)
+SCAN_TILE = _BUILT["threads"] * _BUILT["scan_per"]
+#: sorted positions per tile of B3' and B4 (256 threads x 8)
+SEG_TILE = _BUILT["threads"] * _BUILT["seg_per"]
+#: sorted product positions per tile of B6 (256 threads x 8)
+PRODUCT_TILE = _BUILT["threads"] * _BUILT["sum2_per"]
 
 
 def cumsum_ref(x: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,7 @@ def _fns() -> dict:
             bind(lib, fn, [])
             if getattr(lib, fn)() != want:
                 raise RuntimeError(f"csrc/segment_sum.cu: {fn}() differs "
-                                   "from ref.py")
+                                   "from the segment_sum tuning spec")
         for dtype, sfx in _SUFFIX.items():
             _FNS["sum", dtype] = bind(lib, f"gather_segment_sum_{sfx}_launch",
                                       [_P, _P, _P, _P, _P, _LL, _LL, _P])

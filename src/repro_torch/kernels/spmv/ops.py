@@ -54,11 +54,12 @@ def spmv(cols: torch.Tensor, vals: torch.Tensor,
     """Padded-ELL SpMV ``y = A @ x`` on B8 (the plain version on the CPU).
 
     The reference resolves its row tile ``block_r`` from its tuning
-    policy; the port has no tuning layer yet, so the row tile is the
-    fixed :data:`~.spmv.BLOCK_R` = 256 rows per CUDA block (one row a
-    thread) and there is no ``block_r`` argument.  The result has the
-    promoted dtype of ``vals`` and ``x``; 16-bit operands run in float32
-    and are cast back; complex ones run on the card as real parts.
+    policy; in the port it is a build-time knob of the ``spmv`` spec
+    (:data:`~.spmv.BLOCK_R` = 256 rows per CUDA block, one row a thread,
+    fixed by ``csrc/spmv.cu``), so there is no ``block_r`` argument. The
+    result has the promoted dtype of ``vals`` and ``x``; 16-bit operands
+    run in float32 and are cast back; complex ones run on the card as
+    real parts.
     """
     dtype = torch.promote_types(vals.dtype, x.dtype)
     work = accum_dtype(dtype)

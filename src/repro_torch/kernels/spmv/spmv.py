@@ -12,6 +12,7 @@ import ctypes
 
 import torch
 
+from ...sparse import tuning
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
 from .ref import spmv_ell_ref
@@ -19,13 +20,18 @@ from .ref import spmv_ell_ref
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-#: rows (threads) per CUDA block, fixed by ``csrc/spmv.cu``
-BLOCK_R = 256
+#: rows (threads) per CUDA block, fixed by ``csrc/spmv.cu``: the ``spmv``
+#: spec's build-time ``block_r``
+BLOCK_R = tuning.prior_value("spmv", "block_r")
 
 
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("spmv")
+        bind(lib, "spmv_block_rows", [])
+        if lib.spmv_block_rows() != tuning.build_knobs("spmv")["block_r"]:
+            raise RuntimeError("csrc/spmv.cu: spmv_block_rows() differs "
+                               "from the spmv tuning spec")
         for dtype, sfx in _SUFFIX.items():
             _FNS[dtype] = bind(lib, f"spmv_ell_{sfx}_launch",
                                [_P, _P, _P, _P, _LL, _I, _LL, _P])

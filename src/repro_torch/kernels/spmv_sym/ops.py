@@ -21,7 +21,8 @@ from .spmv_sym import bsr_tiles, sym_streams
 
 
 def spmv_sym(diag, data, indices, indptr, x, *,
-             longest: int | None = None) -> torch.Tensor:
+             longest: int | None = None, short_column: int | None = None,
+             short_mean: int | None = None) -> torch.Tensor:
     """Fused both-triangles symmetric SpMV over strict-upper storage.
 
     ``y = diag * x + ct + scatter_add(rows, up)``: B9 reads the halved
@@ -30,7 +31,9 @@ def spmv_sym(diag, data, indices, indptr, x, *,
     differences a running sum); the row-direction scatter stays outside
     the kernel, as the reference's ``y.at[rows].add(up)`` does.
     ``longest`` (the most entries a column holds, ``SymCSC.longest``)
-    picks B9's shape; every value gives the same result.
+    picks B9's shape with the cut-offs ``short_column``/``short_mean``
+    (``None``: the ``spmv_sym`` tuning policy); every value gives the
+    same result.
     """
     M = diag.shape[0]
     nzmax = data.shape[-1]
@@ -41,13 +44,14 @@ def spmv_sym(diag, data, indices, indptr, x, *,
     work = accum_dtype(dtype)
     rows = indices.to(torch.int32).contiguous()
     ptr = indptr.to(torch.int32).contiguous()
+    shape = dict(longest=longest, short_column=short_column,
+                 short_mean=short_mean)
     if on_card_complex(dtype, data.device):
         up, ct = split_complex(
-            lambda a, b: sym_streams(rows, a, ptr, b, longest=longest),
-            data, x)
+            lambda a, b: sym_streams(rows, a, ptr, b, **shape), data, x)
     else:
         up, ct = sym_streams(rows, data.to(work).contiguous(), ptr,
-                             x.to(work).contiguous(), longest=longest)
+                             x.to(work).contiguous(), **shape)
     # SymCSC streams are compact (``csc_to_symcsc`` stores exactly nnz
     # entries): the rare sentinel adds into one scratch slot
     out = y.to(work) + ct + scatter_add(M, indices, up, indices < M,

@@ -17,23 +17,42 @@ from __future__ import annotations
 import torch
 
 from ...core.csc import slot_columns
+from ...sparse import tuning
 
 #: B9's shapes (``csrc/spmv_sym.cu``): merge items (column ends and
-#: slots) a thread and a tile of 256 threads; the longest column and the
-#: slots a column on average that one thread a column takes (the
-#: crossings timed over streams of about 3e6 slots in ``PERF.md``)
-SYM_PER = 8
-SYM_TILE = 256 * SYM_PER
-SHORT_COLUMN = 32
-SHORT_MEAN = 4
+#: slots) a thread and a tile of 256 threads (build-time); the longest
+#: column and the slots a column on average that one thread a column
+#: takes (the crossings timed over streams of about 3e6 slots in
+#: ``PERF.md``): aliases of the ``spmv_sym`` tuning priors
+SYM_PER = tuning.prior_value("spmv_sym", "sym_per")
+SYM_TILE = tuning.prior_value("spmv_sym", "threads") * SYM_PER
+SHORT_COLUMN = tuning.prior_value("spmv_sym", "short_column")
+SHORT_MEAN = tuning.prior_value("spmv_sym", "short_mean")
 
 
-def sym_shape(longest: int | None, M: int, nzmax: int) -> str:
+def policy_key(M: int, nzmax: int) -> dict:
+    """The sizes :func:`sym_shape` resolves the ``spmv_sym`` policy at
+    (and the autotuner records a measured entry at): ``M`` the columns,
+    ``L`` the slots."""
+    return {"M": M, "L": nzmax}
+
+
+def sym_shape(longest: int | None, M: int, nzmax: int, *,
+              short_column: int | None = None, short_mean: int | None = None,
+              backend=None) -> str:
     """B9's shape for ``M`` columns over ``nzmax`` slots whose columns
     hold at most ``longest`` slots: ``"columns"`` (one thread a column)
-    where ``longest <= SHORT_COLUMN`` and ``nzmax <= SHORT_MEAN * M``,
-    else, or where ``longest`` is not known (``None``), ``"tiles"``."""
-    if longest is None or longest > SHORT_COLUMN or nzmax > SHORT_MEAN * M:
+    where ``longest <= short_column`` and ``nzmax <= short_mean * M``,
+    else, or where ``longest`` is not known (``None``), ``"tiles"``.
+    The cut-offs left ``None`` resolve through the ``spmv_sym`` tuning
+    policy at ``(M, nzmax)`` on ``backend`` (``None``: CUDA)."""
+    if short_column is None or short_mean is None:
+        pol = tuning.resolve_policy("spmv_sym", backend=backend,
+                                    **policy_key(M, nzmax))
+        short_column = pol["short_column"] if short_column is None \
+            else short_column
+        short_mean = pol["short_mean"] if short_mean is None else short_mean
+    if longest is None or longest > short_column or nzmax > short_mean * M:
         return "tiles"
     return "columns"
 

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ...sparse import tuning
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
 from .ref import SYM_TILE, bsr_tiles_ref, sym_shape, sym_streams_ref
@@ -39,9 +40,10 @@ def _fns() -> dict:
     if not _FNS:
         lib = load_library("spmv_sym")
         bind(lib, "sym_tile", [])
-        if lib.sym_tile() != SYM_TILE:
+        built = tuning.build_knobs("spmv_sym")
+        if lib.sym_tile() != built["threads"] * built["sym_per"]:
             raise RuntimeError("csrc/spmv_sym.cu: sym_tile() differs from "
-                               "ref.py")
+                               "the spmv_sym tuning spec")
         for dtype, sfx in _SUFFIX.items():
             _FNS["sym", dtype] = bind(lib, f"sym_streams_{sfx}_launch",
                                       [_P, _P, _P, _P, _P, _P, _P, _LL, _LL,
@@ -60,7 +62,9 @@ def _check_values(t: torch.Tensor, name: str, what: str) -> None:
 
 
 def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
-                x: torch.Tensor, *, longest: int | None = None):
+                x: torch.Tensor, *, longest: int | None = None,
+                short_column: int | None = None,
+                short_mean: int | None = None):
     """B9: ``(up [nzmax], ct [M])`` over SymCSC's strict-upper stream.
 
     ``rows``/``data`` are the stream (``M`` is the sentinel row),
@@ -72,7 +76,9 @@ def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
     ``longest`` is the most slots any column holds, as the caller knows
     it (``SymCSC.longest``); it picks the shape (:func:`.ref.sym_shape`;
     ``None``: the tiles, which serve any stream).  Every value gives the
-    same results: a wrong one costs time only.
+    same results: a wrong one costs time only.  ``short_column`` and
+    ``short_mean`` (``None``: the ``spmv_sym`` tuning policy) are the
+    shape's cut-offs.
     """
     if data.device.type == "cpu":
         return sym_streams_ref(rows, data, indptr, x)
@@ -90,7 +96,8 @@ def sym_streams(rows: torch.Tensor, data: torch.Tensor, indptr: torch.Tensor,
     if M == 0:
         return torch.zeros(nzmax, dtype=data.dtype, device=data.device), \
             torch.empty(0, dtype=data.dtype, device=data.device)
-    shape = sym_shape(longest, M, nzmax)
+    shape = sym_shape(longest, M, nzmax, short_column=short_column,
+                      short_mean=short_mean, backend=data.device)
     up = torch.empty(nzmax, dtype=data.dtype, device=data.device)
     ct = torch.empty(M, dtype=data.dtype, device=data.device)
     scratch = None

@@ -17,6 +17,12 @@ Structures that move a little are merged forward, not re-planned
 the plan LRU); structurally symmetric streams plan only their upper
 half (``plan_symmetric`` -> ``SymPattern``, ``format="symcsc"``).
 
+Execution policy (sort and merge methods, digit widths, block ranges,
+kernel shape thresholds) resolves through :mod:`.tuning`'s registry and
+measured table; :mod:`.analysis` validates plans and formats
+(``validate_pattern``/``validate_matrix``, ``REPRO_VALIDATE=1`` inside
+``update``), audits the hot paths' aten ops and lints the policy layer.
+
 The formats (CSC, COO, CSR, SymCSC, BSR) share one conversion registry
 (``convert``); :mod:`~repro_torch.sparse.ops` is the operator surface
 over all of them (``matmul``, ``transpose``, ``add``, ...), and a sparse
@@ -26,6 +32,7 @@ per refill).
 """
 from __future__ import annotations
 
+from . import tuning  # before pattern: every kernels/*/ops.py resolves
 from ..core.coo import COO, coo_from_matlab
 from ..core.csc import CSC, csc_from_arrays, spmv, spmv_t
 from .dispatch import (available_methods, default_method, method_from_fused,
@@ -46,6 +53,11 @@ from .pattern import (ACCUM_MODES, SparsePattern, SymPattern, accum_identity,
 from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
                      product_cache_info, product_lookup, product_plan,
                      product_pattern_from_arrays, retire_structure)
+from .tuning import (KernelSpec, Knob, TuningTable, kernel_spec,
+                     prior_policy, register_kernel_spec,
+                     registered_families, resolve_policy,
+                     tuning_fingerprint)
+from .analysis import validate_matrix, validate_pattern
 from . import ops
 
 
@@ -57,6 +69,9 @@ def assemble(coo: COO, *, nzmax: int | None = None,
 
 __all__ = [
     "ACCUM_MODES", "BSR", "COO", "CSC", "CSR", "CacheCorruptionWarning",
+    "KernelSpec", "Knob", "TuningTable", "kernel_spec", "prior_policy",
+    "register_kernel_spec", "registered_families", "resolve_policy",
+    "tuning_fingerprint", "validate_matrix", "validate_pattern",
     "assemble", "pattern_from_perm", "pattern_from_sorted",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
     "PlanUpdate", "ProductPattern", "ReproWarning", "SparseMatrix",

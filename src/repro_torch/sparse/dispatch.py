@@ -17,8 +17,11 @@ backend through one ``method=`` string:
            (``repro_torch.kernels.radix_sort``)
 
 All backends produce the identical (col,row)-ordered permutation.
-``method=None`` resolves per device through :func:`default_method`:
-``"radix"`` for CUDA tensors, ``"fused"`` for CPU tensors.
+``method=None`` resolves through the tuning table (family ``"plan"``,
+:mod:`repro_torch.sparse.tuning`) for the tensors' backend: the priors
+are ``"radix"`` for CUDA tensors and ``"fused"`` for CPU tensors, and a
+measured entry can override them per shape bucket; for CUDA tensors only
+with another hand-written kernel (``"pallas"``), never a plain sort.
 
 The merge registry (``SparsePattern.update``'s sorted-stream merge by
 key) selects the search backend through ``merge_method=``:
@@ -29,9 +32,10 @@ key) selects the search backend through ``merge_method=``:
   "pallas" the hand-written B7 kernel (``repro_torch.kernels.merge``;
            on a CPU tensor its wrapper runs the plain version)
 
-``merge_method=None`` resolves per device through
-:func:`default_merge_method`: ``"pallas"`` for CUDA tensors, ``"jnp"``
-for CPU tensors.  All backends are bit-identical.
+``merge_method=None`` resolves through the tuning table (family
+``"merge"``): the priors are ``"pallas"`` for CUDA tensors and
+``"jnp"`` for CPU tensors, and no table entry moves a CUDA tensor off
+B7.  All backends are bit-identical.
 """
 from __future__ import annotations
 
@@ -39,14 +43,17 @@ from typing import Callable, Dict
 
 import torch
 
+from . import tuning
+
 PermFn = Callable[..., torch.Tensor]
 
 _METHODS: Dict[str, PermFn] = {}
 
-#: the planning backend on the card: the hand-written kernels
-DEFAULT_METHOD_CUDA = "radix"
-#: the backend for CPU tensors, where the kernels run their plain versions
-DEFAULT_METHOD_CPU = "fused"
+#: the planning backend on the card (the hand-written kernels) and for CPU
+#: tensors (where the kernels run their plain versions): the priors of
+#: the ``plan`` tuning spec, kept as the documented pins
+DEFAULT_METHOD_CUDA = tuning.prior_value("plan", "method", backend="cuda")
+DEFAULT_METHOD_CPU = tuning.prior_value("plan", "method", backend="cpu")
 
 
 def register_method(name: str, fn: PermFn) -> None:
@@ -58,17 +65,26 @@ def available_methods() -> tuple[str, ...]:
     return tuple(sorted(_METHODS))
 
 
-def default_method(device=None) -> str:
+def plan_key(M=None, N=None, L=None) -> dict:
+    """The sizes ``method=None`` resolves the ``plan`` policy at (and the
+    autotuner records a measured entry at)."""
+    return {"M": M, "N": N, "L": L}
+
+
+def default_method(device=None, *, M=None, N=None, L=None) -> str:
     """The backend used for ``method=None`` on ``device`` (a tensor's
-    device, or ``None`` for the port's default device, CUDA)."""
-    if device is not None and torch.device(device).type == "cpu":
-        return DEFAULT_METHOD_CPU
-    return DEFAULT_METHOD_CUDA
+    device, or ``None`` for the port's default device, CUDA), resolved
+    through the tuning table (family ``"plan"``) at the given shape."""
+    return str(tuning.resolve_policy("plan", backend=tuning.backend_of(
+        device), **plan_key(M, N, L))["method"])
 
 
-def resolve_method(method: str | None, device=None) -> str:
+def resolve_method(method: str | None, device=None, *, M=None, N=None,
+                   L=None) -> str:
     """Map ``None`` to the device's default, pass names through."""
-    return default_method(device) if method is None else method
+    if method is not None:
+        return method
+    return default_method(device, M=M, N=N, L=L)
 
 
 def sorted_permutation(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
@@ -76,7 +92,8 @@ def sorted_permutation(rows: torch.Tensor, cols: torch.Tensor, *, M: int,
                        **kwargs) -> torch.Tensor:
     """(col,row)-stable-ordered int32 permutation via the selected
     backend."""
-    method = resolve_method(method, rows.device)
+    method = resolve_method(method, rows.device, M=M, N=N,
+                            L=rows.shape[0])
     try:
         fn = _METHODS[method]
     except KeyError:
@@ -152,10 +169,10 @@ register_method("radix", _perm_radix)
 # ---------------------------------------------------------------------------
 _MERGE_METHODS: Dict[str, PermFn] = {}
 
-#: the merge backend on the card: the hand-written B7 kernel
-DEFAULT_MERGE_CUDA = "pallas"
-#: the merge backend for CPU tensors: the plain ladder
-DEFAULT_MERGE_CPU = "jnp"
+#: the merge backend on the card (B7) and for CPU tensors (the plain
+#: ladder): the priors of the ``merge`` tuning spec
+DEFAULT_MERGE_CUDA = tuning.prior_value("merge", "method", backend="cuda")
+DEFAULT_MERGE_CPU = tuning.prior_value("merge", "method", backend="cpu")
 
 
 def register_merge_method(name: str, fn: PermFn) -> None:
@@ -168,16 +185,22 @@ def available_merge_methods() -> tuple[str, ...]:
     return tuple(sorted(_MERGE_METHODS))
 
 
-def default_merge_method(device=None) -> str:
+def default_merge_method(device=None, *, L=None) -> str:
     """The backend used for ``merge_method=None`` on ``device`` (a
-    tensor's device, or ``None`` for the port's default device, CUDA)."""
-    if device is not None and torch.device(device).type == "cpu":
-        return DEFAULT_MERGE_CPU
-    return DEFAULT_MERGE_CUDA
+    tensor's device, or ``None`` for the port's default device, CUDA),
+    resolved through the tuning table (family ``"merge"``; ``L`` the
+    targets)."""
+    from ..kernels.merge.ref import policy_key
+
+    return str(tuning.resolve_policy("merge", backend=tuning.backend_of(
+        device), **policy_key(L))["method"])
 
 
-def resolve_merge_method(method: str | None, device=None) -> str:
-    return default_merge_method(device) if method is None else method
+def resolve_merge_method(method: str | None, device=None, *,
+                         L=None) -> str:
+    if method is not None:
+        return method
+    return default_merge_method(device, L=L)
 
 
 def merge_search(q_rows: torch.Tensor, q_cols: torch.Tensor,
@@ -190,7 +213,8 @@ def merge_search(q_rows: torch.Tensor, q_cols: torch.Tensor,
     ``side="right"`` counts targets at-or-below: the two halves of a
     stable merge's tie rule.  All backends are bit-identical.
     """
-    method = resolve_merge_method(method, q_rows.device)
+    method = resolve_merge_method(method, q_rows.device,
+                                  L=t_rows.shape[0])
     try:
         fn = _MERGE_METHODS[method]
     except KeyError:
@@ -208,11 +232,13 @@ def _merge_jnp(q_rows, q_cols, t_rows, t_cols, *, side="left"):
     return merge_search_ref(q_rows, q_cols, t_rows, t_cols, side=side)
 
 
-def _merge_pallas(q_rows, q_cols, t_rows, t_cols, *, side="left"):
-    """B7 on the card (no residency guard: it serves every size)."""
+def _merge_pallas(q_rows, q_cols, t_rows, t_cols, *, side="left", **shape):
+    """B7 on the card (no residency guard: it serves every size);
+    ``shape`` holds any of its thresholds passed explicitly."""
     from ..kernels.merge.ops import merge_search as _kernel_search
 
-    return _kernel_search(q_rows, q_cols, t_rows, t_cols, side=side)
+    return _kernel_search(q_rows, q_cols, t_rows, t_cols, side=side,
+                          **shape)
 
 
 register_merge_method("jnp", _merge_jnp)

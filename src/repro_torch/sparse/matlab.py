@@ -100,10 +100,11 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
 
     The triplets go to ``device``: ``"cuda"`` unless the caller passes
     another; with no card and no ``device="cpu"`` the call raises.
-    ``method=None`` resolves per device (``"radix"`` on the card,
-    ``"fused"`` on the CPU).  ``accum`` selects how duplicate (i, j)
-    values combine (:data:`repro_torch.sparse.pattern.ACCUM_MODES`:
-    Matlab's ``sparse`` sums; the rest are ``accumarray`` reductions).
+    ``method=None`` resolves through the tuning table (priors:
+    ``"radix"`` on the card, ``"fused"`` on the CPU). ``accum`` selects
+    how duplicate (i, j) values combine
+    (:data:`repro_torch.sparse.pattern.ACCUM_MODES`: Matlab's ``sparse``
+    sums; the rest are ``accumarray`` reductions).
 
     ``format="symcsc"`` assembles through the *halved* symmetric plan
     (:func:`~repro_torch.sparse.pattern.plan_symmetric`): the structure
@@ -174,7 +175,8 @@ def fsparse_coo(coo: COO, nzmax: int | None = None, *,
                 nzmax_slack: int = 0) -> CSC:
     """Zero-offset COO entry point (no host validation); runs on the
     COO's device."""
-    method = resolve_method(method, coo.rows.device)
+    method = resolve_method(method, coo.rows.device, M=coo.shape[0],
+                            N=coo.shape[1], L=coo.L)
     return plan_coo(coo, nzmax=nzmax, method=method, accum=accum,
                     nzmax_slack=nzmax_slack).assemble(coo.vals)
 
@@ -241,7 +243,8 @@ def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     ii, jj, ss = expand_indices(ii, jj, ss)
     rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
     device = resolve_device(device)
-    method = resolve_method(method, device)
+    method = resolve_method(method, device, M=shape[0], N=shape[1],
+                            L=rows.shape[0])
     if nzmax is None and nzmax_slack:
         nzmax = int(rows.shape[0]) + int(nzmax_slack)
     key = _cache_key(rows, cols, shape, nzmax, method, device,
@@ -340,8 +343,8 @@ def plan_update(ii, jj, ss, add_ii, add_jj, add_ss, shape=None,
     rows_b, cols_b, vals_b, shape = host_triplets(
         *expand_indices(ii, jj, ss), shape)
     device = resolve_device(device)
-    method = resolve_method(method, device)
     L = int(rows_b.shape[0])
+    method = resolve_method(method, device, M=shape[0], N=shape[1], L=L)
     if nzmax is None and nzmax_slack:
         nzmax = L + int(nzmax_slack)
     # the extras are plan_lookup's plain-CSC identity (format=None,

@@ -27,8 +27,9 @@ the strict upper half of a structurally symmetric stream
 (:class:`SymPattern`); ``detect_symmetry``, ``detect_block`` and
 ``pattern_symmetric`` (two B7 probes over a plan) detect structure.
 
-Not ported yet: ``reduce_rows`` (ROADMAP queue A, item 15) and the
-``REPRO_VALIDATE`` hook of ``update`` (item 13).
+Under ``REPRO_VALIDATE=1`` every rewritten plan ``update`` returns is
+validated (:mod:`repro_torch.sparse.analysis.invariants`).  Not ported
+yet: ``reduce_rows`` (ROADMAP queue A, item 15).
 """
 from __future__ import annotations
 
@@ -230,9 +231,9 @@ class SparsePattern:
             fallback = True
         bump = dict(accum=self.accum, epoch=self.epoch + 1)
         if L_new == 0:
-            return dataclasses.replace(
+            return _maybe_validated(dataclasses.replace(
                 trivial_pattern(0, (M, N), nzmax=new_nzmax, device=dev),
-                **bump)
+                **bump))
         if fallback:
             global _UPDATE_FALLBACK_WARNED
             if not _UPDATE_FALLBACK_WARNED and L and M and N:
@@ -257,7 +258,7 @@ class SparsePattern:
                 rows0, cols0 = rows0[~dm], cols0[~dm]
             pat = plan(torch.cat([rows0, ar]), torch.cat([cols0, ac]),
                        (M, N), nzmax=new_nzmax, method=method)
-            return dataclasses.replace(pat, **bump)
+            return _maybe_validated(dataclasses.replace(pat, **bump))
         # -- merge path: survivors stay sorted, only the delta sorts ----
         if dm is None:
             sr_a, sc_a, pa = self.srows, self.scols, self.perm
@@ -275,7 +276,7 @@ class SparsePattern:
         pat = _merge_sorted_streams(
             sr_a, sc_a, pa, ar, ac, L_keep, M=M, N=N, nzmax=new_nzmax,
             method=method, merge_method=merge_method)
-        return dataclasses.replace(pat, **bump)
+        return _maybe_validated(dataclasses.replace(pat, **bump))
 
 
 def fill_dtype(vals) -> torch.dtype:
@@ -475,6 +476,21 @@ def _reset_update_fallback_warning() -> None:
     _UPDATE_FALLBACK_WARNED = False
 
 
+def _maybe_validated(pat: "SparsePattern") -> "SparsePattern":
+    """``REPRO_VALIDATE=1`` hook: check rewritten plans on the way out.
+
+    A no-op by default; under the variable every non-trivial return of
+    :meth:`SparsePattern.update` runs the structural validators
+    (:mod:`repro_torch.sparse.analysis.invariants`), so a merge-path bug
+    surfaces as a named ``InvariantViolation`` at the rewrite, not as a
+    wrong fill three calls later.  Imported lazily: the analysis layer
+    depends on this module.
+    """
+    from .analysis.invariants import maybe_validate_pattern
+
+    return maybe_validate_pattern(pat, subject="SparsePattern.update")
+
+
 def _merge_sorted_streams(sr_a, sc_a, pa, add_rows, add_cols, L_keep: int,
                           *, M: int, N: int, nzmax: int,
                           method: str | None,
@@ -556,9 +572,10 @@ def plan(rows, cols, shape: tuple[int, int], *, nzmax: int | None = None,
 
     ``rows``/``cols`` are zero-offset int tensors of equal length L
     (``row == shape[0]`` marks padding); the plan lives on their device.
-    ``method`` selects the sort backend (``"jnp" | "fused" | "radix"``,
-    see :mod:`repro_torch.sparse.dispatch`; ``None`` is ``"radix"`` on
-    the card and ``"fused"`` on the CPU).  ``nzmax`` defaults to
+    ``method`` selects the sort backend (``"jnp" | "fused" | "pallas" |
+    "radix"``, see :mod:`repro_torch.sparse.dispatch`; ``None`` resolves
+    through the tuning table, whose priors are ``"radix"`` on the card
+    and ``"fused"`` on the CPU).  ``nzmax`` defaults to
     ``L + nzmax_slack``.
     """
     rows, cols = torch.as_tensor(rows), torch.as_tensor(cols)

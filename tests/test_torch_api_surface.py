@@ -34,12 +34,6 @@ ABSENT = {
     "PlanService", "apply_runtime_env", "enable_compilation_cache",
     "load_caches", "runtime_env", "save_caches", "tcmalloc_hint",
     "LRUCache.items",
-    # A12 sparse/tuning/: the tunables registry and the measured table
-    "KernelSpec", "Knob", "TuningTable", "kernel_spec", "prior_policy",
-    "register_kernel_spec", "registered_families", "resolve_policy",
-    "tuning_fingerprint",
-    # A13 sparse/analysis/: the invariant validators
-    "validate_matrix", "validate_pattern",
     # A14 sparse/sharded.py: sharded assembly over a device mesh
     "ShardedCSC", "ShardedPattern", "plan_sharded", "plan_sharded_coo",
     "fill_sharded_pallas",

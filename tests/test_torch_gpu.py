@@ -1302,3 +1302,124 @@ def test_product_probe_variants_match_plain_version(variant):
     for v in (1, 2, 3):
         assert torch.equal(smoke.gather2_floor(va, vb, sa, sb, slot, n, v),
                            va[sa.long()] * vb[sb.long()])
+
+
+# ---------------------------------------------------------------------------
+# Slice 5: the policy layer and the analysis layer on the card
+# ---------------------------------------------------------------------------
+def test_resource_report_matches_the_declared_columns():
+    """Every kernel instance's registers, shared bytes and resident
+    blocks, read from its library, against the declared columns."""
+    from repro_torch.sparse.analysis.vmem import check_report, vmem_report
+
+    _cuda()
+    rows = vmem_report()
+    assert all(r["measured"] for r in rows)
+    assert check_report(rows) == []
+    assert all(r["smem_optin"] >= r["dynamic_smem"] for r in rows)
+
+
+def test_resource_report_before_any_launch():
+    """In a fresh process, before any kernel ran (so no launch has opted
+    a kernel in to more than the default shared memory), the report
+    still finds a resident block for every instance."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _cuda()
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    code = ("from repro_torch.sparse.analysis.vmem import check_report, "
+            "vmem_report\nbad = check_report(vmem_report())\n"
+            "assert bad == [], bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_contract_audit_clean_on_the_card_and_catches_plants():
+    from repro_torch.sparse import InvariantViolation, plan
+    from repro_torch.sparse.analysis import (audit_default_paths,
+                                             audit_jaxpr, record_ops)
+
+    dev = _cuda()
+    assert len(audit_default_paths()) == 22
+    pat = plan(torch.tensor([0, 1, 0, 2, 2], device=dev),
+               torch.tensor([0, 0, 1, 2, 2], device=dev), (3, 3))
+    vals = torch.ones(pat.L, device=dev)
+    audit_jaxpr(record_ops(pat.scatter, vals), expect_dtype=torch.float32)
+    for plant in (lambda v: pat.scatter(v).cpu(),
+                  lambda v: pat.scatter(v) * pat.nnz.item(),
+                  lambda v: pat.scatter(v)[pat.scatter(v) > 0]):
+        with pytest.raises(InvariantViolation, match="host-sync"):
+            audit_jaxpr(record_ops(plant, vals))
+
+
+def test_validators_on_card_tensors():
+    import dataclasses
+
+    from repro_torch.sparse import (InvariantViolation, convert, plan,
+                                    product_plan, validate_matrix,
+                                    validate_pattern)
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    r = torch.from_numpy(rng.integers(0, 300, 5000)).to(dev)
+    c = torch.from_numpy(rng.integers(0, 300, 5000)).to(dev)
+    pat = validate_pattern(plan(r, c, (300, 300)))
+    A = validate_matrix(pat.assemble(torch.ones(5000, device=dev)))
+    for fmt in ("csr", "coo"):
+        validate_matrix(convert(A, fmt))
+    validate_pattern(product_plan(A, A))
+    perm = pat.perm.clone()
+    perm[0] = perm[1]
+    with pytest.raises(InvariantViolation, match="perm-permutation"):
+        validate_pattern(dataclasses.replace(pat, perm=perm))
+
+
+@pytest.mark.parametrize("shape", ["dense", "sparse", "ladder"])
+def test_every_b7_shape_gives_the_same_offsets(shape):
+    """The shape the caller passes (from its resolved thresholds) changes
+    B7's launch, never its offsets."""
+    from repro_torch.kernels.merge.merge import merge_search_kernel
+    from repro_torch.kernels.merge.ref import merge_search_ref
+
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    key = np.sort(rng.integers(0, 1 << 40, 1 << 20))
+    tr = torch.from_numpy((key & 0xFFFFF).astype(np.int32)).to(dev)
+    tc = torch.from_numpy((key >> 20).astype(np.int32)).to(dev)
+    q = rng.integers(0, 1 << 20, (2, 5000)).astype(np.int32)
+    qr, qc = (torch.from_numpy(x).to(dev) for x in q)
+    for side in ("left", "right"):
+        assert torch.equal(
+            merge_search_kernel(qr, qc, tr, tc, side=side, shape=shape),
+            merge_search_ref(qr, qc, tr, tc, side=side))
+
+
+def test_measure_sweep_on_the_card_holds_every_candidate(tmp_path):
+    """``--measure`` on the card at a small scale: every candidate of
+    every family agrees with the prior's output, one a call-site
+    decision is timed, and none names a plain method on the card."""
+    from repro_torch.sparse import tuning
+    from repro_torch.sparse.tuning.__main__ import run_measure
+
+    _cuda()
+    tuning.set_table(tuning.TuningTable())
+    try:
+        results = run_measure(scale=0.1, min_gain=10.0, log=lambda s: None)
+        assert {r["family"] for r in results} == {
+            "plan", "radix_sort", "counting_sort", "merge", "spmv_sym"}
+        assert all(c["ms"] > 0 for r in results for c in r["candidates"])
+        for r in results:
+            hows = [c["decision"] for c in r["candidates"]]
+            assert len(hows) == len({str(h) for h in hows})
+            if r["family"] in ("plan", "merge"):
+                assert {c["policy"]["method"] for c in r["candidates"]} <= {
+                    "radix", "pallas"}
+        assert len(tuning.get_table()) == 0  # no gain beats 1000%
+    finally:
+        tuning.reset_table()
