@@ -180,6 +180,8 @@ of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import importlib
 import itertools
 import json
 import subprocess
@@ -1249,7 +1251,8 @@ def fem_kernel_checks(fem, rng, dev):
     from repro_torch.kernels.segment_sum.ref import gather2_segment_sum_ref
     from repro_torch.kernels.spmv import spmv as ell_mod
     from repro_torch.kernels.spmv.ref import spmv_ell_ref
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref, sym_streams_ref
 
     def ints(n):
@@ -1430,7 +1433,8 @@ def fem_times(fem, cpm, dev):
     from repro_torch.kernels.segment_sum.ref import gather2_segment_sum_ref
     from repro_torch.kernels.spmv import spmv as ell_mod
     from repro_torch.kernels.spmv.ref import spmv_ell_ref
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref, sym_streams_ref
     from repro_torch.sparse import convert, ops, plan, spgemm
 
@@ -1956,7 +1960,8 @@ def sym_kernel_checks(fem, rng, dev):
     bit from call to call on random data, ``ct`` there within C_SEG eps
     of each column's sum|terms| of the exact sum.  Returns the largest
     error over eps sum|terms| per stream, shape and dtype."""
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import (SYM_TILE, sym_shape,
                                                   sym_streams_ref)
 
@@ -2015,7 +2020,8 @@ def sym_times(fem, cpm, dev):
     depths, on the FEM matrix's SymCSC stream, on the arrow matrix and on
     a stream of as many slots in short columns (``sym_stream``), float32;
     device ms, back to back."""
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import SYM_TILE
 
     S, x = fem["S"], fem["x"]
@@ -2496,6 +2502,421 @@ def policy_phase(dev, sets, fem, kernels, refill, smi_line) -> dict:
     return launches
 
 
+#: phase 4f's time limit, in seconds
+PHASE_4F_LIMIT_S = 90
+#: phase 4f's warm regime (``benchmarks/bench_serving.py``'s): threads,
+#: requests a thread per set, and the value scales the requests cycle
+#: through (the sets' values are ones, so every scaled result is exact)
+SERVE_THREADS, SERVE_REQUESTS = 4, 8
+SERVE_SCALES = (1.0, 2.0, 3.0, 4.0)
+
+
+def csc_digest(A) -> str:
+    """sha256 of a CSC's ``indptr``, ``indices`` and ``data`` bytes."""
+    h = hashlib.sha256()
+    for t in (A.indptr, A.indices, A.data):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_restart_check(cache_dir: str) -> None:
+    """Phase 4f's child process: a ``PlanService`` pointed at the parent's
+    ``cache_dir`` loads its plans, re-plans nothing and times its first
+    request per set; prints the digests of the results for the parent
+    to hold against phase 4's oracle-checked ones."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.sparse import PlanService, plan_cache_info
+
+    t0 = time.perf_counter()
+    svc = PlanService(cache_dir=cache_dir)
+    torch.cuda.synchronize()
+    out = {"loaded_plans": svc.loaded_plans,
+           "load_ms": (time.perf_counter() - t0) * 1e3,
+           "first_request_ms": {}, "digest": {}}
+    for k, cfg in DATA_SETS.items():
+        ii, jj, ss, siz = ransparse(cfg["siz"], cfg["nnz_row"], cfg["nrep"],
+                                    seed=SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = svc.assemble(ii, jj, ss, (siz, siz))
+        torch.cuda.synchronize()
+        out["first_request_ms"][str(k)] = (time.perf_counter() - t0) * 1e3
+        out["digest"][str(k)] = csc_digest(A)
+    out["plan_misses"] = plan_cache_info()["misses"]
+    out["graphs"] = svc.stats()["graphs"]
+    emit(out)
+
+
+def _kernel_names(fn) -> list:
+    """The CUDA kernels ``torch.profiler`` saw in one call of ``fn()``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.self_device_time_total > 0})
+
+
+def serving_phase(dev, sets, fem, verified, kernels, cpm,
+                  smi_line) -> dict:
+    """Phase 4f: the plan service and its CUDA-graph tier (the module
+    docstring); returns the phase's launch counts.  The service persists
+    into a temporary ``cache_dir``, removed at the end."""
+    import shutil
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="repro-serve-")
+    try:
+        return _serving_phase(dev, sets, fem, verified, kernels, cpm,
+                              smi_line, cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _serving_phase(dev, sets, fem, verified, kernels, cpm, smi_line,
+                   cache) -> dict:
+    import dataclasses
+    import gc
+    import threading
+
+    from repro_torch.sparse import (PlanService, convert, fsparse, ops,
+                                    plan_cache_clear, plan_cache_info,
+                                    sparse2)
+    from repro_torch.sparse.analysis import audit_retraces
+    from repro_torch.sparse.analysis.contracts import audit_trace, record_ops
+    from repro_torch.sparse.errors import InvariantViolation
+    from repro_torch.sparse.matlab import plan_lookup
+    from repro_torch.sparse.serving import _SPMV_NUMERIC_FIELDS
+    from repro_torch.sparse.spgemm import _structure_key
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4f", "card": smi_line}
+    plan_cache_clear()
+    for f in kernels.values():
+        f.launches = 0
+    names = ("1", "2", "3")
+    torch.cuda.synchronize()
+    mem = {"phase_start": torch.cuda.memory_reserved() / 2**20}
+    svc = PlanService(cache_dir=cache)
+    require(svc.stats()["graph_mode"] == "cuda-graph",
+            "the service does not capture on the card")
+    # uncached results per set and value scale: each scale is the
+    # oracle-checked result of phase 4 times the scale, exactly
+    want = {}
+    for name in names:
+        ii, jj, ss, siz = sets[name]
+        base = fsparse(ii, jj, ss, (siz, siz))
+        require(csc_digest(base) == verified[name], "uncached fsparse "
+                f"differs from phase 4's, set {name}")
+        require(float(base.data.max()) * max(SERVE_SCALES) < 2**24,
+                "scaled sums past 2^24")
+        want[name] = {k: fsparse(ii, jj, ss * k, (siz, siz)).data
+                      for k in SERVE_SCALES}
+        for k, d in want[name].items():
+            require(torch.equal(d, k * base.data), f"fsparse of the "
+                    f"values times {k} is not the oracle's, set {name}")
+    # -- cold: the first request of each set (plan, persist, capture)
+    cold = {}
+    for name in names:
+        ii, jj, ss, siz = sets[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = svc.assemble(ii, jj, ss, (siz, siz))
+        torch.cuda.synchronize()
+        cold[name] = (time.perf_counter() - t0) * 1e3
+        require(csc_digest(A) == verified[name], "the cold request "
+                f"differs from the oracle, set {name}")
+    row["cold_ms"] = cold
+    # -- warm: threads x requests per set, every result bit for bit
+    lat = {name: [[] for _ in range(SERVE_THREADS)] for name in names}
+    errors = []
+
+    def worker(t):
+        try:
+            for name in names:
+                ii, jj, ss, siz = sets[name]
+                for r in range(SERVE_REQUESTS):
+                    k = SERVE_SCALES[(t + r) % len(SERVE_SCALES)]
+                    t0 = time.perf_counter()
+                    A = svc.assemble(ii, jj, ss * k, (siz, siz))
+                    torch.cuda.current_stream().synchronize()
+                    lat[name][t].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if not torch.equal(A.data, want[name][k]):
+                        errors.append(f"set {name}, scale {k}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    warm_s = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a warm thread hung")
+    require(not errors, f"warm requests differ: {errors[:5]}")
+    row["warm"] = {"threads": SERVE_THREADS,
+                   "requests_per_thread_per_set": SERVE_REQUESTS,
+                   "requests_per_s": SERVE_THREADS * SERVE_REQUESTS
+                   * len(names) / warm_s}
+    for name in names:
+        ms = np.concatenate(lat[name])
+        row["warm"][name] = {"p50_ms": float(np.percentile(ms, 50)),
+                             "p99_ms": float(np.percentile(ms, 99))}
+    torch.cuda.synchronize()
+    mem["with_3_fill_graphs"] = torch.cuda.memory_reserved() / 2**20
+    st = svc.stats()
+    require(st["graphs"]["captures"] == {"fill": 3}
+            and st["plan"]["misses"] == 3,
+            f"warm requests captured or planned again: {st}")
+    # -- restart: a child process on the same cache_dir
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serving-restart-check", cache],
+        capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, "the restart child failed:\n"
+            + proc.stdout[-2000:] + proc.stderr[-4000:])
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(child["loaded_plans"] >= 3 and child["plan_misses"] == 0,
+            f"the restart re-planned: {child}")
+    for name in names:
+        require(child["digest"][name] == verified[name],
+                f"the restarted service differs, set {name}")
+    row["restart"] = {k: child[k] for k in (
+        "loaded_plans", "plan_misses", "load_ms", "first_request_ms",
+        "graphs")}
+    row["persisted_MB"] = sum(
+        p.stat().st_size for p in Path(cache).glob("*.pkl")) / 2**20
+    # -- one accum="max" request: B4 captured
+    ii, jj, ss, siz = sets["1"]
+    vr = np.random.default_rng([SEED, 6]).standard_normal(
+        ii.shape[0]).astype(np.float32)
+    require(torch.equal(svc.assemble(ii, jj, vr, (siz, siz),
+                                     accum="max").data,
+                        sparse2(ii, jj, vr, (siz, siz), accum="max").data),
+            "the captured max fill differs from sparse2")
+
+    # -- replay against eager: the fill at sets 1-3 (float32 and float64,
+    #    bit for bit), as a caller pays it and on the device
+    rng = np.random.default_rng([SEED, 5])
+    rep = {}
+    for name in names:
+        ii, jj, ss, siz = sets[name]
+        key, pat, _ = plan_lookup(ii, jj, ss, (siz, siz))
+        r = {}
+        for dtype in (torch.float32, torch.float64):
+            v = torch.from_numpy(rng.standard_normal(pat.L)).to(dev, dtype)
+            got = svc._fill(key, pat, v)
+            require(torch.equal(got, pat.scatter(v)), f"the {dtype} fill "
+                    f"replay differs from eager, set {name}")
+        v = torch.from_numpy(rng.standard_normal(pat.L)
+                             .astype(np.float32)).to(dev)
+        for what, fn in (("replay", lambda: svc._fill(key, pat, v)),
+                         ("eager", lambda: pat.scatter(v))):
+            r[f"{what}_ms"] = call_ms(fn)
+            r[f"{what}_device_ms"] = device_ms(fn, cpm)
+        rep[f"fill_{name}"] = r
+    # the SpMV in four formats on the FEM matrix: within 8 eps sum|a x|
+    # of eager on random x, bit for bit on integer-valued operands; on a
+    # service with no cache_dir (the product plan of P' A is 0.5 GB)
+    fsvc = PlanService()
+    A, x = fem["A"], fem["x"]
+    absA = dataclasses.replace(A, data=A.data.abs())
+    tol = 8 * EPS32 * ops.matmul(absA, x.abs())
+    xi = torch.from_numpy(rng.integers(-3, 4, x.shape[0]).astype(
+        np.float32)).to(dev)
+    fmts = {"csc": A, "csr": convert(A, "csr"), "symcsc": fem["S"],
+            "bsr": fem["Bm"]}
+    spmv_err = {}
+    for fmt, F in fmts.items():
+        y = fsvc.spmv(F, x)
+        err = (y - ops.matmul(F, x)).abs()
+        require(bool(torch.all(err <= tol)), f"the {fmt} spmv replay is "
+                "not within 8 eps sum|a x| of eager")
+        spmv_err[fmt] = float((err / tol.clamp(min=1e-30)).max())
+        Fi = dataclasses.replace(F, **{
+            f: torch.round(4 * getattr(F, f))
+            for f in _SPMV_NUMERIC_FIELDS[type(F).__name__]})
+        require(torch.equal(fsvc.spmv(Fi, xi), ops.matmul(Fi, xi)),
+                f"the {fmt} spmv replay differs on integer-valued data")
+        r = {}
+        for what, fn in (("replay", lambda: fsvc.spmv(F, x)),
+                         ("eager", lambda: ops.matmul(F, x))):
+            r[f"{what}_ms"] = call_ms(fn)
+            r[f"{what}_device_ms"] = device_ms(fn, cpm)
+        rep[f"spmv_{fmt}"] = r
+    row["spmv_max_err_over_tol"] = spmv_err
+    # one CG iteration on the SymCSC operator through the service
+    S, b = fem["S"], fem["b"]
+    _, res_r = cg(lambda v: fsvc.spmv(S, v), b, 10)
+    _, res_e = cg(lambda v: ops.matmul(S, v), b, 10)
+    require(abs(float(res_r) - float(res_e)) <= 1e-3 * float(res_e) + 1e-6,
+            f"CG through the service: residual {float(res_r)} against "
+            f"{float(res_e)} eager")
+    rep["cg_iteration_symcsc"] = {
+        "replay_ms": call_ms(lambda: cg(lambda v: fsvc.spmv(S, v), b, 10),
+                             reps=5) / 10,
+        "eager_ms": call_ms(lambda: cg(lambda v: ops.matmul(S, v), b, 10),
+                            reps=5) / 10}
+    # the product P' A (B6), float32 and float64, bit for bit
+    Ptc, pp1 = fem["Ptc"], fem["pp1"]
+    for dtype in (torch.float32, torch.float64):
+        P2 = dataclasses.replace(Ptc, data=Ptc.data.to(dtype))
+        A2 = dataclasses.replace(A, data=A.data.to(dtype))
+        require(torch.equal(fsvc.multiply(P2, A2).data,
+                            pp1.multiply(P2.data, A2.data).data),
+                f"the {dtype} multiply replay differs from eager")
+    # the service's call keys both operands on the host (a copy of
+    # their structures, which syncs), so its graph is also timed alone
+    ex = next(e for k, e in fsvc._execs.items()
+              if k[0] == "multiply" and k[2] == str(torch.float32))
+    rep["multiply_PtA"] = {
+        "service_call_ms": call_ms(lambda: fsvc.multiply(Ptc, A)),
+        "replay_ms": call_ms(lambda: ex(Ptc.data, A.data)),
+        "eager_ms": call_ms(lambda: pp1.multiply(Ptc.data, A.data)),
+        "replay_device_ms": device_ms(lambda: ex(Ptc.data, A.data), cpm),
+        "eager_device_ms": device_ms(
+            lambda: pp1.multiply(Ptc.data, A.data), cpm),
+        "product_key_host_ms": host_ms(
+            lambda: (_structure_key(Ptc), _structure_key(A)), 5)}
+    del ex
+    torch.cuda.synchronize()
+    mem["with_fem_graphs"] = torch.cuda.memory_reserved() / 2**20
+    # the spmv key: the structure's bytes to the host, or the memo's hit
+    rep["spmv_key"] = {"unmemoised_ms": host_ms(lambda: _structure_key(A),
+                                                 REPS),
+                       "memoised_ms": host_ms(
+                           lambda: fsvc._structure_keys(A), REPS)}
+    row["replay_vs_eager"] = rep
+    # the contract audit over hits: no host sync and, on the card, no
+    # copy to the host (an unmemoised key would copy its structure)
+    hits = {"PlanService.assemble": lambda: svc.assemble(
+        *sets["1"][:3], (sets["1"][3],) * 2).data,
+        "PlanService.multiply": lambda: fsvc.multiply(Ptc, A).data,
+        **{f"PlanService.spmv[{f}]": (lambda F=F: fsvc.spmv(F, x))
+           for f, F in fmts.items()}}
+    for name, fn in hits.items():
+        fn()
+        try:
+            audit_trace(record_ops(fn), name=name)
+        except InvariantViolation as e:
+            fail(f"the contract audit over {name}: {e}")
+    row["contract_audit"] = {"paths": list(hits), "verdict": "clean"}
+
+    # -- update_structure of set 1: base the first 99%, delta the last 1%
+    ii, jj, ss, siz = sets["1"]
+    L = ii.shape[0]
+    Lb = L - L // 100
+    svc.assemble(ii[:Lb], jj[:Lb], ss[:Lb], (siz, siz), L)
+    before = {k[:2] for k, _ in svc._execs.items()}
+    caps = svc.stats()["graphs"]["captures"]["fill"]
+    U = svc.update_structure(ii[:Lb], jj[:Lb], ss[:Lb], ii[Lb:], jj[Lb:],
+                             ss[Lb:], (siz, siz), L)
+    require(csc_digest(U) == verified["1"], "the update differs from a cold "
+            "assemble of the whole set")
+    after = {k[:2] for k, _ in svc._execs.items()}
+    gone, new = before - after, after - before
+    require(len(gone) == 1 and len(new) == 1
+            and all(k[0] == "fill" for k in gone | new),
+            f"the update purged {gone} and added {new}")
+    require(svc.stats()["graphs"]["captures"]["fill"] == caps + 1,
+            "the update captured more than its fill")
+    row["update"] = {"purged": 1, "added": 1, "survived": len(after) - 1,
+                     "result": "bit-identical to the oracle"}
+
+    # -- assemble_many: 8 requests over sets 1 and 3, one graph a group
+    order = [("1", 1.0), ("3", 1.0), ("1", 2.0), ("1", 3.0), ("3", 2.0),
+             ("1", 4.0), ("3", 3.0), ("1", 1.0)]
+    batch = PlanService()
+    outs = batch.assemble_many([
+        (sets[n][0], sets[n][1], sets[n][2] * k, (sets[n][3],) * 2)
+        for n, k in order])
+    for (n, k), got in zip(order, outs):
+        one = svc.assemble(sets[n][0], sets[n][1], sets[n][2] * k,
+                           (sets[n][3],) * 2)
+        require(torch.equal(got.data, want[n][k])
+                and torch.equal(got.data, one.data),
+                f"assemble_many differs from per-request results ({n}, {k})")
+    bst = batch.stats()
+    require(bst["graphs"]["captures"] == {"fill": 2}
+            and bst["exec"]["size"] == 2, f"assemble_many captured "
+            f"{bst['graphs']}")
+    row["assemble_many"] = {"requests": len(order), "groups": 2,
+                            "captures": 2, "order": "request order, "
+                            "bit-identical"}
+
+    # -- the capture audit, and the kernels a replay runs
+    row["audit_retraces"] = audit_retraces()
+    key1, pat1, v1 = plan_lookup(*sets["1"][:3], (sets["1"][3],) * 2)
+    fill_names = _kernel_names(lambda: svc._fill(key1, pat1, v1))
+    sym_names = _kernel_names(lambda: fsvc.spmv(S, x))
+    require(any("segment_reduce_kernel" in k and "Gather<" in k
+                and "MinMax" not in k for k in fill_names),
+            f"a fill replay ran no B3' kernel: {fill_names}")
+    require(any("sym_threads_kernel" in k or "sym_streams_kernel" in k
+                for k in sym_names),
+            f"a SymCSC spmv replay ran no B9 kernel: {sym_names}")
+    row["witness"] = {"fill_replay": [k[:90] for k in fill_names],
+                      "symcsc_spmv_replay": [k[:90] for k in sym_names]}
+
+    # -- no path fell back: every entry of both services holds a graph
+    for service in (svc, fsvc, batch):
+        require(all(ex.graph is not None
+                    for _, ex in service._execs.items()),
+                "an executable holds no graph")
+    row["graphs"] = {"sets": svc.stats()["graphs"],
+                     "fem": fsvc.stats()["graphs"]}
+    torch.cuda.synchronize()
+    mem["with_all_graphs"] = torch.cuda.memory_reserved() / 2**20
+    svc._execs.clear()
+    del fsvc, batch, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem["graphs_evicted"] = torch.cuda.memory_reserved() / 2**20
+    row["memory_reserved_MB"] = mem
+
+    # -- the 5e7 set: one request and one replay, no threads
+    ii, jj, ss, siz = sets["2x20"]
+    big = PlanService()
+    t = {}
+    for what in ("cold", "replay"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A5 = big.assemble(ii, jj, ss, (siz, siz))
+        torch.cuda.synchronize()
+        t[f"{what}_ms"] = (time.perf_counter() - t0) * 1e3
+        require(csc_digest(A5) == verified["2x20"], f"the {what} request "
+                "differs from the oracle at 5e7")
+    require(big.stats()["graphs"] == {"captures": {"fill": 1},
+                                      "replays": {"fill": 2}},
+            "the 5e7 requests did not replay one graph")
+    row["set_2x20"] = t
+    del big, A5
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {k: f.launches for k, f in kernels.items()}
+    row["launches"] = launches
+    for k in ("B1", "B2", "B3", "B4", "B6", "B7", "B9", "B10"):
+        require(launches[k] > 0, f"kernel {k} never launched on phase "
+                "4f's path")
+    row["plan_cache"] = plan_cache_info()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4F_LIMIT_S,
+            f"phase 4f took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4F_LIMIT_S} s")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2520,7 +2941,8 @@ def main() -> None:
         PRODUCT_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
         gather_segment_sum_ref)
     from repro_torch.kernels.spmv import spmv as ell_mod
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.sparse.matlab import (_cache_key, expand_indices,
                                            fsparse, plan_cache_clear,
                                            plan_cache_info, sparse2)
@@ -2761,7 +3183,7 @@ def main() -> None:
     for f in counters:
         f.launches = 0
     expected = {"B1": 0, "B2": 0, "B3": 0}
-    oracles = {}
+    oracles, verified = {}, {}
     for name, (ii, jj, ss, siz) in sets.items():
         L = ii.shape[0]
         npass = len(plan_digit_passes(siz, siz, L))
@@ -2809,6 +3231,7 @@ def main() -> None:
         require(np.all(rerr <= 1e-5 * mag),
                 f"refill error {float((rerr / np.maximum(mag, 1e-300)).max())}"
                 f" x sum|v| > 1e-5, set {name}")
+        verified[name] = csc_digest(S)  # the oracle's, for phase 4f
         emit({"main_path": name, "L": int(L), "M": siz, "N": siz,
               "nnz": int(nnz), "passes": npass,
               "fsparse": "bit-identical to oracle",
@@ -2998,8 +3421,12 @@ def main() -> None:
     #    the sweep, a loaded table, validators, the contract audit -------
     policy_phase(dev, sets, fem, kernels4, refill, smi_line)
 
-    # -- 5. times -----------------------------------------------------------
+    # -- 4f. the plan service: cold, warm and restarted requests, graph
+    #    replays against eager calls, an update, a batch, the witness ---
     cpm = sleep_cycles_per_ms()
+    serving_phase(dev, sets, fem, verified, kernels4, cpm, smi_line)
+
+    # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
     emit(t3)
@@ -3273,5 +3700,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--loaded-table-check"]:
         loaded_table_check(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--serving-restart-check"]:
+        serving_restart_check(sys.argv[2])
     else:
         main()

@@ -70,6 +70,7 @@ these kernels are compared on one card.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -355,7 +356,8 @@ def merge_sym_times(cpm, dev) -> None:
     from repro_torch.core.coo import host_triplets
     from repro_torch.kernels.merge import merge as mg
     from repro_torch.kernels.merge.ref import merge_search_ref
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym_mod
+    sym_mod = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import SYM_TILE, sym_streams_ref
     from repro_torch.core.ransparse import DATA_SETS, ransparse
     from repro_torch.sparse import convert, plan

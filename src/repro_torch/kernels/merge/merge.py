@@ -101,3 +101,6 @@ def merge_search_kernel(q_rows: torch.Tensor, q_cols: torch.Tensor,
 
 
 merge_search_kernel.launches = 0
+
+#: the reference's name (``repro.kernels.merge.merge.merge_search_pallas``)
+merge_search_pallas = merge_search_kernel

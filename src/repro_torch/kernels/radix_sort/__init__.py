@@ -5,3 +5,12 @@
   ops.py         digit planning + the multi-pass sort
   ref.py         plain-PyTorch versions
 """
+from .ops import (DigitPass, plan_digit_passes, radix_pass_rank,
+                  radix_sort_pair)
+
+__all__ = [
+    "DigitPass",
+    "plan_digit_passes",
+    "radix_pass_rank",
+    "radix_sort_pair",
+]

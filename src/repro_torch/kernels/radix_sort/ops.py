@@ -106,15 +106,26 @@ def _pass(keys, payload, *, carry=(), shift: int, bits: int, nbins: int):
                            shift=shift, bits=bits, nbins=nbins)
 
 
+def radix_pass_rank(keys: torch.Tensor, *, shift: int, bits: int,
+                    nbins: int) -> torch.Tensor:
+    """Stable sort permutation of one digit: ``keys[rank]`` is ordered
+    by ``(keys >> shift) & (2^bits - 1)`` with ties in input order.
+
+    One B1 and one B2 pass of the identity payload: B2 scatters each
+    input position to where it lands, which is the permutation itself.
+    """
+    return _pass(keys, None, shift=shift, bits=bits, nbins=nbins)
+
+
 def radix_pass_positions(keys: torch.Tensor, *, shift: int, bits: int,
                          nbins: int) -> torch.Tensor:
     """Landing positions of a stable sort of one digit.
 
     ``pos[i]`` is where element ``i`` lands when the stream is stably
-    ordered by ``(keys >> shift) & (2^bits - 1)``: the inverse of one
-    placement pass of the identity payload.
+    ordered by ``(keys >> shift) & (2^bits - 1)``: the inverse of
+    :func:`radix_pass_rank`.
     """
-    rank = _pass(keys, None, shift=shift, bits=bits, nbins=nbins)
+    rank = radix_pass_rank(keys, shift=shift, bits=bits, nbins=nbins)
     pos = torch.empty_like(rank)
     pos[rank] = torch.arange(rank.shape[0], dtype=torch.int32,
                              device=rank.device)

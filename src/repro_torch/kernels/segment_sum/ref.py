@@ -181,3 +181,7 @@ def blocked_cumsum_ref(x: torch.Tensor) -> torch.Tensor:
     sums = tiles.sum(1)
     offs = torch.cat([sums.new_zeros(1), torch.cumsum(sums, 0)[:-1]])
     return (offs[:, None] + torch.cumsum(tiles, 1)).reshape(-1)[:L]
+
+
+#: the reference's name (``repro.kernels.segment_sum.ref``)
+gather2_segment_sum_sorted_ref = gather2_segment_sum_ref

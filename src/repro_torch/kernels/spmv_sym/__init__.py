@@ -6,3 +6,5 @@
   ops.py       the two SpMVs around them
   ref.py       plain-PyTorch versions
 """
+from .ops import spmv_bsr, spmv_sym  # noqa: F401
+from .ref import spmv_bsr_ref, spmv_sym_ref  # noqa: F401

@@ -29,6 +29,11 @@ over all of them (``matmul``, ``transpose``, ``add``, ...), and a sparse
 second operand of ``matmul`` (or ``mtimes``) runs the two-phase SpGEMM
 (``product_plan`` once per structure pair, ``ProductPattern.multiply``
 per refill).
+
+:class:`PlanService` (:mod:`.serving`) serves all of it to concurrent
+request streams: plans from the shared LRUs, persisted for warm
+restarts, and each hot structure's fill, product or SpMV captured once
+as a CUDA graph and replayed per request.
 """
 from __future__ import annotations
 
@@ -59,6 +64,9 @@ from .tuning import (KernelSpec, Knob, TuningTable, kernel_spec,
                      tuning_fingerprint)
 from .analysis import validate_matrix, validate_pattern
 from . import ops
+from .serving import (PlanService, apply_runtime_env,
+                      enable_compilation_cache, load_caches, runtime_env,
+                      save_caches, tcmalloc_hint)
 
 
 def assemble(coo: COO, *, nzmax: int | None = None,
@@ -74,7 +82,9 @@ __all__ = [
     "tuning_fingerprint", "validate_matrix", "validate_pattern",
     "assemble", "pattern_from_perm", "pattern_from_sorted",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
-    "PlanUpdate", "ProductPattern", "ReproWarning", "SparseMatrix",
+    "PlanService", "PlanUpdate", "ProductPattern", "ReproWarning",
+    "SparseMatrix", "apply_runtime_env", "enable_compilation_cache",
+    "load_caches", "runtime_env", "save_caches", "tcmalloc_hint",
     "SparsePattern", "SymCSC", "SymPattern", "accum_identity",
     "available_methods", "cached_product_plan", "convert", "coo_from_matlab",
     "csc_from_arrays", "default_method", "detect_block", "detect_symmetry",

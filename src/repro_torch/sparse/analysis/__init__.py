@@ -10,7 +10,9 @@ Counterpart of ``repro/sparse/analysis/``; five layers, one CLI
   ``SparsePattern.update``.
 * :mod:`.contracts`: an audit of the aten ops the fill, refill,
   multiply and SpMV hot paths dispatch (no 16-bit accumulation, no host
-  synchronisation, ``fill_dtype`` outputs).
+  synchronisation, ``fill_dtype`` outputs), and
+  :class:`~.contracts.RetraceAuditor`, which counts the captures of the
+  executable tier's CUDA graphs (the reference's epoch retrace check).
 * :mod:`.vmem`: the per-kernel resource report of the H100 kernels
   (threads, tiles, registers, shared memory, resident blocks an SM).
 * :mod:`.concurrency`: AST lint over the modules' shared module-level
@@ -19,15 +21,13 @@ Counterpart of ``repro/sparse/analysis/``; five layers, one CLI
   registered kernel specs) and an AST lint flagging policy constants in
   the dispatch/ops layer outside the :mod:`repro_torch.sparse.tuning`
   registry.
-
-The reference's ``RetraceAuditor``/``audit_retraces`` wait for the
-executable tier of ``sparse/serving.py`` (ROADMAP queue A, item 11).
 """
 from __future__ import annotations
 
 from ..errors import InvariantViolation
 from .concurrency import format_findings, lint_shared_state
-from .contracts import audit_default_paths, audit_jaxpr, record_ops
+from .contracts import (RetraceAuditor, audit_default_paths, audit_jaxpr,
+                        audit_retraces, record_ops)
 from .invariants import (maybe_validate_pattern, validate_matrix,
                          validate_pattern, validation_enabled,
                          validator_for_format)
@@ -37,8 +37,10 @@ from .vmem import format_table, vmem_report
 
 __all__ = [
     "InvariantViolation",
+    "RetraceAuditor",
     "audit_default_paths",
     "audit_jaxpr",
+    "audit_retraces",
     "format_findings",
     "format_table",
     "format_tuning_findings",

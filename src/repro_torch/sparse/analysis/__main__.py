@@ -7,8 +7,8 @@ layers and exits non-zero on the first broken contract.
   must validate clean, and seeded corruptions must each be rejected
   with the right invariant name.
 * ``--contracts``    record + audit every fill/refill/multiply/SpMV path
-  (dtype contract, no host synchronisation); ``--jaxpr`` is the
-  reference's name for it.
+  (dtype contract, no host synchronisation) and the capture contract
+  (``audit_retraces``); ``--jaxpr`` is the reference's name for it.
 * ``--vmem``         print the per-kernel resource report, measured on
   the card (``--json PATH`` also writes it as the autotuner artifact);
   on the card, its measured columns are checked against the declared.
@@ -108,14 +108,15 @@ def _check_tuning() -> list[str]:
 
 
 def _check_contracts(device) -> list[str]:
-    from .contracts import audit_default_paths
+    from .contracts import audit_default_paths, audit_retraces
 
     try:
         reports = audit_default_paths(device=device)
+        audit_retraces(device=device)
     except InvariantViolation as e:
         return [str(e)]
     print(f"contract audit: {len(reports)} hot paths clean on "
-          f"{device.type}")
+          f"{device.type} (+ capture contract)")
     return []
 
 

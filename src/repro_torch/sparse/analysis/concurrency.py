@@ -3,13 +3,13 @@
 Counterpart of ``repro/sparse/analysis/concurrency.py``, the same rule
 over the port's modules.  The port keeps module-level caches (the plan
 LRU of ``matlab.py``, the product LRU and the retired-structure set of
-``spgemm.py``) mutated from concurrent request threads; ``serving.py``
-joins :data:`DEFAULT_MODULES` when it is ported (ROADMAP queue A, item
-11).  The discipline that keeps them coherent (every mutation of
-module-level shared mutable state happens inside an ``LRUCache`` method,
-which locks internally, or inside an explicit ``with <lock>:`` scope) is
-purely lexical, so it is checked statically; ``lru.py``'s lock
-sanitizer (``REPRO_LOCK_SANITIZE``) checks it at run time.
+``spgemm.py``, the capture lock of ``serving.py``) mutated from
+concurrent request threads.  The discipline that keeps them coherent
+(every mutation of module-level shared mutable state happens inside an
+``LRUCache`` method, which locks internally, or inside an explicit
+``with <lock>:`` scope) is purely lexical, so it is checked
+statically; ``lru.py``'s lock sanitizer (``REPRO_LOCK_SANITIZE``)
+checks it at run time.
 
 :func:`lint_shared_state` parses the modules and classifies module-level
 assignments:
@@ -34,7 +34,7 @@ from pathlib import Path
 __all__ = ["format_findings", "lint_shared_state"]
 
 #: the port's modules whose shared state this lint guards
-DEFAULT_MODULES = ("lru.py", "matlab.py", "spgemm.py")
+DEFAULT_MODULES = ("lru.py", "matlab.py", "serving.py", "spgemm.py")
 
 _MUTATORS = frozenset({
     "add", "append", "appendleft", "clear", "discard", "extend", "insert",

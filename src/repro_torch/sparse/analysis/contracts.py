@@ -31,10 +31,15 @@ are not dispatched either.  ``.cpu()`` of a tensor already on the CPU
 dispatches nothing: on a CPU run the copy rule cannot fire.
 
 SpMV paths are audited at float32, as in the reference: only the fill
-paths own the float32-accumulation contract.  The reference's
-``RetraceAuditor``/``audit_retraces`` (an ``epoch`` bump retraces once)
-have no counterpart until the executable tier of ``sparse/serving.py``
-(CUDA-graph capture keyed on ``epoch``; ROADMAP queue A, item 11).
+paths own the float32-accumulation contract.
+
+:class:`RetraceAuditor` is the reference's retrace counter as an audit
+of captures: ``instrument(fn)`` captures ``fn`` as a CUDA graph once
+per (static fields such as ``epoch``, tensor shapes, dtypes) of its
+arguments, the executable tier's rule (:mod:`..serving`), and counts
+the captures; on the CPU it memoises an eager entry per signature and
+counts the same way.  :func:`audit_retraces` holds the ``epoch``
+contract: a value-only change captures nothing, a bump exactly once.
 """
 from __future__ import annotations
 
@@ -49,8 +54,10 @@ from ..errors import InvariantViolation
 __all__ = [
     "OpRecord",
     "OpTrace",
+    "RetraceAuditor",
     "audit_default_paths",
     "audit_jaxpr",
+    "audit_retraces",
     "audit_trace",
     "iter_eqns",
     "record_ops",
@@ -272,3 +279,121 @@ def audit_default_paths(*, device=None,
     _audit(lambda c, v, b: ell_spmv(c, v, b), (ell_cols, ell_vals, x),
            name="spmv[ell,float32]", expect=torch.float32)
     return reports
+
+
+def _split_args(obj):
+    """``(tensors, signature, rebuild)`` of a call's arguments.
+
+    Tensors (also the tensor fields of dataclasses, at any depth) are
+    the dynamic leaves, ``rebuild(tensors)`` puts new ones in their
+    places, and ``signature`` holds everything else (plain fields such
+    as ``epoch``, ``shape`` or ``accum``) with each leaf's shape, dtype
+    and device: what a capture is keyed on, as ``jax.jit`` keys a trace
+    on its static fields and abstract values.
+    """
+    if isinstance(obj, torch.Tensor):
+        sig = ("tensor", tuple(obj.shape), str(obj.dtype), str(obj.device))
+        return [obj], sig, lambda ts: ts[0]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        names = [f.name for f in dataclasses.fields(obj)]
+        leaves, sig, build = _split_args(
+            tuple(getattr(obj, n) for n in names))
+        return leaves, (type(obj).__qualname__, tuple(names), sig), \
+            lambda ts: dataclasses.replace(obj, **dict(zip(names,
+                                                           build(ts))))
+    if isinstance(obj, tuple):
+        parts = [_split_args(o) for o in obj]
+        cuts = [0]
+        for leaves, _, _ in parts:
+            cuts.append(cuts[-1] + len(leaves))
+
+        def rebuild(ts):
+            return tuple(b(ts[lo:hi]) for (_, _, b), lo, hi
+                         in zip(parts, cuts, cuts[1:]))
+
+        return ([t for leaves, _, _ in parts for t in leaves],
+                ("tuple", tuple(s for _, s, _ in parts)), rebuild)
+    return [], ("static", obj), lambda ts: obj
+
+
+class RetraceAuditor:
+    """Counts how often an instrumented callable is captured.
+
+    ``instrument(fn)`` returns a callable that captures ``fn`` as a CUDA
+    graph (:class:`repro_torch.sparse.serving.Executable`) once per
+    signature of its arguments (:func:`_split_args`: static fields such
+    as ``epoch``, tensor shapes, dtypes) and replays it for every call
+    with that signature; CPU arguments get an eager entry per signature
+    instead.  Every capture (not every call) appends to the log, so
+    ``count`` is the capture total.  ``expect(n)`` turns a mismatch
+    into a named ``InvariantViolation("retrace-count")``: the mechanical
+    form of the epoch contract, structure bump => exactly one capture,
+    value-only change => zero.
+    """
+
+    def __init__(self) -> None:
+        self._log: list[str] = []
+
+    @property
+    def count(self) -> int:
+        return len(self._log)
+
+    def reset(self) -> None:
+        self._log.clear()
+
+    def instrument(self, fn):
+        from ..serving import Executable
+
+        name = getattr(fn, "__name__", "<fn>")
+        entries: dict = {}
+
+        def call(*args):
+            leaves, sig, rebuild = _split_args(args)
+            entry = entries.get(sig)
+            if entry is None:
+                self._log.append(name)
+                entry = entries[sig] = Executable(
+                    lambda *ts: fn(*rebuild(list(ts))), leaves)
+            return entry(*leaves)
+
+        return call
+
+    def expect(self, n: int, *, what: str = "captured path") -> int:
+        if self.count != n:
+            raise InvariantViolation(
+                "retrace-count",
+                f"expected exactly {n} capture(s), observed {self.count} "
+                f"({self._log})",
+                subject=what,
+            )
+        return self.count
+
+
+def audit_retraces(*, device=None) -> dict:
+    """Self-contained epoch capture check over a tiny pattern.
+
+    Value-only changes replay the captured fill (zero captures); an
+    ``epoch`` bump with identical shapes captures exactly once.
+    ``device`` is ``"cuda"`` unless the caller passes another.
+    """
+    from ...kernels.common import resolve_device
+    from ..pattern import plan
+
+    dev = resolve_device(device)
+    auditor = RetraceAuditor()
+    fill = auditor.instrument(lambda p, v: p.scatter(v))
+    pat = plan(torch.tensor([0, 1, 1], device=dev),
+               torch.tensor([0, 0, 1], device=dev), (2, 2))
+    vals = torch.ones(pat.L, dtype=torch.float32, device=dev)
+    first = fill(pat, vals)
+    auditor.expect(1, what="fill after first call")
+    second = fill(pat, 2.0 * vals)
+    auditor.expect(1, what="fill after a value-only change")
+    if not torch.equal(second, 2.0 * first):
+        raise InvariantViolation(
+            "retrace-count", "a replay after a value-only change did not "
+            "compute the new values", subject="fill")
+    bumped = dataclasses.replace(pat, epoch=pat.epoch + 1)
+    fill(bumped, vals)
+    auditor.expect(2, what="fill after an epoch bump")
+    return {"name": "retrace", "traces": auditor.count, "ok": True}

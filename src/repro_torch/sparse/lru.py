@@ -3,7 +3,8 @@
 Counterpart of ``repro/sparse/lru.py`` (pure Python there too, copied so
 the port imports nothing of the JAX package).  It holds the ``sparse2``
 plan cache of :mod:`repro_torch.sparse.matlab` (and ``plan_update``
-moves entries in it with :meth:`LRUCache.pop`).
+moves entries in it with :meth:`LRUCache.pop`), the SpGEMM product
+cache and the executable tier of :mod:`repro_torch.sparse.serving`.
 
 Design points:
 
@@ -35,7 +36,7 @@ import contextlib
 import os
 import threading
 from collections import OrderedDict
-from typing import Any, Callable, Hashable
+from typing import Any, Callable, Hashable, Iterable, Tuple
 
 from .errors import InvariantViolation
 
@@ -207,6 +208,11 @@ class LRUCache:
     def __contains__(self, key: Hashable) -> bool:
         with self._locked():
             return key in self._data
+
+    def items(self) -> Iterable[Tuple[Hashable, Any]]:
+        """Snapshot of (key, value) pairs, LRU-first (for persistence)."""
+        with self._locked():
+            return list(self._data.items())
 
     def info(self) -> dict:
         """Size/capacity plus the hit/miss/eviction/insertion counters.

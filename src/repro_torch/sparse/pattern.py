@@ -58,8 +58,9 @@ class SparsePattern:
     other field is an int32 tensor on the plan's device.  ``epoch``
     counts structure rewrites: :meth:`update` returns a plan with
     ``epoch + 1`` so dependent caches can tell a rewritten structure
-    from the one they were built against (torch is eager, so there is
-    no retrace to trigger: it is a plain int).
+    from the one they were built against.  It is a plain int; the
+    capture audit (:class:`~repro_torch.sparse.analysis.RetraceAuditor`)
+    captures a fill again when it changes, as a retrace would.
     """
 
     perm: torch.Tensor     # int32[L]

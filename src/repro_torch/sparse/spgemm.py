@@ -337,15 +337,21 @@ def _purge_retired() -> int:
 
 def product_lookup(A, B, *, method: str | None = None,
                    nzmax: int | None = None,
-                   flops_max: int | None = None) -> tuple:
+                   flops_max: int | None = None,
+                   structure_key=None) -> tuple:
     """Cache key + LRU-served :class:`ProductPattern` for one pair.
 
     Products whose operand structures were retired
     (:func:`retire_structure`) are purged before the lookup, so a
     rewritten structure re-plans instead of serving stale maps.
+    ``structure_key`` computes each operand's part of the key (default
+    :func:`_structure_key`; the plan service passes its memoised one,
+    which returns equal keys without copying a known structure to the
+    host).
     """
     _purge_retired()
-    key = (_structure_key(A), _structure_key(B), method, nzmax, flops_max)
+    sk = _structure_key if structure_key is None else structure_key
+    key = (sk(A), sk(B), method, nzmax, flops_max)
     pp = _PRODUCT_CACHE.get_or_create(
         key,
         lambda: product_plan(A, B, method=method, nzmax=nzmax,

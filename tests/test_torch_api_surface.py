@@ -30,10 +30,6 @@ torch.set_num_threads(1)
 #: names of the reference the port leaves out on purpose, with the
 #: reason (ROADMAP.md queue A numbers where the module is still to port)
 ABSENT = {
-    # A11 sparse/serving.py: the plan service and its caches
-    "PlanService", "apply_runtime_env", "enable_compilation_cache",
-    "load_caches", "runtime_env", "save_caches", "tcmalloc_hint",
-    "LRUCache.items",
     # A14 sparse/sharded.py: sharded assembly over a device mesh
     "ShardedCSC", "ShardedPattern", "plan_sharded", "plan_sharded_coo",
     "fill_sharded_pallas",

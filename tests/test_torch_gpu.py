@@ -21,6 +21,9 @@ kernel's first-order worst case is about 31 eps; see
 against the plain mirror of its tiled route
 (``placement_tiled_ref``).
 """
+import dataclasses
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -590,7 +593,8 @@ def test_ell_kernel_matches_plain_version(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sym_streams_kernel_matches_plain_version(dtype):
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    sym = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import sym_streams_ref
     from repro_torch.sparse import convert
 
@@ -620,7 +624,8 @@ def test_sym_streams_kernel_matches_plain_version(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_bsr_tiles_kernel_matches_plain_version(block, dtype):
     from repro_torch.core.csc import slot_columns
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    sym = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import bsr_tiles_ref
     from repro_torch.sparse import convert
 
@@ -654,7 +659,8 @@ def test_bsr_tiles_kernel_matches_plain_version(block, dtype):
 def test_slice3_wrong_lengths_and_types_raise_on_card():
     from repro_torch.kernels.assembly_ops import multiply_fused
     from repro_torch.kernels.spmv import spmv as ell
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    sym = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.sparse import convert, ops, product_plan
 
     dev = _cuda()
@@ -717,7 +723,8 @@ def test_gradients_through_multiply_and_symcsc_on_card_match_cpu():
 def test_fem_path_on_card_matches_cpu_and_counts_launches():
     from repro_torch import kernels
     from repro_torch.kernels.spmv import spmv as ell
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    sym = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.sparse import convert, ops, product_cache_clear
 
     dev = _cuda()
@@ -1174,7 +1181,8 @@ def test_sym_streams_kernel_on_streams_that_cross_tiles(kind, dtype, shape):
     call.  In the shape the stream's longest column picks ("path"), and
     forced: a longest column of 1 takes one thread a column, an unknown
     one the tiles."""
-    from repro_torch.kernels.spmv_sym import spmv_sym as sym
+    sym = importlib.import_module(
+        "repro_torch.kernels.spmv_sym.spmv_sym")
     from repro_torch.kernels.spmv_sym.ref import (SYM_TILE, sym_shape,
                                                   sym_streams_ref,
                                                   sym_streams_tiled_ref)
@@ -1423,3 +1431,192 @@ def test_measure_sweep_on_the_card_holds_every_candidate(tmp_path):
         assert len(tuning.get_table()) == 0  # no gain beats 1000%
     finally:
         tuning.reset_table()
+
+
+# ---------------------------------------------------------------------------
+# The plan service's executable tier: CUDA graphs against eager calls
+# ---------------------------------------------------------------------------
+def _serving_operands(dev, n=64, seed=31):
+    """One symmetric matrix with integer values on the card, in every
+    format the tier captures, and a second operand for the product."""
+    from repro_torch.sparse import convert, fsparse
+
+    rng = np.random.default_rng(seed)
+    r0, c0 = rng.integers(1, n + 1, (2, 400))
+    v0 = rng.integers(-4, 5, 400).astype(np.float32)
+    S = fsparse(np.concatenate([r0, c0]), np.concatenate([c0, r0]),
+                np.concatenate([v0, v0]), (n, n), device=dev)
+    B = fsparse(*rng.integers(1, n + 1, (2, 300)),
+                rng.integers(-4, 5, 300).astype(np.float32), (n, n),
+                device=dev)
+    return {"csc": S, "csr": convert(S, "csr"),
+            "symcsc": convert(S, "symcsc"),
+            "bsr": convert(S, "bsr", block=2)}, B
+
+
+@pytest.mark.parametrize("accum", ["sum", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_captured_fill_replays_bit_for_bit_and_results_survive(dtype, accum):
+    from repro_torch.sparse import plan
+    from repro_torch.sparse.serving import Executable, GraphCounts
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    L, n = 200_000, 3000
+    r, c = (torch.from_numpy(rng.integers(0, n, L).astype(np.int32)).to(dev)
+            for _ in range(2))
+    pat = plan(r, c, (n, n), accum=accum)
+    counts = GraphCounts()
+    v1, v2 = (torch.from_numpy(rng.standard_normal(L)).to(dev, dtype)
+              for _ in range(2))
+    ex = Executable(pat.scatter, (v1,), kind="fill", counts=counts)
+    assert ex.graph is not None
+    before = ss.gather_segment_sum.launches + \
+        ss.gather_segment_minmax.launches
+    y1 = ex(v1)
+    y2 = ex(v2)                     # a later replay must not touch y1
+    torch.cuda.synchronize()
+    assert ss.gather_segment_sum.launches + \
+        ss.gather_segment_minmax.launches == before   # replays launch none
+    assert torch.equal(y1, pat.scatter(v1))
+    assert torch.equal(y2, pat.scatter(v2))
+    assert counts.info() == {"captures": {"fill": 1},
+                             "replays": {"fill": 2}}
+
+
+def test_captured_multiply_and_spmv_replay_as_eager():
+    from repro_torch.sparse import PlanService, ops
+
+    dev = _cuda()
+    fmts, B = _serving_operands(dev)
+    svc = PlanService()
+    A = fmts["csc"]
+    for dtype in (torch.float32, torch.float64):
+        rng = np.random.default_rng(6)
+        Ad = dataclasses.replace(A, data=torch.from_numpy(
+            rng.standard_normal(A.nzmax)).to(dev, dtype))
+        Bd = dataclasses.replace(B, data=torch.from_numpy(
+            rng.standard_normal(B.nzmax)).to(dev, dtype))
+        C = svc.multiply(Ad, Bd)
+        assert torch.equal(C.data, ops.matmul(Ad, Bd).data)
+        assert torch.equal(svc.multiply(Ad, Bd).data, C.data)
+    xi = torch.from_numpy(np.arange(-32, 32, dtype=np.float32)).to(dev)
+    xr = torch.from_numpy(np.random.default_rng(8).standard_normal(64)
+                          .astype(np.float32)).to(dev)
+    for name, S in fmts.items():
+        y = svc.spmv(S, xi)         # integer-valued: exact either way
+        assert torch.equal(y, ops.matmul(S, xi)), name
+        assert torch.equal(svc.spmv(S, xi), y), name
+        absS = ops.matmul(dataclasses.replace(A, data=A.data.abs()),
+                          xr.abs())
+        err = (svc.spmv(S, xr) - ops.matmul(S, xr)).abs()
+        assert bool(torch.all(
+            err <= 8 * torch.finfo(torch.float32).eps * absS)), name
+    X = torch.stack([xi, 2 * xi], 1)
+    assert torch.equal(svc.spmv(fmts["symcsc"], X),
+                       ops.matmul(fmts["symcsc"], X))
+    st = svc.stats()
+    assert st["graph_mode"] == "cuda-graph"
+    assert all(ex.graph is not None for _, ex in svc._execs.items())
+    assert st["graphs"]["captures"] == {"multiply": 2, "spmv": 5}
+
+
+def test_four_threads_replaying_one_entry():
+    import threading
+
+    from repro_torch.sparse import PlanService, fsparse
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    n, L = 2000, 100_000
+    ii, jj = rng.integers(1, n + 1, (2, L))
+    ss = rng.integers(-8, 9, L).astype(np.float32)
+    svc = PlanService()
+    want = {k: fsparse(ii, jj, ss * k, (n, n), device=dev).data
+            for k in range(1, 5)}
+    svc.assemble(ii, jj, ss, (n, n))
+    errors = []
+
+    def worker(t):
+        try:
+            for r in range(8):
+                k = 1 + (t + r) % 4
+                got = svc.assemble(ii, jj, ss * k, (n, n))
+                if not torch.equal(got.data, want[k]):
+                    errors.append((t, r))
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert svc.stats()["graphs"] == {"captures": {"fill": 1},
+                                     "replays": {"fill": 33}}
+
+
+def test_a_failed_capture_raises():
+    from repro_torch.sparse.serving import Executable
+
+    dev = _cuda()
+    x = torch.ones(16, device=dev)
+    with pytest.raises(RuntimeError):
+        Executable(lambda v: v * float(v.sum()), (x,))  # a host sync
+    torch.cuda.synchronize()
+    assert torch.equal(x + 1, torch.full((16,), 2.0, device=dev))
+
+
+def test_spmv_key_memo_follows_an_in_place_change():
+    from repro_torch.sparse import PlanService, ops
+    from repro_torch.sparse.spgemm import _structure_key
+
+    dev = _cuda()
+    fmts, _ = _serving_operands(dev)
+    S = fmts["csc"]
+    svc = PlanService()
+    x = torch.arange(64, dtype=torch.float32, device=dev)
+    y = svc.spmv(S, x)
+    k1 = svc._structure_keys(S)
+    assert svc._structure_keys(S) is k1
+    nnz = int(S.nnz)
+    S.indices[:nnz] = S.indices[:nnz].flip(0)   # another structure
+    k2 = svc._structure_keys(S)
+    assert k2 != k1 and k2 == _structure_key(S)
+    assert torch.equal(svc.spmv(S, x), ops.matmul(S, x))
+    assert not torch.equal(svc.spmv(S, x), y)
+    assert svc.stats()["graphs"]["captures"] == {"spmv": 2}
+
+
+def test_service_hits_pass_the_contract_audit_on_the_card():
+    """On the card a hit copies nothing to the host: the memoised keys
+    keep ``.cpu()`` of the structure out of every replayed request."""
+    from repro_torch.sparse import PlanService, fsparse
+    from repro_torch.sparse.analysis.contracts import (audit_trace,
+                                                       record_ops)
+
+    dev = _cuda()
+    fmts, B = _serving_operands(dev)
+    svc = PlanService()
+    x = torch.ones(64, device=dev)
+    rng = np.random.default_rng(11)
+    ii, jj = rng.integers(1, 65, (2, 500))
+    ss = rng.integers(-4, 5, 500).astype(np.float32)
+    paths = {"assemble": lambda: svc.assemble(ii, jj, ss, (64, 64)).data,
+             "multiply": lambda: svc.multiply(fmts["csc"], B).data,
+             **{f"spmv[{f}]": (lambda S=S: svc.spmv(S, x))
+                for f, S in fmts.items()}}
+    for name, fn in paths.items():
+        fn()
+        assert audit_trace(record_ops(fn), name=name)["ok"]
+    assert torch.equal(svc.assemble(ii, jj, ss, (64, 64)).data,
+                       fsparse(ii, jj, ss, (64, 64), device=dev).data)
+
+
+def test_audit_retraces_on_the_card():
+    from repro_torch.sparse.analysis import audit_retraces
+
+    _cuda()
+    assert audit_retraces()["traces"] == 2

@@ -19,6 +19,7 @@ bit on integer-valued data, also at small tiles; the streams' own
 invariants; and the exact per-column sums the card's tests measure
 errors against.
 """
+import importlib
 import math
 import sys
 from pathlib import Path
@@ -30,10 +31,13 @@ import torch
 
 from repro.kernels.spmv_sym.spmv_sym import sym_streams as jax_sym_streams
 from repro_torch.core.csc import slot_columns
-from repro_torch.kernels.spmv_sym import spmv_sym as sym
 from repro_torch.kernels.spmv_sym.ref import (SHORT_COLUMN, SYM_TILE,
                                               sym_shape, sym_streams_ref,
                                               sym_streams_tiled_ref)
+
+#: the wrapper module: the subpackage's attribute ``spmv_sym`` is the
+#: function, as in the reference
+sym = importlib.import_module("repro_torch.kernels.spmv_sym.spmv_sym")
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))  # chip_smoke.py at the repo root

@@ -766,16 +766,15 @@ def test_a_recorded_winner_reaches_its_call_site(family):
 @pytest.mark.parametrize("module,absent", [
     ("sparse.tuning", {"RESIDENT_BUDGET_BYTES"}),
     ("sparse.tuning.measure", set()),
-    ("sparse.analysis", {"RetraceAuditor", "audit_retraces"}),
+    ("sparse.analysis", set()),
     ("sparse.analysis.vmem", set()),
-    ("sparse.analysis.contracts", {"RetraceAuditor", "audit_retraces"}),
+    ("sparse.analysis.contracts", set()),
     ("sparse.analysis.concurrency", set()),
     ("sparse.analysis.tuning_check", set()),
 ])
 def test_public_names_match_the_reference(module, absent):
     """Every public name of the reference's policy and analysis modules
-    is in the port's, but the deliberate absences (the VMEM budget; the
-    retrace audit, waiting for the serving module's executable tier)."""
+    is in the port's, but the deliberate absence (the VMEM budget)."""
     import importlib
 
     ref = importlib.import_module(f"repro.{module}")
