@@ -131,6 +131,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``REPRO_VALIDATE=1``; ``audit_default_paths`` on CUDA tensors.  All twelve counters are set to 0 before the sweep and
    must be above 0 after the audit; the phase must end within 90 s.
    The rest of the run resolves from the priors again.
+4f. the plan service (``PlanService``): cold, warm (threads) and
+   restarted requests on sets 1-3 against phase 4's oracle-checked
+   results, CUDA-graph replays against eager calls, an update, a batch,
+   the contract audit of the hits and the profiler's witness; must end
+   within 90 s.
+4g. the sharded path (``repro_torch.sparse.sharded``): ``fsparse(...,
+   method="sharded")`` on sets 1-3 on the default mesh (one shard) and
+   on ``make_data_mesh(4)`` (four shards on the card), and on the 5e7
+   set at four; each result's ``convert(S, "csc")`` bit for bit the
+   oracle's and, on sets 1-3, a fresh single-device ``fsparse``'s.  The
+   B1, B2 and B3' counters are set to 0 before these runs and must rise
+   by exactly p x the digit passes of one block's plan (B1, B2) and one
+   fill (B3') a run.  Then per run: Phase A's invariants (``send_base``
+   an exclusive scan from 0, ``block_load`` summing to L, the blocks'
+   nnz to the global nnz); on set 2 at four shards ``assemble_batch``
+   bit for bit against single fills, the block-row SpMV within ``8 eps
+   sum_j |a_ij x_j|`` of the single-device CSC SpMV, the fill's
+   gradient bit for bit the plain version's on the CPU, B3' against its
+   plain version on the routed stream; a skewed row distribution raising
+   the overflow ``ValueError``; ``sparse2`` a miss, a hit (one fill, no
+   plan kernel) and a miss on another p; ``PlanService.assemble`` of a
+   sharded request (uncaptured).  Times: ``plan_sharded`` against
+   ``plan`` and the routed fill against the single fill (call and
+   device), plan once and fill many against plan and fill each call;
+   must end within 60 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -2917,6 +2942,268 @@ def _serving_phase(dev, sets, fem, verified, kernels, cpm, smi_line,
     return launches
 
 
+#: phase 4g's time limit, in seconds
+PHASE_4G_LIMIT_S = 60
+#: phase 4g's mesh sizes: the default mesh (one shard a card) and four
+#: shards on the card (the reference's tests force four host devices)
+SHARDS = (1, 4)
+
+
+def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
+    """Phase 4g: the sharded path (the module docstring); ``oracles``
+    holds each set's oracle CSC ``(pr, ir, jc)``.  Returns the phase's
+    launch counts on its main path."""
+    import dataclasses
+
+    from repro_torch.kernels.radix_sort.ops import plan_digit_passes
+    from repro_torch.kernels.segment_sum.ref import gather_segment_sum_ref
+    from repro_torch.launch import make_data_mesh
+    from repro_torch.sparse import (PlanService, convert, fsparse, plan,
+                                    plan_cache_clear, plan_cache_info,
+                                    plan_sharded, sparse2)
+    from repro_torch.sparse.sharded import route_values
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4g", "card": smi_line}
+    hist_k, place_k, fill_k = kernels["B1"], kernels["B2"], kernels["B3"]
+    meshes = {p: (None if p == 1 else make_data_mesh(p)) for p in SHARDS}
+    require(make_data_mesh().shape["data"] == 1,
+            "the default mesh is not one shard on the card")
+    runs = [(name, p) for name in ("1", "2", "3") for p in SHARDS]
+    runs.append(("2x20", 4))
+
+    def counts() -> dict:
+        return {"B1": hist_k.launches, "B2": place_k.launches,
+                "B3": fill_k.launches}
+
+    def block_passes(siz: int, L: int, p: int) -> int:
+        """Digit passes of one block's plan (rpb rows, R received)."""
+        L_pad = -(-L // p) * p
+        cap = int(2.0 * L_pad / (p * p)) + 8
+        cap = -(-cap // 8) * 8
+        return len(plan_digit_passes(-(-siz // p), siz, p * cap))
+
+    # the main path alone, counted: fsparse(..., method="sharded")
+    for f in (hist_k, place_k, fill_k):
+        f.launches = 0
+    expected = {"B1": 0, "B2": 0, "B3": 0}
+    results = {}
+    for name, p in runs:
+        ii, jj, ss, siz = sets[name]
+        results[name, p] = fsparse(ii, jj, ss, (siz, siz), method="sharded",
+                                   mesh=meshes[p])
+        npass = block_passes(siz, ii.shape[0], p)
+        expected["B1"] += p * npass
+        expected["B2"] += p * npass
+        expected["B3"] += 1
+    torch.cuda.synchronize()
+    launches = counts()
+    row["launches"], row["expected"] = launches, dict(expected)
+    require(launches == expected, f"phase 4g launch counts {launches} != "
+            f"{expected} (p x the digit passes of a block's plan for B1 "
+            "and B2, one B3' a fill)")
+
+    # each result in the Matlab layout: bit for bit the oracle's, and so
+    # phase 4's single-device fsparse's; sets 1-3 also against a fresh one
+    checked = {}
+    for (name, p), S in results.items():
+        ii, jj, ss, siz = sets[name]
+        pr, ir, jc = oracles[name][:3]
+        nnz = pr.shape[0]
+        require(S.n_blocks == p and S.data.device.type == "cuda",
+                f"set {name}, p = {p}: {S.n_blocks} blocks on "
+                f"{S.data.device}")
+        require(int(S.nnz.sum()) == nnz, f"set {name}, p = {p}: blocks' "
+                f"nnz sum to {int(S.nnz.sum())}, not {nnz}")
+        C = convert(S, "csc")
+        require(int(C.nnz) == nnz
+                and np.array_equal(C.indptr.cpu().numpy(), jc)
+                and np.array_equal(C.indices[:nnz].cpu().numpy(), ir)
+                and np.array_equal(C.data[:nnz].cpu().numpy(),
+                                   pr.astype(np.float32)),
+                f"convert(fsparse(method='sharded'), 'csc') differs from "
+                f"the oracle, set {name}, p = {p}")
+        if name != "2x20":
+            F = fsparse(ii, jj, ss, (siz, siz))
+            require(torch.equal(C.indptr, F.indptr)
+                    and torch.equal(C.indices[:nnz], F.indices[:nnz])
+                    and torch.equal(C.data[:nnz], F.data[:nnz]),
+                    f"sharded CSC differs from fsparse, set {name}, p = {p}")
+        checked[f"{name}/p{p}"] = {"nnz": int(nnz), "nzb": S.nzb}
+        del C
+    row["convert_csc"] = "bit-identical to the oracle and to fsparse"
+    row["sets"] = checked
+    del results
+
+    # Phase A's invariants, the fills, the SpMV and the times, per run
+    times = {}
+    for name, p in runs:
+        ii, jj, ss, siz = sets[name]
+        mesh = make_data_mesh(p)
+        rows = torch.from_numpy((ii - 1).astype(np.int32)).to(dev)
+        cols = torch.from_numpy((jj - 1).astype(np.int32)).to(dev)
+        L = rows.shape[0]
+        pat = plan_sharded(rows, cols, (siz, siz), mesh=mesh)
+        sb, bl = pat.send_base.cpu().numpy(), pat.block_load.cpu().numpy()
+        require(np.all(sb[0] == 0) and np.all(np.diff(sb, axis=0) >= 0)
+                and np.all(sb <= bl) and np.all(bl == bl[0])
+                and int(bl[0].sum()) == L
+                and int(pat.nnz_total()) == oracles[name][0].shape[0]
+                and not bool(pat.any_overflow()),
+                f"Phase A invariants fail, set {name}, p = {p}")
+        v = torch.from_numpy(np.random.default_rng([SEED, p]).standard_normal(
+            L).astype(np.float32)).to(dev)
+        single = plan(rows, cols, (siz, siz))
+        reps = 5 if name == "2x20" else REPS
+        t = {"plan_sharded_call_ms": call_ms(
+                 lambda: plan_sharded(rows, cols, (siz, siz), mesh=mesh),
+                 reps=reps),
+             "plan_sharded_device_ms": device_ms(
+                 lambda: plan_sharded(rows, cols, (siz, siz), mesh=mesh),
+                 cpm, reps=reps),
+             "plan_call_ms": call_ms(lambda: plan(rows, cols, (siz, siz)),
+                                     reps=reps),
+             "plan_device_ms": device_ms(
+                 lambda: plan(rows, cols, (siz, siz)), cpm, reps=reps),
+             "routed_fill_call_ms": call_ms(lambda: pat.assemble(v),
+                                            reps=reps),
+             "routed_fill_device_ms": device_ms(lambda: pat.assemble(v),
+                                                cpm, reps=reps),
+             "fill_call_ms": call_ms(lambda: single.assemble(v), reps=reps),
+             "fill_device_ms": device_ms(lambda: single.assemble(v), cpm,
+                                         reps=reps),
+             # bench_shard_reassemble's regimes: plan once and fill per
+             # call, against plan and fill per call
+             "plan_once_fill_many_ms": call_ms(lambda: pat.assemble(v),
+                                               reps=reps),
+             "plan_and_fill_each_ms": call_ms(
+                 lambda: plan_sharded(rows, cols, (siz, siz),
+                                      mesh=mesh).assemble(v), reps=reps)}
+        t["reassemble_speedup"] = t["plan_and_fill_each_ms"] \
+            / t["plan_once_fill_many_ms"]
+        if p > 1:
+            t["plan_sharded_top_kernels"] = top_kernels(
+                lambda: plan_sharded(rows, cols, (siz, siz), mesh=mesh), k=6)
+        times[f"{name}/p{p}"] = t
+        if name == "2" and p == 4:
+            # assemble_batch against single fills, bit for bit
+            vb = torch.from_numpy(np.random.default_rng([SEED, 7])
+                                  .standard_normal((3, L)).astype(
+                                      np.float32)).to(dev)
+            Ab = pat.assemble_batch(vb)
+            require(all(torch.equal(Ab.batch_select(b).data,
+                                    pat.assemble(vb[b]).data)
+                        for b in range(3)),
+                    "assemble_batch differs from single fills, set 2, p = 4")
+            # the block-row SpMV against the single-device CSC SpMV, on
+            # integer-valued data (the two matrices are equal)
+            vi = torch.from_numpy(np.random.default_rng([SEED, 8]).integers(
+                -8, 9, L).astype(np.float32)).to(dev)
+            A, F = pat.assemble(vi), single.assemble(vi)
+            x = torch.from_numpy(np.random.default_rng([SEED, 9])
+                                 .standard_normal(siz).astype(
+                                     np.float32)).to(dev)
+            y, y1 = A.spmv(x), F @ x
+            bound = dataclasses.replace(F, data=F.data.abs()) @ x.abs()
+            err = float(((y - y1).abs() / (EPS32 * bound).clamp(
+                min=1e-30)).max())
+            require(err <= 8, f"block-row SpMV error {err} eps x "
+                    "sum_j |a_ij x_j| > 8, set 2, p = 4")
+            row["spmv_max_err_over_eps_sum_abs"] = err
+            # the fill's gradient on the card against the plain version's
+            # on the CPU, bit for bit
+            cpu_pat = dataclasses.replace(
+                pat, mesh=make_data_mesh(p, device="cpu"),
+                **{f.name: getattr(pat, f.name).cpu()
+                   for f in dataclasses.fields(pat)
+                   if isinstance(getattr(pat, f.name), torch.Tensor)})
+            w = torch.from_numpy(np.random.default_rng([SEED, 10])
+                                 .standard_normal((p, pat.nzb)).astype(
+                                     np.float32))
+            grads = []
+            for P, vv, ww in ((pat, v, w.to(dev)), (cpu_pat, v.cpu(), w)):
+                vv = vv.clone().requires_grad_()
+                (P.assemble(vv).data * ww).sum().backward()
+                grads.append(vv.grad.cpu())
+            require(torch.equal(*grads), "the sharded fill's gradient on "
+                    "the card differs from the plain version's on the CPU")
+            row["gradient"] = "bit-identical to the CPU's"
+            # B3' against its plain version on the routed stream
+            recv = route_values(pat.send_slot, vi[None], p=p,
+                                capacity=pat.capacity)[0].reshape(-1)
+            vn = route_values(pat.send_slot, v[None], p=p,
+                              capacity=pat.capacity)[0].reshape(-1)
+            perm_g, slot_g = pat._streams
+            nz = dict(num_segments=p * pat.nzb)
+            require(torch.equal(fill_k(recv, perm_g, slot_g, **nz),
+                                gather_segment_sum_ref(recv, perm_g,
+                                                       slot_g, **nz)),
+                    "B3' differs from plain on the routed integer stream")
+            got = fill_k(vn, perm_g, slot_g, **nz)
+            want = gather_segment_sum_ref(vn, perm_g, slot_g, **nz)
+            mag = gather_segment_sum_ref(vn.abs(), perm_g, slot_g, **nz)
+            r = float(((got - want).abs() / (EPS32 * mag).clamp(
+                min=1e-30)).max())
+            require(r <= C_SEG, f"B3' error {r} eps x sum|terms| > "
+                    f"{C_SEG} on the routed stream")
+            row["B3_routed_stream"] = {"integer": "bit-identical",
+                                       "max_err_over_eps_sum_abs": r}
+        del pat, single, rows, cols, v
+        torch.cuda.empty_cache()
+    row["times"] = times
+
+    # a skewed stream overflows the default capacity and raises
+    ii, jj, ss, siz = sets["1"]
+    try:
+        fsparse(ii % max(siz // 4, 1) + 1, jj, ss, (siz, siz),
+                method="sharded", mesh=make_data_mesh(4))
+    except ValueError as e:
+        require("overflow" in str(e), f"overflow raised {e!r}")
+    else:
+        fail("a skewed stream did not overflow the sharded buckets")
+    row["overflow"] = "ValueError raised"
+
+    # sparse2: a miss, a hit (one fill, no plan kernel), a miss on another
+    # p; PlanService of a sharded request
+    plan_cache_clear()
+    ii, jj, ss, siz = sets["3"]
+    before = counts()
+    S1 = sparse2(ii, jj, ss, (siz, siz), method="sharded",
+                 mesh=make_data_mesh(4))
+    mid = counts()
+    S2 = sparse2(ii, jj, ss, (siz, siz), method="sharded",
+                 mesh=make_data_mesh(4))
+    hit = counts()
+    S3 = sparse2(ii, jj, ss, (siz, siz), method="sharded")
+    info = plan_cache_info()
+    require((info["misses"], info["hits"]) == (2, 1),
+            f"sparse2 sharded cache {info}, expected 2 misses and 1 hit")
+    require(hit["B1"] == mid["B1"] and hit["B3"] == mid["B3"] + 1
+            and mid["B1"] > before["B1"],
+            "the sharded sparse2 hit ran a plan kernel or no fill")
+    require(torch.equal(S1.data, S2.data)
+            and torch.equal(convert(S1, "csc").data[:int(S1.nnz.sum())],
+                            convert(S3, "csc").data[:int(S3.nnz.sum())]),
+            "sparse2 sharded results differ")
+    svc = PlanService()
+    A = svc.assemble(ii, jj, ss, (siz, siz), method="sharded")
+    require(torch.equal(A.data, S3.data)
+            and svc.stats()["graphs"]["captures"] == {},
+            "PlanService's sharded request differs or was captured")
+    row["sparse2"] = {"misses": 2, "hits": 1}
+    row["plan_service"] = "equal to sparse2, uncaptured"
+    plan_cache_clear()
+    del S1, S2, S3, A, svc
+    torch.cuda.empty_cache()
+
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4G_LIMIT_S,
+            f"phase 4g took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4G_LIMIT_S} s")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3357,6 +3644,7 @@ def main() -> None:
     emit({"second_path_launches": launches2, "expected": exp2})
     for k in ("B4", "B5", "B11", "B12"):
         require(launches2[k] > 0, f"kernel {k} never launched on its path")
+    csc_oracles = {k: v[:3] for k, v in oracles.items()}  # for phase 4g
     del oracles
     torch.cuda.empty_cache()
 
@@ -3425,6 +3713,11 @@ def main() -> None:
     #    replays against eager calls, an update, a batch, the witness ---
     cpm = sleep_cycles_per_ms()
     serving_phase(dev, sets, fem, verified, kernels4, cpm, smi_line)
+
+    # -- 4g. the sharded path: fsparse(method="sharded") on one shard and
+    #    four, Phase A's invariants, the routed fill, the block-row SpMV,
+    #    the gradient, sparse2 and the service, the times ---------------
+    sharded_phase(dev, sets, csc_oracles, kernels4, cpm, smi_line)
 
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)

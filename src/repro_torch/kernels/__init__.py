@@ -14,7 +14,8 @@ Layout (counterpart of ``repro.kernels``):
   spmv_sym/       symmetric SpMV streams (B9) and BSR tiles (B10)
   merge/          merge positioning search of ``SparsePattern.update``
                   and ``pattern_symmetric`` (B7)
-  assembly_ops    end-to-end kernel-backed assembly and product refill
+  assembly_ops    end-to-end kernel-backed assembly, product refill and
+                  the sharded fill
   common          integer helpers, the nvcc build and ctypes binding
 
 The names below are re-exported on first access: the submodules import
@@ -33,7 +34,7 @@ _EXPORTS = {
     "assemble_kernels": "assembly_ops", "fill_fused": "assembly_ops",
     "fill_pallas": "assembly_ops", "plan_kernels": "assembly_ops",
     "multiply_fused": "assembly_ops", "assemble_pallas": "assembly_ops",
-    "plan_pallas": "assembly_ops",
+    "plan_pallas": "assembly_ops", "fill_sharded_pallas": "assembly_ops",
     "counting_sort": "counting_sort.ops",
     "block_offsets": "hist.ops", "histogram": "hist.ops",
     "plan_digit_passes": "radix_sort.ops",

@@ -12,6 +12,8 @@ port is Pallas (the reference's names stay as aliases):
              min/max)
   Product    segment_sum.gather2_segment_sum_sorted (B6: both operand
              gathers, the multiply, mask and segment sum in one kernel)
+  Sharded    the routed values of a ``ShardedPattern`` through B3' (one
+             launch over the row blocks' streams), ``fill_sharded_pallas``
 
 ``fill_pallas`` keeps the reference's unfused reduce for comparison:
 the gathered stream is written out, then prefix-summed (B5) and
@@ -27,6 +29,7 @@ from ..sparse.dispatch import sorted_permutation
 from ..sparse.pattern import (SparsePattern, accum_dtype, fill_dtype,
                               first_flags, pattern_from_perm,
                               trivial_pattern)
+from ..sparse.sharded import ShardedCSC, ShardedPattern
 from ..sparse.spgemm import ProductPattern
 from .segment_sum.ops import segment_sum_sorted
 
@@ -87,6 +90,21 @@ def fill_pallas(pattern: SparsePattern, vals: torch.Tensor, *,
     totals = segment_sum_sorted(v_s, first_flags(pattern.slot, nzmax),
                                 num_segments=nzmax)
     return pattern._csc(totals.to(dtype))
+
+
+def fill_sharded_pallas(pattern: ShardedPattern,
+                        vals: torch.Tensor) -> ShardedCSC:
+    """Numeric phase of a :class:`~repro_torch.sparse.sharded.ShardedPattern`
+    on B3'.
+
+    Counterpart of ``repro.kernels.assembly_ops.fill_sharded_pallas``:
+    the Phase B replay on values (bucket scatter and the exchange), then
+    each row block's reduce on the fused gather + masked segment-sum
+    kernel instead of a colliding scatter-add.  The port's
+    ``ShardedPattern.assemble`` is that path (one B3' launch over the
+    blocks' streams), so this is that call, with its gradient.
+    """
+    return pattern.assemble(vals)
 
 
 def assemble_kernels(rows: torch.Tensor, cols: torch.Tensor,

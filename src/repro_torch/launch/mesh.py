@@ -1,0 +1,107 @@
+"""The device mesh of the sharded assembly path.
+
+Counterpart of ``repro/launch/mesh.py``'s ``make_data_mesh`` only; the
+production meshes and the rest of ``launch/`` belong to the LM stack
+(ROADMAP queue A, item 15).
+
+A :class:`Mesh` names its axes, their sizes and the device of every
+shard.  The port keeps a mesh's shards as the leading axis of every
+sharded tensor, so several shards may share one device:
+``make_data_mesh(4)`` puts four shards on the current card, as the
+reference's tests put four on forced host devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4``).  A mesh whose
+shards span more than one device is refused: meshes over several cards
+wait for a machine that has them (ROADMAP queue A, item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+
+from ..kernels.common import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A named grid of shards, each placed on a device.
+
+    axis_names : the axes, in order (``("data",)`` for the assembly path)
+    sizes      : the number of shards along each axis
+    devices    : the device of every shard, in row-major order of the grid
+
+    ``shape`` maps each axis name to its size, as the reference mesh's
+    does (``mesh.shape["data"] == p``).  Frozen and hashable: plan
+    caches key on it through
+    :func:`repro_torch.sparse.sharded.mesh_fingerprint`.
+    """
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+    devices: tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) or any(
+                n < 1 for n in self.sizes):
+            raise ValueError(
+                f"a mesh needs one size >= 1 for each axis, got axes "
+                f"{self.axis_names} and sizes {self.sizes}")
+        if math.prod(self.sizes) != len(self.devices):
+            raise ValueError(
+                f"a mesh of sizes {self.sizes} needs "
+                f"{math.prod(self.sizes)} shard devices, got "
+                f"{len(self.devices)}")
+        if len(set(self.devices)) > 1:
+            raise NotImplementedError(
+                f"the mesh's shards span {len(set(self.devices))} devices: "
+                "the port runs every shard of a mesh on one device; "
+                "meshes over several cards wait for a machine that has "
+                "them (ROADMAP queue A, item 14)")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device every shard lives on."""
+        return self.devices[0]
+
+
+def _pinned(device: torch.device) -> torch.device:
+    """``"cuda"`` as the card it names now, so that equal meshes compare
+    and hash equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@functools.lru_cache(maxsize=None)
+def make_data_mesh(n: int | None = None, *, axis: str = "data",
+                   device=None) -> Mesh:
+    """One-axis mesh of ``n`` shards, the default of the sharded path.
+
+    With ``n=None`` there is one shard per visible CUDA device (one on a
+    machine with one card; a machine with several gets a mesh the port
+    refuses, see :class:`Mesh`).  A given ``n`` puts all ``n`` shards on
+    one device: the current card, or ``device`` when the caller passes
+    one (``device="cpu"`` runs the plain versions of the kernels).  As
+    every entry point of the port, it raises with no card unless asked
+    for the CPU.  Memoised, as the reference's is: the default mesh is
+    resolved on every ``sparse2`` call.
+    """
+    if n is not None and int(n) < 1:
+        raise ValueError(f"a mesh needs n >= 1 shards, got {n}")
+    if device is None:
+        resolve_device(None)  # raises when there is no card
+        if n is None:
+            devices = tuple(torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count()))
+        else:
+            devices = (_pinned(torch.device("cuda")),) * int(n)
+    else:
+        devices = (_pinned(torch.device(device)),) * (1 if n is None
+                                                      else int(n))
+    return Mesh((axis,), (len(devices),), devices)

@@ -17,14 +17,20 @@ Structures that move a little are merged forward, not re-planned
 the plan LRU); structurally symmetric streams plan only their upper
 half (``plan_symmetric`` -> ``SymPattern``, ``format="symcsc"``).
 
+The same split over a mesh of p shards (``plan_sharded`` ->
+``ShardedPattern`` -> block-row ``ShardedCSC``) lives in
+:mod:`repro_torch.sparse.sharded` and is reachable as
+``method="sharded"`` from the facade; the port runs a mesh's shards
+on one device.
+
 Execution policy (sort and merge methods, digit widths, block ranges,
 kernel shape thresholds) resolves through :mod:`.tuning`'s registry and
 measured table; :mod:`.analysis` validates plans and formats
 (``validate_pattern``/``validate_matrix``, ``REPRO_VALIDATE=1`` inside
 ``update``), audits the hot paths' aten ops and lints the policy layer.
 
-The formats (CSC, COO, CSR, SymCSC, BSR) share one conversion registry
-(``convert``); :mod:`~repro_torch.sparse.ops` is the operator surface
+The formats (CSC, COO, CSR, SymCSC, BSR, sharded) share one conversion
+registry (``convert``); :mod:`~repro_torch.sparse.ops` is the operator surface
 over all of them (``matmul``, ``transpose``, ``add``, ...), and a sparse
 second operand of ``matmul`` (or ``mtimes``) runs the two-phase SpGEMM
 (``product_plan`` once per structure pair, ``ProductPattern.multiply``
@@ -55,6 +61,8 @@ from .pattern import (ACCUM_MODES, SparsePattern, SymPattern, accum_identity,
                       pattern_from_perm, pattern_from_sorted,
                       pattern_symmetric, plan, plan_coo, plan_symmetric,
                       sym_pattern_from_arrays, trivial_pattern)
+from .sharded import (ShardedCSC, ShardedPattern, plan_sharded,
+                      plan_sharded_coo)
 from .spgemm import (ProductPattern, cached_product_plan, product_cache_clear,
                      product_cache_info, product_lookup, product_plan,
                      product_pattern_from_arrays, retire_structure)
@@ -83,6 +91,7 @@ __all__ = [
     "assemble", "pattern_from_perm", "pattern_from_sorted",
     "CapacityWarning", "FallbackWarning", "InvariantViolation", "LRUCache",
     "PlanService", "PlanUpdate", "ProductPattern", "ReproWarning",
+    "ShardedCSC", "ShardedPattern", "plan_sharded", "plan_sharded_coo",
     "SparseMatrix", "apply_runtime_env", "enable_compilation_cache",
     "load_caches", "runtime_env", "save_caches", "tcmalloc_hint",
     "SparsePattern", "SymCSC", "SymPattern", "accum_identity",

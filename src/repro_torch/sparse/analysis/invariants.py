@@ -16,14 +16,16 @@ invariant, in the reference's order, is the one raised.
 
 Entry points:
 
-* :func:`validate_pattern`: SparsePattern / SymPattern / ProductPattern.
-* :func:`validate_matrix`: CSC / CSR / COO / SymCSC / BSR (dispatched per
-  registered format class; see :func:`validator_for_format`).
+* :func:`validate_pattern`: SparsePattern / SymPattern / ProductPattern
+  / ShardedPattern.
+* :func:`validate_matrix`: CSC / CSR / COO / SymCSC / BSR / ShardedCSC
+  (dispatched per registered format class; see
+  :func:`validator_for_format`).
 * :func:`maybe_validate_pattern`: the ``REPRO_VALIDATE=1`` gate used by
   ``SparsePattern.update``.
 
-The sharded validators wait for ``sparse/sharded.py`` (ROADMAP queue A,
-item 14).
+A sharded structure's per-block checks name the block in their subject
+(``...[block b]``), as the reference's do.
 """
 from __future__ import annotations
 
@@ -73,8 +75,9 @@ def validate_pattern(p, *, subject: str | None = None):
     """Check every structural invariant of a plan object.
 
     Accepts a :class:`~repro_torch.sparse.pattern.SparsePattern`,
-    :class:`~repro_torch.sparse.pattern.SymPattern` or
-    :class:`~repro_torch.sparse.spgemm.ProductPattern`.  Raises
+    :class:`~repro_torch.sparse.pattern.SymPattern`,
+    :class:`~repro_torch.sparse.spgemm.ProductPattern` or
+    :class:`~repro_torch.sparse.sharded.ShardedPattern`.  Raises
     :class:`InvariantViolation` naming the first failed invariant;
     returns ``p`` unchanged when everything holds.
     """
@@ -86,7 +89,8 @@ def validate_pattern(p, *, subject: str | None = None):
 def validate_matrix(A, *, subject: str | None = None):
     """Check every structural invariant of a format container.
 
-    Dispatched per registered format class (CSC/CSR/COO/SymCSC/BSR).
+    Dispatched per registered format class (CSC/CSR/COO/SymCSC/BSR/
+    ShardedCSC).
     Raises :class:`InvariantViolation` naming the first failed invariant;
     returns ``A`` unchanged when everything holds.
     """
@@ -124,31 +128,39 @@ def maybe_validate_pattern(p, *, subject: str | None = None):
 class _Checks:
     """One validator's invariants in order: host conditions (python
     bools) and device ones (0-d bool tensors), read back in one transfer.
-    A message is a string, or a callable run only when its check fails."""
+    A message is a string, or a callable run only when its check fails.
+    :meth:`part` adds checks under another subject (a sharded
+    structure's blocks) to the same list, read in the same transfer."""
 
-    def __init__(self, subject: str):
+    def __init__(self, subject: str, items: list | None = None):
         self.subject = subject
-        self.items: list = []
+        self.items: list = [] if items is None else items
+
+    def part(self, subject: str) -> "_Checks":
+        return _Checks(subject, self.items)
 
     def req(self, cond, invariant: str, message) -> "_Checks":
-        self.items.append((cond, invariant, message))
+        self.items.append((cond, invariant, message, self.subject))
         return self
 
     def host(self, cond: bool, invariant: str, message) -> None:
-        """A check later ones depend on (shapes): raised at once."""
-        self.req(cond, invariant, message).run()
+        """A check later ones depend on (shapes): raised at once, after
+        any failed check before it."""
+        if not cond:
+            self.req(cond, invariant, message).run()
 
     def run(self) -> None:
-        items, self.items = self.items, []
-        dev = [c for c, _, _ in items if isinstance(c, torch.Tensor)]
+        items = list(self.items)
+        self.items.clear()
+        dev = [c for c, _, _, _ in items if isinstance(c, torch.Tensor)]
         flags = iter(torch.stack([c.reshape(()).to(dev[0].device)
                                   for c in dev]).tolist() if dev else ())
-        for cond, invariant, message in items:
+        for cond, invariant, message, subject in items:
             ok = next(flags) if isinstance(cond, torch.Tensor) else cond
             if not ok:
                 raise InvariantViolation(
                     invariant, message() if callable(message) else message,
-                    subject=self.subject)
+                    subject=subject)
 
 
 def _all(x: torch.Tensor) -> torch.Tensor:
@@ -299,6 +311,75 @@ def _validate_product_pattern(p, *, subject: str | None = None):
     chk.run()
 
 
+def _validate_sharded_pattern(p, *, subject: str | None = None):
+    chk = _Checks(subject or f"ShardedPattern{tuple(p.shape)}")
+    send_slot, perm, slot = p.send_slot, p.perm, p.slot
+    indices, indptr, nnz = p.indices, p.indptr, p.nnz
+    send_base, block_load, overflow = p.send_base, p.block_load, p.overflow
+    N = int(p.shape[1])
+    chk.host(send_slot.ndim == 2, "field-shape",
+             f"send_slot must be int32[p, L_loc], got shape "
+             f"{tuple(send_slot.shape)}")
+    pnum = int(send_slot.shape[0])
+    for name, arr in (("perm", perm), ("slot", slot), ("indices", indices)):
+        chk.host(arr.ndim == 2 and arr.shape[0] == pnum, "field-shape",
+                 f"{name} must carry the device axis p={pnum} leading, got "
+                 f"shape {tuple(arr.shape)}")
+    chk.host(tuple(indptr.shape) == (pnum, N + 1), "field-shape",
+             f"indptr must have shape (p, N+1)={(pnum, N + 1)}, got "
+             f"{tuple(indptr.shape)}")
+    chk.host(tuple(nnz.shape) == (pnum,)
+             and tuple(overflow.shape) == (pnum,), "field-shape",
+             "nnz/overflow must be per-block vectors")
+    chk.host(tuple(send_base.shape) == (pnum, pnum)
+             and tuple(block_load.shape) == (pnum, pnum), "field-shape",
+             "send_base/block_load must be [p, p] routing tables")
+    chk.host(0 <= int(p.L) <= send_slot.numel(), "field-shape",
+             f"L={p.L} exceeds the padded stream length "
+             f"{send_slot.numel()}")
+    drop = pnum * int(p.capacity)
+    ss = send_slot.long()
+    chk.req(_all((ss >= 0) & (ss <= drop)), "slot-bounds",
+            f"send_slot must lie in [0, p*capacity={drop}]")
+    R = int(perm.shape[1])
+    nzb = int(indices.shape[1])
+    rpb = int(p.rpb)
+    dev = perm.device
+    is_perm = (torch.sort(perm.long(), dim=1).values
+               == torch.arange(R, device=dev)).all(1)
+    sl, ind, ip = slot.long(), indices.long(), indptr.long()
+    stored = torch.arange(nzb, device=dev) < nnz.long()[:, None]
+    for b in range(pnum):
+        part = chk.part(f"{chk.subject}[block {b}]")
+        nb = nnz[b].long()
+        part.req(is_perm[b], "perm-permutation",
+                 "block perm is not a permutation of the received stream")
+        part.req(_all((sl[b] >= 0) & (sl[b] <= nzb)), "slot-bounds",
+                 f"block slots must lie in [0, nzb={nzb}]")
+        part.req((nb >= 0) & (nb <= nzb), "nzmax-capacity",
+                 lambda nb=nb: f"block nnz={_int(nb)} outside [0, "
+                 f"nzb={nzb}]")
+        part.req((ip[b, 0] == 0) & _all(_diff(ip[b]) >= 0),
+                 "indptr-monotone",
+                 "block indptr must start at 0 and be non-decreasing")
+        part.req(ip[b, -1] == nb, "indptr-nnz",
+                 lambda b=b, nb=nb: f"block indptr[-1]={_int(ip[b, -1])} "
+                 f"!= nnz={_int(nb)}")
+        part.req(_all(~stored[b] | ((ind[b] >= 0) & (ind[b] < rpb))),
+                 "indices-bounds",
+                 f"block row indices must lie in [0, rpb={rpb})")
+        part.req(_all(stored[b] | (ind[b] == rpb)), "padding-sentinel",
+                 f"block indices tail must hold the rpb={rpb} sentinel")
+    chk.req(_all(block_load == block_load[:1]),
+            "sharded-block-consistency",
+            "block_load rows must be identical across devices (psum'd)")
+    chk.req(_all(send_base >= 0) & _all(_diff(send_base) >= 0),
+            "sharded-block-consistency",
+            "send_base must be a non-negative exclusive scan over the "
+            "device axis")
+    chk.run()
+
+
 # ---------------------------------------------------------------------------
 # Format validators
 # ---------------------------------------------------------------------------
@@ -412,6 +493,31 @@ def _validate_bsr(A, *, subject: str | None = None):
     chk.run()
 
 
+def _validate_sharded_csc(A, *, subject: str | None = None):
+    chk = _Checks(subject or f"ShardedCSC{tuple(A.shape)}")
+    N = int(A.shape[1])
+    data, indices, indptr, nnz = A.data, A.indices, A.indptr, A.nnz
+    chk.host(indices.ndim == 2, "field-shape",
+             f"indices must be int32[p, nzb], got shape "
+             f"{tuple(indices.shape)}")
+    pnum = int(indices.shape[0])
+    chk.host(data.shape[0] == pnum and data.shape[-1] == indices.shape[-1],
+             "field-shape",
+             f"data must be [p, (B,) nzb] aligned with indices, got "
+             f"{tuple(data.shape)} vs {tuple(indices.shape)}")
+    chk.host(tuple(indptr.shape) == (pnum, N + 1)
+             and tuple(nnz.shape) == (pnum,), "field-shape",
+             "indptr/nnz must be per-block [p, N+1] / [p]")
+    rpb = int(A.rows_per_block)
+    for b in range(pnum):
+        _validate_compressed(chk.part(f"{chk.subject}[block {b}]"),
+                             data=data[b], indices=indices[b],
+                             indptr=indptr[b], nnz=nnz[b], n_ptr=N + 1,
+                             idx_bound=rpb, sentinel=rpb,
+                             axis_name="column")
+    chk.run()
+
+
 # ---------------------------------------------------------------------------
 # Lazy registration (class imports deferred so this module stays cheap to
 # import from low-level call sites)
@@ -427,14 +533,17 @@ def _ensure_registered() -> None:
     from ...core.csc import CSC
     from ..formats import BSR, CSR, SymCSC
     from ..pattern import SparsePattern, SymPattern
+    from ..sharded import ShardedCSC, ShardedPattern
     from ..spgemm import ProductPattern
 
     _PATTERN_VALIDATORS.setdefault(SparsePattern, _validate_sparse_pattern)
     _PATTERN_VALIDATORS.setdefault(SymPattern, _validate_sym_pattern)
     _PATTERN_VALIDATORS.setdefault(ProductPattern, _validate_product_pattern)
+    _PATTERN_VALIDATORS.setdefault(ShardedPattern, _validate_sharded_pattern)
     _MATRIX_VALIDATORS.setdefault(CSC, _validate_csc)
     _MATRIX_VALIDATORS.setdefault(CSR, _validate_csr)
     _MATRIX_VALIDATORS.setdefault(COO, _validate_coo)
     _MATRIX_VALIDATORS.setdefault(SymCSC, _validate_symcsc)
     _MATRIX_VALIDATORS.setdefault(BSR, _validate_bsr)
+    _MATRIX_VALIDATORS.setdefault(ShardedCSC, _validate_sharded_csc)
     _REGISTERED = True

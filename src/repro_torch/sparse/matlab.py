@@ -17,8 +17,9 @@ duplicate summing and the paper's §2.1 index expansion, on
 
 ``format="symcsc"`` assembles through the halved symmetric plan
 (:func:`~repro_torch.sparse.pattern.plan_symmetric`) and ``"bsr"``
-groups the assembled CSC into dense tiles.  Not ported yet:
-``method="sharded"`` and ``mesh=`` (ROADMAP queue A, item 14).
+groups the assembled CSC into dense tiles.  ``method="sharded"`` runs
+the sharded path (:mod:`repro_torch.sparse.sharded`) over ``mesh=`` and
+returns a block-row ``ShardedCSC``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.coo import COO, coo_from_host, coo_from_matlab, host_triplets
+from ..core.coo import COO, coo_from_host, host_triplets
 from ..core.csc import CSC, slot_columns
 from ..kernels.common import resolve_device
 from .dispatch import resolve_method
@@ -113,17 +114,34 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     element-matrix contract; only strict-upper and diagonal values are
     streamed.  ``format="bsr"`` assembles a plain CSC and groups it into
     dense ``block x block`` tiles.
+
+    ``method="sharded"`` runs the sharded path
+    (:mod:`repro_torch.sparse.sharded`) over ``mesh`` (default: one
+    shard on ``device``, see
+    :func:`~repro_torch.sparse.sharded.resolve_mesh`) and returns a
+    block-row :class:`~repro_torch.sparse.sharded.ShardedCSC` on the
+    mesh's device; ``convert(S, "csc")`` gives the Matlab layout.
     """
-    _check_options(method, mesh, accum, format, block)
+    validate_accum(accum)
+    _validate_format(format, block)
     ii, jj, ss = expand_indices(ii, jj, ss)
+    rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
+    if method == "sharded":
+        _reject_sharded_format(format)
+        _reject_sharded_accum(accum)
+        _reject_sharded_slack(nzmax_slack)
+        mesh = _sharded_mesh(mesh, device)
+        coo = coo_from_host(rows, cols, vals, shape, device=mesh.device)
+        return _plan_sharded_coo(coo, nzmax, mesh).assemble(coo.vals)
+    device = resolve_device(device)
+    method = resolve_method(method, device, M=shape[0], N=shape[1],
+                            L=rows.shape[0])
+    _reject_unused_mesh(mesh, method)
     if format == "symcsc":
-        rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
-        device = resolve_device(device)
-        spat = plan_symmetric(rows, cols, shape, nzmax=nzmax,
-                              method=resolve_method(method, device),
+        spat = plan_symmetric(rows, cols, shape, nzmax=nzmax, method=method,
                               accum=accum, device=device)
         return spat.assemble(torch.from_numpy(vals).to(device))
-    coo = coo_from_matlab(ii, jj, ss, shape=shape, device=device)
+    coo = coo_from_host(rows, cols, vals, shape, device=device)
     out = fsparse_coo(coo, nzmax, method=method, accum=accum,
                       nzmax_slack=nzmax_slack)
     return _as_format(out, format, block)
@@ -138,20 +156,11 @@ def _as_format(out, format, block):
     return out
 
 
-def _check_options(method, mesh, accum, format, block):
-    """The facade's option checks, in the reference's order; the options
-    of later slices raise ``NotImplementedError`` naming their item."""
-    if method == "sharded":
-        raise NotImplementedError(
-            "method='sharded' is not ported yet: the distributed assembly "
-            "is a later slice of the port (ROADMAP queue A, item 14)"
-        )
-    validate_accum(accum)
-    _validate_format(format, block)
+def _reject_unused_mesh(mesh, method):
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: it belongs to method='sharded', a "
-            "later slice of the port (ROADMAP queue A, item 14)"
+        raise ValueError(
+            f"mesh= is only meaningful with method='sharded' "
+            f"(got method={method!r}); the mesh would be silently ignored"
         )
 
 
@@ -168,6 +177,74 @@ def _validate_format(format, block):
             f"block={block} is only meaningful with format='bsr' "
             f"(got format={format!r}); it would be silently ignored"
         )
+
+
+def _reject_sharded_format(format):
+    if format is not None:
+        raise NotImplementedError(
+            f"format={format!r} is not supported with method='sharded': "
+            "ShardedPattern routes and plans the full triplet stream per "
+            "row block and knows nothing about symmetry or block tiles; "
+            "fall back to the plain-CSC sharded path (format=None) and "
+            "convert() the gathered result instead"
+        )
+
+
+def _reject_sharded_accum(accum):
+    if accum != "sum":
+        raise ValueError(
+            f"accum={accum!r} is not supported with method='sharded' "
+            "(the distributed fill reduces with scatter-add); assemble "
+            "per-shard with plan(..., accum=...) or drop method='sharded'"
+        )
+
+
+def _reject_sharded_slack(nzmax_slack):
+    if nzmax_slack:
+        raise ValueError(
+            "nzmax_slack is per-pattern growth headroom but sharded "
+            "storage is per-block (and ShardedPattern.update is not "
+            "supported); pass capacity knobs to plan_sharded directly"
+        )
+
+
+def _sharded_mesh(mesh, device):
+    """The mesh of a ``method="sharded"`` request: ``mesh``, or the
+    default mesh on ``device`` (the card unless the caller passes
+    another).  The triplets go to the mesh's device, which a given
+    ``device`` must name."""
+    from .sharded import resolve_mesh
+
+    mesh = resolve_mesh(mesh, device=device)
+    if device is not None and _device_key(device) != _device_key(
+            mesh.device):
+        raise ValueError(
+            f"device={str(device)!r} differs from the mesh's device "
+            f"{str(mesh.device)!r}: a sharded request runs on its mesh's "
+            "device; pass one of them, or the same device to both"
+        )
+    return mesh
+
+
+def _plan_sharded_coo(coo: COO, nzmax, mesh):
+    from .sharded import plan_sharded
+
+    if nzmax is not None:
+        raise ValueError(
+            "nzmax is a *global* capacity but sharded storage is "
+            "per-block; pass capacity/nzmax to plan_sharded directly"
+        )
+    pat = plan_sharded(coo.rows, coo.cols, coo.shape, mesh=mesh)
+    # overflow is a plan-time property (structure, not values): check it
+    # once here, a silent drop would return a wrong matrix.  Cache hits
+    # in sparse2 reuse an already-validated plan and skip the sync.
+    if bool(pat.any_overflow()):
+        raise ValueError(
+            "sharded routing bucket overflow: the row distribution is too "
+            "skewed for the default capacity; use plan_sharded(...) with a "
+            "larger capacity_factor/capacity"
+        )
+    return pat
 
 
 def fsparse_coo(coo: COO, nzmax: int | None = None, *,
@@ -238,19 +315,41 @@ def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     reference returns the whole COO: the row and column indices are
     copied to the device only when the plan is built, so a hit copies
     the values alone.
+
+    ``method="sharded"`` caches
+    :class:`~repro_torch.sparse.sharded.ShardedPattern` plans the same
+    way, keyed also on the mesh (``mesh_fingerprint``), on the mesh's
+    device.
     """
-    _check_options(method, mesh, accum, format, block)
+    validate_accum(accum)
+    _validate_format(format, block)
     ii, jj, ss = expand_indices(ii, jj, ss)
     rows, cols, vals, shape = host_triplets(ii, jj, ss, shape)
-    device = resolve_device(device)
-    method = resolve_method(method, device, M=shape[0], N=shape[1],
-                            L=rows.shape[0])
-    if nzmax is None and nzmax_slack:
-        nzmax = int(rows.shape[0]) + int(nzmax_slack)
+    extra = ()
+    if method == "sharded":
+        from .sharded import mesh_fingerprint
+
+        _reject_sharded_format(format)
+        _reject_sharded_accum(accum)
+        _reject_sharded_slack(nzmax_slack)
+        mesh = _sharded_mesh(mesh, device)
+        device = mesh.device
+        extra = mesh_fingerprint(mesh, "data")
+    else:
+        device = resolve_device(device)
+        method = resolve_method(method, device, M=shape[0], N=shape[1],
+                                L=rows.shape[0])
+        _reject_unused_mesh(mesh, method)
+        if nzmax is None and nzmax_slack:
+            nzmax = int(rows.shape[0]) + int(nzmax_slack)
     key = _cache_key(rows, cols, shape, nzmax, method, device,
-                     (accum, format, int(block)))
+                     (accum, format, int(block)) + tuple(extra))
 
     def build():
+        if method == "sharded":
+            return _plan_sharded_coo(
+                coo_from_host(rows, cols, vals, shape, device=device),
+                nzmax, mesh)
         if format == "symcsc":
             return plan_symmetric(rows, cols, shape, nzmax=nzmax,
                                   method=method, accum=accum, device=device)
@@ -280,7 +379,9 @@ def sparse2(ii, jj, ss, shape=None, nzmax: int | None = None, *,
     FEM workflow (fixed mesh, changing element values) as a drop-in
     call.  ``format="symcsc"`` caches the halved plan, so every refill
     streams half the values; ``format="bsr"`` groups each assembled
-    result into dense tiles.
+    result into dense tiles.  ``method="sharded"`` caches the sharded
+    plan, keyed also on the mesh, so repeated sharded assembly pays the
+    routing and the per-block analysis once.
     """
     _, pat, vals = plan_lookup(ii, jj, ss, shape, nzmax, method=method,
                                mesh=mesh, accum=accum,

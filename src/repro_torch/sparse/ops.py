@@ -30,8 +30,9 @@ there.
     >>> type(ops.transpose(A)).__name__
     'CSR'
 
-The reference's ``"sharded"`` format (``ShardedCSC``) is not registered
-yet: it comes with the distributed assembly (ROADMAP queue A, item 14).
+The ``"sharded"`` format (``ShardedCSC``) runs its block-row SpMV
+(``core/csc.py``'s on every row block); its other operators go through
+the COO hub.
 """
 from __future__ import annotations
 
@@ -96,6 +97,10 @@ def _coo_spmv(A: COO, x: torch.Tensor) -> torch.Tensor:
     valid = A.rows < A.M
     contrib = A.vals * x[torch.where(valid, A.cols, 0).long()]
     return scatter_add(A.M, A.rows, contrib, valid)
+
+
+def _sharded_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    return A.spmv(x)
 
 
 def _csr_spmv(A: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -319,7 +324,9 @@ def add(A, B):
     fmt = format_of(A)
     if fmt == "coo":
         return out
-    kwargs = {"block": A.block} if fmt == "bsr" else {}
+    kwargs = {"mesh": A.mesh} if fmt == "sharded" else {}
+    if fmt == "bsr":
+        kwargs = {"block": A.block}
     return convert(out, fmt, **kwargs)
 
 
@@ -403,6 +410,7 @@ def scatter_rows(slot: torch.Tensor, rows: torch.Tensor, *,
 register_op("spmv", "csc", _csc_spmv)
 register_op("spmv", "csr", _csr_spmv)
 register_op("spmv", "coo", _coo_spmv)
+register_op("spmv", "sharded", _sharded_spmv)
 register_op("spmv", "symcsc", _symcsc_spmv)
 register_op("spmv", "bsr", _bsr_spmv)
 register_op("transpose", "csc", _csc_transpose)

@@ -243,8 +243,9 @@ def save_caches(cache_dir) -> int:
     """Persist every in-memory plan/product cache entry to ``cache_dir``.
 
     Only :class:`SparsePattern` and :class:`ProductPattern` entries are
-    persisted (a ``format="symcsc"`` plan, a ``SymPattern``, is
-    re-planned per process, as in the reference).  Returns the number of
+    persisted (a ``format="symcsc"`` plan, a ``SymPattern``, and a
+    sharded plan, which carries its mesh, are re-planned per process, as
+    in the reference).  Returns the number of
     entries on disk afterwards that this call wrote or refreshed.
     """
     cache_dir = Path(cache_dir)
@@ -640,6 +641,8 @@ class PlanService:
             device=self.device,
         )
         if not isinstance(pat, SparsePattern):
+            # a sharded plan runs its own fill (no graph: an executable
+            # would pin one mesh layout per entry; not persisted)
             return pat.assemble(vals)
         maybe_validate_pattern(pat, subject="PlanService.assemble")
         self._persist("plan", key, pat)

@@ -16,9 +16,9 @@ Counterparts of ``tests/test_analysis.py``:
 * the warning hierarchy and the pinned rejection messages;
 * the ``python -m repro_torch.sparse.analysis`` CLI on the CPU.
 
-Left out with their modules: the retrace auditor (the executable tier of
-``sparse/serving.py``, ROADMAP queue A, item 11) and the sharded
-validators and messages (``sparse/sharded.py``, item 14).
+The retrace auditor is held in ``tests/test_torch_serving.py`` and the
+sharded validators and messages in ``tests/test_torch_sharded.py``,
+beside their modules.
 """
 import dataclasses
 import json

@@ -30,9 +30,6 @@ torch.set_num_threads(1)
 #: names of the reference the port leaves out on purpose, with the
 #: reason (ROADMAP.md queue A numbers where the module is still to port)
 ABSENT = {
-    # A14 sparse/sharded.py: sharded assembly over a device mesh
-    "ShardedCSC", "ShardedPattern", "plan_sharded", "plan_sharded_coo",
-    "fill_sharded_pallas",
     # A15: the LM stack's sparse gradient reduction
     "SparsePattern.reduce_rows",
     # the Pallas interpret switch: the port has no interpret mode

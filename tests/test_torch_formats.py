@@ -15,14 +15,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.launch.mesh import make_data_mesh as jax_mesh
 from repro.sparse import convert as jconvert, plan as jplan
 from repro.sparse import formats as jformats
 from repro.sparse.matlab import nnz_of as jnnz_of
 from repro_torch.core.coo import COO
 from repro_torch.core.csc import CSC, csc_from_arrays
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.sparse import formats, matlab
 from repro_torch.sparse.formats import (BSR, CSR, SymCSC, convert,
                                         format_of, from_arrays)
+from repro_torch.sparse.sharded import ShardedCSC
 
 torch.set_num_threads(1)
 
@@ -32,6 +35,7 @@ _FIELDS = {
     "csr": ("data", "indices", "indptr", "nnz"),
     "symcsc": ("diag", "data", "indices", "indptr", "nnz"),
     "bsr": ("data", "indices", "indptr", "nnz"),
+    "sharded": ("data", "indices", "indptr", "nnz"),
 }
 _VALUES = ("vals", "data", "diag")
 
@@ -47,6 +51,13 @@ def to_port(X):
                    shape=tuple(X.shape))
     if fmt == "csc":
         return csc_from_arrays(arrays, X.shape, device="cpu")
+    if fmt == "sharded":
+        return ShardedCSC(
+            data=torch.from_numpy(np.array(arrays["data"])),
+            **{k: torch.from_numpy(arrays[k].astype(np.int32))
+               for k in ("indices", "indptr", "nnz")},
+            shape=tuple(X.shape),
+            mesh=make_data_mesh(arrays["data"].shape[0], device="cpu"))
     return from_arrays(fmt, arrays, X.shape, block=getattr(X, "block", 1),
                        device="cpu")
 
@@ -57,7 +68,8 @@ def assert_same(mine, ref, *, rtol=0.0, atol=0.0):
     fmt = jformats.format_of(ref)
     assert format_of(mine) == fmt
     assert tuple(mine.shape) == tuple(ref.shape)
-    assert getattr(mine, "block", 1) == getattr(ref, "block", 1)
+    if fmt == "bsr":  # a ShardedCSC's ``block`` is a method
+        assert mine.block == ref.block
     for k in _FIELDS[fmt]:
         got = getattr(mine, k).detach().cpu().numpy()
         want = np.asarray(getattr(ref, k))
@@ -108,7 +120,8 @@ def _sources(block=2):
     A, _ = sym_csc()
     return {"csc": A, "coo": jconvert(A, "coo"), "csr": jconvert(A, "csr"),
             "symcsc": jconvert(A, "symcsc"),
-            "bsr": jconvert(A, "bsr", block=block)}
+            "bsr": jconvert(A, "bsr", block=block),
+            "sharded": jconvert(A, "sharded", mesh=jax_mesh(1))}
 
 
 CONVERSIONS = sorted((src.__name__, tgt)
@@ -117,23 +130,24 @@ CONVERSIONS = sorted((src.__name__, tgt)
 
 def test_registry_matches_the_reference():
     mine = {(s.__name__, t) for (s, t) in formats._CONVERTERS}
-    # "sharded" (ShardedCSC) comes with the distributed assembly
-    ref = {(s.__name__, t) for (s, t) in jformats._CONVERTERS
-           if "sharded" not in (s.__name__.lower()[:7], t)}
+    ref = {(s.__name__, t) for (s, t) in jformats._CONVERTERS}
     assert mine == ref
-    assert sorted(formats.FORMATS) == sorted(
-        k for k in jformats.FORMATS if k != "sharded")
+    assert sorted(formats.FORMATS) == sorted(jformats.FORMATS)
 
 
 @pytest.mark.parametrize("src,target", CONVERSIONS,
                          ids=[f"{s}-{t}" for s, t in CONVERSIONS])
 def test_every_registered_conversion_matches_reference(src, target):
     name = {"COO": "coo", "CSC": "csc", "CSR": "csr", "SymCSC": "symcsc",
-            "BSR": "bsr"}[src]
+            "BSR": "bsr", "ShardedCSC": "sharded"}[src]
     X = _sources()[name]
     kw = {"block": 2} if target == "bsr" else {}
-    want = jformats._CONVERTERS[(type(X), target)](X, **kw)
-    got = formats._CONVERTERS[(type(to_port(X)), target)](to_port(X), **kw)
+    # one shard: the reference's default mesh spans every jax device
+    jkw = {"mesh": jax_mesh(1)} if target == "sharded" else kw
+    pkw = {"mesh": make_data_mesh(1, device="cpu")} if target == "sharded" \
+        else kw
+    want = jformats._CONVERTERS[(type(X), target)](X, **jkw)
+    got = formats._CONVERTERS[(type(to_port(X)), target)](to_port(X), **pkw)
     assert_same(got, want)
 
 
@@ -260,10 +274,8 @@ def test_bsr_errors_match_reference():
 
 def test_registry_errors_match_reference():
     A = rect_csc()
-    kind, msg = _message(jconvert, A, "ell")
-    # the known-format list lacks only "sharded" (not registered yet)
     assert _message(convert, to_port(A), "ell") == \
-        (kind, msg.replace("'sharded', ", ""))
+        _message(jconvert, A, "ell")
     assert _message(format_of, object()) == \
         _message(jformats.format_of, object())
     assert _message(convert, object(), "csc") == \

@@ -15,6 +15,7 @@ import torch
 
 from repro.core.oracle import matlab_sparse_oracle
 from repro.core.ransparse import dataset
+from repro.launch.mesh import make_data_mesh as jax_mesh
 from repro.sparse import matlab as jax_matlab
 from repro_torch.kernels.radix_sort import radix_sort as rs
 from repro_torch.kernels.segment_sum import segment_sum as ss
@@ -120,14 +121,28 @@ def test_unknown_method_names_the_available_ones():
         matlab.fsparse([1], [1], [1.0], method="nope", device="cpu")
 
 
-@pytest.mark.parametrize("kw,later", [
-    # format="symcsc"|"bsr" are ported (tests/test_torch_symmetric.py)
-    pytest.param({"method": "sharded"}, "item 14", id="kw0-item 14"),
-    pytest.param({"mesh": object()}, "item 14", id="kw3-item 14"),
+@pytest.mark.parametrize("kw", [
+    # format="symcsc"|"bsr" are ported (tests/test_torch_symmetric.py),
+    # method="sharded" and mesh= too (tests/test_torch_sharded.py)
+    pytest.param({"method": "sharded"}, id="kw0-item 14"),
+    pytest.param({"mesh": object()}, id="kw3-item 14"),
 ])
-def test_unported_options_raise_naming_their_slice(kw, later):
-    with pytest.raises(NotImplementedError, match=later):
-        matlab.fsparse([1, 2], [1, 2], [1.0, 2.0], device="cpu", **kw)
+def test_unported_options_raise_naming_their_slice(kw):
+    """The options a later slice ported behave as the reference's: a
+    sharded assembly (one shard) equals the reference's, and ``mesh=``
+    without it raises the reference's error."""
+    args = ([1, 2, 2], [1, 2, 2], [1.0, 2.0, 4.0])
+    if "mesh" in kw:
+        with pytest.raises(ValueError) as ref_err:
+            jax_matlab.fsparse(*args, **kw)
+        with pytest.raises(ValueError, match=re.escape(str(ref_err.value))):
+            matlab.fsparse(*args, device="cpu", **kw)
+        return
+    S = matlab.fsparse(*args, device="cpu", **kw)
+    R = jax_matlab.fsparse(*args, mesh=jax_mesh(1), **kw)
+    for f in ("data", "indices", "indptr", "nnz"):
+        np.testing.assert_array_equal(getattr(S, f).numpy(),
+                                      np.asarray(getattr(R, f)), err_msg=f)
 
 
 @pytest.mark.parametrize("accum", ["min", "max"])

@@ -1620,3 +1620,104 @@ def test_audit_retraces_on_the_card():
 
     _cuda()
     assert audit_retraces()["traces"] == 2
+
+
+# -- the sharded path (sparse/sharded.py) on the card ------------------------
+def _sharded_case(p, dev):
+    from repro_torch.launch import make_data_mesh
+    from repro_torch.sparse import plan_sharded
+
+    ii, jj, _, siz = dataset(1, seed=42, scale=0.01)
+    rows = torch.from_numpy((ii - 1).astype(np.int32))
+    cols = torch.from_numpy((jj - 1).astype(np.int32))
+    before = _launches()
+    pat = plan_sharded(rows.to(dev), cols.to(dev), (siz, siz),
+                       mesh=make_data_mesh(p))
+    planned = tuple(a - b for a, b in zip(_launches(), before))
+    cpu = plan_sharded(rows, cols, (siz, siz),
+                       mesh=make_data_mesh(p, device="cpu"))
+    return pat, cpu, planned, siz
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_sharded_plan_on_the_card_matches_the_cpu(p):
+    dev = _cuda()
+    pat, cpu, planned, siz = _sharded_case(p, dev)
+    assert pat.mesh.device.type == "cuda" and pat.p == p
+    for f in ("send_slot", "perm", "slot", "indices", "indptr", "nnz",
+              "send_base", "block_load", "overflow"):
+        assert torch.equal(getattr(pat, f).cpu(), getattr(cpu, f)), f
+    npass = len(ops.plan_digit_passes(pat.rpb, siz, int(pat.perm.shape[1])))
+    assert planned == (p * npass, p * npass, 0)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_sharded_fill_on_the_card_is_one_b3_launch_a_row(p):
+    dev = _cuda()
+    pat, cpu, _, siz = _sharded_case(p, dev)
+    rng = np.random.default_rng(p)
+    vi = torch.from_numpy(rng.integers(-9, 10, pat.L).astype(np.float32))
+    b3 = ss.gather_segment_sum.launches
+    A = pat.assemble(vi.to(dev))
+    assert ss.gather_segment_sum.launches == b3 + 1
+    assert torch.equal(A.data.cpu(), cpu.assemble(vi).data)
+    vb = torch.from_numpy(rng.standard_normal((3, pat.L)).astype(np.float32))
+    Ab = pat.assemble_batch(vb.to(dev))
+    assert ss.gather_segment_sum.launches == b3 + 4
+    want = cpu.assemble_batch(vb).data
+    mag = cpu.assemble_batch(vb.abs()).data
+    eps = float(np.finfo(np.float32).eps)
+    assert bool(((Ab.data.cpu() - want).abs() <= 16 * eps * mag).all())
+    x = torch.from_numpy(rng.standard_normal(siz).astype(np.float32))
+    A1 = Ab.batch_select(0)
+    y = A1.spmv(x.to(dev)).cpu()
+    y_cpu = cpu.assemble(vb[0]).spmv(x)
+    bound = A1.to_dense().abs().cpu() @ x.abs()
+    assert bool(((y - y_cpu).abs() <= 8 * eps * bound).all())
+
+
+def test_sharded_gradient_on_the_card_is_the_cpu_one():
+    dev = _cuda()
+    pat, cpu, _, _ = _sharded_case(4, dev)
+    rng = np.random.default_rng(9)
+    v = torch.from_numpy(rng.standard_normal(pat.L).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((pat.p, pat.nzb))
+                         .astype(np.float32))
+    grads = []
+    for P, vv, ww in ((pat, v.to(dev), w.to(dev)), (cpu, v, w)):
+        vv = vv.clone().requires_grad_()
+        (P.assemble(vv).data * ww).sum().backward()
+        grads.append(vv.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_sharded_facade_on_the_card_matches_fsparse():
+    from repro_torch.launch import make_data_mesh
+    from repro_torch.sparse import PlanService, convert, sparse2
+
+    dev = _cuda()
+    ii, jj, ss_, siz = dataset(2, seed=42, scale=0.01)
+    F = matlab.fsparse(ii, jj, ss_, (siz, siz))
+    nnz = int(F.nnz)
+    matlab.plan_cache_clear()
+    for p in (1, 4):
+        mesh = make_data_mesh(p)
+        S = matlab.fsparse(ii, jj, ss_, (siz, siz), method="sharded",
+                           mesh=None if p == 1 else mesh)
+        C = convert(S, "csc")
+        assert S.data.device.type == "cuda" and S.n_blocks == p
+        assert torch.equal(C.indptr, F.indptr) and int(C.nnz) == nnz
+        assert torch.equal(C.data[:nnz], F.data[:nnz])
+        assert torch.equal(C.indices[:nnz], F.indices[:nnz])
+        for _ in range(2):
+            S2 = sparse2(ii, jj, ss_, (siz, siz), method="sharded",
+                         mesh=mesh)
+        assert torch.equal(S2.data, S.data)
+    info = matlab.plan_cache_info()
+    assert (info["misses"], info["hits"]) == (2, 2)
+    svc = PlanService()
+    A = svc.assemble(ii, jj, ss_, (siz, siz), method="sharded")
+    assert torch.equal(A.data, matlab.fsparse(ii, jj, ss_, (siz, siz),
+                                              method="sharded").data)
+    assert svc.stats()["graphs"]["captures"] == {}
+    matlab.plan_cache_clear()

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.core.ransparse import dataset
+from repro.launch.mesh import make_data_mesh as jax_mesh
 from repro.sparse import lru as jax_lru
 from repro.sparse import matlab as jax_matlab
 from repro_torch.kernels.radix_sort import radix_sort as rs
@@ -156,15 +157,29 @@ def test_sparse2_duplicate_modes_match_reference(accum):
     assert matlab.plan_cache_info()["hits"] == 1
 
 
-@pytest.mark.parametrize("kw,later", [
-    # format="symcsc" is ported (tests/test_torch_symmetric.py)
-    pytest.param({"method": "sharded"}, "item 14", id="kw0-item 14"),
-    pytest.param({"mesh": object()}, "item 14", id="kw2-item 14"),
+@pytest.mark.parametrize("kw", [
+    # format="symcsc" is ported (tests/test_torch_symmetric.py),
+    # method="sharded" and mesh= too (tests/test_torch_sharded.py)
+    pytest.param({"method": "sharded"}, id="kw0-item 14"),
+    pytest.param({"mesh": object()}, id="kw2-item 14"),
 ])
-def test_sparse2_rejects_what_fsparse_rejects(kw, later):
-    with pytest.raises(NotImplementedError, match=later):
-        matlab.sparse2([1, 2], [1, 2], [1.0, 2.0], device="cpu", **kw)
-    assert matlab.plan_cache_info()["misses"] == 0
+def test_sparse2_rejects_what_fsparse_rejects(kw):
+    """``mesh=`` without ``method="sharded"`` is rejected before any plan,
+    as ``fsparse`` rejects it; a sharded request plans once and hits."""
+    args = ([1, 2, 2], [1, 2, 2], [1.0, 2.0, 4.0])
+    if "mesh" in kw:
+        with pytest.raises(ValueError) as ref_err:
+            jax_matlab.sparse2(*args, **kw)
+        with pytest.raises(ValueError) as err:
+            matlab.sparse2(*args, device="cpu", **kw)
+        assert str(err.value) == str(ref_err.value)
+        assert matlab.plan_cache_info()["misses"] == 0
+        return
+    for _ in range(2):
+        S = matlab.sparse2(*args, device="cpu", **kw)
+    _same(S, jax_matlab.sparse2(*args, mesh=jax_mesh(1), **kw))
+    assert matlab.plan_cache_info()["misses"] == 1
+    assert matlab.plan_cache_info()["hits"] == 1
 
 
 def _drive(cache, ops):

@@ -48,19 +48,16 @@ ABSENT = {
     # keyed by backend in the tuning registry
     "sparse.dispatch": {"DEFAULT_MERGE_INTERPRET", "DEFAULT_MERGE_TPU",
                         "DEFAULT_METHOD_INTERPRET", "DEFAULT_METHOD_TPU"},
-    # A14 sparse/sharded.py: sharded assembly over a device mesh
+    # the port's shards are a leading tensor axis; sparse/sharded.py maps
+    # over them
     "core.compat": {"shard_map"},
-    "kernels.assembly_ops": {"fill_sharded_pallas"},
-    "sparse": {"ShardedCSC", "ShardedPattern", "plan_sharded",
-               "plan_sharded_coo"},
     # B3', B6 and B4 return segment results, not prefix scans: the
     # reference's names would change meaning
     "kernels.segment_sum.segment_sum": {"gather_masked_cumsum",
                                         "gather2_masked_cumsum",
                                         "gather_masked_segscan"},
-    # the package re-exports the three above, the interpret switch and
-    # the sharded fill (A14)
-    "kernels": {"INTERPRET", "fill_sharded_pallas", "gather_masked_cumsum",
+    # the package re-exports the three above and the interpret switch
+    "kernels": {"INTERPRET", "gather_masked_cumsum",
                 "gather2_masked_cumsum", "gather_masked_segscan"},
 }
 

@@ -18,8 +18,8 @@ Reference tests with no counterpart here, and why:
   still bumped and propagated (``test_update_chained_epochs``);
 - the residency-fallback test: the port's merge search has no VMEM
   guard (B7 serves every size);
-- the sharded rejections other than ``plan_update``'s: the sharded
-  path is ROADMAP queue A, item 14.
+- the sharded rejections other than ``plan_update``'s: they are held
+  with the sharded path in ``tests/test_torch_sharded.py``.
 """
 import warnings
 
