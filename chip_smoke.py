@@ -156,6 +156,39 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``plan`` and the routed fill against the single fill (call and
    device), plan once and fill many against plan and fill each call;
    must end within 60 s.
+4h. the LM serving path (``repro_torch.models``, ``launch/serve.py``):
+   OLMoE-1B-7B (``configs/olmoe_1b_7b.py``) at full width and depth in
+   bf16 from ``init_model(cfg, seed=0, device="cuda")``, its weights'
+   ``memory_allocated`` printed; 8 requests served through
+   ``repro_torch.launch.serve.main`` in-process (batch 4, prompts of
+   512, 32 tokens), every logit finite and every token in ``[0,
+   vocab)``.  All twelve counters are set to 0 before the served run;
+   B12 and B11 must then read 1,024 each (one per MoE layer call: 16
+   layers x 32 calls x 2 batches) and the others 0.  Then: layer 0's
+   expert ids of one prefill (16,384 keys) and one decode step (32)
+   through ``moe_dispatch_indices`` on the card, bit for bit the plain
+   route's and a stable ``torch.argsort``'s, also in 4 groups (256
+   bins); a one-layer float32 OLMoE's prefill logits on the card within
+   ``LM_F32_RTOL`` of ``max|logit|`` of the CPU's, the same weights on
+   both; ``decode_step`` after ``prefill(..., extra_cache=1)`` against
+   ``forward`` (capacity ``E/K``: nothing dropped) on the 16-layer bf16
+   model within ``LM_BF16_RTOL`` and on a two-layer float32 copy at full
+   width within ``LM_F32_DECODE_RTOL``, where two planted faults (a step
+   one position on, a step that ignores the cache) must read above the
+   limit; the embedding gradient through
+   ``sparse_grad_embed`` at the full vocabulary (T = D = 2,048) on the
+   card against the CPU, bit for bit on integer-valued gradients,
+   within ``2 (n - 1) eps sum|g|`` otherwise.  Times: prefill and a
+   decode step (call and device, and the profiler's kernel time: kernel
+   and copy events only, not the operators' device annotations) against
+   the decode step's byte bounds at 3.35 TB/s: the capacity-buffer
+   algorithm's (every expert's weights, plus the rest and the KV cache)
+   and the step's own (only the experts the step routes to, read off
+   its expert ids layer by layer),
+   ``tok/s`` as ``serve`` prints it, the dispatch (B12 + B11 + the row
+   scatter) against a stable ``torch.argsort`` + ``bincount`` with the
+   same scatter, B12 and B11 alone, the top kernels,
+   ``max_memory_allocated``; must end within 120 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -3204,6 +3237,446 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
     return launches
 
 
+#: phase 4h's time limit, in seconds
+PHASE_4H_LIMIT_S = 120
+#: phase 4h: the LM serving path on OLMoE-1B-7B (arXiv:2409.02060) at
+#: full width and depth, bf16, served as ``repro_torch.launch.serve``
+#: would be: batch 4, prompts of 512, 32 tokens, 8 requests
+LM_ARCH = "olmoe_1b_7b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = 4, 512, 32, 8
+#: one B12 and one B11 launch per MoE layer call: 16 layers x (the
+#: prefill + 31 decode steps) x 2 batches = 1,024 each
+LM_DISPATCH_CALLS = 16 * LM_GEN * (LM_REQUESTS // LM_BATCH)
+#: (c) a one-layer float32 OLMoE's prefill logits on the card within
+#: LM_F32_RTOL * max|logit| of the CPU's (the two sides' float32
+#: matmuls add in other orders; the CPU tests measure about 1e-6 against
+#: the reference)
+LM_F32_RTOL = 1e-4
+#: (d) decode_step after prefill(..., extra_cache=1) against forward at
+#: the last position, 16 layers in bf16: within LM_BF16_RTOL *
+#: max|logit| (about six bf16 eps of 2^-7: the two paths round
+#: attention and the expert GEMMs' rows in other orders, through 16
+#: layers)
+LM_BF16_RTOL = 5e-2
+#: (d) the same on LM_DECODE_F32_LAYERS layers at full width in float32:
+#: within LM_F32_DECODE_RTOL * max|logit|, a limit that a step at the
+#: wrong position or one that ignores the cache must exceed
+LM_DECODE_F32_LAYERS = 2
+LM_F32_DECODE_RTOL = 1e-4
+#: (e) the embedding gradient's size: the padded vocabulary, 2,048
+#: tokens of 2,048 features
+LM_GRAD_TOKENS = 2048
+
+
+def device_kernels(fn) -> list:
+    """The CUDA kernels (and copies) of one call of ``fn()``
+    (``torch.profiler``), as ``(name, ms, launches)`` by device time,
+    most first.  The operators' device annotations (``aten::mul`` on the
+    device's timeline) span the kernels they launch and are left out, as
+    the profiler's own device total leaves them out."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    require(not any(n.startswith("aten::") for n, _, _ in rows),
+            "an operator's device annotation is counted as a kernel")
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def dispatch_by_argsort(e: torch.Tensor, n_experts: int, capacity: int):
+    """The reference's dispatch (``repro/models/moe.py:42-65``) in plain
+    PyTorch: a stable argsort, ``bincount`` and ``searchsorted``."""
+    L = e.shape[0]
+    order = torch.argsort(e, stable=True)
+    es = e[order]
+    load = torch.bincount(e, minlength=n_experts).to(torch.int32)
+    starts = torch.searchsorted(
+        es, torch.arange(n_experts, dtype=es.dtype, device=e.device))
+    within = torch.arange(L, device=e.device) - starts[es]
+    slot_sorted = torch.where(within < capacity, es * capacity + within,
+                              n_experts * capacity).to(torch.int32)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return slot, load
+
+
+def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4h: the LM serving path (the module docstring).  Returns the
+    launches of its main path, the served run."""
+    import contextlib
+    import copy
+    import dataclasses
+    import io
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sparse.ops import scatter_rows
+    from repro_torch.train import sparse_grad_embed
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4h", "card": smi_line, "arch": LM_ARCH,
+           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+                     "requests": LM_REQUESTS}}
+    cfg = get_config(LM_ARCH)
+    E, K, V = cfg.moe.n_experts, cfg.moe.top_k, cfg.padded_vocab
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the real server: init_model on the card, then serve.main
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    row["params"] = sum(p.numel() for p in params.parameters())
+    row["weights_GB"] = weight_bytes / 1e9
+    row["memory_allocated_GB"] = (torch.cuda.memory_allocated() - base) / 1e9
+    print(f"phase 4h: {LM_ARCH} {row['params']} parameters, "
+          f"memory_allocated {row['memory_allocated_GB']:.3f} GB; "
+          f"{smi_line}", flush=True)
+    require(abs(row["memory_allocated_GB"] - weight_bytes / 1e9) < 0.1,
+            "init_model allocated more than its weights")
+
+    seen = {"prefills": 0, "decodes": 0, "tokens": [],
+            "bad": torch.zeros((), dtype=torch.bool, device=dev)}
+
+    def served_init(cfg_, *, seed, device):
+        require(cfg_ == cfg and seed == SEED and torch.device(device) == dev,
+                "serve asked for another model than the one built")
+        return params
+
+    def watched_prefill(*a, **kw):
+        logits, cache = lm.prefill(*a, **kw)
+        seen["prefills"] += 1
+        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
+        return logits, cache
+
+    def watched_decode(params_, cache, tokens, cfg_):
+        logits, cache = lm.decode_step(params_, cache, tokens, cfg_)
+        seen["decodes"] += 1
+        seen["tokens"].append(tokens)
+        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
+        return logits, cache
+
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--requests",
+            str(LM_REQUESTS), "--seed", str(SEED)]
+    hooks = {"init_model": served_init, "prefill": watched_prefill,
+             "decode_step": watched_decode}
+    saved = {k: getattr(serve_mod, k) for k in hooks}
+    out = io.StringIO()
+    for f in kernels.values():
+        f.launches = 0
+    try:
+        for k, f in hooks.items():
+            setattr(serve_mod, k, f)
+        with contextlib.redirect_stdout(out):
+            rc = serve_mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in saved.items():
+            setattr(serve_mod, k, f)
+    launches = {k: f.launches for k, f in kernels.items()}
+    expected = {k: LM_DISPATCH_CALLS if k in ("B11", "B12") else 0
+                for k in kernels}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"phase 4h: {line}", flush=True)
+    row["served_lines"] = lines
+    row["launches"], row["expected"] = launches, expected
+    require(rc == 0, f"serve.main returned {rc}")
+    require(launches == expected, f"phase 4h launch counts {launches} != "
+            f"{expected} (one B12 and one B11 per MoE layer call)")
+    n_batches = LM_REQUESTS // LM_BATCH
+    require(seen["prefills"] == n_batches
+            and seen["decodes"] == n_batches * (LM_GEN - 1),
+            f"served {seen['prefills']} prefills and {seen['decodes']} "
+            "decode steps")
+    require(not bool(seen["bad"]), "a served logit is not finite")
+    fed = torch.cat(seen["tokens"])
+    require(fed.shape == (n_batches * (LM_GEN - 1) * LM_BATCH, 1)
+            and int(fed.min()) >= 0 and int(fed.max()) < cfg.vocab,
+            "a generated token lies outside [0, vocab)")
+    samples = [int(t) for line in lines if "sample row0:" in line
+               for t in re.findall(r"-?\d+", line.split("sample row0:")[1])]
+    require(len(samples) == 8 * n_batches
+            and all(0 <= t < cfg.vocab for t in samples),
+            "the printed sample rows are not tokens in [0, vocab)")
+    m = re.search(r"\(([\d.]+) tok/s incl\. prefill\)", lines[-1])
+    require(m is not None, "serve printed no tok/s line")
+    row["tok_per_s"] = float(m.group(1))
+    row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    row["max_memory_allocated_over_start_GB"] = \
+        (torch.cuda.max_memory_allocated() - base) / 1e9
+    del seen, fed
+
+    # (b) the dispatch bit for bit: layer 0's expert ids in one prefill
+    # and one decode step, on the card against the plain route (the CPU)
+    # and the reference's algorithm (stable argsort) on the card
+    rng = np.random.default_rng(SEED + 23)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LM_BATCH, LM_PROMPT + 1)).astype(np.int32)).to(dev)
+    captured = []
+    group_dispatch = moe_mod._group_dispatch
+
+    def capture(expert_ids, **kw):
+        captured.append(expert_ids.reshape(-1).clone())
+        return group_dispatch(expert_ids, **kw)
+
+    moe_mod._group_dispatch = capture
+    try:
+        with torch.inference_mode():
+            logits, cache = lm.prefill(params, {"tokens": toks[:, :-1]}, cfg,
+                                       kv_chunk=LM_PROMPT)
+            lm.decode_step(params, cache, toks[:, -1:], cfg)
+    finally:
+        moe_mod._group_dispatch = group_dispatch
+    keys = {"prefill": captured[0].to(torch.int32),
+            "decode": captured[cfg.n_layers].to(torch.int32)}
+    require(keys["prefill"].shape[0] == LM_BATCH * LM_PROMPT * K
+            and keys["decode"].shape[0] == LM_BATCH * K,
+            "the captured expert ids have unexpected lengths")
+    checks = {}
+    for what, e in keys.items():
+        C = moe_mod._capacity(cfg, e.shape[0] // K)
+        got = moe_mod.moe_dispatch_indices(e, n_experts=E, capacity=C)
+        plain = moe_mod.moe_dispatch_indices(e.cpu(), n_experts=E,
+                                             capacity=C)
+        ref = dispatch_by_argsort(e.long(), E, C)
+        for a, b, c in zip(got, plain, ref):
+            require(torch.equal(a.cpu(), b) and torch.equal(a, c),
+                    f"the {what} dispatch differs from the plain route or "
+                    "the stable argsort")
+        # G = 4 groups, keys g * E + e over 256 bins
+        G = 4
+        Cg = moe_mod._capacity(cfg, e.shape[0] // K // G)
+        eg = e.reshape(G, -1)
+        got = moe_mod._group_dispatch(eg, n_experts=E, capacity=Cg, groups=G)
+        plain = moe_mod._group_dispatch(eg.cpu(), n_experts=E, capacity=Cg,
+                                        groups=G)
+        for g in range(G):
+            ref = dispatch_by_argsort(eg[g].long(), E, Cg)
+            require(all(torch.equal(a[g], c) for a, c in zip(got, ref)),
+                    f"group {g} of the {what} dispatch differs from its "
+                    "stable argsort")
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(got, plain)),
+                f"the grouped {what} dispatch differs from the plain route")
+        dropped = int((got[0] >= E * Cg).sum())
+        checks[what] = {"L": int(e.shape[0]), "capacity": C,
+                        "groups4_capacity": Cg, "groups4_dropped": dropped,
+                        "slot_load": "bit-identical"}
+    row["dispatch"] = checks
+
+    # (c) the full width against the CPU: a one-layer float32 OLMoE, the
+    # same weights on both sides
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    p_cpu = lm.init_model(cfg1, seed=SEED, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)).astype(
+        np.int32))
+    with torch.inference_mode():
+        want, _ = lm.prefill(p_cpu, {"tokens": t1}, cfg1, kv_chunk=128)
+        got, _ = lm.prefill(p_dev, {"tokens": t1.to(dev)}, cfg1,
+                            kv_chunk=128)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    row["f32_one_layer_rel_err"] = err
+    require(err <= LM_F32_RTOL, f"the one-layer float32 prefill on the card "
+            f"is {err:.3g} of max|logit| from the CPU's (limit "
+            f"{LM_F32_RTOL})")
+    del p_cpu, p_dev, want, got
+
+    # (d) decode against forward, nothing dropped: the 16-layer bf16
+    # model, and a float32 copy of a few layers at full width whose tight
+    # limit must fail two planted faults (a step one position on, a step
+    # that ignores the cache)
+    cfg_d = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / K))
+    cfg_f = dataclasses.replace(cfg_d, n_layers=LM_DECODE_F32_LAYERS,
+                                dtype="float32")
+    S = 64
+    td = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S + 1)).astype(
+        np.int32)).to(dev)
+
+    def decode_errs(p, cfg_x) -> dict:
+        with torch.inference_mode():
+            full, _ = lm.forward(p, {"tokens": td}, cfg_x, kv_chunk=S + 1)
+            _, c = lm.prefill(p, {"tokens": td[:, :S]}, cfg_x, kv_chunk=S,
+                              extra_cache=1)
+            want = full[:, -1].float()
+            out = {}
+            for what, c_x in (
+                    ("sound", c),
+                    ("pos_plus_1", dict(c, pos=c["pos"] + 1)),
+                    ("cache_zeroed", dict(c, k=torch.zeros_like(c["k"]),
+                                          v=torch.zeros_like(c["v"])))):
+                step, _ = lm.decode_step(p, c_x, td[:, S:], cfg_x)
+                got = step[:, 0].float()
+                out[what] = {
+                    "rel_err": float((got - want).abs().max()
+                                     / want.abs().max()),
+                    "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                                     want.argmax(-1)))}
+        return out
+
+    dec = {"bf16_16_layers": decode_errs(params, cfg_d)}
+    with torch.inference_mode():
+        p_f = lm.init_model(cfg_f, seed=SEED, device=dev)
+    dec[f"f32_{LM_DECODE_F32_LAYERS}_layers"] = decode_errs(p_f, cfg_f)
+    del p_f
+    row["decode_vs_forward"] = dec
+    for name, limit in ((f"f32_{LM_DECODE_F32_LAYERS}_layers",
+                         LM_F32_DECODE_RTOL),
+                        ("bf16_16_layers", LM_BF16_RTOL)):
+        r = dec[name]
+        require(r["sound"]["rel_err"] <= limit, f"decode_step ({name}) is "
+                f"{r['sound']['rel_err']:.3g} of max|logit| from forward "
+                f"(limit {limit})")
+        for fault in ("pos_plus_1", "cache_zeroed"):
+            require(r[fault]["rel_err"] > limit, f"the planted fault "
+                    f"{fault} ({name}) reads {r[fault]['rel_err']:.3g}, "
+                    f"within the limit {limit}: the check cannot tell it "
+                    "from a sound step")
+
+    # (e) the embedding gradient at the full vocabulary, on the card
+    # against the CPU
+    D = cfg.d_model
+    head = rng.integers(0, 64, LM_GRAD_TOKENS)
+    tail = rng.integers(0, V, LM_GRAD_TOKENS)
+    tg = torch.from_numpy(np.where(rng.random(LM_GRAD_TOKENS) < 0.5, head,
+                                   tail).astype(np.int32))
+    grads = {}
+    for kind in ("integer", "random"):
+        g = rng.integers(-64, 64, (LM_GRAD_TOKENS, D)) if kind == "integer" \
+            else rng.standard_normal((LM_GRAD_TOKENS, D))
+        g = torch.from_numpy(g.astype(np.float32))
+        res = []
+        for d in (dev, torch.device("cpu")):
+            table = torch.zeros((V, D), device=d, requires_grad=True)
+            before = (kernels["B12"].launches, kernels["B11"].launches)
+            (sparse_grad_embed(table, tg.to(d)) * g.to(d)).sum().backward()
+            if d.type == "cuda":
+                require((kernels["B12"].launches - before[0],
+                         kernels["B11"].launches - before[1]) == (1, 1),
+                        "the embedding backward did not run B12 and B11 "
+                        "once each")
+            res.append(table.grad.cpu())
+        if kind == "integer":
+            dense = torch.zeros((V, D)).index_add_(0, tg.long(), g)
+            require(torch.equal(res[0], res[1]) and torch.equal(res[1], dense),
+                    "the integer-valued embedding gradient differs")
+            grads[kind] = "bit-identical"
+        else:
+            n = torch.bincount(tg.long(), minlength=V)[:, None].double()
+            abs_sum = torch.zeros((V, D), dtype=torch.float64).index_add_(
+                0, tg.long(), g.abs().double())
+            bound = 2 * (n - 1).clamp(min=0) * EPS32 * abs_sum
+            over = ((res[0] - res[1]).abs().double() / bound.clamp(
+                min=1e-300)).max()
+            require(bool(((res[0] - res[1]).abs().double() <= bound).all()),
+                    "the embedding gradient exceeds 2 (n - 1) eps sum|g|")
+            grads[kind] = {"max_err_over_bound": float(over)}
+    row["embedding_grad"] = {"V": V, "T": LM_GRAD_TOKENS, "D": D, **grads}
+
+    # (f) times: prefill, a decode step against its byte bound, the
+    # dispatch against the library sort, the top kernels
+    with torch.inference_mode():
+        batch = {"tokens": toks[:, :-1]}
+
+        def prefill_fn():
+            return lm.prefill(params, batch, cfg, kv_chunk=LM_PROMPT)
+
+        _, cache = prefill_fn()
+        tok = toks[:, -1:]
+
+        def decode_fn():
+            return lm.decode_step(params, cache, tok, cfg)
+
+        row["prefill_ms"] = call_ms(prefill_fn, reps=5)
+        row["prefill_device_ms"] = device_ms(prefill_fn, cpm, reps=5)
+        row["decode_ms"] = call_ms(decode_fn, reps=10)
+        row["decode_device_ms"] = device_ms(decode_fn, cpm, reps=10)
+        cache_bytes = sum(cache[k].numel() * cache[k].element_size()
+                          for k in ("k", "v"))
+        # the capacity-buffer algorithm's bytes: every expert's weights
+        # pass through the [E, C, D] einsums
+        row["decode_bytes"] = weight_bytes + cache_bytes
+        row["decode_bound_ms"], row["decode_bound_by"] = bound_ms(
+            weight_bytes + cache_bytes, 0)
+        # the step's own bytes: only the experts it routes to, layer by
+        # layer (the same step's expert ids, captured in (b))
+        moe0 = params["layers"][0]["moe"]
+        expert_bytes = sum(moe0[n].numel() * moe0[n].element_size()
+                           for n in ("gate_ein", "up_ein", "down_eout"))
+        routed = [int(torch.unique(captured[cfg.n_layers + i]).numel())
+                  for i in range(cfg.n_layers)]
+        routed_bytes = (weight_bytes - cfg.n_layers * expert_bytes
+                        + sum(routed) * expert_bytes // E + cache_bytes)
+        row["decode_routed_experts"] = routed
+        row["decode_routed_bytes"] = routed_bytes
+        row["decode_routed_bound_ms"], _ = bound_ms(routed_bytes, 0)
+        # the profiler's kernels of one call (CUDA events only, not the
+        # operators that launched them): the device's busy time; the
+        # back-to-back device figures above are host-bound when the host
+        # enqueues slower than the card runs
+        for what, fn in (("decode", decode_fn), ("prefill", prefill_fn)):
+            kern = device_kernels(fn)
+            row[f"{what}_kernel_ms"] = sum(ms for _, ms, _ in kern)
+            row[f"{what}_kernel_launches"] = sum(c for _, _, c in kern)
+            row[f"{what}_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
+            row[f"{what}_busy_share"] = row[f"{what}_kernel_ms"] / \
+                row[f"{what}_ms"]
+        x = torch.randn((LM_BATCH * LM_PROMPT, cfg.d_model), device=dev,
+                        dtype=torch.bfloat16)
+        for what, e in keys.items():
+            C = moe_mod._capacity(cfg, e.shape[0] // K)
+            rows = x[torch.arange(e.shape[0], device=dev) // K]
+            el = e.long()  # the yardstick's keys
+
+            def ours():
+                slot, _ = moe_mod.moe_dispatch_indices(e, n_experts=E,
+                                                       capacity=C)
+                return scatter_rows(slot, rows, num_slots=E * C)
+
+            def library():
+                slot, _ = dispatch_by_argsort(el, E, C)
+                return scatter_rows(slot, rows, num_slots=E * C)
+
+            for name, fn in (("dispatch", ours), ("library", library)):
+                row[f"{name}_{what}_ms"] = call_ms(fn)
+                row[f"{name}_{what}_device_ms"] = device_ms(fn, cpm)
+            nbins, L = E, e.shape[0]
+            bb = default_block_b(nbins, L=L)
+            offsets, _ = block_offsets(e, nbins=nbins, block_b=bb)
+            row[f"B12_{what}_ms"] = device_ms(lambda: kernels["B12"](
+                e, nbins=nbins, block_b=bb), cpm)
+            row[f"B11_{what}_ms"] = device_ms(lambda: kernels["B11"](
+                e, offsets, nbins=nbins, block_b=bb), cpm)
+    del params, cache, x, keys, captured
+    torch.cuda.empty_cache()
+
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4H_LIMIT_S,
+            f"phase 4h took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4H_LIMIT_S} s")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3719,6 +4192,10 @@ def main() -> None:
     #    the gradient, sparse2 and the service, the times ---------------
     sharded_phase(dev, sets, csc_oracles, kernels4, cpm, smi_line)
 
+    # -- 4h. the LM serving path: OLMoE-1B-7B at full width served on the
+    #    card, its dispatch on B12/B11, against the CPU, the times -------
+    lm_launches = lm_serving_phase(dev, kernels4, cpm, smi_line)
+
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
@@ -3963,7 +4440,8 @@ def main() -> None:
     big = {**big, **fem_k, "B7": b7_row}
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[k], "max_abs_err": err,
+         "launches": path_launches[k], "lm_launches": lm_launches[k],
+         "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],
          "bound_ms": big[k]["bound_ms"], "bound_by": big[k]["bound_by"],

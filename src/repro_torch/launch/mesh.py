@@ -1,8 +1,10 @@
-"""The device mesh of the sharded assembly path.
+"""Device meshes: the sharded assembly path's and the LM stack's.
 
-Counterpart of ``repro/launch/mesh.py``'s ``make_data_mesh`` only; the
-production meshes and the rest of ``launch/`` belong to the LM stack
-(ROADMAP queue A, item 15).
+Counterpart of ``repro/launch/mesh.py``: ``make_data_mesh`` (the
+sharded assembly), ``make_host_mesh`` with ``batch_axes``, ``tp_size``
+and ``dp_size`` (the serving launcher and the MoE mesh dispatch).
+``make_production_mesh`` (a pod of many cards) waits for a machine that
+has them (ROADMAP queue A, item 14).
 
 A :class:`Mesh` names its axes, their sizes and the device of every
 shard.  The port keeps a mesh's shards as the leading axis of every
@@ -105,3 +107,34 @@ def make_data_mesh(n: int | None = None, *, axis: str = "data",
         devices = (_pinned(torch.device(device)),) * (1 if n is None
                                                       else int(n))
     return Mesh((axis,), (len(devices),), devices)
+
+
+def make_host_mesh(*, data: int | None = None, model: int = 1,
+                   device=None) -> Mesh:
+    """A ``("data", "model")`` mesh on one device (tests, the serving
+    launcher).
+
+    As the reference's, ``data`` defaults to the present devices over
+    ``model``: one, since the port's meshes live on one device.  A given
+    ``data`` puts ``data * model`` shards on that device.
+    """
+    dev = _pinned(resolve_device(device))
+    if data is None:
+        data = 1 // model
+    return Mesh(("data", "model"), (data, model), (dev,) * (data * model))
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """The mesh axes that carry data parallelism."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def tp_size(mesh: Mesh) -> int:
+    return mesh.shape["model"]
+
+
+def dp_size(mesh: Mesh) -> int:
+    n = mesh.shape["data"]
+    if "pod" in mesh.axis_names:
+        n *= mesh.shape["pod"]
+    return n

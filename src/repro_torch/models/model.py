@@ -1,0 +1,337 @@
+"""Model assembly: init / forward / prefill / decode (counterpart of
+``repro/models/model.py``), for the ``dense`` and ``moe`` families.
+
+A model is one :class:`~repro_torch.models.layers.Params` module: its
+``embed`` and ``final_norm`` nodes and an ``nn.ModuleList`` of blocks
+under ``layers``, each with the reference's pytree keys (``norm1``,
+``attn.q_in``, ``moe.router``, ``moe.gate_ein``, ...).  The reference
+stacks its blocks on a leading axis and runs them with ``lax.scan``;
+here a Python loop runs the list, and the local:global interleaving is a
+Python bool per layer where the reference uses ``lax.cond``.
+:func:`params_from_numpy` and :func:`params_to_numpy` carry weights
+across from and back to the reference's stacked pytree.
+
+The families ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` are not ported
+yet (ROADMAP queue A, item 15): their entry points raise
+``NotImplementedError``.  ``loss_fn`` comes with the training slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.common import resolve_device
+from .attention import (
+    _attend_decode_into,
+    apply_rope_kv_for_cache,
+    init_attention,
+    self_attention,
+)
+from .config import ModelConfig
+from .layers import (
+    Params,
+    embed,
+    init_embedding,
+    init_mlp,
+    make_norm,
+    mlp,
+    torch_dtype,
+    unembed,
+)
+from .moe import init_moe, moe_ffn
+
+KV_DTYPE = torch.bfloat16
+
+#: the families this port serves
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
+            "(ROADMAP queue A, item 15); the port runs "
+            f"{' and '.join(PORTED_FAMILIES)}")
+
+
+def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
+    """Serving-cache storage dtype: bf16 for half-precision models (the
+    cache read is the decode stream), the model's own dtype otherwise."""
+    dt = torch_dtype(cfg.dtype)
+    if dt in (torch.bfloat16, torch.float16):
+        return KV_DTYPE
+    return dt
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init
+# ---------------------------------------------------------------------------
+def _init_norm(cfg, gen: torch.Generator, d=None):
+    init_fn, _ = make_norm(cfg)
+    if init_fn is None:
+        return Params()
+    return init_fn(d or cfg.d_model, cfg.dtype, gen.device)
+
+
+def _apply_norm(cfg, params, x):
+    _, apply_fn = make_norm(cfg)
+    return apply_fn(params if params else None, x)
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig):
+    """One transformer block's params."""
+    _check_family(cfg)
+    p = Params()
+    p["norm1"] = _init_norm(cfg, gen)
+    p["attn"] = init_attention(gen, cfg)
+    p["norm2"] = _init_norm(cfg, gen)
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    return p
+
+
+def init_cross_block(gen: torch.Generator, cfg):
+    return Params({
+        "norm": _init_norm(cfg, gen),
+        "attn": init_attention(gen, cfg, cross=True),
+    })
+
+
+def init_enc_block(gen: torch.Generator, cfg):
+    return init_block(gen, cfg)  # same structure; masks differ
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+    """Random parameters from ``seed`` on ``device`` (the card unless
+    asked), drawn by a ``torch.Generator`` on that device."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = Params()
+    params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                     cfg.dtype)
+    params["final_norm"] = _init_norm(cfg, gen)
+    params["layers"] = nn.ModuleList(
+        [init_block(gen, cfg) for _ in range(cfg.n_layers)])
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Weights carried across from the reference
+# ---------------------------------------------------------------------------
+#: pytree keys whose subtree carries a leading layer axis
+_STACKED = ("layers",)
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _node(tree, device, index=None) -> Params:
+    out = Params()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _node(v, device, index)
+        else:
+            leaf = v if index is None else np.asarray(v)[index]
+            out[k] = _leaf_to_torch(leaf, device)
+    return out
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Params:
+    """The port's model from the reference's parameter pytree.
+
+    ``tree`` holds numpy arrays (``jax.tree.map(np.asarray, params)``),
+    with the leading ``n_layers`` axis of the reference's ``vmap``-ped
+    block init under ``layers``; bfloat16 leaves stay bfloat16.
+    """
+    _check_family(cfg)
+    device = resolve_device(device)
+    out = Params()
+    for k, v in tree.items():
+        if k in _STACKED:
+            out[k] = nn.ModuleList(
+                [_node(v, device, i) for i in range(cfg.n_layers)])
+        elif isinstance(v, dict):
+            out[k] = _node(v, device)
+        else:
+            out[k] = _leaf_to_torch(v, device)
+    return out
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def _tree(node) -> dict:
+    return {k: (_tree(node[k]) if isinstance(node[k], Params)
+                else _leaf_to_numpy(node[k])) for k in node.keys()}
+
+
+def _stack(trees: list) -> dict:
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else np.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def params_to_numpy(params: Params) -> dict:
+    """The reference's pytree (numpy, layers stacked on a leading axis)
+    from the port's model; bfloat16 leaves come back as float32 holding
+    the same values."""
+    out = {}
+    for k in params.keys():
+        v = params[k]
+        if isinstance(v, nn.ModuleList):
+            out[k] = _stack([_tree(b) for b in v])
+        elif isinstance(v, Params):
+            out[k] = _tree(v)
+        else:
+            out[k] = _leaf_to_numpy(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Layer application (full sequence)
+# ---------------------------------------------------------------------------
+def _layer_window(cfg, idx: int) -> bool:
+    """Is layer ``idx`` global (local:global interleaving)?"""
+    if cfg.local_global_every:
+        return (idx + 1) % cfg.local_global_every == 0
+    return cfg.sliding_window == 0
+
+
+def _dense_block(p, x, cfg, idx, *, positions, causal, kv_chunk):
+    if cfg.local_global_every:
+        window = 0 if _layer_window(cfg, idx) else cfg.sliding_window
+    else:
+        window = cfg.sliding_window
+    a = self_attention(
+        p["attn"], _apply_norm(cfg, p.get("norm1"), x), cfg,
+        positions=positions, causal=causal, window=window, kv_chunk=kv_chunk,
+    )
+    x = x + a
+    h = _apply_norm(cfg, p.get("norm2"), x)
+    if "moe" in p:
+        y, aux = moe_ffn(p["moe"], h, cfg)
+    else:
+        y = mlp(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+def _positions(tokens):
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device).expand(B, S)
+
+
+# ---------------------------------------------------------------------------
+# Forward (scoring): tokens -> logits
+# ---------------------------------------------------------------------------
+def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
+    """batch: {"tokens": [B,S]}. Returns (logits, aux)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    positions = _positions(tokens)
+    x = embed(params["embed"], tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for idx, lp in enumerate(params["layers"]):
+        x, a = _dense_block(lp, x, cfg, idx, positions=positions,
+                            causal=True, kv_chunk=kv_chunk)
+        aux_total = aux_total + a
+    x = _apply_norm(cfg, params.get("final_norm"), x)
+    return unembed(params["embed"], x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, *, batch: int, seq_len: int, device=None):
+    """Zero cache: ``pos`` and per-layer K/V ring buffers
+    ``[n_layers, batch, seq_len, Hkv, Dh]``."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    Dh = cfg.resolved_head_dim
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, Dh)
+    kvd = kv_cache_dtype(cfg)
+    return {
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=kvd, device=device),
+        "v": torch.zeros(shape, dtype=kvd, device=device),
+    }
+
+
+def _ring_write(cache_layer, new, pos):
+    """Write [B,1,...] ``new`` at ring position pos % S."""
+    S = cache_layer.shape[1]
+    slot = (torch.as_tensor(pos, device=cache_layer.device) % S).reshape(1)
+    return cache_layer.index_copy(1, slot.long(),
+                                  new.to(cache_layer.dtype))
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig):
+    """One decode step. tokens: [B, 1] -> (logits [B,1,V], cache').
+
+    The caches passed in are left as they were: the step writes into one
+    copy of them.
+    """
+    _check_family(cfg)
+    pos = cache["pos"]
+    x = embed(params["embed"], tokens)
+    k_all, v_all = cache["k"].clone(), cache["v"].clone()
+    for idx, lp in enumerate(params["layers"]):
+        hn = _apply_norm(cfg, lp.get("norm1"), x)
+        window = 0
+        if cfg.local_global_every and not _layer_window(cfg, idx):
+            window = cfg.sliding_window
+        a = _attend_decode_into(lp["attn"], hn, k_all[idx], v_all[idx], cfg,
+                                position=pos, window=window)
+        x = x + a
+        h2 = _apply_norm(cfg, lp.get("norm2"), x)
+        if "moe" in lp:
+            y, _ = moe_ffn(lp["moe"], h2, cfg)
+        else:
+            y = mlp(lp["mlp"], h2)
+        x = x + y
+    x = _apply_norm(cfg, params.get("final_norm"), x)
+    logits = unembed(params["embed"], x)
+    return logits, dict(cache, k=k_all, v=v_all, pos=pos + 1)
+
+
+def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
+            extra_cache: int = 0):
+    """Full forward that also *builds* the KV caches.
+
+    Returns (last-token logits [B,1,V], cache).  ``extra_cache`` pads
+    the ring-buffer capacity so the next ``extra_cache`` decode steps
+    append without evicting (decode ring-writes at ``pos % capacity``).
+    """
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = _positions(tokens)
+    x = embed(params["embed"], tokens)
+    kvd = kv_cache_dtype(cfg)
+    cache = init_cache(cfg, batch=B, seq_len=S + extra_cache,
+                       device=tokens.device)
+    for idx, lp in enumerate(params["layers"]):
+        hn = _apply_norm(cfg, lp.get("norm1"), x)
+        k_c, v_c = apply_rope_kv_for_cache(lp["attn"], hn, cfg, positions)
+        cache["k"][idx, :, :S] = k_c.to(kvd)
+        cache["v"][idx, :, :S] = v_c.to(kvd)
+        x, _ = _dense_block(lp, x, cfg, idx, positions=positions,
+                            causal=True, kv_chunk=kv_chunk)
+    x = _apply_norm(cfg, params.get("final_norm"), x)
+    logits = unembed(params["embed"], x[:, -1:, :])
+    cache["pos"] = torch.full((), S, dtype=torch.int32, device=tokens.device)
+    return logits, cache

@@ -1,0 +1,40 @@
+"""Process-wide model flags (counterpart of ``repro/models/runtime_flags.py``).
+
+``MOE_GROUPS`` and ``MOE_MESH`` steer
+:func:`repro_torch.models.moe.moe_ffn`.  The reference's ``UNROLL`` (the
+``unroll=`` of its ``lax.scan``s) and ``REMAT`` (the checkpoint policy
+of its layer scans) are left out: the port's layer loop is a Python loop
+with no scan to unroll, and ``REMAT`` comes with the training slice
+(ROADMAP queue A, item 15, step 1), which has a backward to
+rematerialise.
+"""
+#: MoE dispatch groups.  1 = one counting sort over all tokens.  G > 1
+#: splits the tokens into G contiguous groups, each with its own stable
+#: order and capacity (the paper's thread-private counters); the port
+#: sorts all groups in one counting sort of the keys ``g * E + e``.
+MOE_GROUPS = 1
+
+
+def set_moe_groups(g: int):
+    global MOE_GROUPS
+    MOE_GROUPS = g
+
+
+def moe_groups() -> int:
+    return MOE_GROUPS
+
+
+#: explicit mesh dispatch.  When set to a ``(mesh, dp_axes)`` tuple,
+#: ``moe_ffn`` routes dispatch and combine through
+#: :func:`repro_torch.models.moe.moe_ffn_shardmap` with one token group
+#: per data shard.  None = the group path.
+MOE_MESH = None
+
+
+def set_moe_mesh(mesh, dp_axes=("data",)):
+    global MOE_MESH
+    MOE_MESH = None if mesh is None else (mesh, tuple(dp_axes))
+
+
+def moe_mesh():
+    return MOE_MESH

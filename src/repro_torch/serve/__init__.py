@@ -1,15 +1,20 @@
 """repro_torch.serve: serving entry points (counterpart of
 ``repro.serve``).
 
-The sparse-assembly half: the plan service subsystem
-(:mod:`repro_torch.sparse.serving`), thread-safe plan/product/executable
-caches, CUDA-graph fills, products and SpMVs captured once per
-structure, request batching and persistent warm restarts.
-:class:`PlanService` is the front end; the runtime-environment helpers
-tune the serving process the way a launcher script expects.  The model
-half (``init_cache``/``prefill``/``decode_step``) waits for the LM stack
-(ROADMAP queue A, item 15).
+Two serving surfaces live here:
+
+* **Model serving**: the primitives next to the model definitions
+  (:mod:`repro_torch.models.model`: ``init_cache`` / ``prefill`` /
+  ``decode_step``) plus the continuous-batching loop
+  (``python -m repro_torch.launch.serve``).
+* **Sparse-assembly serving**: the plan service subsystem
+  (:mod:`repro_torch.sparse.serving`), thread-safe plan/product/
+  executable caches, CUDA-graph fills, products and SpMVs captured once
+  per structure, request batching and persistent warm restarts.
+  :class:`PlanService` is the front end; the runtime-environment helpers
+  tune the serving process the way a launcher script expects.
 """
+from ..models.model import decode_step, init_cache, prefill
 from ..sparse.serving import (
     PlanService,
     apply_runtime_env,
@@ -23,8 +28,11 @@ from ..sparse.serving import (
 __all__ = [
     "PlanService",
     "apply_runtime_env",
+    "decode_step",
     "enable_compilation_cache",
+    "init_cache",
     "load_caches",
+    "prefill",
     "runtime_env",
     "save_caches",
     "tcmalloc_hint",

@@ -27,9 +27,12 @@ the strict upper half of a structurally symmetric stream
 (:class:`SymPattern`); ``detect_symmetry``, ``detect_block`` and
 ``pattern_symmetric`` (two B7 probes over a plan) detect structure.
 
+``SparsePattern.reduce_rows`` is the fill of row-valued triplets
+(``[L, D] -> [nzmax, D]``, the embedding gradient's reduction), by
+PyTorch's scatters on any device, with the same backward.
+
 Under ``REPRO_VALIDATE=1`` every rewritten plan ``update`` returns is
-validated (:mod:`repro_torch.sparse.analysis.invariants`).  Not ported
-yet: ``reduce_rows`` (ROADMAP queue A, item 15).
+validated (:mod:`repro_torch.sparse.analysis.invariants`).
 """
 from __future__ import annotations
 
@@ -131,6 +134,44 @@ class SparsePattern:
         self.check_vals(vals)
         return _Scatter.apply(vals.to(fill_dtype(vals)), self.perm,
                               self.slot, self.nzmax, accum)
+
+    def reduce_rows(self, mat: torch.Tensor, *,
+                    accum: str | None = None) -> torch.Tensor:
+        """Segment-reduce a row-per-triplet matrix ``[L, D] -> [nzmax, D]``.
+
+        The generalisation of :meth:`scatter` to vector-valued triplets
+        (e.g. embedding-gradient rows): duplicates of one (i, j) pair
+        combine row-wise (elementwise for min/max) into one slot under
+        the plan's ``accum`` mode.  Differentiable with the same
+        gather-by-slot backward as :meth:`scatter`; the dtype passes
+        through unchanged, hence min/max need an inexact dtype.
+
+        The reduction is PyTorch's ``index_add_`` (sum, mean),
+        ``scatter_reduce_`` (min, max) and ``index_put_`` (first, last)
+        on ``mat[perm]`` by slot, on the CPU and on the card.  min, max,
+        first and last are exact.  A sum adds its terms in an order the
+        card does not fix: it is bit for bit on integer-valued rows
+        (every partial sum exact), and otherwise each slot lies within
+        ``(n_s - 1) * eps * sum|terms|`` of the exact sum, ``n_s`` the
+        slot's number of terms, ``eps`` that of the accumulator (float32
+        for 16-bit rows); a mean adds one rounding.
+        """
+        accum = validate_accum(self.accum if accum is None else accum,
+                               mat.dtype)
+        if accum in ("min", "max") and not (mat.dtype.is_floating_point
+                                            or mat.dtype.is_complex):
+            raise ValueError(
+                f"reduce_rows(accum={accum!r}) needs an inexact dtype "
+                f"(got {str(mat.dtype).removeprefix('torch.')}); cast the "
+                "rows first"
+            )
+        if mat.shape[0] != self.L:
+            raise ValueError(
+                f"mat has {mat.shape[0]} rows but this pattern was "
+                f"planned for L={self.L} triplets"
+            )
+        return _Scatter.apply(mat, self.perm, self.slot, self.nzmax, accum,
+                              True)
 
     def check_vals(self, vals: torch.Tensor) -> None:
         """Raise unless ``vals`` is one length-L vector: the fill kernels
@@ -357,6 +398,75 @@ def _scatter_reduce(nzmax: int, accum: str, perm, slot, vals):
                                         num_segments=nzmax)
 
 
+def _bcast(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Right-pad a 1-d tensor with singleton axes up to ``ndim`` dims."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (ndim - 1))
+
+
+def _reduce_rows(nzmax: int, accum: str, perm, slot, mat):
+    """Forward of :meth:`SparsePattern.reduce_rows`: PyTorch's scatters
+    on ``mat[perm]`` by slot, with a scratch row past the end for the
+    padding (the reference's ``mode="drop"``)."""
+    v = mat[perm.long()]
+    valid = slot < nzmax
+    if accum in ("sum", "mean"):
+        acc = accum_dtype(v.dtype)
+        s = scatter_add(nzmax, slot, v.to(acc), valid)
+        if accum == "sum":
+            return s.to(v.dtype)
+        n = _slot_counts(nzmax, slot).clamp(min=1).to(acc)
+        return (s / _bcast(n, s.ndim)).to(v.dtype)
+    idx = torch.where(valid, slot, nzmax).long()
+    if accum in ("min", "max"):
+        red = torch.full((nzmax + 1,) + tuple(v.shape[1:]),
+                         accum_identity(accum, v.dtype).item(),
+                         dtype=v.dtype, device=v.device)
+        red.scatter_reduce_(0, _bcast(idx, v.ndim).expand_as(v), v,
+                            "amin" if accum == "min" else "amax")
+        occupied = _bcast(_slot_counts(nzmax, slot) > 0, v.ndim)
+        return torch.where(occupied, red[:nzmax], 0)
+    keep = first_flags(slot, nzmax) if accum == "first" \
+        else last_flags(slot, nzmax)
+    out = v.new_zeros((nzmax + 1,) + tuple(v.shape[1:]))
+    out[torch.where(keep, slot, nzmax).long()] = v
+    return out[:nzmax]
+
+
+def _scatter_grad(g, perm, slot, nzmax: int, accum: str, vals=None,
+                  out=None):
+    """``g_vals[perm[k]] = w_k * g[slot[k]]`` for a fill's output
+    gradient ``g`` (``[nzmax, ...]``); see :class:`_Scatter`."""
+    L = perm.shape[0]
+    valid = slot < nzmax
+    if nzmax == 0:
+        g_sorted = g.new_zeros((L,) + tuple(g.shape[1:]))
+    else:
+        slot_c = slot.clamp(0, nzmax - 1)
+        g_sorted = torch.where(_bcast(valid, g.ndim), g[slot_c], 0)
+        if accum == "mean":
+            n = _slot_counts(nzmax, slot).clamp(min=1).to(g.dtype)
+            g_sorted = g_sorted / _bcast(n[slot_c], g.ndim)
+        elif accum in ("first", "last"):
+            keep = first_flags(slot, nzmax) if accum == "first" \
+                else last_flags(slot, nzmax)
+            g_sorted = torch.where(_bcast(keep, g.ndim), g_sorted, 0)
+        elif accum in ("min", "max"):
+            v = vals[perm]
+            attained = _bcast(valid, v.ndim) & (v == out[slot_c])
+            pos = torch.where(
+                attained, _bcast(torch.arange(L, device=g.device), v.ndim), L)
+            first_pos = torch.full((nzmax + 1,) + tuple(v.shape[1:]), L,
+                                   dtype=torch.int64, device=g.device)
+            first_pos.scatter_reduce_(
+                0, _bcast(torch.where(valid, slot, nzmax).long(),
+                          v.ndim).expand_as(pos), pos, "amin")
+            winner = attained & (pos == first_pos[slot_c])
+            g_sorted = torch.where(winner, g_sorted, 0)
+    g_vals = torch.empty_like(g_sorted)
+    g_vals[perm] = g_sorted  # perm is a permutation of [0, L)
+    return g_vals
+
+
 class _Scatter(torch.autograd.Function):
     """Differentiable numeric phase.
 
@@ -367,12 +477,15 @@ class _Scatter(torch.autograd.Function):
     gather-by-slot and a collision-free scatter through the permutation.
     min/max route the gradient to the *first* attaining element of each
     duplicate group (the reference's deterministic subgradient), which
-    needs the values and the result kept from the forward.
+    needs the values and the result kept from the forward.  ``rows``
+    selects the row-valued fill of :meth:`SparsePattern.reduce_rows`
+    over the kernels' one-value-a-triplet fill.
     """
 
     @staticmethod
-    def forward(ctx, vals, perm, slot, nzmax, accum):
-        out = _scatter_reduce(nzmax, accum, perm, slot, vals)
+    def forward(ctx, vals, perm, slot, nzmax, accum, rows=False):
+        reduce = _reduce_rows if rows else _scatter_reduce
+        out = reduce(nzmax, accum, perm, slot, vals)
         if accum in ("min", "max"):
             ctx.save_for_backward(perm, slot, vals, out)
         else:
@@ -383,35 +496,9 @@ class _Scatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         perm, slot = ctx.saved_tensors[:2]
-        nzmax, accum = ctx.nzmax, ctx.accum
-        valid = slot < nzmax
-        if nzmax == 0:
-            g_sorted = g.new_zeros(slot.shape)
-        else:
-            slot_c = slot.clamp(0, nzmax - 1)
-            g_sorted = torch.where(valid, g[slot_c], 0)
-            if accum == "mean":
-                n = _slot_counts(nzmax, slot).clamp(min=1).to(g.dtype)
-                g_sorted = g_sorted / n[slot_c]
-            elif accum in ("first", "last"):
-                keep = first_flags(slot, nzmax) if accum == "first" \
-                    else last_flags(slot, nzmax)
-                g_sorted = torch.where(keep, g_sorted, 0)
-            elif accum in ("min", "max"):
-                vals, out = ctx.saved_tensors[2:]
-                L = perm.shape[0]
-                attained = valid & (vals[perm] == out[slot_c])
-                pos = torch.where(attained, torch.arange(L, device=g.device),
-                                  L)
-                first_pos = torch.full((nzmax + 1,), L, dtype=torch.int64,
-                                       device=g.device)
-                first_pos.scatter_reduce_(
-                    0, torch.where(valid, slot, nzmax).long(), pos, "amin")
-                winner = attained & (pos == first_pos[slot_c])
-                g_sorted = torch.where(winner, g_sorted, 0)
-        g_vals = torch.empty_like(g_sorted)
-        g_vals[perm] = g_sorted  # perm is a permutation of [0, L)
-        return g_vals, None, None, None, None
+        g_vals = _scatter_grad(g, perm, slot, ctx.nzmax, ctx.accum,
+                               *ctx.saved_tensors[2:])
+        return g_vals, None, None, None, None, None
 
 
 def pattern_from_perm(rows, cols, perm, *, M: int, N: int,

@@ -30,8 +30,6 @@ torch.set_num_threads(1)
 #: names of the reference the port leaves out on purpose, with the
 #: reason (ROADMAP.md queue A numbers where the module is still to port)
 ABSENT = {
-    # A15: the LM stack's sparse gradient reduction
-    "SparsePattern.reduce_rows",
     # the Pallas interpret switch: the port has no interpret mode
     "INTERPRET",
     # B3', B6 and B4 return segment results, not prefix scans: the

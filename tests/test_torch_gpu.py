@@ -19,7 +19,10 @@ running sum of ``|x|`` on random values, zero-mean and same-sign (the
 kernel's first-order worst case is about 31 eps; see
 ``csrc/segment_sum.cu``).  B11 is also held
 against the plain mirror of its tiled route
-(``placement_tiled_ref``).
+(``placement_tiled_ref``).  The LM serving path's tests (at the end)
+hold the counting sort at MoE shapes against ``torch.argsort``, the MoE
+dispatch, a reduced OLMoE's prefill and decode (float32, within 1e-4 of
+``max|logit|``) and the embedding gradient on the card against the CPU.
 """
 import dataclasses
 import importlib
@@ -1721,3 +1724,105 @@ def test_sharded_facade_on_the_card_matches_fsparse():
                                               method="sharded").data)
     assert svc.stats()["graphs"]["captures"] == {}
     matlab.plan_cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: the MoE dispatch on B12/B11, the model, the
+# embedding gradient
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("L", [8, 32, 8192, 8193, 16384, 2**16 + 1])
+@pytest.mark.parametrize("nbins", [64, 256])
+def test_counting_sort_at_moe_shapes(nbins, L):
+    dev = _cuda()
+    keys = torch.from_numpy(np.random.default_rng(L + nbins).integers(
+        0, nbins, L).astype(np.int32))
+    before = (hist.block_histogram.launches, cs.placement.launches)
+    rank, pos = counting_sort(keys.to(dev), nbins=nbins)
+    assert (hist.block_histogram.launches - before[0],
+            cs.placement.launches - before[1]) == (1, 1)
+    rank_p, pos_p = counting_sort(keys, nbins=nbins)  # the plain route
+    assert torch.equal(rank.cpu(), rank_p) and torch.equal(pos.cpu(), pos_p)
+    assert torch.equal(rank.long(), torch.argsort(keys.to(dev),
+                                                  stable=True))
+
+
+@pytest.mark.parametrize("G,L,E,C", [(1, 32, 64, 8), (1, 16384, 64, 320),
+                                     (4, 16384, 64, 80), (2, 1000, 8, 96)])
+def test_moe_dispatch_on_the_card_matches_the_cpu(G, L, E, C):
+    from repro_torch.models import moe
+
+    dev = _cuda()
+    e = torch.from_numpy(np.random.default_rng(L).integers(
+        0, E, (G, L // G)).astype(np.int32))
+    got = moe._group_dispatch(e.to(dev), n_experts=E, capacity=C, groups=G)
+    want = moe._group_dispatch(e, n_experts=E, capacity=C, groups=G)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    if G == 1:
+        s, ld = moe.moe_dispatch_indices(e[0].to(dev), n_experts=E,
+                                         capacity=C)
+        assert torch.equal(s.cpu(), want[0][0])
+        assert torch.equal(ld.cpu(), want[1][0])
+
+
+def test_reduced_olmoe_prefill_and_decode_on_the_card_match_the_cpu():
+    """float32 logits within 1e-4 of max|logit| of the CPU's (the card's
+    float32 matmuls add in another order)."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+
+    dev = _cuda()
+    cfg = get_config("olmoe_1b_7b").reduced(dtype="float32")
+    p_cpu = lm.init_model(cfg, seed=0, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32))
+    before = cs.placement.launches
+    with torch.inference_mode():
+        out = {}
+        for d, p in (("cpu", p_cpu), ("cuda", p_dev)):
+            logits, cache = lm.prefill(p, {"tokens": toks.to(d)}, cfg,
+                                       kv_chunk=8, extra_cache=3)
+            steps = [logits]
+            for i in range(3):
+                nt = torch.from_numpy(np.full((2, 1), 7 * i + 1, np.int32))
+                logits, cache = lm.decode_step(p, cache, nt.to(d), cfg)
+                steps.append(logits)
+            out[d] = [s.cpu() for s in steps]
+    assert cs.placement.launches - before == 4 * cfg.n_layers
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("upstream", ["integer", "random"])
+def test_embedding_gradient_on_the_card_matches_the_cpu(upstream):
+    """Bit for bit on integer-valued gradients; otherwise within
+    ``2 (n - 1) eps sum|g|`` per row (the bound of each side's sum)."""
+    from repro_torch.train import sparse_grad_embed
+
+    dev = _cuda()
+    V, D, T = 50_432, 64, 2048
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(np.where(
+        rng.random(T) < 0.5, rng.integers(0, 16, T),
+        rng.integers(0, V, T)).astype(np.int32))
+    g = rng.integers(-64, 64, (T, D)) if upstream == "integer" \
+        else rng.standard_normal((T, D))
+    g = torch.from_numpy(g.astype(np.float32))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        table = torch.zeros((V, D), device=d, requires_grad=True)
+        (sparse_grad_embed(table, toks.to(d)) * g.to(d)).sum().backward()
+        grads.append(table.grad.cpu())
+    if upstream == "integer":
+        assert torch.equal(grads[0], grads[1])
+        return
+    n = torch.bincount(toks.long(), minlength=V)[:, None].double()
+    abs_sum = torch.zeros((V, D), dtype=torch.float64).index_add_(
+        0, toks.long(), g.abs().double())
+    eps = float(np.finfo(np.float32).eps)
+    bound = 2 * (n - 1).clamp(min=0) * eps * abs_sum
+    assert bool(((grads[0] - grads[1]).abs().double() <= bound).all())

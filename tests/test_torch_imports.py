@@ -30,6 +30,12 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py", "kernel_times.py",
                  "src/repro_torch/sparse/matlab.py",
+                 "src/repro_torch/models/model.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/configs/olmoe_1b_7b.py",
+                 "src/repro_torch/train/sparse_grads.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/serve/__init__.py",
                  "src/repro_torch/kernels/radix_sort/radix_sort.py",
                  "src/repro_torch/kernels/segment_sum/segment_sum.py"):
         assert must in names

@@ -559,12 +559,13 @@ def test_enable_compilation_cache_takes_nothing(tmp_path):
 
 def test_serve_namespace_reexports_the_sparse_serving_api():
     import repro_torch.serve as serve
+    from repro_torch.models import model
 
     model_half = {"decode_step", "init_cache", "prefill"}
-    want = sorted(set(jax_serve.__all__) - model_half)
-    assert sorted(serve.__all__) == want
-    for name in want:
-        assert getattr(serve, name) is getattr(serving, name)
+    assert sorted(serve.__all__) == sorted(jax_serve.__all__)
+    for name in serve.__all__:
+        home = model if name in model_half else serving
+        assert getattr(serve, name) is getattr(home, name)
 
 
 def test_stats_hold_every_reference_key(tmp_path):

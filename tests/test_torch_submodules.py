@@ -1,8 +1,9 @@
 """Every mirrored submodule of the port exports what the reference's does.
 
 ``tests/test_torch_api_surface.py`` walks the ``__all__`` of the three
-top-level packages; this walks every module of ``core``, ``sparse`` and
-``kernels`` that both packages have, at any depth.  A module's public
+top-level packages; this walks every module of ``core``, ``sparse``,
+``kernels`` and the LM stack's ``models``, ``configs``, ``train``,
+``launch`` and ``serve`` that both packages have, at any depth.  A module's public
 names are its ``__all__`` where it has one, else the public functions,
 classes and assignments at its top level, and, in a package's
 ``__init__``, the names it imports from its own subpackage.  Each must
@@ -10,9 +11,12 @@ be an attribute of the port's module, reached through ``sys.modules``
 (``repro_torch.kernels.spmv`` is the function there, as in the
 reference, so attribute access would not reach the subpackage), unless
 it is listed below with its reason.  A listed name must still be absent.
+A reference module the port does not have at all must be listed in
+``ABSENT_MODULES`` with its reason.
 """
 import ast
 import importlib
+import os
 import sys
 from pathlib import Path
 
@@ -27,7 +31,23 @@ from repro.kernels.radix_sort.ref import digit_rank_ref
 torch.set_num_threads(1)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-PACKAGES = ("core", "sparse", "kernels")
+PACKAGES = ("core", "sparse", "kernels", "models", "configs", "train",
+            "launch", "serve")
+
+#: the reference's modules the port does not have yet, with the ROADMAP
+#: queue A, item 15 step that brings each
+ABSENT_MODULES = {
+    # the ssm and hybrid families (step 2)
+    "models.ssm": "Mamba-2 blocks of the ssm and hybrid families",
+    # the training slice (step 1)
+    "train.optimizer": "AdamW, with the training slice",
+    "train.train_step": "the train step, with the training slice",
+    "launch.train": "the training launcher, with the training slice",
+    # the production sharding (step 4): meshes over many cards
+    "launch.specs": "the dry-run's input specs",
+    "launch.sharding": "the parameter and activation partition rules",
+    "launch.dryrun": "the 512-device dry run",
+}
 
 #: names of the reference's submodules the port leaves out on purpose
 ABSENT = {
@@ -59,6 +79,19 @@ ABSENT = {
     # the package re-exports the three above and the interpret switch
     "kernels": {"INTERPRET", "gather_masked_cumsum",
                 "gather2_masked_cumsum", "gather_masked_segscan"},
+    # next-token loss: the training slice (ROADMAP queue A, item 15, step
+    # 1)
+    "models.model": {"loss_fn"},
+    # the optimizer and the train step: the training slice (step 1)
+    "train": {"OptConfig", "TrainConfig", "adamw_update", "init_opt_state",
+              "init_train_state", "make_train_step"},
+    # no scan to unroll (the layer loop is a Python loop); REMAT comes
+    # with the training slice (step 1)
+    "models.runtime_flags": {"UNROLL", "set_unroll", "unroll", "REMAT",
+                             "set_remat", "remat"},
+    # the 256/512-chip pod meshes: a machine with many cards (queue A,
+    # item 14)
+    "launch.mesh": {"make_production_mesh"},
 }
 
 
@@ -104,7 +137,13 @@ MIRRORED = sorted(set(REF) & set(PORT))
 
 
 def _module(name: str):
-    importlib.import_module(name)
+    # the serving launchers tune os.environ at import: keep it as it was
+    env = dict(os.environ)
+    try:
+        importlib.import_module(name)
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
     return sys.modules[name]
 
 
@@ -125,6 +164,10 @@ def test_the_listed_absences_are_still_absent():
     assert set(ABSENT) <= set(MIRRORED)
     listed = {(mod, n) for mod, names in ABSENT.items() for n in names}
     assert all(n in _public_names(REF[mod]) for mod, n in listed)
+
+
+def test_the_absent_modules_are_the_listed_ones():
+    assert set(REF) - set(PORT) == set(ABSENT_MODULES)
 
 
 def test_c1_imports_succeed():
