@@ -189,6 +189,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    scatter) against a stable ``torch.argsort`` + ``bincount`` with the
    same scatter, B12 and B11 alone, the top kernels,
    ``max_memory_allocated``; must end within 120 s.
+4i. the LM training path (``repro_torch.train``, ``data``, ``ckpt``,
+   ``launch/train.py``): OLMoE-1B-7B at full width cut to 4 of its 16
+   layers (the train state's 18 B a parameter: 32.07 GB at 4 layers,
+   122.7 GB at 16), bf16, from ``init_model(cfg, seed=0,
+   device="cuda")`` and ``init_train_state``, its parameters and
+   ``memory_allocated`` held against the reckoning (1,781,550,080
+   parameters); 8 steps of ``make_train_step`` (2 microbatches, bf16
+   gradient compression with error feedback, AdamW with 2 warm-up
+   steps) on one repeated ``SyntheticLM`` batch of 8 x 512: every loss
+   finite, the last below the first.  All twelve counters are set to 0
+   before the steps; B12 and B11 must then read 144 each (8 steps x 2
+   microbatches x (4 forward + 4 recompute MoE dispatches + 1
+   embedding gradient)) and the others 0.  Times: a step's call, split
+   by CUDA events into forward + backward + compression and AdamW,
+   tok/s, the profiler's kernel time and top kernels, against the
+   step's FLOP bound at 989 TFLOP/s (the capacity buffers' expert
+   einsums, remat's recompute, a backward of twice the forward) and
+   the update's byte bound; B12 and B11 at a microbatch's dispatch
+   (16,384 keys, 64 bins) and embedding gradient (2,048 keys, 50,432
+   bins); ``max_memory_allocated``.  Then a one-layer float32 OLMoE at
+   full width on the card against the CPU (``loss_fn`` and every
+   gradient leaf within ``TRAIN_F32_RTOL``; ``adamw_update`` on the
+   same handed-over gradients within ``TRAIN_OPT_RTOL``), and
+   ``launch.train.main`` in-process on the card (``olmo_1b
+   --reduced``): 6 steps, a second call that resumes from its
+   checkpoint and runs to 9, against an uninterrupted run to 9 within
+   ``TRAIN_RESUME_RTOL``, and the final state saved and restored bit
+   for bit; must end within 120 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -3291,6 +3319,24 @@ def device_kernels(fn) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def device_ops(fn, k: int = 10) -> list:
+    """The operators of one call of ``fn()`` that launch the most device
+    time themselves (``torch.profiler``: each aten operator's own
+    kernels, not its children's), as ``(name, ms, calls)``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])[:k]
+
+
 def dispatch_by_argsort(e: torch.Tensor, n_experts: int, capacity: int):
     """The reference's dispatch (``repro/models/moe.py:42-65``) in plain
     PyTorch: a stable argsort, ``bincount`` and ``searchsorted``."""
@@ -3674,6 +3720,354 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
     require(row["phase_s"] < PHASE_4H_LIMIT_S,
             f"phase 4h took {row['phase_s']:.1f} s, over its "
             f"{PHASE_4H_LIMIT_S} s")
+    return launches
+
+
+#: phase 4i's time limit, in seconds
+PHASE_4I_LIMIT_S = 120
+#: phase 4i: the LM training path on OLMoE-1B-7B at full width, cut to
+#: TRAIN_LAYERS of its 16 layers for the train state's memory (18 B a
+#: parameter: bf16 weights, float32 master, mu, nu and ef; 16 layers
+#: would hold 122.7 GB before any gradient), trained TRAIN_STEPS steps
+#: of TRAIN_MICROBATCHES microbatches on one repeated SyntheticLM batch
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 512, 2, 8
+#: one B12 and one B11 launch per MoE layer call in the forward and in
+#: the backward's recompute, and one each for the embedding gradient,
+#: per microbatch: 8 x 2 x (4 + 4 + 1) = 144
+TRAIN_DISPATCH_CALLS = TRAIN_STEPS * TRAIN_MICROBATCHES * (
+    2 * TRAIN_LAYERS + 1)
+#: (c) a one-layer float32 OLMoE at full width, the same weights on the
+#: card and on the CPU: the loss within TRAIN_F32_RTOL of the CPU's,
+#: every gradient leaf within TRAIN_F32_RTOL of its largest magnitude
+#: (the two sides' float32 matmuls add in other orders; the CPU tests
+#: measure about 2e-6 against the reference)
+TRAIN_F32_RTOL = 1e-4
+#: (c) adamw_update on the same handed-over gradients: master, mu, nu and
+#: the new parameters within TRAIN_OPT_RTOL of each leaf's largest.  The
+#: sides differ in the global norm's summation order (its relative
+#: difference dn, printed, moves the clipped gradient, so mu and master
+#: by dn and nu by 2 dn) and in the last bit of CUDA's pow and of a
+#: division by a host scalar (a multiplication by its reciprocal on the
+#: card), each a few float32 eps of the update
+TRAIN_OPT_RTOL = 1e-5
+#: (d) the launcher resumed against an uninterrupted run: each step's
+#: loss within TRAIN_RESUME_RTOL (the same batches and state; the card
+#: adds index_add_ and the combine gather's backward in no fixed order)
+TRAIN_RESUME_RTOL = 1e-5
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), for the
+#: step's FLOP bound
+BF16_FLOPS_PER_S = 989e12
+
+
+def train_step_flops(cfg, tokens: int, capacity: int, seq: int) -> dict:
+    """The FLOPs of one train step on ``tokens`` tokens of ``seq``, as
+    the port computes it: every MoE layer's expert einsums run on the
+    ``[E, C]`` capacity buffers (``capacity`` slots an expert per
+    microbatch of ``tokens / microbatches`` tokens), chunked attention
+    runs every key chunk of the sequence, the blocks are computed twice
+    (forward and remat's recompute) and the backward costs twice the
+    forward."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    E, F_ = cfg.moe.n_experts, cfg.moe.d_expert
+    per_mb = tokens // TRAIN_MICROBATCHES
+    proj = D * (H + 2 * Hkv) * Dh + H * Dh * D
+    attn = 2 * seq * H * Dh
+    experts = E * capacity * 3 * D * F_ / per_mb   # per token, buffers
+    layer = 2 * (proj + attn + D * E + experts)    # FLOPs a token
+    head = 2 * D * cfg.padded_vocab
+    forward = cfg.n_layers * layer + head
+    total = tokens * (forward + cfg.n_layers * layer + 2 * forward)
+    return {"forward_flop_per_token": forward, "step_flop": total}
+
+
+def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4i: the LM training path (the module docstring).  Returns
+    the launches of its main path, (b)'s eight steps."""
+    import contextlib
+    import copy
+    import dataclasses
+    import io
+    import signal
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import (stacked_leaves, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    t_phase = time.perf_counter()
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    row = {"phase": "4i", "card": smi_line, "arch": LM_ARCH,
+           "reduced": {"n_layers": [full.n_layers, TRAIN_LAYERS],
+                       "why": "the train state's memory: 18 B a parameter"},
+           "train": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "microbatches": TRAIN_MICROBATCHES,
+                     "steps": TRAIN_STEPS}}
+    print(f"phase 4i: {LM_ARCH} reduced: n_layers {full.n_layers} -> "
+          f"{TRAIN_LAYERS} (width unchanged); {smi_line}", flush=True)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the model and its train state on the card
+    tcfg = ts_mod.TrainConfig(
+        opt=opt_mod.OptConfig(lr=3e-4, warmup_steps=2,
+                              total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MICROBATCHES, compress_grads=True,
+        kv_chunk=TRAIN_SEQ)
+    params = lm.init_model(cfg, seed=SEED, device=dev)
+    state = ts_mod.init_train_state(params, tcfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for _, parts, _ in
+                      stacked_leaves(state) for t in parts)
+    row["params"], row["state_GB"] = n_params, state_bytes / 1e9
+    row["memory_allocated_GB"] = (torch.cuda.memory_allocated() - base) / 1e9
+    print(f"phase 4i: {n_params} parameters, state {row['state_GB']:.3f} GB "
+          f"(18 B a parameter: 32.07 GB reckoned), memory_allocated "
+          f"{row['memory_allocated_GB']:.3f} GB", flush=True)
+    require(n_params == 1_781_550_080, f"{n_params} parameters, not the "
+            "reckoned 1,781,550,080 of 4 full-width layers")
+    require(abs(row["memory_allocated_GB"] - row["state_GB"]) < 0.1,
+            "the train state allocated more than its tensors")
+
+    # (b) eight steps on one repeated batch, every counter read
+    host = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    step = ts_mod.make_train_step(cfg, tcfg)
+    losses, step_s = [], []
+    for f in kernels.values():
+        f.launches = 0
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: f.launches for k, f in kernels.items()}
+    expected = {k: TRAIN_DISPATCH_CALLS if k in ("B11", "B12") else 0
+                for k in kernels}
+    row["losses"], row["step_s"] = losses, step_s
+    row["launches"], row["expected"] = launches, expected
+    row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 4i: losses {losses}; max_memory_allocated "
+          f"{row['max_memory_allocated_GB']:.3f} GB", flush=True)
+    require(all(np.isfinite(losses)), "a training loss is not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> "
+            f"{losses[-1]}")
+    require(launches == expected, f"phase 4i launch counts {launches} != "
+            f"{expected} ({TRAIN_STEPS} steps x {TRAIN_MICROBATCHES} "
+            f"microbatches x (2 x {TRAIN_LAYERS} + 1))")
+
+    # (e) times on (b)'s model: a step's call and its split by CUDA
+    # events (forward + backward + compression, then AdamW), the
+    # profiler's busy time, the bounds
+    adamw = ts_mod.adamw_update
+    marks = []
+
+    def timed_adamw(*a, **kw):
+        ev = _events()
+        ev[0].record()
+        out = adamw(*a, **kw)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    ts_mod.adamw_update = timed_adamw
+    try:
+        split = []
+        for _ in range(3):
+            a, b = _events()
+            a.record()
+            state, _ = step(state, batch)
+            b.record()
+            b.synchronize()
+            o0, o1 = marks.pop()
+            split.append((a.elapsed_time(b), a.elapsed_time(o0),
+                          o0.elapsed_time(o1)))
+    finally:
+        ts_mod.adamw_update = adamw
+    call, fwd_bwd, optim = (float(np.median(x)) for x in zip(*split))
+    row["step_ms"], row["fwd_bwd_compress_ms"], row["adamw_ms"] = \
+        call, fwd_bwd, optim
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row["tok_per_s"] = tokens / (call / 1e3)
+    C = moe_mod._capacity(cfg, tokens // TRAIN_MICROBATCHES)
+    fl = train_step_flops(cfg, tokens, C, TRAIN_SEQ)
+    row.update(fl)
+    row["step_flop_bound_ms"] = fl["step_flop"] / BF16_FLOPS_PER_S * 1e3
+    # the update after the microbatches as one function: it reads the
+    # float32 accumulated gradient, ef, master, mu, nu and writes ef,
+    # master, mu, nu and the parameters in their dtype
+    opt_bytes = sum(p.numel() * (9 * 4 + p.element_size())
+                    for p in tree_leaves(state["params"]))
+    row["update_bytes"] = opt_bytes
+    row["update_byte_bound_ms"], _ = bound_ms(opt_bytes, 0)
+    kern = device_kernels(lambda: step(state, batch))
+    row["step_kernel_ms"] = sum(ms for _, ms, _ in kern)
+    row["step_kernel_launches"] = sum(c for _, _, c in kern)
+    row["step_busy_share"] = row["step_kernel_ms"] / call
+    row["step_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
+    row["step_top_ops"] = [[n, ms, c] for n, ms, c in device_ops(
+        lambda: step(state, batch))]
+    # B12/B11 at the step's two sizes: a microbatch's dispatch (T K keys
+    # over E bins) and its embedding gradient (T keys over the vocabulary)
+    rng = np.random.default_rng(SEED + 24)
+    per_mb = tokens // TRAIN_MICROBATCHES
+    for what, L, nbins in (("dispatch", per_mb * cfg.moe.top_k,
+                            cfg.moe.n_experts),
+                           ("embed_grad", per_mb, cfg.padded_vocab)):
+        e = torch.from_numpy(rng.integers(0, nbins, L).astype(
+            np.int32)).to(dev)
+        bb = default_block_b(nbins, L=L)
+        offsets, _ = block_offsets(e, nbins=nbins, block_b=bb)
+        row[f"B12_{what}_ms"] = device_ms(lambda: kernels["B12"](
+            e, nbins=nbins, block_b=bb), cpm)
+        row[f"B11_{what}_ms"] = device_ms(lambda: kernels["B11"](
+            e, offsets, nbins=nbins, block_b=bb), cpm)
+        row[f"{what}_keys_bins"] = [L, nbins]
+    row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, params, batch, step
+    torch.cuda.empty_cache()
+
+    # (c) the full width against the CPU: a one-layer float32 OLMoE, the
+    # same weights on both sides: loss_fn, its gradients, then AdamW on
+    # the same handed-over gradients
+    cfg1 = dataclasses.replace(full, n_layers=1, dtype="float32")
+    p_cpu = lm.init_model(cfg1, seed=SEED, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 129)).astype(
+        np.int32))
+    b1 = {"tokens": t1[:1, :128], "labels": t1[:1, 1:]}
+    sides = (("cpu", p_cpu, torch.device("cpu")), ("cuda", p_dev, dev))
+    side = {}
+    for name, p, d in sides:
+        loss = lm.loss_fn(p, {k: v.to(d) for k, v in b1.items()}, cfg1,
+                          kv_chunk=128)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        side[name] = (float(loss.detach()), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_dev, g_dev) = side["cpu"], side["cuda"]
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(
+        min=1e-30)) for a, b in zip(g_dev, g_cpu))
+    row["f32_one_layer"] = {"loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
+                            "grad_rel_err": grad_err}
+    require(abs(l_dev - l_cpu) <= TRAIN_F32_RTOL * abs(l_cpu),
+            f"loss_fn on the card {l_dev} vs the CPU's {l_cpu}")
+    require(grad_err <= TRAIN_F32_RTOL, f"a gradient leaf on the card is "
+            f"{grad_err:.3g} of its max from the CPU's (limit "
+            f"{TRAIN_F32_RTOL})")
+    ocfg = tcfg.opt
+    upd = {}
+    for name, p, d in sides:
+        opt = opt_mod.init_opt_state(p, ocfg)
+        g = [x.to(d) for x in g_cpu]  # the CPU's gradients, handed over
+        newp, opt, om = opt_mod.adamw_update(tree_unflatten(p, g), opt,
+                                             ocfg)
+        upd[name] = ([x.cpu() for x in tree_leaves(newp)],
+                     {k: [x.cpu() for x in tree_leaves(opt[k])]
+                      for k in ("master", "mu", "nu")},
+                     float(om["grad_norm"]), float(om["lr"]))
+    dn = abs(upd["cuda"][2] / upd["cpu"][2] - 1)
+    opt_err = {}
+    for k in ("master", "mu", "nu"):
+        opt_err[k] = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(upd["cuda"][1][k],
+                                        upd["cpu"][1][k]))
+    opt_err["params"] = max(float((a - b).abs().max() / b.abs().max()
+                                  .clamp(min=1e-30))
+                            for a, b in zip(upd["cuda"][0], upd["cpu"][0]))
+    row["adamw_same_grads"] = {"grad_norm_rel_diff": dn,
+                               "lr": [upd["cuda"][3], upd["cpu"][3]],
+                               **{f"{k}_rel_err": v
+                                  for k, v in opt_err.items()}}
+    require(all(v <= TRAIN_OPT_RTOL for v in opt_err.values()),
+            f"adamw_update on the card differs from the CPU's: {opt_err} "
+            f"(limit {TRAIN_OPT_RTOL})")
+    del p_cpu, p_dev, sides, side, g_cpu, g_dev, upd
+    torch.cuda.empty_cache()
+
+    # (d) the launcher on the card: 6 steps, a resumed call to 9, an
+    # uninterrupted run to 9; then the final state saved and restored
+    recorded = {}
+    make_step = train_launch.make_train_step
+
+    def recording_step(cfg_, tcfg_):
+        inner = make_step(cfg_, tcfg_)
+
+        def run(state_, batch_):
+            state_, m_ = inner(state_, batch_)
+            recorded["losses"].append(float(m_["loss"]))
+            recorded["state"] = state_
+            return state_, m_
+        return run
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    argv = ["--arch", "olmo_1b", "--reduced", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "3", "--log-every", "1", "--seed", str(SEED)]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="repro-train-") as tmp:
+        train_launch.make_train_step = recording_step
+        try:
+            for name, steps, ckpt in (("first", 6, "a"), ("resumed", 9, "a"),
+                                      ("whole", 9, "b")):
+                recorded["losses"] = []
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = train_launch.main(argv + [
+                        "--steps", str(steps), "--ckpt-dir",
+                        f"{tmp}/{ckpt}"])
+                require(rc == 0, f"launch.train.main ({name}) returned {rc}")
+                for line in out.getvalue().splitlines():
+                    print(f"phase 4i ({name}): {line}", flush=True)
+                runs[name] = (list(recorded["losses"]), out.getvalue())
+        finally:
+            train_launch.make_train_step = make_step
+            for s, h in handlers.items():
+                signal.signal(s, h)
+        require("[train] resumed from step 6" in runs["resumed"][1],
+                "the second call did not resume from step 6")
+        joined = runs["first"][0] + runs["resumed"][0]
+        whole = runs["whole"][0]
+        require(len(joined) == len(whole) == 9, "the launcher ran "
+                f"{len(joined)} and {len(whole)} steps, not 9")
+        resume_err = max(abs(a - b) / abs(b) for a, b in zip(joined, whole))
+        row["launcher"] = {"losses_resumed": joined, "losses_whole": whole,
+                           "resume_rel_err": resume_err}
+        require(resume_err <= TRAIN_RESUME_RTOL, f"the resumed run's losses "
+                f"are {resume_err:.3g} from the uninterrupted run's (limit "
+                f"{TRAIN_RESUME_RTOL})")
+        final = recorded["state"]
+        mgr = CheckpointManager(f"{tmp}/c")
+        mgr.save(9, final, blocking=True)
+        small = get_config("olmo_1b").reduced()
+        fresh = ts_mod.init_train_state(
+            lm.init_model(small, seed=SEED + 1, device=dev),
+            ts_mod.TrainConfig(kv_chunk=32))
+        restored, _ = mgr.restore(fresh)
+        same = all(torch.equal(a, b) for (_, pa, _), (_, pb, _) in zip(
+            stacked_leaves(final), stacked_leaves(restored))
+            for a, b in zip(pa, pb))
+        row["launcher"]["save_restore"] = "bit-identical" if same else \
+            "differs"
+        require(same, "the launcher's state did not save and restore bit "
+                "for bit")
+        del final, fresh, restored, recorded["state"]
+
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4I_LIMIT_S,
+            f"phase 4i took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4I_LIMIT_S} s")
     return launches
 
 
@@ -4196,6 +4590,11 @@ def main() -> None:
     #    card, its dispatch on B12/B11, against the CPU, the times -------
     lm_launches = lm_serving_phase(dev, kernels4, cpm, smi_line)
 
+    # -- 4i. the LM training path: OLMoE-1B-7B at full width (4 layers)
+    #    trained on the card, its dispatch and embedding gradient on
+    #    B12/B11, against the CPU, the launcher's resume, the times ----
+    train_launches = lm_training_phase(dev, kernels4, cpm, smi_line)
+
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
@@ -4441,6 +4840,7 @@ def main() -> None:
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "lm_launches": lm_launches[k],
+         "train_launches": train_launches[k],
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],

@@ -47,6 +47,62 @@ class Params(nn.Module):
         return self[key] if key in self else default
 
 
+# ---------------------------------------------------------------------------
+# Trees: Params modules and nested dicts, with a list (``nn.ModuleList``)
+# of same-shaped blocks where the reference stacks them on a leading axis
+# ---------------------------------------------------------------------------
+def _is_node(x) -> bool:
+    return isinstance(x, (Params, dict))
+
+
+def _is_stack(x) -> bool:
+    return isinstance(x, (nn.ModuleList, list, tuple))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of each of
+    ``rest``); nodes come back as dicts, stacks as lists."""
+    if _is_node(tree):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree.keys())}
+    if _is_stack(tree):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in :func:`tree_map`'s order: sorted keys, as
+    ``jax.tree.leaves`` orders a dict, and a stack's blocks one after
+    another."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` holding ``leaves`` (in
+    :func:`tree_leaves`' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def stacked_leaves(tree, prefix: str = "") -> list:
+    """``(name, parts, stacked)`` for each leaf of the reference's pytree,
+    in its order: ``name`` joins the keys with ``/``; a stack's blocks
+    contribute one leaf per name, ``parts`` holding each block's tensor
+    (``stacked`` true: the reference's leaf is them stacked on a leading
+    axis); any other leaf is ``([leaf], False)``."""
+    if _is_node(tree):
+        return [leaf for k in sorted(tree.keys())
+                for leaf in stacked_leaves(tree[k], f"{prefix}{k}/")]
+    if _is_stack(tree):
+        per_block = [stacked_leaves(t, prefix) for t in tree]
+        return [(name, [b[i][1][0] for b in per_block], True)
+                for i, (name, _, _) in enumerate(per_block[0])]
+    return [(prefix[:-1], [tree], False)]
+
+
 def torch_dtype(name) -> torch.dtype:
     """The torch dtype of a config's dtype name (``"bfloat16"``, ...)."""
     return name if isinstance(name, torch.dtype) else getattr(torch, name)

@@ -11,11 +11,19 @@ Python bool per layer where the reference uses ``lax.cond``.
 :func:`params_from_numpy` and :func:`params_to_numpy` carry weights
 across from and back to the reference's stacked pytree.
 
+While autograd records, each block of the layer loop runs under
+activation checkpointing (``runtime_flags.REMAT``, the reference's
+``jax.checkpoint`` of its scan body); under ``torch.inference_mode()``
+or ``torch.no_grad()`` the blocks run as they are.  :func:`loss_fn` is
+the next-token cross-entropy plus the MoE aux loss.
+
 The families ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` are not ported
 yet (ROADMAP queue A, item 15): their entry points raise
-``NotImplementedError``.  ``loss_fn`` comes with the training slice.
+``NotImplementedError``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -40,6 +48,7 @@ from .layers import (
     unembed,
 )
 from .moe import init_moe, moe_ffn
+from . import runtime_flags
 
 KV_DTYPE = torch.bfloat16
 
@@ -168,7 +177,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Params:
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    # a copy: a train step writes into the tensors in place
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
@@ -236,6 +246,37 @@ def _positions(tokens):
 
 
 # ---------------------------------------------------------------------------
+# Activation checkpointing of the layer loop
+# ---------------------------------------------------------------------------
+def _save_mm(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of unbatched matmuls
+    (``aten.mm``: the projections, the router, the unembedding) and
+    recompute everything else, the batched einsums (``bmm``) included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ckpt(fn):
+    """``fn`` under the ``REMAT`` policy while autograd records, else
+    ``fn`` itself.  The recompute runs the block's MoE dispatch again
+    (B12 and B11 on the card): ``torch.topk`` and the stable counting
+    sort are deterministic, so it routes as the forward did."""
+    if not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if runtime_flags.remat() == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_mm)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Forward (scoring): tokens -> logits
 # ---------------------------------------------------------------------------
 def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
@@ -245,12 +286,32 @@ def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
     positions = _positions(tokens)
     x = embed(params["embed"], tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _ckpt(_dense_block)
     for idx, lp in enumerate(params["layers"]):
-        x, a = _dense_block(lp, x, cfg, idx, positions=positions,
-                            causal=True, kv_chunk=kv_chunk)
+        x, a = block(lp, x, cfg, idx, positions=positions, causal=True,
+                     kv_chunk=kv_chunk)
         aux_total = aux_total + a
     x = _apply_norm(cfg, params.get("final_norm"), x)
     return unembed(params["embed"], x), aux_total
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
+    """Next-token cross-entropy (+ MoE aux), in float32 logits; padded
+    vocabulary slots are masked, labels below 0 are ignored."""
+    logits, aux = forward(params, batch, cfg, kv_chunk=kv_chunk)
+    labels = batch["labels"].long()
+    lf = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab:  # mask padded vocab slots
+        pad_mask = torch.arange(cfg.padded_vocab,
+                                device=lf.device) >= cfg.vocab
+        lf = lf.masked_fill(pad_mask, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    # an ignored label reads slot 0; its term is masked out below
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                      min=1.0)
+    return ce + aux
 
 
 # ---------------------------------------------------------------------------

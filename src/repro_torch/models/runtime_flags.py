@@ -1,12 +1,11 @@
 """Process-wide model flags (counterpart of ``repro/models/runtime_flags.py``).
 
 ``MOE_GROUPS`` and ``MOE_MESH`` steer
-:func:`repro_torch.models.moe.moe_ffn`.  The reference's ``UNROLL`` (the
-``unroll=`` of its ``lax.scan``s) and ``REMAT`` (the checkpoint policy
-of its layer scans) are left out: the port's layer loop is a Python loop
-with no scan to unroll, and ``REMAT`` comes with the training slice
-(ROADMAP queue A, item 15, step 1), which has a backward to
-rematerialise.
+:func:`repro_torch.models.moe.moe_ffn`; ``REMAT`` picks the activation
+checkpointing of :func:`repro_torch.models.model.forward`'s layer loop
+when gradients are being recorded.  The reference's ``UNROLL`` (the
+``unroll=`` of its ``lax.scan``s) is left out: the port's layer loop is
+a Python loop with no scan to unroll.
 """
 #: MoE dispatch groups.  1 = one counting sort over all tokens.  G > 1
 #: splits the tokens into G contiguous groups, each with its own stable
@@ -38,3 +37,22 @@ def set_moe_mesh(mesh, dp_axes=("data",)):
 
 def moe_mesh():
     return MOE_MESH
+
+
+#: activation checkpointing of the layer loop, applied only while autograd
+#: records (``torch.is_grad_enabled()``):
+#: "full" = every block recomputed in the backward
+#:          (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
+#: "dots" = the outputs of ``aten.mm`` saved, the rest recomputed (the
+#:          reference's ``dots_with_no_batch_dims_saveable``: the batched
+#:          expert and attention einsums are recomputed)
+REMAT = "full"
+
+
+def set_remat(v: str):
+    global REMAT
+    REMAT = v
+
+
+def remat() -> str:
+    return REMAT

@@ -1,0 +1,193 @@
+"""Train step: microbatch accumulation, grad compression w/ error
+feedback, AdamW (counterpart of ``repro/train/train_step.py``).
+
+Gradient flow:
+  1. microbatches run one after another; each microbatch's gradients
+     (``torch.autograd.grad``, in the parameters' dtype) are added into
+     float32 buffers, as the reference's ``lax.scan`` accumulates them;
+  2. the accumulated gradient is *compressed* to bf16 with a float32
+     error-feedback buffer carried in the train state (the residual of
+     step t is added at step t+1);
+  3. AdamW consumes the compressed gradient against the float32 master
+     weights.
+
+The state is consumed: every step writes the parameters, the optimizer
+state, ``ef`` and ``step`` into the tensors it was given (the
+reference's launcher donates the state to its jitted step; a second
+full-width state would not fit on the card).  Copy a state before a
+step to keep it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..kernels.common import resolve_device
+from ..models.layers import Params, stacked_leaves, tree_leaves, tree_map, \
+    tree_unflatten
+from ..models.model import (_check_family, _leaf_to_numpy, _leaf_to_torch,
+                            loss_fn, params_from_numpy, params_to_numpy)
+from .optimizer import OptConfig, adamw_update, init_opt_state
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: OptConfig = OptConfig()
+    microbatches: int = 1
+    compress_grads: bool = True     # bf16 + error feedback
+    kv_chunk: int = 1024
+
+
+def init_train_state(params, tcfg: TrainConfig) -> dict[str, Any]:
+    """``params``, ``opt`` (:func:`init_opt_state`), ``step`` (0-d int32)
+    and, with ``compress_grads``, ``ef`` (float32 zeros), on the
+    parameters' device; ``params`` is held, not copied."""
+    device = tree_leaves(params)[0].device
+    state = {
+        "params": params,
+        "opt": init_opt_state(params, tcfg.opt),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if tcfg.compress_grads:
+        state["ef"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Train states carried across from and back to the reference
+# ---------------------------------------------------------------------------
+def _tree_from_numpy(tree: dict, n_layers: int, device) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = [tree_map(lambda a, i=i: _leaf_to_torch(
+                np.asarray(a)[i], device), v) for i in range(n_layers)]
+        elif isinstance(v, dict):
+            out[k] = _tree_from_numpy(v, n_layers, device)
+        else:
+            out[k] = _leaf_to_torch(v, device)
+    return out
+
+
+def train_state_from_numpy(tree: dict, cfg, tcfg: TrainConfig, *,
+                           device=None) -> dict[str, Any]:
+    """The port's train state from the reference's
+    (``jax.tree.map(np.asarray, state)``): ``params`` through
+    :func:`~repro_torch.models.model.params_from_numpy`, ``master``,
+    ``mu``, ``nu`` and ``ef`` with their stacked layer axis split into
+    per-block tensors as the parameters are; bfloat16 leaves stay
+    bfloat16."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    opt = tree["opt"]
+    state = {
+        "params": params_from_numpy(tree["params"], cfg, device=device),
+        "opt": {**{k: _tree_from_numpy(opt[k], cfg.n_layers, device)
+                   for k in ("master", "mu", "nu")},
+                "count": _leaf_to_torch(opt["count"], device)},
+        "step": _leaf_to_torch(tree["step"], device),
+    }
+    if tcfg.compress_grads:
+        state["ef"] = _tree_from_numpy(tree["ef"], cfg.n_layers, device)
+    return state
+
+
+def _tree_to_numpy(tree) -> dict:
+    if isinstance(tree, Params):
+        return params_to_numpy(tree)
+    out = {}
+    for name, parts, stacked in stacked_leaves(tree):
+        node = out
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = (np.stack([_leaf_to_numpy(t) for t in parts])
+                      if stacked else _leaf_to_numpy(parts[0]))
+    return out
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The reference's train-state pytree (numpy, layers stacked on a
+    leading axis) from the port's; bfloat16 leaves come back as float32
+    holding the same values (numpy has no bfloat16)."""
+    return {k: _tree_to_numpy(v) if isinstance(v, (dict, Params))
+            else _leaf_to_numpy(v) for k, v in state.items()}
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+def _split_microbatches(batch, n: int):
+    """[B, ...] -> [n, B//n, ...] for every leaf."""
+    def f(x):
+        B = x.shape[0]
+        return x.reshape(n, B // n, *x.shape[1:])
+    return {k: f(v) for k, v in batch.items()}
+
+
+def make_train_step(cfg, tcfg: TrainConfig):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``batch`` holds ``tokens`` and ``labels`` ``[B, S]`` on the state's
+    device.  The state is consumed: it is updated in place and returned.
+    """
+
+    def grads_of(params, leaves, mb):
+        with torch.enable_grad():
+            loss = loss_fn(params, mb, cfg, kv_chunk=tcfg.kv_chunk)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        n = tcfg.microbatches
+
+        if n > 1:
+            mbs = _split_microbatches(batch, n)
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in leaves]
+            losses = []
+            for i in range(n):
+                loss, grads = grads_of(params, leaves,
+                                       {k: v[i] for k, v in mbs.items()})
+                torch._foreach_add_(acc, grads)
+                losses.append(loss)
+                del grads
+            torch._foreach_div_(acc, float(n))
+            loss = torch.mean(torch.stack(losses))
+        else:
+            loss, grads = grads_of(params, leaves, batch)
+            acc = [g.to(torch.float32) for g in grads]
+            del grads
+
+        with torch.no_grad():
+            # ---- gradient compression with error feedback
+            if tcfg.compress_grads:
+                ef = tree_leaves(state["ef"])
+                torch._foreach_add_(acc, ef)             # with_ef = g + ef
+                sent = [a.to(torch.bfloat16) for a in acc]
+                for a, s, e in zip(acc, sent, ef):       # ef' = with_ef - s
+                    e.copy_(a.sub_(s))
+                del acc
+                used = sent
+            else:
+                used = acc
+            # cast to the param dtypes so adamw mirrors them
+            used = [g.to(p.dtype) for p, g in zip(leaves, used)]
+            new, opt, om = adamw_update(tree_unflatten(params, used),
+                                        state["opt"], tcfg.opt)
+            del used
+            for p, q in zip(leaves, tree_leaves(new)):
+                p.copy_(q)
+            del new
+            metrics = {"loss": loss, **om, "step": state["step"].clone()}
+            state["step"].add_(1)
+        state["opt"] = opt
+        return state, metrics
+
+    return train_step

@@ -22,7 +22,11 @@ against the plain mirror of its tiled route
 (``placement_tiled_ref``).  The LM serving path's tests (at the end)
 hold the counting sort at MoE shapes against ``torch.argsort``, the MoE
 dispatch, a reduced OLMoE's prefill and decode (float32, within 1e-4 of
-``max|logit|``) and the embedding gradient on the card against the CPU.
+``max|logit|``) and the embedding gradient on the card against the CPU;
+the training path's, a reduced OLMoE's train step (loss and
+``grad_norm`` within 1e-4 of the CPU's, B12 and B11 launched
+``microbatches x (2 L + 1)`` times a step) and a checkpoint of its
+state saved and restored on the card bit for bit.
 """
 import dataclasses
 import importlib
@@ -1826,3 +1830,69 @@ def test_embedding_gradient_on_the_card_matches_the_cpu(upstream):
     eps = float(np.finfo(np.float32).eps)
     bound = 2 * (n - 1).clamp(min=0) * eps * abs_sum
     assert bool(((grads[0] - grads[1]).abs().double() <= bound).all())
+
+
+# ---------------------------------------------------------------------------
+# The LM training path: the train step and its checkpoints on the card
+# ---------------------------------------------------------------------------
+def _reduced_train_states(dev, tcfg):
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.train import init_train_state
+
+    cfg = get_config("olmoe_1b_7b").reduced(dtype="float32")
+    p_cpu = lm.init_model(cfg, seed=0, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    return cfg, init_train_state(p_cpu, tcfg), init_train_state(p_dev, tcfg)
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu():
+    """Loss and ``grad_norm`` within 1e-4 of the CPU's over two steps
+    (the card's float32 matmuls add in another order); B12 and B11 run
+    once per MoE layer call in the forward and in the recompute, and
+    once for the embedding gradient, per microbatch."""
+    from repro_torch.train import TrainConfig, make_train_step
+
+    dev = _cuda()
+    tcfg = TrainConfig(microbatches=2, compress_grads=True, kv_chunk=8)
+    cfg, s_cpu, s_dev = _reduced_train_states(dev, tcfg)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    step = make_train_step(cfg, tcfg)
+    for _ in range(2):
+        before = (hist.block_histogram.launches, cs.placement.launches)
+        s_dev, m_dev = step(s_dev, {k: v.to(dev) for k, v in batch.items()})
+        per_step = tcfg.microbatches * (2 * cfg.n_layers + 1)
+        assert (hist.block_histogram.launches - before[0],
+                cs.placement.launches - before[1]) == (per_step, per_step)
+        s_cpu, m_cpu = step(s_cpu, batch)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(m_dev[k]) - float(m_cpu[k])) <= \
+                1e-4 * abs(float(m_cpu[k])), k
+    assert int(s_dev["step"]) == 2 and s_dev["step"].device.type == "cuda"
+
+
+def test_train_state_checkpoint_on_the_card_round_trips(tmp_path):
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.models.layers import stacked_leaves
+    from repro_torch.train import TrainConfig, make_train_step
+
+    dev = _cuda()
+    tcfg = TrainConfig(microbatches=1, compress_grads=True, kv_chunk=8)
+    cfg, _, state = _reduced_train_states(dev, tcfg)
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)).to(dev) for k in ("tokens", "labels")}
+    state, _ = make_train_step(cfg, tcfg)(state, batch)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state, blocking=True)
+    _, _, fresh = _reduced_train_states(dev, tcfg)
+    restored, manifest = mgr.restore(fresh)
+    assert restored is fresh and manifest["step"] == 1
+    for (n, a, _), (_, b, _) in zip(stacked_leaves(state),
+                                    stacked_leaves(restored)):
+        assert all(y.device.type == "cuda" and x.dtype == y.dtype
+                   and torch.equal(x, y) for x, y in zip(a, b)), n

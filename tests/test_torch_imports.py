@@ -1,6 +1,6 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
-``kernel_times.py`` import nothing of JAX and nothing of the JAX package
-``repro``."""
+``kernel_times.py`` import nothing of JAX, nothing of the JAX package
+``repro`` and not ``ml_dtypes``."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+#: ``ml_dtypes`` (the reference checkpoint's bfloat16) is not installed on
+#: the card's machine
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(path: Path):
@@ -35,6 +37,11 @@ def test_port_files_exist():
                  "src/repro_torch/configs/olmoe_1b_7b.py",
                  "src/repro_torch/train/sparse_grads.py",
                  "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/train/optimizer.py",
+                 "src/repro_torch/train/train_step.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/ckpt/checkpoint.py",
                  "src/repro_torch/serve/__init__.py",
                  "src/repro_torch/kernels/radix_sort/radix_sort.py",
                  "src/repro_torch/kernels/segment_sum/segment_sum.py"):

@@ -3,7 +3,8 @@
 ``tests/test_torch_api_surface.py`` walks the ``__all__`` of the three
 top-level packages; this walks every module of ``core``, ``sparse``,
 ``kernels`` and the LM stack's ``models``, ``configs``, ``train``,
-``launch`` and ``serve`` that both packages have, at any depth.  A module's public
+``launch``, ``serve``, ``data`` and ``ckpt`` that both packages have, at
+any depth.  A module's public
 names are its ``__all__`` where it has one, else the public functions,
 classes and assignments at its top level, and, in a package's
 ``__init__``, the names it imports from its own subpackage.  Each must
@@ -32,17 +33,13 @@ torch.set_num_threads(1)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PACKAGES = ("core", "sparse", "kernels", "models", "configs", "train",
-            "launch", "serve")
+            "launch", "serve", "data", "ckpt")
 
 #: the reference's modules the port does not have yet, with the ROADMAP
 #: queue A, item 15 step that brings each
 ABSENT_MODULES = {
     # the ssm and hybrid families (step 2)
     "models.ssm": "Mamba-2 blocks of the ssm and hybrid families",
-    # the training slice (step 1)
-    "train.optimizer": "AdamW, with the training slice",
-    "train.train_step": "the train step, with the training slice",
-    "launch.train": "the training launcher, with the training slice",
     # the production sharding (step 4): meshes over many cards
     "launch.specs": "the dry-run's input specs",
     "launch.sharding": "the parameter and activation partition rules",
@@ -79,16 +76,8 @@ ABSENT = {
     # the package re-exports the three above and the interpret switch
     "kernels": {"INTERPRET", "gather_masked_cumsum",
                 "gather2_masked_cumsum", "gather_masked_segscan"},
-    # next-token loss: the training slice (ROADMAP queue A, item 15, step
-    # 1)
-    "models.model": {"loss_fn"},
-    # the optimizer and the train step: the training slice (step 1)
-    "train": {"OptConfig", "TrainConfig", "adamw_update", "init_opt_state",
-              "init_train_state", "make_train_step"},
-    # no scan to unroll (the layer loop is a Python loop); REMAT comes
-    # with the training slice (step 1)
-    "models.runtime_flags": {"UNROLL", "set_unroll", "unroll", "REMAT",
-                             "set_remat", "remat"},
+    # no scan to unroll (the layer loop is a Python loop)
+    "models.runtime_flags": {"UNROLL", "set_unroll", "unroll"},
     # the 256/512-chip pod meshes: a machine with many cards (queue A,
     # item 14)
     "launch.mesh": {"make_production_mesh"},
