@@ -217,6 +217,49 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    checkpoint and runs to 9, against an uninterrupted run to 9 within
    ``TRAIN_RESUME_RTOL``, and the final state saved and restored bit
    for bit; must end within 120 s.
+4j. the ssm and hybrid serving path (``repro_torch.models.ssm``, the
+   ``ssm`` and ``hybrid`` branches of ``models/model.py``): Mamba2-780M
+   (``configs/mamba2_780m.py``) and Zamba2-7B (``configs/zamba2_7b.py``)
+   at full width and depth in bf16 from ``init_model(cfg, seed=0,
+   device="cuda")``, their parameter counts held to the reference's
+   (``SSM_PARAMS``) and ``memory_allocated`` printed; each served
+   through ``repro_torch.launch.serve.main`` in-process as in 4h, every
+   logit finite and every token in ``[0, vocab)``; all twelve counters
+   set to 0 before each served run must read 0 after it (serving these
+   families runs none of the twelve kernels).  Then, on each: float32
+   copies at full width (Mamba2 with 1 layer, Zamba2 with 6: one shared
+   application) whose prefill logits on the card are within
+   ``LM_F32_RTOL`` of the CPU's; ``decode_step`` after ``prefill(...,
+   extra_cache=1)`` against ``forward``'s last position on the bf16
+   full-depth model within ``LM_BF16_RTOL`` and on the float32 copy
+   within ``LM_F32_DECODE_RTOL``, where planted faults (a step whose SSM
+   state restarts from zero, one whose conv window is a row stale, and
+   for Zamba2 a shared-attention step one position on) must read above
+   the limit; the one-layer float32 Mamba2's prefill state and conv
+   window after ``chunk + 3 = 259`` tokens against a stepwise decode
+   from a zero cache within ``SSM_STATE_RTOL``.  Times: prefill and a
+   decode step (call, device, the profiler's kernel time and top
+   kernels) against the decode step's byte bound at 3.35 TB/s (the
+   weights, the shared block's once per application, the SSM and conv
+   states read and written, the shared block's KV caches), ``tok/s``
+   as ``serve`` prints it, ``max_memory_allocated``; must end within
+   120 s.
+4k. the ssm and hybrid training path: Mamba2-780M at full width and
+   depth (the train state: 18 B a parameter, 14.05 GB) and Zamba2-7B at
+   full width cut to 12 of its 81 layers (two shared applications;
+   1,255,956,416 parameters, 22.6 GB), each trained as in 4i (8 and 4
+   steps of 2 microbatches on one repeated ``SyntheticLM`` batch of 8 x
+   512): every loss finite, the last below the first; B12 and B11 must
+   read one launch each per microbatch (the embedding gradient: 16 and
+   8) and the others 0.  Times as 4i's, against the update's byte bound
+   and the step's FLOP bound split by precision (the projections, the
+   shared block's MLP and the unembedding in bf16 at 989 TFLOP/s; the
+   SSD scan's einsums and the shared attention's products in float32
+   at 67 TFLOP/s).  Then float32 copies at full width against the CPU
+   (``loss_fn``, every gradient leaf, ``adamw_update``): Mamba2 with 1
+   layer at S = 259, Zamba2 with 6 at S = 64 (the shared block's
+   gradient); and ``launch.train.main`` on ``zamba2_7b --reduced`` as
+   in 4i; must end within 120 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -3296,12 +3339,18 @@ LM_F32_DECODE_RTOL = 1e-4
 LM_GRAD_TOKENS = 2048
 
 
-def device_kernels(fn) -> list:
-    """The CUDA kernels (and copies) of one call of ``fn()``
-    (``torch.profiler``), as ``(name, ms, launches)`` by device time,
-    most first.  The operators' device annotations (``aten::mul`` on the
-    device's timeline) span the kernels they launch and are left out, as
-    the profiler's own device total leaves them out."""
+def device_profile(fn, k: int = 10) -> tuple[list, list]:
+    """One profiled call of ``fn()`` (``torch.profiler``, after one call
+    unprofiled), read off the profiler's raw events rather than
+    ``key_averages()`` (which builds a Python object an event: tens of
+    seconds for a train step's hundreds of thousands).  Returns the
+    CUDA kernels and copies of the call as ``(name, ms, launches)`` by
+    device time, most first: the device's busy time, without the
+    operators' device annotations (``aten::mul`` on the device's
+    timeline), which span the kernels they launch; and the ``k``
+    operators that launch the most device time themselves, as ``(name,
+    ms, calls)``: each kernel counts for the operator its launch is
+    correlated with (the profiler's ``self_device_time_total``)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -3309,32 +3358,31 @@ def device_kernels(fn) -> list:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
-    require(not any(n.startswith("aten::") for n, _, _ in rows),
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    op_of = {e.correlation_id(): e.name() for e in events
+             if e.device_type() != cuda}
+    kern, ops = {}, {}
+    for e in events:
+        if e.device_type() != cuda or e.is_user_annotation():
+            continue
+        ms = e.duration_ns() / 1e6
+        name = e.name()[:60]
+        t = kern.setdefault(name, [0.0, 0])
+        t[0] += ms
+        t[1] += 1
+        op = op_of.get(e.linked_correlation_id())
+        if op is not None:
+            t = ops.setdefault(op, [0.0, set()])
+            t[0] += ms
+            t[1].add(e.linked_correlation_id())
+    require(not any(n.startswith("aten::") for n in kern),
             "an operator's device annotation is counted as a kernel")
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def device_ops(fn, k: int = 10) -> list:
-    """The operators of one call of ``fn()`` that launch the most device
-    time themselves (``torch.profiler``: each aten operator's own
-    kernels, not its children's), as ``(name, ms, calls)``."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU
-            and e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[1])[:k]
+    kernels = sorted(((n, ms, c) for n, (ms, c) in kern.items()),
+                     key=lambda r: -r[1])
+    top = sorted(((n, ms, len(c)) for n, (ms, c) in ops.items()),
+                 key=lambda r: -r[1])[:k]
+    return kernels, top
 
 
 def dispatch_by_argsort(e: torch.Tensor, n_experts: int, capacity: int):
@@ -3354,18 +3402,94 @@ def dispatch_by_argsort(e: torch.Tensor, n_experts: int, capacity: int):
     return slot, load
 
 
-def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
-    """Phase 4h: the LM serving path (the module docstring).  Returns the
-    launches of its main path, the served run."""
+def serve_watched(arch: str, cfg, params, kernels, dev, phase: str) -> dict:
+    """``repro_torch.launch.serve.main --arch arch`` in-process on the
+    model ``params`` of ``cfg`` (batch LM_BATCH, prompts of LM_PROMPT, LM_GEN
+    tokens, LM_REQUESTS requests), every launch counter set to 0 just
+    before.  Fails unless it returns 0 after one prefill a batch and
+    LM_GEN - 1 decode steps after each, every logit finite and every
+    token in [0, vocab).  Returns the printed lines, the launch counts
+    of the run and the tok/s it printed."""
     import contextlib
-    import copy
-    import dataclasses
     import io
     import re
 
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as lm
+
+    seen = {"prefills": 0, "decodes": 0, "tokens": [],
+            "bad": torch.zeros((), dtype=torch.bool, device=dev)}
+
+    def served_init(cfg_, *, seed, device):
+        require(cfg_ == cfg and seed == SEED and torch.device(device) == dev,
+                "serve asked for another model than the one built")
+        return params
+
+    def watched_prefill(*a, **kw):
+        logits, cache = lm.prefill(*a, **kw)
+        seen["prefills"] += 1
+        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
+        return logits, cache
+
+    def watched_decode(params_, cache, tokens, cfg_):
+        logits, cache = lm.decode_step(params_, cache, tokens, cfg_)
+        seen["decodes"] += 1
+        seen["tokens"].append(tokens)
+        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
+        return logits, cache
+
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--requests",
+            str(LM_REQUESTS), "--seed", str(SEED)]
+    hooks = {"init_model": served_init, "prefill": watched_prefill,
+             "decode_step": watched_decode}
+    saved = {k: getattr(serve_mod, k) for k in hooks}
+    out = io.StringIO()
+    for f in kernels.values():
+        f.launches = 0
+    try:
+        for k, f in hooks.items():
+            setattr(serve_mod, k, f)
+        with contextlib.redirect_stdout(out):
+            rc = serve_mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in saved.items():
+            setattr(serve_mod, k, f)
+    launches = {k: f.launches for k, f in kernels.items()}
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"phase {phase}: {line}", flush=True)
+    require(rc == 0, f"serve.main returned {rc}")
+    n_batches = LM_REQUESTS // LM_BATCH
+    require(seen["prefills"] == n_batches
+            and seen["decodes"] == n_batches * (LM_GEN - 1),
+            f"served {seen['prefills']} prefills and {seen['decodes']} "
+            "decode steps")
+    require(not bool(seen["bad"]), "a served logit is not finite")
+    fed = torch.cat(seen["tokens"])
+    require(fed.shape == (n_batches * (LM_GEN - 1) * LM_BATCH, 1)
+            and int(fed.min()) >= 0 and int(fed.max()) < cfg.vocab,
+            "a generated token lies outside [0, vocab)")
+    samples = [int(t) for line in lines if "sample row0:" in line
+               for t in re.findall(r"-?\d+", line.split("sample row0:")[1])]
+    require(len(samples) == 8 * n_batches
+            and all(0 <= t < cfg.vocab for t in samples),
+            "the printed sample rows are not tokens in [0, vocab)")
+    m = re.search(r"\(([\d.]+) tok/s incl\. prefill\)", lines[-1])
+    require(m is not None, "serve printed no tok/s line")
+    return {"lines": lines, "launches": launches,
+            "tok_per_s": float(m.group(1))}
+
+
+def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4h: the LM serving path (the module docstring).  Returns the
+    launches of its main path, the served run."""
+    import copy
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.hist.ops import block_offsets, default_block_b
-    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
     from repro_torch.sparse.ops import scatter_rows
@@ -3398,78 +3522,18 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
     require(abs(row["memory_allocated_GB"] - weight_bytes / 1e9) < 0.1,
             "init_model allocated more than its weights")
 
-    seen = {"prefills": 0, "decodes": 0, "tokens": [],
-            "bad": torch.zeros((), dtype=torch.bool, device=dev)}
-
-    def served_init(cfg_, *, seed, device):
-        require(cfg_ == cfg and seed == SEED and torch.device(device) == dev,
-                "serve asked for another model than the one built")
-        return params
-
-    def watched_prefill(*a, **kw):
-        logits, cache = lm.prefill(*a, **kw)
-        seen["prefills"] += 1
-        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
-        return logits, cache
-
-    def watched_decode(params_, cache, tokens, cfg_):
-        logits, cache = lm.decode_step(params_, cache, tokens, cfg_)
-        seen["decodes"] += 1
-        seen["tokens"].append(tokens)
-        seen["bad"] = seen["bad"] | ~torch.isfinite(logits).all()
-        return logits, cache
-
-    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
-            str(LM_PROMPT), "--gen", str(LM_GEN), "--requests",
-            str(LM_REQUESTS), "--seed", str(SEED)]
-    hooks = {"init_model": served_init, "prefill": watched_prefill,
-             "decode_step": watched_decode}
-    saved = {k: getattr(serve_mod, k) for k in hooks}
-    out = io.StringIO()
-    for f in kernels.values():
-        f.launches = 0
-    try:
-        for k, f in hooks.items():
-            setattr(serve_mod, k, f)
-        with contextlib.redirect_stdout(out):
-            rc = serve_mod.main(argv)
-        torch.cuda.synchronize()
-    finally:
-        for k, f in saved.items():
-            setattr(serve_mod, k, f)
-    launches = {k: f.launches for k, f in kernels.items()}
+    served = serve_watched(LM_ARCH, cfg, params, kernels, dev, "4h")
+    launches = served["launches"]
     expected = {k: LM_DISPATCH_CALLS if k in ("B11", "B12") else 0
                 for k in kernels}
-    lines = out.getvalue().splitlines()
-    for line in lines:
-        print(f"phase 4h: {line}", flush=True)
-    row["served_lines"] = lines
+    row["served_lines"] = served["lines"]
     row["launches"], row["expected"] = launches, expected
-    require(rc == 0, f"serve.main returned {rc}")
     require(launches == expected, f"phase 4h launch counts {launches} != "
             f"{expected} (one B12 and one B11 per MoE layer call)")
-    n_batches = LM_REQUESTS // LM_BATCH
-    require(seen["prefills"] == n_batches
-            and seen["decodes"] == n_batches * (LM_GEN - 1),
-            f"served {seen['prefills']} prefills and {seen['decodes']} "
-            "decode steps")
-    require(not bool(seen["bad"]), "a served logit is not finite")
-    fed = torch.cat(seen["tokens"])
-    require(fed.shape == (n_batches * (LM_GEN - 1) * LM_BATCH, 1)
-            and int(fed.min()) >= 0 and int(fed.max()) < cfg.vocab,
-            "a generated token lies outside [0, vocab)")
-    samples = [int(t) for line in lines if "sample row0:" in line
-               for t in re.findall(r"-?\d+", line.split("sample row0:")[1])]
-    require(len(samples) == 8 * n_batches
-            and all(0 <= t < cfg.vocab for t in samples),
-            "the printed sample rows are not tokens in [0, vocab)")
-    m = re.search(r"\(([\d.]+) tok/s incl\. prefill\)", lines[-1])
-    require(m is not None, "serve printed no tok/s line")
-    row["tok_per_s"] = float(m.group(1))
+    row["tok_per_s"] = served["tok_per_s"]
     row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     row["max_memory_allocated_over_start_GB"] = \
         (torch.cuda.max_memory_allocated() - base) / 1e9
-    del seen, fed
 
     # (b) the dispatch bit for bit: layer 0's expert ids in one prefill
     # and one decode step, on the card against the plain route (the CPU)
@@ -3680,7 +3744,7 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
         # back-to-back device figures above are host-bound when the host
         # enqueues slower than the card runs
         for what, fn in (("decode", decode_fn), ("prefill", prefill_fn)):
-            kern = device_kernels(fn)
+            kern, _ = device_profile(fn)
             row[f"{what}_kernel_ms"] = sum(ms for _, ms, _ in kern)
             row[f"{what}_kernel_launches"] = sum(c for _, _, c in kern)
             row[f"{what}_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
@@ -3743,6 +3807,15 @@ TRAIN_DISPATCH_CALLS = TRAIN_STEPS * TRAIN_MICROBATCHES * (
 #: (the two sides' float32 matmuls add in other orders; the CPU tests
 #: measure about 2e-6 against the reference)
 TRAIN_F32_RTOL = 1e-4
+#: (c) in the ssm and hybrid families the gradients of the scan's decay
+#: parameters (``a_log``, ``dt_bias``) sum every position's contribution
+#: with heavy cancellation: two float32 runs on the CPU alone, on 1 and
+#: on 4 threads, differ by 4.3e-5 (``a_log``) and 8.5e-6 (``dt_bias``)
+#: of the leaf's largest, against at most 8.4e-7 for every other leaf
+#: (one Mamba2 layer at full width, S = 259).  Those two leaves are held
+#: to TRAIN_DECAY_RTOL, the others to TRAIN_F32_RTOL
+TRAIN_DECAY_RTOL = 1e-3
+DECAY_LEAVES = ("a_log", "dt_bias")
 #: (c) adamw_update on the same handed-over gradients: master, mu, nu and
 #: the new parameters within TRAIN_OPT_RTOL of each leaf's largest.  The
 #: sides differ in the global norm's summation order (its relative
@@ -3782,25 +3855,239 @@ def train_step_flops(cfg, tokens: int, capacity: int, seq: int) -> dict:
     return {"forward_flop_per_token": forward, "step_flop": total}
 
 
-def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
-    """Phase 4i: the LM training path (the module docstring).  Returns
-    the launches of its main path, (b)'s eight steps."""
-    import contextlib
+def train_parity(cfg1, batch, dev, ocfg) -> tuple[dict, dict]:
+    """A float32 model of ``cfg1``, the same weights on the card and on
+    the CPU (drawn on the card, copied to the CPU): ``loss_fn`` on
+    ``batch`` within TRAIN_F32_RTOL of the CPU's, every gradient leaf
+    within TRAIN_F32_RTOL of its largest magnitude (DECAY_LEAVES within
+    TRAIN_DECAY_RTOL); then ``adamw_update`` (``ocfg``) on the CPU's
+    gradients handed to both, master, mu, nu and the new parameters
+    within TRAIN_OPT_RTOL of each leaf's largest.  Returns the two sets
+    of errors."""
     import copy
-    import dataclasses
+
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import (stacked_leaves, tree_leaves,
+                                           tree_unflatten)
+    from repro_torch.train import optimizer as opt_mod
+
+    t0 = time.perf_counter()
+    p_dev = lm.init_model(cfg1, seed=SEED, device=dev)
+    p_cpu = copy.deepcopy(p_dev).to("cpu")
+    S = batch["tokens"].shape[1]
+    sides = (("cpu", p_cpu, torch.device("cpu")), ("cuda", p_dev, dev))
+    side, stage = {}, {"init": time.perf_counter() - t0}
+    for name, p, d in sides:
+        t1 = time.perf_counter()
+        loss = lm.loss_fn(p, {k: v.to(d) for k, v in batch.items()}, cfg1,
+                          kv_chunk=S)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        side[name] = (float(loss.detach()), [g.cpu() for g in grads])
+        stage[f"grad_{name}"] = time.perf_counter() - t1
+    (l_cpu, g_cpu), (l_dev, g_dev) = side["cpu"], side["cuda"]
+    by_leaf = {  # each block's tensor against its own largest
+        n: max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(pa, pb))
+        for (n, pa, _), (_, pb, _) in zip(
+            stacked_leaves(tree_unflatten(p_dev, g_dev)),
+            stacked_leaves(tree_unflatten(p_cpu, g_cpu)))}
+    decay = {n: e for n, e in by_leaf.items()
+             if n.rsplit("/", 1)[-1] in DECAY_LEAVES}
+    grad_err = max(e for n, e in by_leaf.items() if n not in decay)
+    errs = {"loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
+            "grad_rel_err": grad_err,
+            "worst_leaves": sorted(by_leaf.items(), key=lambda x: -x[1])[:3]}
+    if decay:
+        errs["decay_grad_rel_err"] = decay
+    require(abs(l_dev - l_cpu) <= TRAIN_F32_RTOL * abs(l_cpu),
+            f"loss_fn on the card {l_dev} vs the CPU's {l_cpu}")
+    require(grad_err <= TRAIN_F32_RTOL, f"a gradient leaf on the card is "
+            f"{grad_err:.3g} of its max from the CPU's (limit "
+            f"{TRAIN_F32_RTOL}): {errs['worst_leaves']}")
+    require(all(e <= TRAIN_DECAY_RTOL for e in decay.values()),
+            f"a decay gradient on the card differs from the CPU's: {decay} "
+            f"(limit {TRAIN_DECAY_RTOL})")
+    upd = {}
+    for name, p, d in sides:
+        t1 = time.perf_counter()
+        opt = opt_mod.init_opt_state(p, ocfg)
+        g = [x.to(d) for x in g_cpu]  # the CPU's gradients, handed over
+        newp, opt, om = opt_mod.adamw_update(tree_unflatten(p, g), opt,
+                                             ocfg)
+        upd[name] = ([x.cpu() for x in tree_leaves(newp)],
+                     {k: [x.cpu() for x in tree_leaves(opt[k])]
+                      for k in ("master", "mu", "nu")},
+                     float(om["grad_norm"]), float(om["lr"]))
+        stage[f"adamw_{name}"] = time.perf_counter() - t1
+    dn = abs(upd["cuda"][2] / upd["cpu"][2] - 1)
+    opt_err = {}
+    for k in ("master", "mu", "nu"):
+        opt_err[k] = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(upd["cuda"][1][k],
+                                        upd["cpu"][1][k]))
+    opt_err["params"] = max(float((a - b).abs().max() / b.abs().max()
+                                  .clamp(min=1e-30))
+                            for a, b in zip(upd["cuda"][0], upd["cpu"][0]))
+    require(all(v <= TRAIN_OPT_RTOL for v in opt_err.values()),
+            f"adamw_update on the card differs from the CPU's: {opt_err} "
+            f"(limit {TRAIN_OPT_RTOL})")
+    errs["s"] = {"total": time.perf_counter() - t0, **stage}
+    return errs, {"grad_norm_rel_diff": dn,
+                  "lr": [upd["cuda"][3], upd["cpu"][3]],
+                  **{f"{k}_rel_err": v for k, v in opt_err.items()}}
+
+
+def launcher_resume(arch: str, dev, phase: str) -> dict:
+    """``repro_torch.launch.train.main`` in-process on ``arch
+    --reduced``: 6 steps, a resumed call to 9, an uninterrupted run to
+    9, each step's loss within TRAIN_RESUME_RTOL of the uninterrupted
+    run's; then the final state saved and restored bit for bit."""
+    import contextlib
     import io
     import signal
     import tempfile
 
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
-    from repro_torch.kernels.hist.ops import block_offsets, default_block_b
     from repro_torch.launch import train as train_launch
     from repro_torch.models import model as lm
+    from repro_torch.models.layers import stacked_leaves
+    from repro_torch.train import train_step as ts_mod
+
+    recorded = {}
+    make_step = train_launch.make_train_step
+
+    def recording_step(cfg_, tcfg_):
+        inner = make_step(cfg_, tcfg_)
+
+        def run(state_, batch_):
+            state_, m_ = inner(state_, batch_)
+            recorded["losses"].append(float(m_["loss"]))
+            recorded["state"] = state_
+            return state_, m_
+        return run
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--seq", "32",
+            "--ckpt-every", "3", "--log-every", "1", "--seed", str(SEED)]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="repro-train-") as tmp:
+        train_launch.make_train_step = recording_step
+        try:
+            for name, steps, ckpt in (("first", 6, "a"), ("resumed", 9, "a"),
+                                      ("whole", 9, "b")):
+                recorded["losses"] = []
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = train_launch.main(argv + [
+                        "--steps", str(steps), "--ckpt-dir",
+                        f"{tmp}/{ckpt}"])
+                require(rc == 0, f"launch.train.main ({name}) returned {rc}")
+                for line in out.getvalue().splitlines():
+                    print(f"phase {phase} ({name}): {line}", flush=True)
+                runs[name] = (list(recorded["losses"]), out.getvalue())
+        finally:
+            train_launch.make_train_step = make_step
+            for s, h in handlers.items():
+                signal.signal(s, h)
+        require("[train] resumed from step 6" in runs["resumed"][1],
+                "the second call did not resume from step 6")
+        joined = runs["first"][0] + runs["resumed"][0]
+        whole = runs["whole"][0]
+        require(len(joined) == len(whole) == 9, "the launcher ran "
+                f"{len(joined)} and {len(whole)} steps, not 9")
+        resume_err = max(abs(a - b) / abs(b) for a, b in zip(joined, whole))
+        out_row = {"arch": arch, "losses_resumed": joined,
+                   "losses_whole": whole, "resume_rel_err": resume_err}
+        require(resume_err <= TRAIN_RESUME_RTOL, f"the resumed run's losses "
+                f"are {resume_err:.3g} from the uninterrupted run's (limit "
+                f"{TRAIN_RESUME_RTOL})")
+        final = recorded["state"]
+        mgr = CheckpointManager(f"{tmp}/c")
+        mgr.save(9, final, blocking=True)
+        small = get_config(arch).reduced()
+        fresh = ts_mod.init_train_state(
+            lm.init_model(small, seed=SEED + 1, device=dev),
+            ts_mod.TrainConfig(kv_chunk=32))
+        restored, _ = mgr.restore(fresh)
+        same = all(torch.equal(a, b) for (_, pa, _), (_, pb, _) in zip(
+            stacked_leaves(final), stacked_leaves(restored))
+            for a, b in zip(pa, pb))
+        out_row["save_restore"] = "bit-identical" if same else "differs"
+        require(same, "the launcher's state did not save and restore bit "
+                "for bit")
+        del final, fresh, restored, recorded["state"]
+
+    return out_row
+
+
+def train_step_times(step, state, batch, row: dict):
+    """Times of ``step`` on ``state`` and ``batch`` into ``row``: a
+    step's call and its split by CUDA events (forward + backward +
+    compression, then AdamW; medians of 3), tok/s, the update's byte
+    bound (it reads the float32 accumulated gradient, ef, master, mu,
+    nu and writes ef, master, mu, nu and the parameters in their dtype),
+    the profiler's kernel time, busy share, top kernels and top
+    operators.  Returns the state the steps leave."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import train_step as ts_mod
+
+    adamw = ts_mod.adamw_update
+    marks = []
+
+    def timed_adamw(*a, **kw):
+        ev = _events()
+        ev[0].record()
+        out = adamw(*a, **kw)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    ts_mod.adamw_update = timed_adamw
+    try:
+        split = []
+        for _ in range(3):
+            a, b = _events()
+            a.record()
+            state, _ = step(state, batch)
+            b.record()
+            b.synchronize()
+            o0, o1 = marks.pop()
+            split.append((a.elapsed_time(b), a.elapsed_time(o0),
+                          o0.elapsed_time(o1)))
+    finally:
+        ts_mod.adamw_update = adamw
+    call, fwd_bwd, optim = (float(np.median(x)) for x in zip(*split))
+    row["step_ms"], row["fwd_bwd_compress_ms"], row["adamw_ms"] = \
+        call, fwd_bwd, optim
+    row["tok_per_s"] = batch["tokens"].numel() / (call / 1e3)
+    opt_bytes = sum(p.numel() * (9 * 4 + p.element_size())
+                    for p in tree_leaves(state["params"]))
+    row["update_bytes"] = opt_bytes
+    row["update_byte_bound_ms"], _ = bound_ms(opt_bytes, 0)
+    t0 = time.perf_counter()
+    kern, ops = device_profile(lambda: step(state, batch))
+    row["profiler_s"] = time.perf_counter() - t0
+    row["step_kernel_ms"] = sum(ms for _, ms, _ in kern)
+    row["step_kernel_launches"] = sum(c for _, _, c in kern)
+    row["step_busy_share"] = row["step_kernel_ms"] / call
+    row["step_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
+    row["step_top_ops"] = [[n, ms, c] for n, ms, c in ops]
+    return state
+
+
+def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4i: the LM training path (the module docstring).  Returns
+    the launches of its main path, (b)'s eight steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+    from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.layers import (stacked_leaves, tree_leaves,
-                                           tree_unflatten)
+    from repro_torch.models.layers import stacked_leaves, tree_leaves
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_step as ts_mod
 
@@ -3871,54 +4158,12 @@ def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
     # (e) times on (b)'s model: a step's call and its split by CUDA
     # events (forward + backward + compression, then AdamW), the
     # profiler's busy time, the bounds
-    adamw = ts_mod.adamw_update
-    marks = []
-
-    def timed_adamw(*a, **kw):
-        ev = _events()
-        ev[0].record()
-        out = adamw(*a, **kw)
-        ev[1].record()
-        marks.append(ev)
-        return out
-
-    ts_mod.adamw_update = timed_adamw
-    try:
-        split = []
-        for _ in range(3):
-            a, b = _events()
-            a.record()
-            state, _ = step(state, batch)
-            b.record()
-            b.synchronize()
-            o0, o1 = marks.pop()
-            split.append((a.elapsed_time(b), a.elapsed_time(o0),
-                          o0.elapsed_time(o1)))
-    finally:
-        ts_mod.adamw_update = adamw
-    call, fwd_bwd, optim = (float(np.median(x)) for x in zip(*split))
-    row["step_ms"], row["fwd_bwd_compress_ms"], row["adamw_ms"] = \
-        call, fwd_bwd, optim
+    state = train_step_times(step, state, batch, row)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    row["tok_per_s"] = tokens / (call / 1e3)
     C = moe_mod._capacity(cfg, tokens // TRAIN_MICROBATCHES)
     fl = train_step_flops(cfg, tokens, C, TRAIN_SEQ)
     row.update(fl)
     row["step_flop_bound_ms"] = fl["step_flop"] / BF16_FLOPS_PER_S * 1e3
-    # the update after the microbatches as one function: it reads the
-    # float32 accumulated gradient, ef, master, mu, nu and writes ef,
-    # master, mu, nu and the parameters in their dtype
-    opt_bytes = sum(p.numel() * (9 * 4 + p.element_size())
-                    for p in tree_leaves(state["params"]))
-    row["update_bytes"] = opt_bytes
-    row["update_byte_bound_ms"], _ = bound_ms(opt_bytes, 0)
-    kern = device_kernels(lambda: step(state, batch))
-    row["step_kernel_ms"] = sum(ms for _, ms, _ in kern)
-    row["step_kernel_launches"] = sum(c for _, _, c in kern)
-    row["step_busy_share"] = row["step_kernel_ms"] / call
-    row["step_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
-    row["step_top_ops"] = [[n, ms, c] for n, ms, c in device_ops(
-        lambda: step(state, batch))]
     # B12/B11 at the step's two sizes: a microbatch's dispatch (T K keys
     # over E bins) and its embedding gradient (T keys over the vocabulary)
     rng = np.random.default_rng(SEED + 24)
@@ -3943,131 +4188,436 @@ def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
     # same weights on both sides: loss_fn, its gradients, then AdamW on
     # the same handed-over gradients
     cfg1 = dataclasses.replace(full, n_layers=1, dtype="float32")
-    p_cpu = lm.init_model(cfg1, seed=SEED, device="cpu")
-    p_dev = copy.deepcopy(p_cpu).to(dev)
     t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 129)).astype(
         np.int32))
-    b1 = {"tokens": t1[:1, :128], "labels": t1[:1, 1:]}
-    sides = (("cpu", p_cpu, torch.device("cpu")), ("cuda", p_dev, dev))
-    side = {}
-    for name, p, d in sides:
-        loss = lm.loss_fn(p, {k: v.to(d) for k, v in b1.items()}, cfg1,
-                          kv_chunk=128)
-        grads = torch.autograd.grad(loss, tree_leaves(p))
-        side[name] = (float(loss.detach()), [g.cpu() for g in grads])
-    (l_cpu, g_cpu), (l_dev, g_dev) = side["cpu"], side["cuda"]
-    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(
-        min=1e-30)) for a, b in zip(g_dev, g_cpu))
-    row["f32_one_layer"] = {"loss_rel_err": abs(l_dev - l_cpu) / abs(l_cpu),
-                            "grad_rel_err": grad_err}
-    require(abs(l_dev - l_cpu) <= TRAIN_F32_RTOL * abs(l_cpu),
-            f"loss_fn on the card {l_dev} vs the CPU's {l_cpu}")
-    require(grad_err <= TRAIN_F32_RTOL, f"a gradient leaf on the card is "
-            f"{grad_err:.3g} of its max from the CPU's (limit "
-            f"{TRAIN_F32_RTOL})")
-    ocfg = tcfg.opt
-    upd = {}
-    for name, p, d in sides:
-        opt = opt_mod.init_opt_state(p, ocfg)
-        g = [x.to(d) for x in g_cpu]  # the CPU's gradients, handed over
-        newp, opt, om = opt_mod.adamw_update(tree_unflatten(p, g), opt,
-                                             ocfg)
-        upd[name] = ([x.cpu() for x in tree_leaves(newp)],
-                     {k: [x.cpu() for x in tree_leaves(opt[k])]
-                      for k in ("master", "mu", "nu")},
-                     float(om["grad_norm"]), float(om["lr"]))
-    dn = abs(upd["cuda"][2] / upd["cpu"][2] - 1)
-    opt_err = {}
-    for k in ("master", "mu", "nu"):
-        opt_err[k] = max(float((a - b).abs().max() / b.abs().max().clamp(
-            min=1e-30)) for a, b in zip(upd["cuda"][1][k],
-                                        upd["cpu"][1][k]))
-    opt_err["params"] = max(float((a - b).abs().max() / b.abs().max()
-                                  .clamp(min=1e-30))
-                            for a, b in zip(upd["cuda"][0], upd["cpu"][0]))
-    row["adamw_same_grads"] = {"grad_norm_rel_diff": dn,
-                               "lr": [upd["cuda"][3], upd["cpu"][3]],
-                               **{f"{k}_rel_err": v
-                                  for k, v in opt_err.items()}}
-    require(all(v <= TRAIN_OPT_RTOL for v in opt_err.values()),
-            f"adamw_update on the card differs from the CPU's: {opt_err} "
-            f"(limit {TRAIN_OPT_RTOL})")
-    del p_cpu, p_dev, sides, side, g_cpu, g_dev, upd
+    row["f32_one_layer"], row["adamw_same_grads"] = train_parity(
+        cfg1, {"tokens": t1[:1, :128], "labels": t1[:1, 1:]}, dev,
+        tcfg.opt)
     torch.cuda.empty_cache()
 
     # (d) the launcher on the card: 6 steps, a resumed call to 9, an
     # uninterrupted run to 9; then the final state saved and restored
-    recorded = {}
-    make_step = train_launch.make_train_step
-
-    def recording_step(cfg_, tcfg_):
-        inner = make_step(cfg_, tcfg_)
-
-        def run(state_, batch_):
-            state_, m_ = inner(state_, batch_)
-            recorded["losses"].append(float(m_["loss"]))
-            recorded["state"] = state_
-            return state_, m_
-        return run
-
-    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
-                                                 signal.SIGINT)}
-    argv = ["--arch", "olmo_1b", "--reduced", "--batch", "2", "--seq", "32",
-            "--ckpt-every", "3", "--log-every", "1", "--seed", str(SEED)]
-    runs = {}
-    with tempfile.TemporaryDirectory(prefix="repro-train-") as tmp:
-        train_launch.make_train_step = recording_step
-        try:
-            for name, steps, ckpt in (("first", 6, "a"), ("resumed", 9, "a"),
-                                      ("whole", 9, "b")):
-                recorded["losses"] = []
-                out = io.StringIO()
-                with contextlib.redirect_stdout(out):
-                    rc = train_launch.main(argv + [
-                        "--steps", str(steps), "--ckpt-dir",
-                        f"{tmp}/{ckpt}"])
-                require(rc == 0, f"launch.train.main ({name}) returned {rc}")
-                for line in out.getvalue().splitlines():
-                    print(f"phase 4i ({name}): {line}", flush=True)
-                runs[name] = (list(recorded["losses"]), out.getvalue())
-        finally:
-            train_launch.make_train_step = make_step
-            for s, h in handlers.items():
-                signal.signal(s, h)
-        require("[train] resumed from step 6" in runs["resumed"][1],
-                "the second call did not resume from step 6")
-        joined = runs["first"][0] + runs["resumed"][0]
-        whole = runs["whole"][0]
-        require(len(joined) == len(whole) == 9, "the launcher ran "
-                f"{len(joined)} and {len(whole)} steps, not 9")
-        resume_err = max(abs(a - b) / abs(b) for a, b in zip(joined, whole))
-        row["launcher"] = {"losses_resumed": joined, "losses_whole": whole,
-                           "resume_rel_err": resume_err}
-        require(resume_err <= TRAIN_RESUME_RTOL, f"the resumed run's losses "
-                f"are {resume_err:.3g} from the uninterrupted run's (limit "
-                f"{TRAIN_RESUME_RTOL})")
-        final = recorded["state"]
-        mgr = CheckpointManager(f"{tmp}/c")
-        mgr.save(9, final, blocking=True)
-        small = get_config("olmo_1b").reduced()
-        fresh = ts_mod.init_train_state(
-            lm.init_model(small, seed=SEED + 1, device=dev),
-            ts_mod.TrainConfig(kv_chunk=32))
-        restored, _ = mgr.restore(fresh)
-        same = all(torch.equal(a, b) for (_, pa, _), (_, pb, _) in zip(
-            stacked_leaves(final), stacked_leaves(restored))
-            for a, b in zip(pa, pb))
-        row["launcher"]["save_restore"] = "bit-identical" if same else \
-            "differs"
-        require(same, "the launcher's state did not save and restore bit "
-                "for bit")
-        del final, fresh, restored, recorded["state"]
+    row["launcher"] = launcher_resume("olmo_1b", dev, "4i")
 
     row["phase_s"] = time.perf_counter() - t_phase
     emit(row)
     require(row["phase_s"] < PHASE_4I_LIMIT_S,
             f"phase 4i took {row['phase_s']:.1f} s, over its "
             f"{PHASE_4I_LIMIT_S} s")
+    return launches
+
+
+#: phases 4j and 4k: the ssm family (Mamba2-780M, arXiv:2405.21060) and
+#: the hybrid family (Zamba2-7B, arXiv:2411.15242) at full width; each
+#: model's parameter count (and the 12-layer cut's) as the reference's
+#: init gives it under jax.eval_shape, keyed by (arch, n_layers)
+SSM_ARCHS = ("mamba2_780m", "zamba2_7b")
+SSM_PARAMS = {("mamba2_780m", 48): 780_382_464,
+              ("zamba2_7b", 81): 6_636_442_832,
+              ("zamba2_7b", 12): 1_255_956_416}
+#: phase 4j's time limit, in seconds
+PHASE_4J_LIMIT_S = 120
+#: (c), (d) float32 copies at full width: Mamba2 with 1 layer, Zamba2
+#: with 6 (its shared block applied once)
+SSM_F32_LAYERS = {"mamba2_780m": 1, "zamba2_7b": 6}
+#: (e) a one-layer float32 Mamba2's prefill state and conv window after
+#: chunk + 3 tokens against a stepwise decode from a zero cache: within
+#: SSM_STATE_RTOL of the largest magnitude (the chunked scan and the
+#: recurrence add in other orders; the CPU tests measure under 1e-5 at
+#: the reduced width)
+SSM_STATE_RTOL = 1e-4
+#: phase 4k's time limit, in seconds
+PHASE_4K_LIMIT_S = 120
+#: phase 4k: the layers trained (Mamba2 whole; Zamba2 cut to 12 of 81,
+#: two shared applications, for the train state's memory: 18 B a
+#: parameter, 119.5 GB at 81 layers) and the steps of each, on 4i's
+#: batch of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICROBATCHES microbatches
+SSM_TRAIN_LAYERS = {"mamba2_780m": 48, "zamba2_7b": 12}
+SSM_TRAIN_STEPS = {"mamba2_780m": 8, "zamba2_7b": 4}
+#: (c) the float32 copies held against the CPU: (layers, sequence)
+SSM_TRAIN_F32 = {"mamba2_780m": (1, 259), "zamba2_7b": (6, 64)}
+
+
+def ssm_decode_errs(p, cfg, tokens) -> dict:
+    """``decode_step`` after ``prefill(tokens[:, :-1], extra_cache=1)``
+    against ``forward(tokens)``'s last position, for the sound cache and
+    for planted faults: the SSM state restarted from zero, the conv
+    window a row stale (its newest row dropped, its oldest repeated)
+    and, where the model has a shared attention cache, a step one
+    position on.  Returns each case's largest difference over
+    ``max|logit|`` and whether the argmaxes agree."""
+    from repro_torch.models import model as lm
+
+    S = tokens.shape[1] - 1
+    with torch.inference_mode():
+        full, _ = lm.forward(p, {"tokens": tokens}, cfg, kv_chunk=S + 1)
+        _, c = lm.prefill(p, {"tokens": tokens[:, :S]}, cfg, kv_chunk=S,
+                          extra_cache=1)
+        want = full[:, -1].float()
+        conv = c["conv"]
+        cases = {"sound": c,
+                 "state_zeroed": dict(c, state=torch.zeros_like(c["state"])),
+                 "conv_stale": dict(c, conv=torch.cat(
+                     [conv[:, :, :1], conv[:, :, :-1]], dim=2))}
+        if "k" in c:
+            cases["pos_plus_1"] = dict(c, pos=c["pos"] + 1)
+        out = {}
+        for what, c_x in cases.items():
+            step, _ = lm.decode_step(p, c_x, tokens[:, S:], cfg)
+            got = step[:, 0].float()
+            out[what] = {
+                "rel_err": float((got - want).abs().max() / want.abs().max()),
+                "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                                 want.argmax(-1)))}
+    return out
+
+
+def ssm_stepwise_errs(p, cfg, tokens) -> dict:
+    """The state and conv window ``prefill`` leaves after ``tokens``
+    against ``S`` decode steps from a zero cache, each difference over
+    the prefill's largest magnitude."""
+    from repro_torch.models import model as lm
+
+    B, S = tokens.shape
+    with torch.inference_mode():
+        _, cache = lm.prefill(p, {"tokens": tokens}, cfg, kv_chunk=S)
+        c = lm.init_cache(cfg, batch=B, seq_len=S, device=tokens.device)
+        for t in range(S):
+            _, c = lm.decode_step(p, c, tokens[:, t:t + 1], cfg)
+    return {k: float((c[k].float() - cache[k].float()).abs().max()
+                     / cache[k].float().abs().max())
+            for k in ("state", "conv")}
+
+
+def ssm_decode_bytes(params, cache, cfg) -> int:
+    """The bytes a decode step must move: every weight once, the shared
+    block's once per application, the SSM and conv states read and
+    written, the shared block's K/V caches read (the new position's
+    write is left out)."""
+    shared = sum(p.numel() * p.element_size()
+                 for k in params.keys() if k.startswith("shared_")
+                 for p in params[k].parameters())
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    apps = cfg.n_layers // every if every else 0
+    states = sum(2 * cache[k].numel() * cache[k].element_size()
+                 for k in ("state", "conv"))
+    kv = sum(cache[k].numel() * cache[k].element_size()
+             for k in ("k", "v") if k in cache)
+    return weights + (apps - 1) * shared + states + kv
+
+
+def ssm_step_flops(cfg, tokens: int, seq: int) -> dict:
+    """The FLOPs of one train step on ``tokens`` tokens of ``seq``, by
+    the precision they run in: the projections, the shared block's
+    projections and MLP and the unembedding in bf16; the SSD scan's
+    einsums (per token and layer ``2 Q H (N + P) + 4 H N P`` at chunk
+    ``Q``: the scores, the intra-chunk product, the chunk states and
+    the inter-chunk product) and the shared attention's two products
+    (upcast to float32, every key of the sequence) in float32.  The
+    blocks run twice (forward and remat's recompute), the backward
+    costs twice the forward."""
+    s = cfg.ssm
+    D, V = cfg.d_model, cfg.padded_vocab
+    di, H, N, P = s.d_inner(D), s.n_heads(D), s.d_state, s.head_dim
+    Q = min(s.chunk, seq)
+    proj = 2 * (D * (2 * di + 2 * s.n_groups * N + H) + di * D)
+    scan = 2 * Q * H * (N + P) + 4 * H * N * P
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    apps = cfg.n_layers // every if every else 0
+    Ha, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    shared_bf16 = 2 * (D * (Ha + 2 * Hkv) * Dh + Ha * Dh * D
+                       + 3 * D * cfg.d_ff)
+    shared_f32 = 4 * seq * Ha * Dh
+    blocks_bf16 = cfg.n_layers * proj + apps * shared_bf16
+    blocks_f32 = cfg.n_layers * scan + apps * shared_f32
+    head = 2 * D * V
+    bf16 = tokens * (4 * blocks_bf16 + 3 * head)
+    f32 = tokens * 4 * blocks_f32
+    return {"scan_flop_per_token_layer": scan, "step_bf16_flop": bf16,
+            "step_f32_flop": f32,
+            "step_bf16_bound_ms": bf16 / BF16_FLOPS_PER_S * 1e3,
+            "step_f32_bound_ms": f32 / FP32_OPS_PER_S * 1e3}
+
+
+def ssm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4j: the ssm and hybrid serving path (the module docstring).
+    Returns the launches of its main path, the two served runs."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4j", "card": smi_line,
+           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+                     "requests": LM_REQUESTS},
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    require(not row["tf32"], "TF32 matmuls are on: the float32 checks "
+            "need them off")
+    launches = {k: 0 for k in kernels}
+    rng = np.random.default_rng(SEED + 25)
+    for arch in SSM_ARCHS:
+        cfg = get_config(arch)
+        r = row[arch] = {}
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) the model on the card
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params = lm.init_model(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        r["init_s"] = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in params.parameters())
+        r["params"] = sum(p.numel() for p in params.parameters())
+        r["weights_GB"] = weight_bytes / 1e9
+        r["memory_allocated_GB"] = (torch.cuda.memory_allocated()
+                                    - base) / 1e9
+        print(f"phase 4j: {arch} {r['params']} parameters, memory_allocated "
+              f"{r['memory_allocated_GB']:.3f} GB; {smi_line}", flush=True)
+        require(r["params"] == SSM_PARAMS[(arch, cfg.n_layers)],
+                f"{arch}: {r['params']} parameters, not the reference's "
+                f"{SSM_PARAMS[(arch, cfg.n_layers)]}")
+        require(abs(r["memory_allocated_GB"] - r["weights_GB"]) < 0.1,
+                "init_model allocated more than its weights")
+
+        # (b) the real server, every counter read
+        served = serve_watched(arch, cfg, params, kernels, dev, "4j")
+        r["served_lines"], r["tok_per_s"] = served["lines"], \
+            served["tok_per_s"]
+        r["launches"] = served["launches"]
+        require(all(n == 0 for n in r["launches"].values()),
+                f"phase 4j ({arch}) launched {r['launches']}: serving "
+                "these families runs none of the twelve kernels")
+        for k, n in served["launches"].items():
+            launches[k] += n
+
+        # (d) decode against forward on the bf16 full-depth model
+        td = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)).astype(
+            np.int32)).to(dev)
+        r["decode_vs_forward"] = {"bf16_full_depth": ssm_decode_errs(
+            params, cfg, td)}
+
+        # (f) times: prefill, a decode step against its byte bound
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            LM_BATCH, LM_PROMPT + 1)).astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            batch = {"tokens": toks[:, :-1]}
+
+            def prefill_fn():
+                return lm.prefill(params, batch, cfg, kv_chunk=LM_PROMPT)
+
+            _, cache = prefill_fn()
+            tok = toks[:, -1:]
+
+            def decode_fn():
+                return lm.decode_step(params, cache, tok, cfg)
+
+            r["prefill_ms"] = call_ms(prefill_fn, reps=5)
+            r["prefill_device_ms"] = device_ms(prefill_fn, cpm, reps=5)
+            r["decode_ms"] = call_ms(decode_fn, reps=10)
+            r["decode_device_ms"] = device_ms(decode_fn, cpm, reps=10)
+            r["decode_bytes"] = ssm_decode_bytes(params, cache, cfg)
+            r["decode_bound_ms"], r["decode_bound_by"] = bound_ms(
+                r["decode_bytes"], 0)
+            for what, fn in (("decode", decode_fn), ("prefill", prefill_fn)):
+                kern, ops = device_profile(fn, 6)
+                r[f"{what}_kernel_ms"] = sum(ms for _, ms, _ in kern)
+                r[f"{what}_kernel_launches"] = sum(c for _, _, c in kern)
+                r[f"{what}_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
+                r[f"{what}_top_ops"] = [[n, ms, c] for n, ms, c in ops]
+                r[f"{what}_busy_share"] = r[f"{what}_kernel_ms"] / \
+                    r[f"{what}_ms"]
+        r["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, cache, batch
+        torch.cuda.empty_cache()
+
+        # (c) float32 copies at full width against the CPU, the same
+        # weights on both sides (drawn on the card)
+        cfg_f = dataclasses.replace(cfg, n_layers=SSM_F32_LAYERS[arch],
+                                    dtype="float32")
+        p_dev = lm.init_model(cfg_f, seed=SEED, device=dev)
+        p_cpu = copy.deepcopy(p_dev).to("cpu")
+        t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 160)).astype(
+            np.int32))
+        with torch.inference_mode():
+            want, _ = lm.prefill(p_cpu, {"tokens": t1}, cfg_f, kv_chunk=160)
+            got, _ = lm.prefill(p_dev, {"tokens": t1.to(dev)}, cfg_f,
+                                kv_chunk=160)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        r[f"f32_{cfg_f.n_layers}_layers_prefill_rel_err"] = err
+        require(err <= LM_F32_RTOL, f"{arch}: the float32 prefill on the "
+                f"card is {err:.3g} of max|logit| from the CPU's (limit "
+                f"{LM_F32_RTOL})")
+        del p_cpu, want, got
+
+        # (d) decode against forward on the float32 copy; the limits
+        # against the sound step and the planted faults
+        name_f = f"f32_{cfg_f.n_layers}_layers"
+        r["decode_vs_forward"][name_f] = ssm_decode_errs(p_dev, cfg_f, td)
+        for name, limit in ((name_f, LM_F32_DECODE_RTOL),
+                            ("bf16_full_depth", LM_BF16_RTOL)):
+            d = r["decode_vs_forward"][name]
+            require(d["sound"]["rel_err"] <= limit, f"{arch}: decode_step "
+                    f"({name}) is {d['sound']['rel_err']:.3g} of max|logit| "
+                    f"from forward (limit {limit})")
+            for fault in (k for k in d if k != "sound"):
+                require(d[fault]["rel_err"] > limit, f"{arch}: the planted "
+                        f"fault {fault} ({name}) reads "
+                        f"{d[fault]['rel_err']:.3g}, within the limit "
+                        f"{limit}: the check cannot tell it from a sound "
+                        "step")
+
+        # (e) the one-layer Mamba2's prefill state after chunk + 3
+        # tokens against a stepwise decode from a zero cache
+        if cfg.family == "ssm":
+            S = cfg.ssm.chunk + 3
+            ts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(
+                np.int32)).to(dev)
+            errs = ssm_stepwise_errs(p_dev, cfg_f, ts)
+            r["prefill_vs_stepwise"] = {"S": S, **errs}
+            require(max(errs.values()) <= SSM_STATE_RTOL, f"{arch}: the "
+                    f"prefill's state after {S} tokens differs from the "
+                    f"stepwise decode's by {errs} (limit {SSM_STATE_RTOL})")
+        del p_dev
+        torch.cuda.empty_cache()
+        print(f"phase 4j: {arch}: {json.dumps(r['decode_vs_forward'])}",
+              flush=True)
+
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4J_LIMIT_S,
+            f"phase 4j took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4J_LIMIT_S} s")
+    return launches
+
+
+def ssm_training_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4k: the ssm and hybrid training path (the module
+    docstring).  Returns the launches of its main path, the steps of
+    (b) on both models."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import stacked_leaves, tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4k", "card": smi_line,
+           "train": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "microbatches": TRAIN_MICROBATCHES},
+           "cpu_threads": torch.get_num_threads()}
+    launches = {k: 0 for k in kernels}
+    rng = np.random.default_rng(SEED + 26)
+    for arch in SSM_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=SSM_TRAIN_LAYERS[arch])
+        steps = SSM_TRAIN_STEPS[arch]
+        r = row[arch] = {"n_layers": [full.n_layers, cfg.n_layers],
+                         "steps": steps}
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) the model and its train state on the card
+        tcfg = ts_mod.TrainConfig(
+            opt=opt_mod.OptConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=steps),
+            microbatches=TRAIN_MICROBATCHES, compress_grads=True,
+            kv_chunk=TRAIN_SEQ)
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        state = ts_mod.init_train_state(params, tcfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state_bytes = sum(t.numel() * t.element_size() for _, parts, _ in
+                          stacked_leaves(state) for t in parts)
+        r["params"], r["state_GB"] = n_params, state_bytes / 1e9
+        r["memory_allocated_GB"] = (torch.cuda.memory_allocated()
+                                    - base) / 1e9
+        print(f"phase 4k: {arch} at {cfg.n_layers} of {full.n_layers} "
+              f"layers: {n_params} parameters, state {r['state_GB']:.3f} "
+              f"GB, memory_allocated {r['memory_allocated_GB']:.3f} GB; "
+              f"{smi_line}", flush=True)
+        require(n_params == SSM_PARAMS[(arch, cfg.n_layers)],
+                f"{arch}: {n_params} parameters, not the reference's "
+                f"{SSM_PARAMS[(arch, cfg.n_layers)]}")
+        require(abs(r["memory_allocated_GB"] - r["state_GB"]) < 0.1,
+                "the train state allocated more than its tensors")
+
+        stage = r["stage_s"] = {"init": time.perf_counter() - t_arch}
+
+        # (b) the steps on one repeated batch, every counter read
+        host = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                           seed=SEED).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        step = ts_mod.make_train_step(cfg, tcfg)
+        losses, step_s = [], []
+        for f in kernels.values():
+            f.launches = 0
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+        got = {k: f.launches for k, f in kernels.items()}
+        expected = {k: steps * TRAIN_MICROBATCHES if k in ("B11", "B12")
+                    else 0 for k in kernels}
+        for k, n in got.items():
+            launches[k] += n
+        r["losses"], r["step_s"] = losses, step_s
+        r["launches"], r["expected"] = got, expected
+        print(f"phase 4k: {arch} losses {losses}", flush=True)
+        require(all(np.isfinite(losses)), f"{arch}: a training loss is not "
+                "finite")
+        require(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+                f"{losses[0]} -> {losses[-1]}")
+        require(got == expected, f"phase 4k ({arch}) launch counts {got} != "
+                f"{expected} ({steps} steps x {TRAIN_MICROBATCHES} "
+                "microbatches x 1 embedding gradient)")
+
+        stage["steps"] = time.perf_counter() - t_arch - stage["init"]
+
+        # (e) times and bounds
+        state = train_step_times(step, state, batch, r)
+        stage["times"] = time.perf_counter() - t_arch - sum(stage.values())
+        r.update(ssm_step_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ))
+        r["step_flop_bound_ms"] = r["step_bf16_bound_ms"] + \
+            r["step_f32_bound_ms"]
+        r["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del state, params, batch, step
+        torch.cuda.empty_cache()
+
+        # (c) float32 copies at full width against the CPU: loss_fn,
+        # every gradient leaf, adamw_update on the same gradients
+        layers, S = SSM_TRAIN_F32[arch]
+        cfg_f = dataclasses.replace(full, n_layers=layers, dtype="float32")
+        t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1)).astype(
+            np.int32))
+        r[f"f32_{layers}_layers"], r["adamw_same_grads"] = train_parity(
+            cfg_f, {"tokens": t1[:, :S], "labels": t1[:, 1:]}, dev,
+            tcfg.opt)
+        torch.cuda.empty_cache()
+        stage["parity"] = time.perf_counter() - t_arch - sum(stage.values())
+
+    # (d) the launcher on the card, on the hybrid
+    t0 = time.perf_counter()
+    row["launcher"] = launcher_resume("zamba2_7b", dev, "4k")
+    row["launcher"]["s"] = time.perf_counter() - t0
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4K_LIMIT_S,
+            f"phase 4k took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4K_LIMIT_S} s")
     return launches
 
 
@@ -4595,6 +5145,16 @@ def main() -> None:
     #    B12/B11, against the CPU, the launcher's resume, the times ----
     train_launches = lm_training_phase(dev, kernels4, cpm, smi_line)
 
+    # -- 4j. the ssm and hybrid serving path: Mamba2-780M and Zamba2-7B
+    #    at full width and depth served on the card, against the CPU,
+    #    the times -------------------------------------------------------
+    ssm_serve_launches = ssm_serving_phase(dev, kernels4, cpm, smi_line)
+
+    # -- 4k. the ssm and hybrid training path: Mamba2-780M (whole) and
+    #    Zamba2-7B (12 layers) trained on the card, the embedding
+    #    gradient on B12/B11, against the CPU, the launcher, the times --
+    ssm_train_launches = ssm_training_phase(dev, kernels4, cpm, smi_line)
+
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
@@ -4841,6 +5401,8 @@ def main() -> None:
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "lm_launches": lm_launches[k],
          "train_launches": train_launches[k],
+         "ssm_serve_launches": ssm_serve_launches[k],
+         "ssm_train_launches": ssm_train_launches[k],
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],

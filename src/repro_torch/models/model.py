@@ -1,13 +1,18 @@
 """Model assembly: init / forward / prefill / decode (counterpart of
-``repro/models/model.py``), for the ``dense`` and ``moe`` families.
+``repro/models/model.py``), for the ``dense``, ``moe``, ``ssm`` (Mamba2)
+and ``hybrid`` (Zamba2) families.
 
 A model is one :class:`~repro_torch.models.layers.Params` module: its
 ``embed`` and ``final_norm`` nodes and an ``nn.ModuleList`` of blocks
 under ``layers``, each with the reference's pytree keys (``norm1``,
 ``attn.q_in``, ``moe.router``, ``moe.gate_ein``, ...).  The reference
 stacks its blocks on a leading axis and runs them with ``lax.scan``;
-here a Python loop runs the list, and the local:global interleaving is a
-Python bool per layer where the reference uses ``lax.cond``.
+here a Python loop runs the list, and the local:global interleaving and
+the hybrid's shared attention block (after every ``hybrid_attn_every``-th
+Mamba block) are a Python bool per layer where the reference uses
+``lax.cond``.  The hybrid's shared block is one unstacked set of weights
+(``shared_norm1``, ``shared_attn``, ``shared_norm2``, ``shared_mlp``)
+applied at each firing layer.
 :func:`params_from_numpy` and :func:`params_to_numpy` carry weights
 across from and back to the reference's stacked pytree.
 
@@ -17,9 +22,8 @@ activation checkpointing (``runtime_flags.REMAT``, the reference's
 or ``torch.no_grad()`` the blocks run as they are.  :func:`loss_fn` is
 the next-token cross-entropy plus the MoE aux loss.
 
-The families ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` are not ported
-yet (ROADMAP queue A, item 15): their entry points raise
-``NotImplementedError``.
+The families ``encdec`` and ``vlm`` are not ported yet (ROADMAP queue
+A, item 15): their entry points raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch import nn
 from ..kernels.common import resolve_device
 from .attention import (
     _attend_decode_into,
+    _project_kv,
     apply_rope_kv_for_cache,
     init_attention,
     self_attention,
@@ -39,6 +44,7 @@ from .attention import (
 from .config import ModelConfig
 from .layers import (
     Params,
+    apply_rope,
     embed,
     init_embedding,
     init_mlp,
@@ -48,12 +54,13 @@ from .layers import (
     unembed,
 )
 from .moe import init_moe, moe_ffn
+from .ssm import init_mamba, mamba_decode, mamba_forward
 from . import runtime_flags
 
 KV_DTYPE = torch.bfloat16
 
 #: the families this port serves
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -61,12 +68,13 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
             "(ROADMAP queue A, item 15); the port runs "
-            f"{' and '.join(PORTED_FAMILIES)}")
+            f"{', '.join(PORTED_FAMILIES)}")
 
 
 def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
-    """Serving-cache storage dtype: bf16 for half-precision models (the
-    cache read is the decode stream), the model's own dtype otherwise."""
+    """Serving-cache (KV / conv) storage dtype: bf16 for half-precision
+    models (the cache read is the decode stream), the model's own dtype
+    otherwise."""
     dt = torch_dtype(cfg.dtype)
     if dt in (torch.bfloat16, torch.float16):
         return KV_DTYPE
@@ -89,10 +97,13 @@ def _apply_norm(cfg, params, x):
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
-    """One transformer block's params."""
+    """One transformer/ssm block's params."""
     _check_family(cfg)
     p = Params()
     p["norm1"] = _init_norm(cfg, gen)
+    if cfg.family in ("ssm", "hybrid"):
+        p["mamba"] = init_mamba(gen, cfg)
+        return p
     p["attn"] = init_attention(gen, cfg)
     p["norm2"] = _init_norm(cfg, gen)
     if cfg.family == "moe":
@@ -126,7 +137,24 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     params["final_norm"] = _init_norm(cfg, gen)
     params["layers"] = nn.ModuleList(
         [init_block(gen, cfg) for _ in range(cfg.n_layers)])
+    if _shared_every(cfg):
+        params["shared_norm1"] = _init_norm(cfg, gen)
+        params["shared_attn"] = init_attention(gen, cfg)
+        params["shared_norm2"] = _init_norm(cfg, gen)
+        params["shared_mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                        cfg.dtype)
     return params
+
+
+def _shared_every(cfg) -> int:
+    """The hybrid's shared-block period (0: no shared block)."""
+    return cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+
+
+def _fires(cfg, idx: int) -> bool:
+    """Does the shared attention block follow Mamba layer ``idx``?"""
+    every = _shared_every(cfg)
+    return bool(every) and (idx + 1) % every == 0
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +268,32 @@ def _dense_block(p, x, cfg, idx, *, positions, causal, kv_chunk):
     return x + y, aux
 
 
+def _ssm_block(p, x, cfg):
+    return x + mamba_forward(p["mamba"], _apply_norm(cfg, p.get("norm1"), x),
+                             cfg)
+
+
+def _shared_attn_block(params, x, cfg, *, positions, kv_chunk):
+    a = self_attention(
+        params["shared_attn"], _apply_norm(cfg, params.get("shared_norm1"), x),
+        cfg, positions=positions, causal=True, window=0, kv_chunk=kv_chunk,
+    )
+    x = x + a
+    y = mlp(params["shared_mlp"],
+            _apply_norm(cfg, params.get("shared_norm2"), x))
+    return x + y
+
+
+def _ssm_layer(lp, x, params, cfg, fire: bool, *, positions, kv_chunk):
+    """One Mamba layer and, where it fires, the shared block after it:
+    the reference's scan body, one checkpointed unit."""
+    x = _ssm_block(lp, x, cfg)
+    if fire:
+        x = _shared_attn_block(params, x, cfg, positions=positions,
+                               kv_chunk=kv_chunk)
+    return x
+
+
 def _positions(tokens):
     B, S = tokens.shape
     return torch.arange(S, device=tokens.device).expand(B, S)
@@ -286,11 +340,17 @@ def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
     positions = _positions(tokens)
     x = embed(params["embed"], tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _ckpt(_dense_block)
-    for idx, lp in enumerate(params["layers"]):
-        x, a = block(lp, x, cfg, idx, positions=positions, causal=True,
-                     kv_chunk=kv_chunk)
-        aux_total = aux_total + a
+    if cfg.family in ("ssm", "hybrid"):
+        layer = _ckpt(_ssm_layer)
+        for idx, lp in enumerate(params["layers"]):
+            x = layer(lp, x, params, cfg, _fires(cfg, idx),
+                      positions=positions, kv_chunk=kv_chunk)
+    else:
+        block = _ckpt(_dense_block)
+        for idx, lp in enumerate(params["layers"]):
+            x, a = block(lp, x, cfg, idx, positions=positions, causal=True,
+                         kv_chunk=kv_chunk)
+            aux_total = aux_total + a
     x = _apply_norm(cfg, params.get("final_norm"), x)
     return unembed(params["embed"], x), aux_total
 
@@ -318,18 +378,36 @@ def loss_fn(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, *, batch: int, seq_len: int, device=None):
-    """Zero cache: ``pos`` and per-layer K/V ring buffers
-    ``[n_layers, batch, seq_len, Hkv, Dh]``."""
+    """Zero cache: ``pos`` and, for the attention families, per-layer K/V
+    ring buffers ``[n_layers, batch, seq_len, Hkv, Dh]``; for ``ssm`` and
+    ``hybrid`` the float32 SSM ``state`` ``[n_layers, batch, H, N, P]``
+    and the ``conv`` window ``[n_layers, batch, W-1, conv_ch]``, and for
+    ``hybrid`` one K/V ring buffer per shared-block application
+    ``[n_layers // every, batch, seq_len, Hkv, Dh]``."""
     _check_family(cfg)
     device = resolve_device(device)
     Dh = cfg.resolved_head_dim
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, Dh)
     kvd = kv_cache_dtype(cfg)
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=kvd, device=device),
-        "v": torch.zeros(shape, dtype=kvd, device=device),
-    }
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        H = s.n_heads(cfg.d_model)
+        conv_ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        cache["state"] = torch.zeros(
+            (cfg.n_layers, batch, H, s.d_state, s.head_dim),
+            dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros(
+            (cfg.n_layers, batch, s.conv_width - 1, conv_ch), dtype=kvd,
+            device=device)
+        every = _shared_every(cfg)
+        n_attn = cfg.n_layers // every if every else 0
+    else:
+        n_attn = cfg.n_layers
+    if n_attn:
+        shape = (n_attn, batch, seq_len, cfg.n_kv_heads, Dh)
+        cache["k"] = torch.zeros(shape, dtype=kvd, device=device)
+        cache["v"] = torch.zeros(shape, dtype=kvd, device=device)
+    return cache
 
 
 def _ring_write(cache_layer, new, pos):
@@ -347,6 +425,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     copy of them.
     """
     _check_family(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_decode_step(params, cache, tokens, cfg)
     pos = cache["pos"]
     x = embed(params["embed"], tokens)
     k_all, v_all = cache["k"].clone(), cache["v"].clone()
@@ -369,11 +449,46 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     return logits, dict(cache, k=k_all, v=v_all, pos=pos + 1)
 
 
+def _ssm_decode_step(params, cache, tokens, cfg):
+    """:func:`decode_step` for ``ssm`` and ``hybrid``: each Mamba layer's
+    recurrent update, and the shared block of application ``ai`` reading
+    and ring-writing its own K/V cache ``ai`` at ``pos``."""
+    pos = cache["pos"]
+    x = embed(params["embed"], tokens)
+    out = dict(cache)
+    if "k" in cache:
+        out["k"], out["v"] = cache["k"].clone(), cache["v"].clone()
+    states, convs = [], []
+    for idx, lp in enumerate(params["layers"]):
+        hn = _apply_norm(cfg, lp.get("norm1"), x)
+        o, st, cv = mamba_decode(lp["mamba"], hn, cache["state"][idx],
+                                 cache["conv"][idx], cfg)
+        x = x + o
+        states.append(st)
+        convs.append(cv)
+        if _fires(cfg, idx):
+            ai = (idx + 1) // _shared_every(cfg) - 1
+            hn2 = _apply_norm(cfg, params.get("shared_norm1"), x)
+            x = x + _attend_decode_into(params["shared_attn"], hn2,
+                                        out["k"][ai], out["v"][ai], cfg,
+                                        position=pos)
+            x = x + mlp(params["shared_mlp"],
+                        _apply_norm(cfg, params.get("shared_norm2"), x))
+    out["state"], out["conv"] = torch.stack(states), torch.stack(convs)
+    x = _apply_norm(cfg, params.get("final_norm"), x)
+    logits = unembed(params["embed"], x)
+    out["pos"] = pos + 1
+    return logits, out
+
+
 def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
             extra_cache: int = 0):
-    """Full forward that also *builds* the KV caches.
+    """Full forward that also *builds* the KV/state caches.
 
-    Returns (last-token logits [B,1,V], cache).  ``extra_cache`` pads
+    Returns (last-token logits [B,1,V], cache).  For ``ssm`` and
+    ``hybrid`` the chunked scan's final state and the last ``W-1``
+    pre-conv rows are the cache, and each shared-block application
+    stores its RoPE'd K and its V.  ``extra_cache`` pads
     the ring-buffer capacity so the next ``extra_cache`` decode steps
     append without evicting (decode ring-writes at ``pos % capacity``).
     """
@@ -387,6 +502,22 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
                        device=tokens.device)
     for idx, lp in enumerate(params["layers"]):
         hn = _apply_norm(cfg, lp.get("norm1"), x)
+        if cfg.family in ("ssm", "hybrid"):
+            y, (st, cv) = mamba_forward(lp["mamba"], hn, cfg,
+                                        return_state=True)
+            cache["state"][idx] = st
+            cache["conv"][idx] = cv.to(kvd)
+            x = x + y
+            if _fires(cfg, idx):
+                ai = (idx + 1) // _shared_every(cfg) - 1
+                hn2 = _apply_norm(cfg, params.get("shared_norm1"), x)
+                k_c, v_c = _project_kv(params["shared_attn"], hn2, cfg)
+                k_c = apply_rope(k_c, positions, cfg.rope_theta)
+                x = _shared_attn_block(params, x, cfg, positions=positions,
+                                       kv_chunk=kv_chunk)
+                cache["k"][ai, :, :S] = k_c.to(kvd)
+                cache["v"][ai, :, :S] = v_c.to(kvd)
+            continue
         k_c, v_c = apply_rope_kv_for_cache(lp["attn"], hn, cfg, positions)
         cache["k"][idx, :, :S] = k_c.to(kvd)
         cache["v"][idx, :, :S] = v_c.to(kvd)

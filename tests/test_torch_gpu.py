@@ -26,7 +26,9 @@ dispatch, a reduced OLMoE's prefill and decode (float32, within 1e-4 of
 the training path's, a reduced OLMoE's train step (loss and
 ``grad_norm`` within 1e-4 of the CPU's, B12 and B11 launched
 ``microbatches x (2 L + 1)`` times a step) and a checkpoint of its
-state saved and restored on the card bit for bit.
+state saved and restored on the card bit for bit; the ssm and hybrid
+families', the chunked SSD scan and a reduced Mamba2's and Zamba2's
+forward and ``loss_fn`` gradients (float32) against the CPU.
 """
 import dataclasses
 import importlib
@@ -1896,3 +1898,68 @@ def test_train_state_checkpoint_on_the_card_round_trips(tmp_path):
                                     stacked_leaves(restored)):
         assert all(y.device.type == "cuda" and x.dtype == y.dtype
                    and torch.equal(x, y) for x, y in zip(a, b)), n
+
+
+# ---------------------------------------------------------------------------
+# The ssm and hybrid families: the chunked scan, a reduced model's forward
+# and its loss_fn gradients on the card against the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S,groups", [(37, 1), (37, 2), (5, 2), (1, 1)])
+def test_ssd_chunked_on_the_card_matches_the_cpu(S, groups):
+    """float32 within 1e-5 of the CPU's largest magnitude (the card's
+    batched matmuls and cumsum add in another order; TF32 stays off)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = _cuda()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(S + groups)
+    B, H, P, N = 2, 4, 8, 6
+    args = [rng.normal(size=(B, S, H, P)),
+            np.log1p(np.exp(rng.normal(size=(B, S, H)))),
+            -np.exp(rng.normal(size=(H,))),
+            rng.normal(size=(B, S, groups, N)),
+            rng.normal(size=(B, S, groups, N))]
+    args = [torch.from_numpy(a.astype(np.float32)) for a in args]
+    want = ssd_chunked(*args, chunk=16)
+    got = ssd_chunked(*(a.to(dev) for a in args), chunk=16)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_7b"])
+def test_reduced_ssm_forward_and_gradients_on_the_card_match_the_cpu(arch):
+    """float32 logits and every gradient leaf within 1e-4 of the CPU's
+    largest (the card's float32 matmuls add in another order); B12 and
+    B11 run once each, for the embedding gradient."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import tree_leaves
+
+    dev = _cuda()
+    cfg = get_config(arch).reduced(dtype="float32", n_layers=4)
+    p_cpu = lm.init_model(cfg, seed=0, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 21)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    out = {}
+    for d, p in (("cpu", p_cpu), ("cuda", p_dev)):
+        b = {k: v.to(d) for k, v in batch.items()}
+        with torch.inference_mode():
+            logits, _ = lm.forward(p, b, cfg, kv_chunk=8)
+        before = (hist.block_histogram.launches, cs.placement.launches)
+        loss = lm.loss_fn(p, b, cfg, kv_chunk=8)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if d == "cuda":
+            assert (hist.block_histogram.launches - before[0],
+                    cs.placement.launches - before[1]) == (1, 1)
+        out[d] = (logits.cpu(), float(loss), [g.cpu() for g in grads])
+    (lc, loss_c, gc), (lg, loss_g, gg) = out["cpu"], out["cuda"]
+    assert float((lg - lc).abs().max() / lc.abs().max()) <= 1e-4
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) <= 1e-4

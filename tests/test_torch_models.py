@@ -350,8 +350,7 @@ def test_init_model_is_seeded_and_has_the_reference_structure():
     assert not torch.equal(sa["embed.embedding"], sc["embed.embedding"])
 
 
-@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_7b",
-                                  "seamless_m4t_medium",
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium",
                                   "llama_3_2_vision_11b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()

@@ -38,8 +38,6 @@ PACKAGES = ("core", "sparse", "kernels", "models", "configs", "train",
 #: the reference's modules the port does not have yet, with the ROADMAP
 #: queue A, item 15 step that brings each
 ABSENT_MODULES = {
-    # the ssm and hybrid families (step 2)
-    "models.ssm": "Mamba-2 blocks of the ssm and hybrid families",
     # the production sharding (step 4): meshes over many cards
     "launch.specs": "the dry-run's input specs",
     "launch.sharding": "the parameter and activation partition rules",
