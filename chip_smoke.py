@@ -260,6 +260,50 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    layer at S = 259, Zamba2 with 6 at S = 64 (the shared block's
    gradient); and ``launch.train.main`` on ``zamba2_7b --reduced`` as
    in 4i; must end within 120 s.
+4l. the encdec and vlm serving path (the ``encdec`` and ``vlm``
+   branches of ``models/model.py``, the stub batches of
+   ``launch/serve.py``): Seamless-M4T-medium
+   (``configs/seamless_m4t_medium.py``) and Llama-3.2-Vision-11B
+   (``configs/llama_3_2_vision_11b.py``) at full width and depth in bf16
+   from ``init_model(cfg, seed=0, device="cuda")``, their parameter
+   counts held to the reference's (``CROSS_PARAMS``) and
+   ``memory_allocated`` printed; each served through
+   ``repro_torch.launch.serve.main`` in-process as in 4h; all twelve
+   counters set to 0 before each served run must read 0 after it.  Then,
+   on each: float32 copies at full width (Seamless with 2 encoder and 2
+   decoder layers, Llama-3.2-Vision with one layer and its cross block
+   over all 1,601 vision tokens) whose prefill logits on the card are
+   within ``LM_F32_RTOL`` of the CPU's; ``decode_step`` after
+   ``prefill(..., extra_cache=1)`` against ``forward``'s last position
+   (a source of 48 positions beside 64 tokens) on the bf16 full-depth
+   model within ``LM_BF16_RTOL`` and on the float32 copies within
+   ``LM_F32_DECODE_RTOL``, where planted faults (the cross K/V zeroed;
+   Seamless's encoder run causal in the prefill; at full depth,
+   Llama-3.2-Vision's 8 cross blocks each reading the next one's K/V)
+   must read above the limit.  Llama-3.2-Vision's faults move its bf16
+   logits by less than ``LM_BF16_RTOL`` (``CROSS_F32_FULL_DEPTH``): they
+   are read there and held on a float32 copy at full depth (38.3 GB).  Times: prefill against its FLOP bound
+   split by precision (the projections at 989 TFLOP/s bf16, the
+   attention's upcast products over every chunk at 67 TFLOP/s) and a
+   decode step against its byte bound at 3.35 TB/s (the decoder's
+   weights but not the cross blocks' K/V projections, the caches read),
+   the profiler's kernel time and top kernels, ``tok/s`` as ``serve``
+   prints it, ``max_memory_allocated``; must end within 120 s.
+4m. the encdec and vlm training path: Seamless-M4T-medium at full
+   width and depth (12.9 GB of state) and Llama-3.2-Vision-11B at full
+   width cut to 10 of its 40 layers (two cross blocks; 2,790,354,944
+   parameters, 50.2 GB), each trained as in 4i (8 and 4 steps) on one
+   repeated ``SyntheticLM`` batch with the launcher's stub embeddings:
+   every loss finite, the last below the first; B12 and B11 must read
+   one launch each per microbatch (16 and 8) and the others 0.  Times as
+   4i's, against the update's byte bound and the step's FLOP bound
+   split by precision.  The embedding gradient at each vocabulary
+   (256,256 and 128,256 bins: B12's global-counter instance, printed)
+   with B12 and B11 bit for bit against their plain versions on the card
+   and the gradient against the CPU; the float32 copies of 4l against
+   the CPU (``loss_fn``, every gradient leaf, ``adamw_update``) at S =
+   64; ``launch.train.main`` on both ``--reduced`` archs as in 4i; must
+   end within 120 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -3385,6 +3429,53 @@ def device_profile(fn, k: int = 10) -> tuple[list, list]:
     return kernels, top
 
 
+def embedding_grad_check(V: int, D: int, kernels, dev, rng) -> dict:
+    """The embedding gradient through ``sparse_grad_embed`` at ``V``
+    rows, ``LM_GRAD_TOKENS`` tokens (half among 64 ids, half over the
+    vocabulary) and ``D`` features, on the card against the CPU (the
+    plain versions): bit for bit on integer-valued gradients, within
+    ``2 (n - 1) eps sum|g|`` on random ones; B12 and B11 once each a
+    backward on the card.  Returns what it measured."""
+    from repro_torch.train import sparse_grad_embed
+
+    head = rng.integers(0, 64, LM_GRAD_TOKENS)
+    tail = rng.integers(0, V, LM_GRAD_TOKENS)
+    tg = torch.from_numpy(np.where(rng.random(LM_GRAD_TOKENS) < 0.5, head,
+                                   tail).astype(np.int32))
+    grads = {}
+    for kind in ("integer", "random"):
+        g = rng.integers(-64, 64, (LM_GRAD_TOKENS, D)) if kind == "integer" \
+            else rng.standard_normal((LM_GRAD_TOKENS, D))
+        g = torch.from_numpy(g.astype(np.float32))
+        res = []
+        for d in (dev, torch.device("cpu")):
+            table = torch.zeros((V, D), device=d, requires_grad=True)
+            before = (kernels["B12"].launches, kernels["B11"].launches)
+            (sparse_grad_embed(table, tg.to(d)) * g.to(d)).sum().backward()
+            if d.type == "cuda":
+                require((kernels["B12"].launches - before[0],
+                         kernels["B11"].launches - before[1]) == (1, 1),
+                        "the embedding backward did not run B12 and B11 "
+                        "once each")
+            res.append(table.grad.cpu())
+        if kind == "integer":
+            dense = torch.zeros((V, D)).index_add_(0, tg.long(), g)
+            require(torch.equal(res[0], res[1]) and torch.equal(res[1], dense),
+                    "the integer-valued embedding gradient differs")
+            grads[kind] = "bit-identical"
+        else:
+            n = torch.bincount(tg.long(), minlength=V)[:, None].double()
+            abs_sum = torch.zeros((V, D), dtype=torch.float64).index_add_(
+                0, tg.long(), g.abs().double())
+            bound = 2 * (n - 1).clamp(min=0) * EPS32 * abs_sum
+            over = ((res[0] - res[1]).abs().double() / bound.clamp(
+                min=1e-300)).max()
+            require(bool(((res[0] - res[1]).abs().double() <= bound).all()),
+                    "the embedding gradient exceeds 2 (n - 1) eps sum|g|")
+            grads[kind] = {"max_err_over_bound": float(over)}
+    return {"V": V, "T": LM_GRAD_TOKENS, "D": D, **grads}
+
+
 def dispatch_by_argsort(e: torch.Tensor, n_experts: int, capacity: int):
     """The reference's dispatch (``repro/models/moe.py:42-65``) in plain
     PyTorch: a stable argsort, ``bincount`` and ``searchsorted``."""
@@ -3493,7 +3584,6 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
     from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
     from repro_torch.sparse.ops import scatter_rows
-    from repro_torch.train import sparse_grad_embed
 
     t_phase = time.perf_counter()
     row = {"phase": "4h", "card": smi_line, "arch": LM_ARCH,
@@ -3664,43 +3754,8 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
 
     # (e) the embedding gradient at the full vocabulary, on the card
     # against the CPU
-    D = cfg.d_model
-    head = rng.integers(0, 64, LM_GRAD_TOKENS)
-    tail = rng.integers(0, V, LM_GRAD_TOKENS)
-    tg = torch.from_numpy(np.where(rng.random(LM_GRAD_TOKENS) < 0.5, head,
-                                   tail).astype(np.int32))
-    grads = {}
-    for kind in ("integer", "random"):
-        g = rng.integers(-64, 64, (LM_GRAD_TOKENS, D)) if kind == "integer" \
-            else rng.standard_normal((LM_GRAD_TOKENS, D))
-        g = torch.from_numpy(g.astype(np.float32))
-        res = []
-        for d in (dev, torch.device("cpu")):
-            table = torch.zeros((V, D), device=d, requires_grad=True)
-            before = (kernels["B12"].launches, kernels["B11"].launches)
-            (sparse_grad_embed(table, tg.to(d)) * g.to(d)).sum().backward()
-            if d.type == "cuda":
-                require((kernels["B12"].launches - before[0],
-                         kernels["B11"].launches - before[1]) == (1, 1),
-                        "the embedding backward did not run B12 and B11 "
-                        "once each")
-            res.append(table.grad.cpu())
-        if kind == "integer":
-            dense = torch.zeros((V, D)).index_add_(0, tg.long(), g)
-            require(torch.equal(res[0], res[1]) and torch.equal(res[1], dense),
-                    "the integer-valued embedding gradient differs")
-            grads[kind] = "bit-identical"
-        else:
-            n = torch.bincount(tg.long(), minlength=V)[:, None].double()
-            abs_sum = torch.zeros((V, D), dtype=torch.float64).index_add_(
-                0, tg.long(), g.abs().double())
-            bound = 2 * (n - 1).clamp(min=0) * EPS32 * abs_sum
-            over = ((res[0] - res[1]).abs().double() / bound.clamp(
-                min=1e-300)).max()
-            require(bool(((res[0] - res[1]).abs().double() <= bound).all()),
-                    "the embedding gradient exceeds 2 (n - 1) eps sum|g|")
-            grads[kind] = {"max_err_over_bound": float(over)}
-    row["embedding_grad"] = {"V": V, "T": LM_GRAD_TOKENS, "D": D, **grads}
+    row["embedding_grad"] = embedding_grad_check(V, cfg.d_model, kernels,
+                                                 dev, rng)
 
     # (f) times: prefill, a decode step against its byte bound, the
     # dispatch against the library sort, the top kernels
@@ -4621,6 +4676,547 @@ def ssm_training_phase(dev, kernels, cpm, smi_line) -> dict:
     return launches
 
 
+#: phases 4l and 4m: the encdec family (Seamless-M4T-medium,
+#: arXiv:2308.11596) and the vlm family (Llama-3.2-Vision-11B) at full
+#: width; each model's parameter count (and the training cuts') as the
+#: reference's init gives it under jax.eval_shape, keyed by (arch,
+#: n_layers)
+CROSS_ARCHS = ("seamless_m4t_medium", "llama_3_2_vision_11b")
+CROSS_PARAMS = {("seamless_m4t_medium", 12): 715_454_464,
+                ("llama_3_2_vision_11b", 40): 9_585_397_760,
+                ("llama_3_2_vision_11b", 10): 2_790_354_944,
+                ("llama_3_2_vision_11b", 5): 1_657_847_808}
+#: phase 4l's time limit, in seconds
+PHASE_4L_LIMIT_S = 120
+#: (c), (d) float32 copies at full width: Seamless with 2 encoder and 2
+#: decoder layers, Llama-3.2-Vision with one layer and its cross block
+#: (over all 1,601 vision tokens)
+CROSS_F32 = {"seamless_m4t_medium": {"n_layers": 2, "n_enc_layers": 2},
+             "llama_3_2_vision_11b": {"n_layers": 1, "cross_attn_every": 1}}
+#: (c), (d) the source length beside the prompt's, so that the two
+#: cannot be confused
+CROSS_SRC_LEN = 48
+#: (d) the archs whose planted faults the bf16 limit cannot resolve at
+#: full depth: Llama-3.2-Vision's cross blocks attend nearly uniformly
+#: over 1,601 standard normal vision tokens, whose average is small, so
+#: zeroing or swapping their K/V moves the 40-layer bf16 logits by about
+#: 3% of max|logit|, under LM_BF16_RTOL (chip run 1, PR 26).  Their
+#: faults are held to LM_F32_DECODE_RTOL on a float32 copy at full width
+#: and depth (38.3 GB) instead, and read on the bf16 model
+CROSS_F32_FULL_DEPTH = ("llama_3_2_vision_11b",)
+#: phase 4m's time limit, in seconds
+PHASE_4M_LIMIT_S = 120
+#: phase 4m: the layers trained (Seamless whole; Llama-3.2-Vision cut
+#: to 10 of 40, two cross blocks, for the train state's memory: 18 B a
+#: parameter, 172.5 GB at 40 layers) and the steps of each, on 4i's
+#: batch of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICROBATCHES microbatches
+CROSS_TRAIN_LAYERS = {"seamless_m4t_medium": 12, "llama_3_2_vision_11b": 10}
+CROSS_TRAIN_STEPS = {"seamless_m4t_medium": 8, "llama_3_2_vision_11b": 4}
+#: (b) the most a model's training may allocate above what the phase
+#: found allocated (the earlier phases hold about 3.3 GB for phase 5):
+#: past it, Llama-3.2-Vision's cut goes from 10 layers (two cross
+#: blocks) to 5 (one), to keep the card's headroom
+CROSS_TRAIN_PEAK_GB = 72
+#: (c) the float32 copies' sequence against the CPU
+CROSS_TRAIN_F32_SEQ = 64
+#: (e) the embedding gradient's features at the two wide vocabularies
+#: (the bins are what B12 and B11 see; the CPU's float64 bound over
+#: V x D stays small)
+CROSS_GRAD_D = 512
+
+
+def cross_batch(cfg, tokens, rng, src_len: int, dtype=None) -> dict:
+    """``tokens`` with the stub frontend's embeddings ``cfg`` takes
+    (``src_embeds`` ``[B, src_len, D]`` or ``vision_embeds`` ``[B,
+    n_vision_tokens, D]``), standard normal draws from ``rng`` in
+    ``dtype`` (the model's by default) on the tokens' device."""
+    from repro_torch.models.layers import torch_dtype
+
+    B = tokens.shape[0]
+    dt = torch_dtype(dtype or cfg.dtype)
+    shape = {"encdec": (B, src_len, cfg.d_model),
+             "vlm": (B, cfg.n_vision_tokens, cfg.d_model)}.get(cfg.family)
+    batch = {"tokens": tokens}
+    if shape is not None:
+        key = "src_embeds" if cfg.family == "encdec" else "vision_embeds"
+        batch[key] = torch.from_numpy(rng.normal(size=shape)).to(dt).to(
+            tokens.device)
+    return batch
+
+
+def _causal_enc_layer(lp, h, cfg, *, positions, kv_chunk):
+    """A planted fault: an encoder block that runs causal."""
+    from repro_torch.models import model as lm
+
+    h, _ = lm._dense_block(lp, h, cfg, 0, positions=positions, causal=True,
+                           kv_chunk=kv_chunk)
+    return h
+
+
+def cross_decode_errs(p, cfg, batch) -> dict:
+    """``decode_step`` after ``prefill(batch with tokens[:, :-1],
+    extra_cache=1)`` against ``forward(batch)``'s last position, for the
+    sound cache and for planted faults: the cross K/V (``ck``/``cv``)
+    zeroed; where there are two cross blocks or more (vlm), each block
+    reading the next one's K/V; for encdec, a prefill whose encoder runs
+    causal.  Returns each case's largest difference over ``max|logit|``
+    and whether the argmaxes agree."""
+    from repro_torch.models import model as lm
+
+    tokens = batch["tokens"]
+    S = tokens.shape[1] - 1
+    head = dict(batch, tokens=tokens[:, :S])
+    with torch.inference_mode():
+        full, _ = lm.forward(p, batch, cfg, kv_chunk=S + 1)
+        _, c = lm.prefill(p, head, cfg, kv_chunk=S, extra_cache=1)
+        want = full[:, -1].float()
+        cases = {"sound": c,
+                 "cross_zeroed": dict(c, ck=torch.zeros_like(c["ck"]),
+                                      cv=torch.zeros_like(c["cv"]))}
+        if lm._n_cross(cfg) >= 2:
+            cases["other_cross_block"] = dict(
+                c, ck=c["ck"].roll(-1, 0), cv=c["cv"].roll(-1, 0))
+        if cfg.family == "encdec":
+            sound_layer, lm._enc_layer = lm._enc_layer, _causal_enc_layer
+            try:
+                _, cases["encoder_causal"] = lm.prefill(
+                    p, head, cfg, kv_chunk=S, extra_cache=1)
+            finally:
+                lm._enc_layer = sound_layer
+        out = {}
+        for what, c_x in cases.items():
+            step, _ = lm.decode_step(p, c_x, tokens[:, S:], cfg)
+            got = step[:, 0].float()
+            out[what] = {
+                "rel_err": float((got - want).abs().max() / want.abs().max()),
+                "argmax_equal": bool(torch.equal(got.argmax(-1),
+                                                 want.argmax(-1)))}
+    return out
+
+
+def _tree_bytes(node) -> int:
+    return sum(t.numel() * t.element_size() for t in node.parameters())
+
+
+def cross_decode_bytes(params, cache, cfg) -> int:
+    """The bytes a decode step must move: every weight of the decoder
+    once (not the encoder's, not the cross blocks' K/V projections,
+    whose products are the cache), the self-attention K/V caches and the
+    cross K/V caches read (the new position's write is left out)."""
+    unread = sum(_tree_bytes(params[k]) for k in ("enc_layers",
+                                                  "enc_final_norm")
+                 if k in params.keys())
+    for k in ("dec_cross", "cross"):
+        if k in params.keys():
+            unread += sum(b["attn"][w].numel() * b["attn"][w].element_size()
+                          for b in params[k] for w in ("k_in", "v_in"))
+    caches = sum(cache[k].numel() * cache[k].element_size()
+                 for k in ("k", "v", "ck", "cv"))
+    return _tree_bytes(params) - unread + caches
+
+
+def _padded(n: int, chunk: int) -> int:
+    """The keys chunked attention computes over: ``n`` padded to its
+    chunk ``min(chunk, n)``."""
+    c = min(chunk, n)
+    return -(-n // c) * c
+
+
+def cross_flops(cfg, batch: int, seq: int, src_len: int,
+                kv_chunk: int) -> dict:
+    """The FLOPs of one forward over ``batch`` sequences of ``seq``
+    tokens (and ``src_len`` source tokens for encdec), by the precision
+    they run in.  bf16: every projection and MLP (the encoder's over
+    the source, the cross blocks' K/V once over the source or the
+    vision tokens, their Q and O over the tokens) and the unembedding
+    of every position; float32: the attention's two products, upcast,
+    over every key chunk the port computes (``_padded``).  Returns the
+    per-token split the reckoning uses."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    qo = 2 * D * H * Dh
+    kv = 2 * D * Hkv * Dh
+    block = qo + kv + 3 * D * cfg.d_ff           # params a token reads
+    T = batch * seq
+    if cfg.family == "encdec":
+        n_cross, src = cfg.n_layers, src_len
+        enc = batch * src_len * cfg.n_enc_layers * 2 * block
+    else:
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        src, enc = cfg.n_vision_tokens, 0
+    bf16 = (T * 2 * (cfg.n_layers * block + n_cross * qo) + enc
+            + batch * src * n_cross * 2 * kv)
+    head = T * 2 * D * cfg.padded_vocab
+    attn = 4 * H * Dh * batch                    # two products, a key
+    f32 = attn * (cfg.n_layers * seq * _padded(seq, kv_chunk)
+                  + n_cross * seq * _padded(src, kv_chunk))
+    if cfg.family == "encdec":
+        f32 += attn * cfg.n_enc_layers * src_len * _padded(src_len,
+                                                           kv_chunk)
+    return {"blocks_bf16_flop": bf16, "head_bf16_flop": head,
+            "attention_f32_flop": f32}
+
+
+def cross_serving_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4l: the encdec and vlm serving path (the module docstring).
+    Returns the launches of its main path, the two served runs."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4l", "card": smi_line,
+           "serve": {"batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+                     "requests": LM_REQUESTS},
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    require(not row["tf32"], "TF32 matmuls are on: the float32 checks "
+            "need them off")
+    launches = {k: 0 for k in kernels}
+    rng = np.random.default_rng(SEED + 27)
+    for arch in CROSS_ARCHS:
+        cfg = get_config(arch)
+        r = row[arch] = {}
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) the model on the card
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params = lm.init_model(cfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        r["init_s"] = time.perf_counter() - t0
+        weight_bytes = _tree_bytes(params)
+        r["params"] = sum(p.numel() for p in params.parameters())
+        r["weights_GB"] = weight_bytes / 1e9
+        r["memory_allocated_GB"] = (torch.cuda.memory_allocated()
+                                    - base) / 1e9
+        print(f"phase 4l: {arch} {r['params']} parameters, memory_allocated "
+              f"{r['memory_allocated_GB']:.3f} GB; {smi_line}", flush=True)
+        require(r["params"] == CROSS_PARAMS[(arch, cfg.n_layers)],
+                f"{arch}: {r['params']} parameters, not the reference's "
+                f"{CROSS_PARAMS[(arch, cfg.n_layers)]}")
+        require(abs(r["memory_allocated_GB"] - r["weights_GB"]) < 0.1,
+                "init_model allocated more than its weights")
+
+        # (b) the real server, every counter read
+        served = serve_watched(arch, cfg, params, kernels, dev, "4l")
+        r["served_lines"], r["tok_per_s"] = served["lines"], \
+            served["tok_per_s"]
+        r["launches"] = served["launches"]
+        require(all(n == 0 for n in r["launches"].values()),
+                f"phase 4l ({arch}) launched {r['launches']}: serving "
+                "these families runs none of the twelve kernels")
+        for k, n in served["launches"].items():
+            launches[k] += n
+
+        # (d) decode against forward on the bf16 full-depth model
+        td = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)).astype(
+            np.int32)).to(dev)
+        bd = cross_batch(cfg, td, rng, CROSS_SRC_LEN)
+        r["decode_vs_forward"] = {"bf16_full_depth": cross_decode_errs(
+            params, cfg, bd)}
+        bd = {k: (v.float() if v.is_floating_point() else v)
+              for k, v in bd.items()}
+
+        # (f) times: prefill, a decode step against its byte bound
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            LM_BATCH, LM_PROMPT + 1)).astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            batch = cross_batch(cfg, toks[:, :-1], rng, LM_PROMPT)
+
+            def prefill_fn():
+                return lm.prefill(params, batch, cfg, kv_chunk=LM_PROMPT)
+
+            _, cache = prefill_fn()
+            tok = toks[:, -1:]
+
+            def decode_fn():
+                return lm.decode_step(params, cache, tok, cfg)
+
+            r["prefill_ms"] = call_ms(prefill_fn, reps=5)
+            r["prefill_device_ms"] = device_ms(prefill_fn, cpm, reps=5)
+            r["decode_ms"] = call_ms(decode_fn, reps=10)
+            r["decode_device_ms"] = device_ms(decode_fn, cpm, reps=10)
+            r["decode_bytes"] = cross_decode_bytes(params, cache, cfg)
+            r["decode_bound_ms"], r["decode_bound_by"] = bound_ms(
+                r["decode_bytes"], 0)
+            fl = cross_flops(cfg, LM_BATCH, LM_PROMPT, LM_PROMPT, LM_PROMPT)
+            # prefill unembeds the last position only
+            r["prefill_bf16_flop"] = fl["blocks_bf16_flop"] + \
+                fl["head_bf16_flop"] // LM_PROMPT
+            r["prefill_f32_flop"] = fl["attention_f32_flop"]
+            r["prefill_bf16_bound_ms"] = r["prefill_bf16_flop"] / \
+                BF16_FLOPS_PER_S * 1e3
+            r["prefill_f32_bound_ms"] = r["prefill_f32_flop"] / \
+                FP32_OPS_PER_S * 1e3
+            for what, fn in (("decode", decode_fn), ("prefill", prefill_fn)):
+                kern, ops = device_profile(fn, 6)
+                r[f"{what}_kernel_ms"] = sum(ms for _, ms, _ in kern)
+                r[f"{what}_kernel_launches"] = sum(c for _, _, c in kern)
+                r[f"{what}_top_kernels"] = [[n, ms] for n, ms, _ in kern[:6]]
+                r[f"{what}_top_ops"] = [[n, ms, c] for n, ms, c in ops]
+                r[f"{what}_busy_share"] = r[f"{what}_kernel_ms"] / \
+                    r[f"{what}_ms"]
+        r["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        r["base_allocated_GB"] = base / 1e9
+        del params, cache, batch
+        torch.cuda.empty_cache()
+
+        # (d) where the bf16 limit cannot resolve the faults: the same
+        # at full depth in float32
+        if arch in CROSS_F32_FULL_DEPTH:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            with torch.inference_mode():
+                p32 = lm.init_model(cfg32, seed=SEED, device=dev)
+            r["decode_vs_forward"]["f32_full_depth"] = cross_decode_errs(
+                p32, cfg32, bd)
+            del p32
+            torch.cuda.empty_cache()
+
+        # (c) float32 copies at full width against the CPU, the same
+        # weights on both sides (drawn on the card)
+        cfg_f = dataclasses.replace(cfg, dtype="float32", **CROSS_F32[arch])
+        p_dev = lm.init_model(cfg_f, seed=SEED, device=dev)
+        p_cpu = copy.deepcopy(p_dev).to("cpu")
+        t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 160)).astype(
+            np.int32))
+        b1 = cross_batch(cfg_f, t1, rng, CROSS_SRC_LEN)
+        with torch.inference_mode():
+            want, _ = lm.prefill(p_cpu, b1, cfg_f, kv_chunk=160)
+            got, _ = lm.prefill(p_dev, {k: v.to(dev) for k, v in b1.items()},
+                                cfg_f, kv_chunk=160)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        name_f = f"f32_{cfg_f.n_layers}_layers"
+        r[f"{name_f}_prefill_rel_err"] = err
+        require(err <= LM_F32_RTOL, f"{arch}: the float32 prefill on the "
+                f"card is {err:.3g} of max|logit| from the CPU's (limit "
+                f"{LM_F32_RTOL})")
+        del p_cpu, want, got
+
+        # (d) decode against forward on the float32 copy; the limits
+        # against the sound step and the planted faults
+        r["decode_vs_forward"][name_f] = cross_decode_errs(p_dev, cfg_f, bd)
+        for name, d in r["decode_vs_forward"].items():
+            limit = LM_BF16_RTOL if name.startswith("bf16") else \
+                LM_F32_DECODE_RTOL
+            require(d["sound"]["rel_err"] <= limit, f"{arch}: decode_step "
+                    f"({name}) is {d['sound']['rel_err']:.3g} of max|logit| "
+                    f"from forward (limit {limit})")
+            if name.startswith("bf16") and arch in CROSS_F32_FULL_DEPTH:
+                continue  # read only: see CROSS_F32_FULL_DEPTH
+            for fault in (k for k in d if k != "sound"):
+                require(d[fault]["rel_err"] > limit, f"{arch}: the planted "
+                        f"fault {fault} ({name}) reads "
+                        f"{d[fault]['rel_err']:.3g}, within the limit "
+                        f"{limit}: the check cannot tell it from a sound "
+                        "step")
+        full_name = "f32_full_depth" if arch in CROSS_F32_FULL_DEPTH \
+            else "bf16_full_depth"
+        require("other_cross_block" in r["decode_vs_forward"][full_name]
+                or cfg.family != "vlm",
+                f"{arch}: no cross-block fault was planted at full depth")
+        del p_dev
+        torch.cuda.empty_cache()
+        print(f"phase 4l: {arch}: {json.dumps(r['decode_vs_forward'])}",
+              flush=True)
+
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4L_LIMIT_S,
+            f"phase 4l took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4L_LIMIT_S} s")
+    return launches
+
+
+def cross_training_phase(dev, kernels, cpm, smi_line) -> dict:
+    """Phase 4m: the encdec and vlm training path (the module
+    docstring).  Returns the launches of its main path, the steps of
+    (b) on both models."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.counting_sort.ref import placement_ref
+    from repro_torch.kernels.hist.ops import block_offsets, default_block_b
+    from repro_torch.kernels.hist.ref import block_histogram_ref
+    from repro_torch.launch.specs import stub_embeddings, train_batch_specs
+    from repro_torch.models import model as lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.layers import stacked_leaves, tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    hist_mod = importlib.import_module("repro_torch.kernels.hist.hist")
+    t_phase = time.perf_counter()
+    row = {"phase": "4m", "card": smi_line,
+           "train": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "microbatches": TRAIN_MICROBATCHES},
+           "cpu_threads": torch.get_num_threads()}
+    launches = {k: 0 for k in kernels}
+    rng = np.random.default_rng(SEED + 28)
+    for arch in CROSS_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=CROSS_TRAIN_LAYERS[arch])
+        steps = CROSS_TRAIN_STEPS[arch]
+        r = row[arch] = {"n_layers": [full.n_layers, cfg.n_layers],
+                         "steps": steps}
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) the model and its train state on the card
+        tcfg = ts_mod.TrainConfig(
+            opt=opt_mod.OptConfig(lr=3e-4, warmup_steps=2,
+                                  total_steps=steps),
+            microbatches=TRAIN_MICROBATCHES, compress_grads=True,
+            kv_chunk=TRAIN_SEQ)
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        state = ts_mod.init_train_state(params, tcfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state_bytes = sum(t.numel() * t.element_size() for _, parts, _ in
+                          stacked_leaves(state) for t in parts)
+        r["params"], r["state_GB"] = n_params, state_bytes / 1e9
+        r["memory_allocated_GB"] = (torch.cuda.memory_allocated()
+                                    - base) / 1e9
+        print(f"phase 4m: {arch} at {cfg.n_layers} of {full.n_layers} "
+              f"layers: {n_params} parameters, state {r['state_GB']:.3f} "
+              f"GB, memory_allocated {r['memory_allocated_GB']:.3f} GB; "
+              f"{smi_line}", flush=True)
+        require(n_params == CROSS_PARAMS[(arch, cfg.n_layers)],
+                f"{arch}: {n_params} parameters, not the reference's "
+                f"{CROSS_PARAMS[(arch, cfg.n_layers)]}")
+        require(abs(r["memory_allocated_GB"] - r["state_GB"]) < 0.1,
+                "the train state allocated more than its tensors")
+        stage = r["stage_s"] = {"init": time.perf_counter() - t_arch}
+
+        # (b) the steps on one repeated batch with the launcher's stub
+        # embeddings, every counter read
+        host = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                           seed=SEED).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        specs = train_batch_specs(cfg, ShapeConfig("train", TRAIN_SEQ,
+                                                   TRAIN_BATCH, "train"))
+        batch.update(stub_embeddings(specs, np.random.default_rng(
+            (SEED, 0)), dev))
+        step = ts_mod.make_train_step(cfg, tcfg)
+        losses, step_s = [], []
+        for f in kernels.values():
+            f.launches = 0
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+        got = {k: f.launches for k, f in kernels.items()}
+        expected = {k: steps * TRAIN_MICROBATCHES if k in ("B11", "B12")
+                    else 0 for k in kernels}
+        for k, n in got.items():
+            launches[k] += n
+        r["losses"], r["step_s"] = losses, step_s
+        r["launches"], r["expected"] = got, expected
+        r["base_allocated_GB"] = base / 1e9
+        r["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        r["peak_over_base_GB"] = r["max_memory_allocated_GB"] - \
+            r["base_allocated_GB"]
+        print(f"phase 4m: {arch} losses {losses}; max_memory_allocated "
+              f"{r['max_memory_allocated_GB']:.3f} GB, "
+              f"{r['peak_over_base_GB']:.3f} GB over the "
+              f"{r['base_allocated_GB']:.3f} GB held before", flush=True)
+        require(r["peak_over_base_GB"] < CROSS_TRAIN_PEAK_GB,
+                f"{arch}: training allocated {r['peak_over_base_GB']:.2f} "
+                f"GB over its base, past {CROSS_TRAIN_PEAK_GB} GB")
+        require(all(np.isfinite(losses)), f"{arch}: a training loss is not "
+                "finite")
+        require(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+                f"{losses[0]} -> {losses[-1]}")
+        require(got == expected, f"phase 4m ({arch}) launch counts {got} != "
+                f"{expected} ({steps} steps x {TRAIN_MICROBATCHES} "
+                "microbatches x 1 embedding gradient)")
+        stage["steps"] = time.perf_counter() - t_arch - stage["init"]
+
+        # (e) times and bounds
+        state = train_step_times(step, state, batch, r)
+        stage["times"] = time.perf_counter() - t_arch - sum(stage.values())
+        fl = cross_flops(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, TRAIN_SEQ)
+        # remat: the blocks run twice and their backward costs twice the
+        # forward; the unembedding once and its backward twice
+        r["step_bf16_flop"] = 4 * fl["blocks_bf16_flop"] + \
+            3 * fl["head_bf16_flop"]
+        r["step_f32_flop"] = 4 * fl["attention_f32_flop"]
+        r["step_bf16_bound_ms"] = r["step_bf16_flop"] / BF16_FLOPS_PER_S * 1e3
+        r["step_f32_bound_ms"] = r["step_f32_flop"] / FP32_OPS_PER_S * 1e3
+        r["step_flop_bound_ms"] = r["step_bf16_bound_ms"] + \
+            r["step_f32_bound_ms"]
+        r["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        del state, params, batch, step
+        torch.cuda.empty_cache()
+
+        # (e) the embedding gradient at this vocabulary: a microbatch's
+        # 2,048 tokens into padded_vocab bins, B12 (whose instance the
+        # bins choose: shared counters up to the card's opt-in shared
+        # memory, global ones above) and B11 against their plain
+        # versions on the card, the whole gradient against the CPU
+        V, per_mb = cfg.padded_vocab, TRAIN_BATCH * TRAIN_SEQ // \
+            TRAIN_MICROBATCHES
+        e = torch.from_numpy(rng.integers(0, V, per_mb).astype(
+            np.int32)).to(dev)
+        bb = default_block_b(V, L=per_mb)
+        kw = dict(nbins=V, block_b=bb)
+        offsets, _ = block_offsets(e, **kw)
+        require(torch.equal(kernels["B12"](e, **kw),
+                            block_histogram_ref(e, **kw)),
+                f"{arch}: B12 at {V} bins differs from its plain version")
+        require(torch.equal(kernels["B11"](e, offsets, **kw),
+                            placement_ref(e, offsets, **kw)),
+                f"{arch}: B11 at {V} bins differs from its plain version")
+        eg = r["embed_grad"] = {
+            "keys_bins": [per_mb, V], "block_b": bb,
+            "B12_instance": "shared" if 4 * V <= hist_mod._fns()["smem"]
+            else "global",
+            "B12_ms": device_ms(lambda: kernels["B12"](e, **kw), cpm),
+            "B11_ms": device_ms(lambda: kernels["B11"](e, offsets, **kw),
+                                cpm),
+            "B12_B11_vs_plain": "bit-identical"}
+        eg.update(embedding_grad_check(V, CROSS_GRAD_D, kernels, dev, rng))
+        print(f"phase 4m: {arch} embedding gradient at {V} bins: B12 "
+              f"{eg['B12_instance']} counters, {json.dumps(eg)}", flush=True)
+        stage["embed_grad"] = time.perf_counter() - t_arch - \
+            sum(stage.values())
+
+        # (c) float32 copies at full width against the CPU: loss_fn,
+        # every gradient leaf, adamw_update on the same gradients
+        cfg_f = dataclasses.replace(full, dtype="float32", **CROSS_F32[arch])
+        S = CROSS_TRAIN_F32_SEQ
+        t1 = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1)).astype(
+            np.int32))
+        b1 = cross_batch(cfg_f, t1[:, :S], rng, S)
+        b1["labels"] = t1[:, 1:]
+        r[f"f32_{cfg_f.n_layers}_layers"], r["adamw_same_grads"] = \
+            train_parity(cfg_f, b1, dev, tcfg.opt)
+        torch.cuda.empty_cache()
+        stage["parity"] = time.perf_counter() - t_arch - sum(stage.values())
+
+        # (d) the launcher on the card, on the reduced config
+        t0 = time.perf_counter()
+        r["launcher"] = launcher_resume(arch, dev, "4m")
+        r["launcher"]["s"] = time.perf_counter() - t0
+        stage["launcher"] = time.perf_counter() - t0
+
+    row["launches"] = launches
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4M_LIMIT_S,
+            f"phase 4m took {row['phase_s']:.1f} s, over its "
+            f"{PHASE_4M_LIMIT_S} s")
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5155,6 +5751,18 @@ def main() -> None:
     #    gradient on B12/B11, against the CPU, the launcher, the times --
     ssm_train_launches = ssm_training_phase(dev, kernels4, cpm, smi_line)
 
+    # -- 4l. the encdec and vlm serving path: Seamless-M4T-medium and
+    #    Llama-3.2-Vision-11B at full width and depth served on the card,
+    #    against the CPU, the times ------------------------------------
+    cross_serve_launches = cross_serving_phase(dev, kernels4, cpm, smi_line)
+
+    # -- 4m. the encdec and vlm training path: Seamless-M4T-medium (whole)
+    #    and Llama-3.2-Vision-11B (10 layers) trained on the card, the
+    #    embedding gradient on B12/B11 at their vocabularies, against the
+    #    CPU, the launcher, the times ------------------------------------
+    cross_train_launches = cross_training_phase(dev, kernels4, cpm,
+                                                smi_line)
+
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
     t3["card"] = smi_line
@@ -5403,6 +6011,8 @@ def main() -> None:
          "train_launches": train_launches[k],
          "ssm_serve_launches": ssm_serve_launches[k],
          "ssm_train_launches": ssm_train_launches[k],
+         "cross_serve_launches": cross_serve_launches[k],
+         "cross_train_launches": cross_train_launches[k],
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],

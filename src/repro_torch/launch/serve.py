@@ -9,7 +9,10 @@ Counterpart of ``repro/launch/serve.py``:
 Prefill builds the KV caches, then a decode loop greedily samples one
 token per step (argmax over the first ``vocab`` logits) for the whole
 batch.  Requests are slotted into the fixed batch; the queue is
-synthetic prompts drawn from ``--seed``.  The model runs on the card
+synthetic prompts drawn from ``--seed``, with the stub frontends'
+embeddings (``encdec``: ``src_embeds`` of the prompt's length; ``vlm``:
+``vision_embeds``) drawn after each batch's tokens, as the reference
+draws them.  The model runs on the card
 unless ``--device cpu``, under ``torch.inference_mode()``; its weights
 are random, drawn from ``--seed`` on the device.
 
@@ -35,7 +38,9 @@ import torch  # noqa: E402
 
 from ..configs import get_config  # noqa: E402
 from ..kernels.common import resolve_device  # noqa: E402
+from ..models.config import ShapeConfig  # noqa: E402
 from ..models.model import decode_step, init_model, prefill  # noqa: E402
+from .specs import prefill_batch_specs, stub_embeddings  # noqa: E402
 
 
 def main(argv=None):
@@ -86,10 +91,15 @@ def main(argv=None):
     with torch.inference_mode():
         params = init_model(cfg, seed=args.seed, device=device)
 
+        # the stub frontends' embeddings (encdec: [B, prompt, D]; vlm:
+        # [B, n_vision_tokens, D]), drawn after each batch's tokens
+        specs = prefill_batch_specs(cfg, ShapeConfig(
+            "serve", args.prompt_len, args.batch, "prefill"))
+
         def make_batch():
             toks = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
             return {"tokens": torch.from_numpy(toks.astype(np.int32))
-                    .to(device)}
+                    .to(device), **stub_embeddings(specs, rng, device)}
 
         served = 0
         t0 = time.time()

@@ -16,7 +16,13 @@ The model and its state live whole on one device: the card unless
   * async checkpointing off the training thread,
   * straggler watchdog: per-step wall time EWMA; steps slower than
     ``straggler_factor`` x EWMA are logged with their step index,
-  * deterministic, checkpointable data pipeline with host prefetch.
+  * deterministic, checkpointable data pipeline with host prefetch,
+  * for ``encdec`` and ``vlm``, the stub frontends' embeddings added to
+    each batch: shaped by ``launch/specs.py``'s ``train_batch_specs``,
+    standard normal draws seeded by ``(seed, step)``, so a resumed run
+    sees the embeddings an uninterrupted one does (the reference's
+    launcher feeds the model ``SyntheticLM``'s tokens and labels only,
+    and cannot train these families: ROADMAP queue C, C4).
 
 The reference's parameter partition rules (``launch/sharding.py``) are
 not ported (ROADMAP queue A, item 15, step 4): ``--tp`` other than 1 is
@@ -29,16 +35,19 @@ import signal
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..ckpt.checkpoint import CheckpointManager
 from ..configs import get_config
 from ..data.pipeline import Prefetcher, SyntheticLM
 from ..kernels.common import resolve_device
+from ..models.config import ShapeConfig
 from ..models.model import init_model
 from ..train.optimizer import OptConfig
 from ..train.train_step import TrainConfig, init_train_state, make_train_step
 from .mesh import make_host_mesh
+from .specs import stub_embeddings, train_batch_specs
 
 
 def main(argv=None):
@@ -118,6 +127,8 @@ def main(argv=None):
     data = Prefetcher(pipe, depth=2)
 
     step_fn = make_train_step(cfg, tcfg)
+    specs = train_batch_specs(cfg, ShapeConfig("train", args.seq, args.batch,
+                                               "train"))
 
     if preempted["flag"]:
         print("[train] preempted during init; nothing to save; exiting")
@@ -141,6 +152,8 @@ def main(argv=None):
         consumed["step"] += 1
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in host_batch.items()}
+        batch.update(stub_embeddings(
+            specs, np.random.default_rng((args.seed, step)), device))
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}

@@ -1,4 +1,5 @@
 """repro_torch.models: the LM stack's model definitions (counterpart of
 ``repro/models``): ``config``, ``layers``, ``attention``, ``moe``,
-``model`` and ``runtime_flags``.  ``ssm.py`` comes with the ``ssm`` and
-``hybrid`` families (ROADMAP queue A, item 15)."""
+``model``, ``ssm`` and ``runtime_flags``, for every family of the
+reference: ``dense``, ``moe``, ``ssm``, ``hybrid``, ``encdec`` and
+``vlm``."""

@@ -1,29 +1,41 @@
 """Model assembly: init / forward / prefill / decode (counterpart of
-``repro/models/model.py``), for the ``dense``, ``moe``, ``ssm`` (Mamba2)
-and ``hybrid`` (Zamba2) families.
+``repro/models/model.py``), for every family: ``dense``, ``moe``,
+``ssm`` (Mamba2), ``hybrid`` (Zamba2), ``encdec`` (Seamless-M4T) and
+``vlm`` (Llama-3.2-Vision).
 
 A model is one :class:`~repro_torch.models.layers.Params` module: its
 ``embed`` and ``final_norm`` nodes and an ``nn.ModuleList`` of blocks
 under ``layers``, each with the reference's pytree keys (``norm1``,
 ``attn.q_in``, ``moe.router``, ``moe.gate_ein``, ...).  The reference
 stacks its blocks on a leading axis and runs them with ``lax.scan``;
-here a Python loop runs the list, and the local:global interleaving and
-the hybrid's shared attention block (after every ``hybrid_attn_every``-th
-Mamba block) are a Python bool per layer where the reference uses
-``lax.cond``.  The hybrid's shared block is one unstacked set of weights
-(``shared_norm1``, ``shared_attn``, ``shared_norm2``, ``shared_mlp``)
-applied at each firing layer.
+here a Python loop runs the list, and the local:global interleaving,
+the hybrid's shared attention block (after every
+``hybrid_attn_every``-th Mamba block) and the vlm's cross-attention
+(after every ``cross_attn_every``-th layer) are a Python bool per layer
+where the reference uses ``lax.cond``.  The hybrid's shared block is one
+unstacked set of weights (``shared_norm1``, ``shared_attn``,
+``shared_norm2``, ``shared_mlp``) applied at each firing layer.  The
+other stacked subtrees are lists too: the encoder's ``enc_layers`` and
+the decoder's ``dec_cross`` blocks (``encdec``), and the vlm's
+``cross`` blocks, one per firing layer.  The audio and vision
+frontends are stubs, as in the reference: a batch carries precomputed
+``src_embeds`` or ``vision_embeds``.
 :func:`params_from_numpy` and :func:`params_to_numpy` carry weights
 across from and back to the reference's stacked pytree.
 
-While autograd records, each block of the layer loop runs under
+While autograd records, each unit of the layer loop runs under
 activation checkpointing (``runtime_flags.REMAT``, the reference's
-``jax.checkpoint`` of its scan body); under ``torch.inference_mode()``
-or ``torch.no_grad()`` the blocks run as they are.  :func:`loss_fn` is
-the next-token cross-entropy plus the MoE aux loss.
+``jax.checkpoint`` of its scan body): a block, a Mamba block with the
+shared block after it, an encoder block, a decoder block with its
+cross-attention, a vlm block with its cross-attention where it fires.
+Under ``torch.inference_mode()`` or ``torch.no_grad()`` they run as
+they are.  :func:`loss_fn` is the next-token cross-entropy plus the MoE
+aux loss.
 
-The families ``encdec`` and ``vlm`` are not ported yet (ROADMAP queue
-A, item 15): their entry points raise ``NotImplementedError``.
+:func:`decode_step` applies a layer's cross-attention after its MLP, as
+:func:`forward` and :func:`prefill` do; the reference's decode applies it
+before the MLP and so departs from its own forward (ROADMAP queue C,
+C5).
 """
 from __future__ import annotations
 
@@ -38,6 +50,8 @@ from .attention import (
     _attend_decode_into,
     _project_kv,
     apply_rope_kv_for_cache,
+    cross_attention,
+    cross_attention_decode,
     init_attention,
     self_attention,
 )
@@ -59,16 +73,8 @@ from . import runtime_flags
 
 KV_DTYPE = torch.bfloat16
 
-#: the families this port serves
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            "(ROADMAP queue A, item 15); the port runs "
-            f"{', '.join(PORTED_FAMILIES)}")
+#: the families this port serves: all of the reference's
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def kv_cache_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -98,7 +104,6 @@ def _apply_norm(cfg, params, x):
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
     """One transformer/ssm block's params."""
-    _check_family(cfg)
     p = Params()
     p["norm1"] = _init_norm(cfg, gen)
     if cfg.family in ("ssm", "hybrid"):
@@ -127,7 +132,6 @@ def init_enc_block(gen: torch.Generator, cfg):
 def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
     """Random parameters from ``seed`` on ``device`` (the card unless
     asked), drawn by a ``torch.Generator`` on that device."""
-    _check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -143,6 +147,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
         params["shared_norm2"] = _init_norm(cfg, gen)
         params["shared_mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff,
                                         cfg.dtype)
+    if _cross_every(cfg):
+        params["cross"] = nn.ModuleList(
+            [init_cross_block(gen, cfg) for _ in range(_n_cross(cfg))])
+    if cfg.family == "encdec":
+        params["enc_layers"] = nn.ModuleList(
+            [init_enc_block(gen, cfg) for _ in range(cfg.n_enc_layers)])
+        params["enc_final_norm"] = _init_norm(cfg, gen)
+        params["dec_cross"] = nn.ModuleList(
+            [init_cross_block(gen, cfg) for _ in range(cfg.n_layers)])
     return params
 
 
@@ -157,11 +170,48 @@ def _fires(cfg, idx: int) -> bool:
     return bool(every) and (idx + 1) % every == 0
 
 
+def _cross_every(cfg) -> int:
+    """The vlm's cross-attention period (0: no cross blocks)."""
+    return cfg.cross_attn_every if cfg.family == "vlm" else 0
+
+
+def _n_cross(cfg) -> int:
+    every = _cross_every(cfg)
+    return cfg.n_layers // every if every else 0
+
+
+def _cross_index(cfg, idx: int):
+    """The index of the cross block that follows layer ``idx`` (into its
+    stack and into ``ck``/``cv``), or None: every decoder layer's own in
+    ``encdec``, one after every ``cross_attn_every``-th layer in
+    ``vlm``."""
+    if cfg.family == "encdec":
+        return idx
+    every = _cross_every(cfg)
+    if every and (idx + 1) % every == 0:
+        return (idx + 1) // every - 1
+    return None
+
+
+def _cross_stack(cfg) -> str:
+    """The key of the stacked cross blocks."""
+    return "dec_cross" if cfg.family == "encdec" else "cross"
+
+
 # ---------------------------------------------------------------------------
 # Weights carried across from the reference
 # ---------------------------------------------------------------------------
-#: pytree keys whose subtree carries a leading layer axis
-_STACKED = ("layers",)
+#: pytree keys whose subtree carries a leading block axis
+_STACKED = ("layers", "enc_layers", "dec_cross", "cross")
+
+
+def _stack_len(tree) -> int:
+    """The leading axis of a stacked subtree's leaves."""
+    for v in tree.values():
+        n = _stack_len(v) if isinstance(v, dict) else np.shape(v)[0]
+        if n is not None:
+            return n
+    return None
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -187,16 +237,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device=None) -> Params:
     """The port's model from the reference's parameter pytree.
 
     ``tree`` holds numpy arrays (``jax.tree.map(np.asarray, params)``),
-    with the leading ``n_layers`` axis of the reference's ``vmap``-ped
-    block init under ``layers``; bfloat16 leaves stay bfloat16.
+    with the leading block axis of the reference's ``vmap``-ped block
+    init under each of ``_STACKED`` (``n_layers`` blocks under
+    ``layers`` and ``dec_cross``, ``n_enc_layers`` under
+    ``enc_layers``, ``n_layers // cross_attn_every`` under ``cross``:
+    each count is read off the arrays); bfloat16 leaves stay bfloat16.
     """
-    _check_family(cfg)
     device = resolve_device(device)
     out = Params()
     for k, v in tree.items():
         if k in _STACKED:
             out[k] = nn.ModuleList(
-                [_node(v, device, i) for i in range(cfg.n_layers)])
+                [_node(v, device, i) for i in range(_stack_len(v))])
         elif isinstance(v, dict):
             out[k] = _node(v, device)
         else:
@@ -294,6 +346,56 @@ def _ssm_layer(lp, x, params, cfg, fire: bool, *, positions, kv_chunk):
     return x
 
 
+def _cross_block(cp, x, src, cfg, *, kv_chunk):
+    """``x`` plus cross block ``cp``'s attention over ``src`` (encoder
+    output or vision embeddings; no norm on that side)."""
+    return x + cross_attention(cp["attn"], _apply_norm(cfg, cp.get("norm"), x),
+                               src, cfg, kv_chunk=kv_chunk)
+
+
+def _enc_layer(lp, h, cfg, *, positions, kv_chunk):
+    """One encoder block: non-causal self-attention at the source's own
+    positions, then the MLP."""
+    h, _ = _dense_block(lp, h, cfg, 0, positions=positions, causal=False,
+                        kv_chunk=kv_chunk)
+    return h
+
+
+def _cross_layer(lp, cp, x, src, cfg, idx, *, positions, kv_chunk):
+    """One decoder (``encdec``) or vlm block and, where a cross block
+    ``cp`` follows it, that block's attention over ``src`` (the encoder
+    output, the vision embeddings): one checkpointed unit.  The
+    decoder's block gets ``idx`` 0, as the reference passes it."""
+    idx = 0 if cfg.family == "encdec" else idx
+    x, aux = _dense_block(lp, x, cfg, idx, positions=positions, causal=True,
+                          kv_chunk=kv_chunk)
+    if cp is not None:
+        x = _cross_block(cp, x, src, cfg, kv_chunk=kv_chunk)
+    return x, aux
+
+
+def _cross_source(params, batch, cfg, *, kv_chunk):
+    """What the cross blocks attend to: the encoder's output over
+    ``src_embeds`` (``encdec``) or ``vision_embeds`` (``vlm``)."""
+    if cfg.family == "encdec":
+        return _encode(params, batch["src_embeds"], cfg, kv_chunk=kv_chunk)
+    return batch["vision_embeds"]
+
+
+def _encode(params, src, cfg, *, kv_chunk):
+    """The encoder over ``src`` ``[B, S_src, D]``, then its final norm."""
+    positions = _positions(src[..., 0])
+    layer = _ckpt(_enc_layer)
+    for lp in params["enc_layers"]:
+        src = layer(lp, src, cfg, positions=positions, kv_chunk=kv_chunk)
+    return _apply_norm(cfg, params.get("enc_final_norm"), src)
+
+
+def _cross_params(params, cfg, idx: int):
+    ci = _cross_index(cfg, idx)
+    return None if ci is None else params[_cross_stack(cfg)][ci]
+
+
 def _positions(tokens):
     B, S = tokens.shape
     return torch.arange(S, device=tokens.device).expand(B, S)
@@ -334,8 +436,9 @@ def _ckpt(fn):
 # Forward (scoring): tokens -> logits
 # ---------------------------------------------------------------------------
 def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
-    """batch: {"tokens": [B,S]}. Returns (logits, aux)."""
-    _check_family(cfg)
+    """batch: {"tokens": [B,S]} (+ ``src_embeds`` [B,S_src,D] for
+    ``encdec``, ``vision_embeds`` [B,V,D] for ``vlm``). Returns (logits,
+    aux)."""
     tokens = batch["tokens"]
     positions = _positions(tokens)
     x = embed(params["embed"], tokens)
@@ -345,6 +448,13 @@ def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
         for idx, lp in enumerate(params["layers"]):
             x = layer(lp, x, params, cfg, _fires(cfg, idx),
                       positions=positions, kv_chunk=kv_chunk)
+    elif cfg.family in ("encdec", "vlm"):
+        src = _cross_source(params, batch, cfg, kv_chunk=kv_chunk)
+        layer = _ckpt(_cross_layer)
+        for idx, lp in enumerate(params["layers"]):
+            x, a = layer(lp, _cross_params(params, cfg, idx), x, src, cfg,
+                         idx, positions=positions, kv_chunk=kv_chunk)
+            aux_total = aux_total + a
     else:
         block = _ckpt(_dense_block)
         for idx, lp in enumerate(params["layers"]):
@@ -379,16 +489,25 @@ def loss_fn(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, *, batch: int, seq_len: int, device=None):
     """Zero cache: ``pos`` and, for the attention families, per-layer K/V
-    ring buffers ``[n_layers, batch, seq_len, Hkv, Dh]``; for ``ssm`` and
-    ``hybrid`` the float32 SSM ``state`` ``[n_layers, batch, H, N, P]``
-    and the ``conv`` window ``[n_layers, batch, W-1, conv_ch]``, and for
-    ``hybrid`` one K/V ring buffer per shared-block application
-    ``[n_layers // every, batch, seq_len, Hkv, Dh]``."""
-    _check_family(cfg)
+    ring buffers ``[n_layers, batch, seq_len, Hkv, Dh]``; for ``encdec``
+    the cross K/V ``ck``/``cv`` of the same shape (``prefill`` replaces
+    them by the source's: ``[n_layers, batch, S_src, Hkv, Dh]``); for
+    ``vlm`` the vision K/V of each cross block ``[n_layers //
+    cross_attn_every, batch, n_vision_tokens, Hkv, Dh]``; for ``ssm``
+    and ``hybrid`` the float32 SSM ``state`` ``[n_layers, batch, H, N,
+    P]`` and the ``conv`` window ``[n_layers, batch, W-1, conv_ch]``, and
+    for ``hybrid`` one K/V ring buffer per shared-block application
+    ``[n_layers // every, batch, seq_len, Hkv, Dh]``.  On ``device="meta"``
+    nothing is allocated: the shapes and dtypes only."""
     device = resolve_device(device)
     Dh = cfg.resolved_head_dim
     kvd = kv_cache_dtype(cfg)
     cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def kv(n, length):
+        return torch.zeros((n, batch, length, cfg.n_kv_heads, Dh),
+                           dtype=kvd, device=device)
+
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         H = s.n_heads(cfg.d_model)
@@ -404,9 +523,13 @@ def init_cache(cfg: ModelConfig, *, batch: int, seq_len: int, device=None):
     else:
         n_attn = cfg.n_layers
     if n_attn:
-        shape = (n_attn, batch, seq_len, cfg.n_kv_heads, Dh)
-        cache["k"] = torch.zeros(shape, dtype=kvd, device=device)
-        cache["v"] = torch.zeros(shape, dtype=kvd, device=device)
+        cache["k"], cache["v"] = kv(n_attn, seq_len), kv(n_attn, seq_len)
+    if cfg.family == "encdec":
+        cache["ck"] = kv(cfg.n_layers, seq_len)
+        cache["cv"] = kv(cfg.n_layers, seq_len)
+    if _n_cross(cfg):
+        cache["ck"] = kv(_n_cross(cfg), cfg.n_vision_tokens)
+        cache["cv"] = kv(_n_cross(cfg), cfg.n_vision_tokens)
     return cache
 
 
@@ -418,13 +541,22 @@ def _ring_write(cache_layer, new, pos):
                                   new.to(cache_layer.dtype))
 
 
+def _cross_decode(cp, x, ck, cv, cfg):
+    """``x`` plus cross block ``cp``'s attention over the cached source
+    K/V ``ck``/``cv`` ``[B, S_src, Hkv, Dh]``."""
+    return x + cross_attention_decode(
+        cp["attn"], _apply_norm(cfg, cp.get("norm"), x), ck, cv, cfg)
+
+
 def decode_step(params, cache, tokens, cfg: ModelConfig):
     """One decode step. tokens: [B, 1] -> (logits [B,1,V], cache').
 
     The caches passed in are left as they were: the step writes into one
-    copy of them.
+    copy of the ring buffers.  The cross K/V (``ck``/``cv``) are only
+    read, and come back as the same tensors.  A layer's cross-attention
+    follows its MLP, as in :func:`forward` (the reference's decode puts
+    it before the MLP: ROADMAP queue C, C5).
     """
-    _check_family(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _ssm_decode_step(params, cache, tokens, cfg)
     pos = cache["pos"]
@@ -444,6 +576,10 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
         else:
             y = mlp(lp["mlp"], h2)
         x = x + y
+        ci = _cross_index(cfg, idx) if "ck" in cache else None
+        if ci is not None:
+            x = _cross_decode(params[_cross_stack(cfg)][ci], x,
+                              cache["ck"][ci], cache["cv"][ci], cfg)
     x = _apply_norm(cfg, params.get("final_norm"), x)
     logits = unembed(params["embed"], x)
     return logits, dict(cache, k=k_all, v=v_all, pos=pos + 1)
@@ -488,11 +624,13 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
     Returns (last-token logits [B,1,V], cache).  For ``ssm`` and
     ``hybrid`` the chunked scan's final state and the last ``W-1``
     pre-conv rows are the cache, and each shared-block application
-    stores its RoPE'd K and its V.  ``extra_cache`` pads
+    stores its RoPE'd K and its V.  For ``encdec`` each decoder layer's
+    cross block stores its K/V projection of the encoder output (the
+    source's length, not padded); for ``vlm`` each cross block stores
+    its K/V projection of the vision embeddings.  ``extra_cache`` pads
     the ring-buffer capacity so the next ``extra_cache`` decode steps
     append without evicting (decode ring-writes at ``pos % capacity``).
     """
-    _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = _positions(tokens)
@@ -500,6 +638,13 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
     kvd = kv_cache_dtype(cfg)
     cache = init_cache(cfg, batch=B, seq_len=S + extra_cache,
                        device=tokens.device)
+    if "ck" in cache:  # each cross block's K/V of its source, once
+        src = _cross_source(params, batch, cfg, kv_chunk=kv_chunk)
+        kvs = [_project_kv(cp["attn"], src, cfg)
+               for cp in params[_cross_stack(cfg)]]
+        cache["ck"] = torch.stack([k for k, _ in kvs]).to(kvd)
+        cache["cv"] = torch.stack([v for _, v in kvs]).to(kvd)
+        del kvs
     for idx, lp in enumerate(params["layers"]):
         hn = _apply_norm(cfg, lp.get("norm1"), x)
         if cfg.family in ("ssm", "hybrid"):
@@ -521,8 +666,12 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
         k_c, v_c = apply_rope_kv_for_cache(lp["attn"], hn, cfg, positions)
         cache["k"][idx, :, :S] = k_c.to(kvd)
         cache["v"][idx, :, :S] = v_c.to(kvd)
-        x, _ = _dense_block(lp, x, cfg, idx, positions=positions,
-                            causal=True, kv_chunk=kv_chunk)
+        kw = dict(positions=positions, kv_chunk=kv_chunk)
+        if "ck" in cache:
+            x, _ = _cross_layer(lp, _cross_params(params, cfg, idx), x, src,
+                                cfg, idx, **kw)
+        else:
+            x, _ = _dense_block(lp, x, cfg, idx, causal=True, **kw)
     x = _apply_norm(cfg, params.get("final_norm"), x)
     logits = unembed(params["embed"], x[:, -1:, :])
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=tokens.device)

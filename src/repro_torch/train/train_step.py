@@ -28,8 +28,9 @@ import torch
 from ..kernels.common import resolve_device
 from ..models.layers import Params, stacked_leaves, tree_leaves, tree_map, \
     tree_unflatten
-from ..models.model import (_check_family, _leaf_to_numpy, _leaf_to_torch,
-                            loss_fn, params_from_numpy, params_to_numpy)
+from ..models.model import (_STACKED, _leaf_to_numpy, _leaf_to_torch,
+                            _stack_len, loss_fn, params_from_numpy,
+                            params_to_numpy)
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
@@ -61,14 +62,14 @@ def init_train_state(params, tcfg: TrainConfig) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 # Train states carried across from and back to the reference
 # ---------------------------------------------------------------------------
-def _tree_from_numpy(tree: dict, n_layers: int, device) -> dict:
+def _tree_from_numpy(tree: dict, device) -> dict:
     out = {}
     for k, v in tree.items():
-        if k == "layers":
+        if k in _STACKED:
             out[k] = [tree_map(lambda a, i=i: _leaf_to_torch(
-                np.asarray(a)[i], device), v) for i in range(n_layers)]
+                np.asarray(a)[i], device), v) for i in range(_stack_len(v))]
         elif isinstance(v, dict):
-            out[k] = _tree_from_numpy(v, n_layers, device)
+            out[k] = _tree_from_numpy(v, device)
         else:
             out[k] = _leaf_to_torch(v, device)
     return out
@@ -79,21 +80,20 @@ def train_state_from_numpy(tree: dict, cfg, tcfg: TrainConfig, *,
     """The port's train state from the reference's
     (``jax.tree.map(np.asarray, state)``): ``params`` through
     :func:`~repro_torch.models.model.params_from_numpy`, ``master``,
-    ``mu``, ``nu`` and ``ef`` with their stacked layer axis split into
+    ``mu``, ``nu`` and ``ef`` with each stacked block axis split into
     per-block tensors as the parameters are; bfloat16 leaves stay
     bfloat16."""
-    _check_family(cfg)
     device = resolve_device(device)
     opt = tree["opt"]
     state = {
         "params": params_from_numpy(tree["params"], cfg, device=device),
-        "opt": {**{k: _tree_from_numpy(opt[k], cfg.n_layers, device)
+        "opt": {**{k: _tree_from_numpy(opt[k], device)
                    for k in ("master", "mu", "nu")},
                 "count": _leaf_to_torch(opt["count"], device)},
         "step": _leaf_to_torch(tree["step"], device),
     }
     if tcfg.compress_grads:
-        state["ef"] = _tree_from_numpy(tree["ef"], cfg.n_layers, device)
+        state["ef"] = _tree_from_numpy(tree["ef"], device)
     return state
 
 
@@ -134,7 +134,9 @@ def make_train_step(cfg, tcfg: TrainConfig):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``batch`` holds ``tokens`` and ``labels`` ``[B, S]`` on the state's
-    device.  The state is consumed: it is updated in place and returned.
+    device, and the family's stub embeddings where it takes them
+    (``src_embeds``, ``vision_embeds``: ``launch/specs.py``); every
+    entry is split into microbatches on its leading axis.  The state is consumed: it is updated in place and returned.
     """
 
     def grads_of(params, leaves, mb):

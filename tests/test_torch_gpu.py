@@ -28,7 +28,10 @@ the training path's, a reduced OLMoE's train step (loss and
 ``microbatches x (2 L + 1)`` times a step) and a checkpoint of its
 state saved and restored on the card bit for bit; the ssm and hybrid
 families', the chunked SSD scan and a reduced Mamba2's and Zamba2's
-forward and ``loss_fn`` gradients (float32) against the CPU.
+forward and ``loss_fn`` gradients (float32) against the CPU; the encdec
+and vlm families', a reduced Seamless's and Llama-3.2-Vision's forward,
+decode and gradients against the CPU, and the embedding gradient at
+their vocabularies (128,256 and 256,256 bins, B12's global counters).
 """
 import dataclasses
 import importlib
@@ -1963,3 +1966,103 @@ def test_reduced_ssm_forward_and_gradients_on_the_card_match_the_cpu(arch):
     for a, b in zip(gg, gc):
         assert float((a - b).abs().max() / b.abs().max().clamp(
             min=1e-30)) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The encdec and vlm families: a reduced model's forward, decode and
+# loss_fn gradients, and the embedding gradient at their vocabularies
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["seamless_m4t_medium",
+                                  "llama_3_2_vision_11b"])
+def test_reduced_encdec_vlm_forward_and_gradients_on_the_card_match_the_cpu(
+        arch):
+    """float32 logits, a decode step after the prefill and every
+    gradient leaf within 1e-4 of the CPU's largest (the card's float32
+    matmuls add in another order); a source of 9 positions against 12
+    tokens, 13 vision tokens in chunks of 8, two cross blocks; B12 and
+    B11 run once each, for the embedding gradient."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm
+    from repro_torch.models.layers import tree_leaves
+
+    dev = _cuda()
+    kw = {"n_layers": 4, "n_vision_tokens": 13} \
+        if arch == "llama_3_2_vision_11b" else {}
+    cfg = get_config(arch).reduced(dtype="float32", **kw)
+    p_cpu = lm.init_model(cfg, seed=0, device="cpu")
+    p_dev = copy.deepcopy(p_cpu).to(dev)
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    key, n = ("src_embeds", 9) if cfg.family == "encdec" else \
+        ("vision_embeds", cfg.n_vision_tokens)
+    batch[key] = torch.from_numpy(rng.normal(size=(2, n, cfg.d_model)).astype(
+        np.float32))
+    out = {}
+    for d, p in (("cpu", p_cpu), ("cuda", p_dev)):
+        b = {k: v.to(d) for k, v in batch.items()}
+        with torch.inference_mode():
+            logits, _ = lm.forward(p, b, cfg, kv_chunk=8)
+            _, cache = lm.prefill(p, b, cfg, kv_chunk=8, extra_cache=1)
+            step, _ = lm.decode_step(p, cache, b["tokens"][:, :1], cfg)
+        before = (hist.block_histogram.launches, cs.placement.launches)
+        loss = lm.loss_fn(p, b, cfg, kv_chunk=8)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if d == "cuda":
+            assert (hist.block_histogram.launches - before[0],
+                    cs.placement.launches - before[1]) == (1, 1)
+        out[d] = (logits.cpu(), step.cpu(), float(loss),
+                  [g.cpu() for g in grads])
+    (lc, sc, loss_c, gc), (lg, sg, loss_g, gg) = out["cpu"], out["cuda"]
+    assert float((lg - lc).abs().max() / lc.abs().max()) <= 1e-4
+    assert float((sg - sc).abs().max() / sc.abs().max()) <= 1e-4
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) <= 1e-4
+
+
+@pytest.mark.parametrize("upstream", ["integer", "random"])
+@pytest.mark.parametrize("V", [128_256, 256_256])
+def test_embedding_gradient_at_wide_vocabularies(V, upstream):
+    """Llama-3.2-Vision's and Seamless's padded vocabularies: above the
+    shared memory a block can opt into, B12 counts in global memory.
+    B12 and B11 on a microbatch's 2,048 token ids bit for bit against
+    their plain versions on the card; the gradient bit for bit against
+    the CPU on integer-valued gradients, else within ``2 (n - 1) eps
+    sum|g|`` per row."""
+    from repro_torch.train import sparse_grad_embed
+
+    dev = _cuda()
+    D, T = 64, 2048
+    assert 4 * V > hist._fns()["smem"]  # the global-counter instance
+    rng = np.random.default_rng(V)
+    toks = torch.from_numpy(np.where(
+        rng.random(T) < 0.5, rng.integers(0, 16, T),
+        rng.integers(0, V, T)).astype(np.int32))
+    e = toks.to(dev)
+    kw = dict(nbins=V, block_b=default_block_b(V, L=T))
+    offsets, _ = block_offsets(e, **kw)
+    assert torch.equal(hist.block_histogram(e, **kw),
+                       block_histogram_ref(e, **kw))
+    assert torch.equal(cs.placement(e, offsets, **kw),
+                       placement_ref(e, offsets, **kw))
+    g = rng.integers(-64, 64, (T, D)) if upstream == "integer" \
+        else rng.standard_normal((T, D))
+    g = torch.from_numpy(g.astype(np.float32))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        table = torch.zeros((V, D), device=d, requires_grad=True)
+        (sparse_grad_embed(table, toks.to(d)) * g.to(d)).sum().backward()
+        grads.append(table.grad.cpu())
+    if upstream == "integer":
+        assert torch.equal(grads[0], grads[1])
+        return
+    n = torch.bincount(toks.long(), minlength=V)[:, None].double()
+    abs_sum = torch.zeros((V, D), dtype=torch.float64).index_add_(
+        0, toks.long(), g.abs().double())
+    eps = float(np.finfo(np.float32).eps)
+    bound = 2 * (n - 1).clamp(min=0) * eps * abs_sum
+    assert bool(((grads[0] - grads[1]).abs().double() <= bound).all())

@@ -352,12 +352,24 @@ def test_init_model_is_seeded_and_has_the_reference_structure():
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_medium",
                                   "llama_3_2_vision_11b"])
-def test_unported_families_raise(arch):
+def test_encdec_and_vlm_build_with_the_reference_keys(arch):
+    """The last two families are ported: ``init_model`` and
+    ``init_cache`` build them with the reference's keys and shapes
+    (``tests/test_torch_encdec_vlm.py`` holds them against it)."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="queue A, item 15"):
-        tmodel.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item 15"):
-        tmodel.init_cache(cfg, batch=1, seq_len=4, device="cpu")
+    p = tmodel.init_model(cfg, device="cpu")
+    ref = jax.eval_shape(lambda: jmodel.init_model(jax.random.key(0), cfg))
+    assert sorted(p.keys()) == sorted(ref)
+    got = {jax.tree_util.keystr(k): v.shape for k, v in
+           jax.tree_util.tree_flatten_with_path(tmodel.params_to_numpy(p))[0]}
+    want = {jax.tree_util.keystr(k): v.shape for k, v in
+            jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert got == want
+    cache = tmodel.init_cache(cfg, batch=1, seq_len=4, device="cpu")
+    jcache = jax.eval_shape(lambda: jmodel.init_cache(cfg, batch=1,
+                                                      seq_len=4))
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {k: v.shape for k, v in jcache.items()}
 
 
 def test_host_mesh_helpers_match_reference():

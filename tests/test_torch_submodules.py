@@ -39,7 +39,6 @@ PACKAGES = ("core", "sparse", "kernels", "models", "configs", "train",
 #: queue A, item 15 step that brings each
 ABSENT_MODULES = {
     # the production sharding (step 4): meshes over many cards
-    "launch.specs": "the dry-run's input specs",
     "launch.sharding": "the parameter and activation partition rules",
     "launch.dryrun": "the 512-device dry run",
 }
