@@ -304,6 +304,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the CPU (``loss_fn``, every gradient leaf, ``adamw_update``) at S =
    64; ``launch.train.main`` on both ``--reduced`` archs as in 4i; must
    end within 120 s.
+4n. the production sharding and the dry run.  (a) ``python -m
+   repro_torch.launch.dryrun`` in a child started before phase 4e,
+   niced, seven cells at once on the host's cores while phases 4e-4m
+   drive the card, collected here; the fake 256-rank ``"cuda"``
+   mesh for all 40
+   single-pod cells and on the 512-rank mesh for one cell of each
+   family (``DRYRUN_MULTI_CELLS``; the whole 80-cell sweep does not fit
+   the phase: PERF.md); every cell ok but the seven full-attention
+   archs' ``long_500k``, skipped with the reference's reason; the
+   multi-pod cells on ``{"pod": 2, "data": 16, "model": 16}`` with
+   FLOPs; every arch's parameters and train state per rank as the rules
+   give them (``DRYRUN_PER_RANK_MIB``); prints the slowest trace, each
+   arch's ``train_4k`` temp bytes and FLOPs and each census total; must
+   end within 600 s of its start.  (b) a one-rank NCCL group (a ``HashStore``) and a
+   1 x 1 ``DeviceMesh``: 4i's OLMoE state placed by ``param_shardings``
+   and its batch by ``batch_specs_for``; one train step and one
+   ``decode_step`` on the DTensors against the same steps on plain
+   tensors from the same seed, with deterministic algorithms, bit for
+   bit (loss, every updated state leaf, logits, cache), B12/B11
+   launching as often in both; ``FlopCounterMode``'s count of a plain
+   step on the trained tensors; the same
+   step traced by the dry run on a fake 1 x 1 mesh in a child: its
+   argument bytes the real state's and batch's, its FLOPs
+   ``FlopCounterMode``'s count of the plain step, its temp bytes beside
+   the card's peak; must end within 180 s.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -357,6 +382,9 @@ import hashlib
 import importlib
 import itertools
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -5217,6 +5245,395 @@ def cross_training_phase(dev, kernels, cpm, smi_line) -> dict:
     return launches
 
 
+#: phase 4n: (a)'s and (b)'s time limits, in seconds, and the cells (a)
+#: traces at once
+PHASE_4NA_LIMIT_S = 600
+PHASE_4NB_LIMIT_S = 180
+DRYRUN_JOBS = 7
+#: (a)'s multi-pod cells: one of each family (the whole sweep, 80 cells,
+#: does not fit (a)'s limit; PERF.md gives its time from one CLI run)
+DRYRUN_MULTI_CELLS = ("olmo_1b", "olmoe_1b_7b", "mamba2_780m", "zamba2_7b",
+                      "seamless_m4t_medium", "llama_3_2_vision_11b")
+#: per rank, from the reference's rules: the parameters in the serve mode
+#: the dry run picks (TP only, but FSDP + TP for dbrx_132b) and the train
+#: state, in MiB to one decimal (no rule names "pod": the same on both
+#: meshes)
+DRYRUN_PER_RANK_MIB = {
+    "seamless_m4t_medium": (85.4, 313.0), "mamba2_780m": (93.2, 132.5),
+    "dbrx_132b": (1060.7, 9486.3), "olmoe_1b_7b": (820.4, 602.0),
+    "qwen3_0_6b": (71.2, 197.7), "starcoder2_15b": (2586.9, 1766.9),
+    "gemma3_1b": (119.3, 372.1), "olmo_1b": (140.3, 182.8),
+    "zamba2_7b": (791.7, 569.1), "llama_3_2_vision_11b": (1143.3, 1177.4),
+}
+
+
+def _kill_group(proc) -> None:
+    """Stop a child started in a session of its own, and its children."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def start_dryrun_sweep() -> dict:
+    """Start phase 4n (a)'s cells: the dry run's CLI in a child, niced
+    below this process, while phases 4e-4m run (the cells trace on the
+    host's cores, those phases drive the card)."""
+    import atexit
+    import tempfile
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.config import SHAPES
+
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    # the longest first (train, then prefill, the deepest archs first):
+    # the cells pack onto the workers
+    deep = sorted(ARCHS, key=lambda a: -get_config(a).n_layers)
+    cells = [f"{a}:{s}:single" for s in ("train_4k", "prefill_32k",
+                                          "long_500k", "decode_32k")
+             for a in deep] + \
+        [f"{a}:decode_32k:multi" for a in DRYRUN_MULTI_CELLS]
+    assert len(cells) == len(ARCHS) * len(SHAPES) + len(DRYRUN_MULTI_CELLS)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--cells", *cells, "--out", out,
+         "--jobs", str(DRYRUN_JOBS)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    atexit.register(_kill_group, proc)
+    return {"proc": proc, "out": out, "cells": cells, "t0": t0}
+
+
+def dryrun_sweep_phase(sweep: dict, smi_line) -> dict:
+    """Phase 4n (a): the dry run's cells on the fake production meshes
+    (the module docstring), started by :func:`start_dryrun_sweep`."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.specs import cell_applicable
+    from repro_torch.models.config import SHAPES
+
+    proc, out, cells = sweep["proc"], sweep["out"], sweep["cells"]
+    left = PHASE_4NA_LIMIT_S - (time.time() - sweep["t0"])
+    try:
+        stdout, stderr = proc.communicate(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        _kill_group(proc)
+        fail(f"phase 4n (a): the dry run ran past {PHASE_4NA_LIMIT_S} s")
+    print(stdout, end="", flush=True)
+    require(proc.returncode == 0, f"phase 4n (a): the dry run exited "
+            f"{proc.returncode}: {stderr[-3000:]}")
+    res = {}
+    done = sweep["t0"]
+    for c in cells:
+        a, sh, m = c.split(":")
+        fn = os.path.join(out, f"{a}__{sh}__{m}.json")
+        done = max(done, os.path.getmtime(fn))
+        with open(fn) as f:
+            res[(a, sh, m)] = json.load(f)
+    wall = done - sweep["t0"]
+    shutil.rmtree(out, ignore_errors=True)
+    status = [r["status"] for r in res.values()]
+    n_ok, n_skip = status.count("ok"), status.count("skipped")
+    row = {"phase": "4n-a", "card": smi_line, "cells": len(res),
+           "ok": n_ok, "skipped": n_skip, "errors": status.count("error"),
+           "wall_s": wall, "why_not_80": "the whole sweep (80 cells) does "
+           "not fit the phase's 600 s: PERF.md gives its time from one run "
+           "of the CLI"}
+    require(row["errors"] == 0, "phase 4n (a) errors: " + "; ".join(
+        f"{k}: {r.get('error')}" for k, r in res.items()
+        if r["status"] == "error"))
+    want_skip = {(a, "long_500k", "single") for a in ARCHS
+                 if not get_config(a).supports_long_context}
+    require(len(want_skip) == 7, "seven full-attention archs expected")
+    require({k for k, r in res.items() if r["status"] == "skipped"}
+            == want_skip, "the skipped cells are not the seven "
+            "full-attention archs' long_500k")
+    for (a, sh, m), r in res.items():
+        if r["status"] == "skipped":
+            require(r["reason"] == cell_applicable(get_config(a),
+                                                   SHAPES[sh])[1],
+                    f"{a} x {sh}: skip reason {r['reason']!r}")
+    require((n_ok, n_skip) == (33 + len(DRYRUN_MULTI_CELLS), 7),
+            f"phase 4n (a): {n_ok} ok, {n_skip} skipped")
+    for a in DRYRUN_MULTI_CELLS:
+        r = res[(a, "decode_32k", "multi")]
+        require(r["mesh_shape"] == {"pod": 2, "data": 16, "model": 16}
+                and r["flops"] > 0, f"{a} multi-pod cell: {r['mesh_shape']}"
+                f", flops {r['flops']}")
+    # the parameters' and the train state's bytes per rank
+    per_rank = {}
+    for a, (serve_mib, train_mib) in DRYRUN_PER_RANK_MIB.items():
+        got_serve = {res[k]["argument_bytes_by_input"]["params"]
+                     for k in res if k[0] == a and k[1] != "train_4k"
+                     and res[k]["status"] == "ok"}
+        got_train = res[(a, "train_4k", "single")][
+            "argument_bytes_by_input"]["state"]
+        per_rank[a] = {"params_MiB": [round(b / 2**20, 1)
+                                      for b in sorted(got_serve)],
+                       "train_state_MiB": round(got_train / 2**20, 1)}
+        require(per_rank[a]["params_MiB"] == [serve_mib]
+                and per_rank[a]["train_state_MiB"] == train_mib,
+                f"{a}: per-rank bytes {per_rank[a]} != the rules' "
+                f"{serve_mib}, {train_mib} MiB")
+    oks = {k: r for k, r in res.items() if r["status"] == "ok"}
+    slow = max(oks, key=lambda k: oks[k]["trace_s"])
+    row["slowest"] = {"cell": ":".join(slow),
+                      "trace_s": oks[slow]["trace_s"]}
+    row["trace_s_sum"] = sum(r["trace_s"] for r in oks.values())
+    row["train_4k"] = {a: {"temp_bytes": res[(a, "train_4k", "single")][
+        "memory"]["temp_bytes"], "flops": res[(a, "train_4k", "single")][
+        "flops"]} for a in ARCHS}
+    row["census_total_bytes"] = {
+        a: {f"{sh}:{m}": r["collectives"]["total_bytes"]
+            for (aa, sh, m), r in oks.items() if aa == a} for a in ARCHS}
+    row["per_rank"] = per_rank
+    row["cells_detail"] = {":".join(k): {
+        "trace_s": r.get("trace_s"), "flops": r.get("flops"),
+        "memory": r.get("memory"), "census": r.get("collectives"),
+        "mismatches": r.get("placement_mismatches")}
+        for k, r in oks.items()}
+    print(f"phase 4n (a): {len(res)} cells, {n_ok} ok, {n_skip} skipped, "
+          f"0 errors in {wall:.1f} s; slowest {row['slowest']}", flush=True)
+    for a in ARCHS:
+        print(f"phase 4n (a): {a} train_4k per rank temp "
+              f"{row['train_4k'][a]['temp_bytes'] / 2**30:.2f} GiB, "
+              f"{row['train_4k'][a]['flops']:.4e} FLOPs; census totals "
+              f"{row['census_total_bytes'][a]}", flush=True)
+    emit(row)
+    require(wall < PHASE_4NA_LIMIT_S, f"phase 4n (a) took {wall:.1f} s")
+    return row
+
+
+#: (b)'s fake 1 x 1 trace of 4i's step, in a child process (a process
+#: group of its own): the config and the batch's shape come as arguments
+_TRACE_4I = """
+import dataclasses, json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import specs as S
+from repro_torch.models.config import ShapeConfig
+
+arch, layers, batch, seq, mb = sys.argv[1], *map(int, sys.argv[2:6])
+D.get_config = lambda a: dataclasses.replace(get_config(a), n_layers=layers)
+D.SHAPES = S.SHAPES = {"train_4k": ShapeConfig("train_4k", seq, batch,
+                                               "train")}
+D.init_fake_group(1)
+mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+low, _ = D.build_lowered(arch, "train_4k", mesh, microbatches=mb)
+rec = low.trace()
+print(json.dumps({k: rec[k] for k in ("argument_bytes", "temp_bytes",
+                                      "flops", "argument_bytes_by_input")}))
+"""
+
+
+def _local_tree(tree):
+    """A tree of dicts and lists of DTensors as their local tensors."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_local_tree(v) for v in tree]
+    return tree.to_local()
+
+
+def local_params(node):
+    """A model of DTensor parameters as plain tensors: each rank's local
+    shards (on a one-rank mesh, the whole tensors, not copied)."""
+    from torch import nn
+
+    from repro_torch.models.layers import Params
+
+    if isinstance(node, nn.ModuleList):
+        return nn.ModuleList([local_params(b) for b in node])
+    out = Params()
+    for k in node.keys():
+        v = node[k]
+        out[k] = local_params(v) if isinstance(v, nn.Module) \
+            else v.detach().to_local()
+    return out
+
+
+def sharded_step_phase(dev, kernels, smi_line) -> dict:
+    """Phase 4n (b): a real sharded train step and decode step on a
+    one-rank mesh against the plain ones (the module docstring)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch.sharding import (batch_specs_for, cache_specs,
+                                             param_specs)
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+    from repro_torch.models.layers import stacked_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_LAYERS)
+    row = {"phase": "4n-b", "card": smi_line, "arch": LM_ARCH,
+           "n_layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICROBATCHES}
+    child = subprocess.Popen(
+        [sys.executable, "-c", _TRACE_4I, LM_ARCH, str(TRAIN_LAYERS),
+         str(TRAIN_BATCH), str(TRAIN_SEQ), str(TRAIN_MICROBATCHES)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    tcfg = ts_mod.TrainConfig(opt=opt_mod.OptConfig(lr=3e-4, warmup_steps=2,
+                                                    total_steps=8),
+                              microbatches=TRAIN_MICROBATCHES,
+                              compress_grads=True, kv_chunk=1024)
+    host = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                       seed=SEED).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    step = ts_mod.make_train_step(cfg, tcfg)
+
+    def state_bytes(st):
+        return sum(t.numel() * t.element_size()
+                   for _, parts, _ in stacked_leaves(st) for t in parts)
+
+    def leaves(st):
+        return [t for _, parts, _ in stacked_leaves(st) for t in parts]
+
+    # both steps with deterministic algorithms: float index_add_ on the
+    # card (the embedding gradient's row sums) is otherwise free to add
+    # in any order, and the clip norm spreads one bit to every leaf
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    # the plain step; its state kept on the host
+    runtime_flags.set_moe_mesh(None)
+    runtime_flags.set_moe_groups(1)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = ts_mod.init_train_state(lm.init_model(cfg, seed=SEED, device=dev),
+                                    tcfg)
+    row["state_bytes"] = state_bytes(state)
+    row["batch_bytes"] = sum(t.numel() * t.element_size()
+                             for t in batch.values())
+    args_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    row["real_peak_less_args_bytes"] = \
+        torch.cuda.max_memory_allocated() - base - args_bytes
+    plain_launches = {k: kernels[k].launches for k in ("B11", "B12")}
+    plain_loss = m["loss"].clone()
+    plain_state = [t.cpu() for t in leaves(state)]
+    del state, m
+    torch.cuda.empty_cache()
+
+    # the same step on DTensors on a one-rank mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state = ts_mod.init_train_state(
+            lm.init_model(cfg, seed=SEED, device=dev), tcfg)
+        placed = dry._place(mesh, state, param_specs(mesh, state))
+        del state
+        b_placed = dry._place(mesh, batch, batch_specs_for(
+            mesh, batch, batch=TRAIN_BATCH))
+        runtime_flags.set_moe_mesh(mesh, ("data",))
+        for f in kernels.values():
+            f.launches = 0
+        placed, m = step(placed, b_placed)
+        torch.cuda.synchronize()
+        dt_launches = {k: kernels[k].launches for k in ("B11", "B12")}
+        same = [torch.equal(a.to(dev), b.to_local())
+                for a, b in zip(plain_state, leaves(placed))]
+        row["train"] = {"loss_equal": bool(torch.equal(
+            plain_loss, m["loss"].to_local())), "leaves": len(same),
+            "leaves_equal": sum(same), "loss": float(plain_loss)}
+        row["launches"] = {"plain": plain_launches, "dtensor": dt_launches}
+        del plain_state
+        # the plain step's FLOPs, by FlopCounterMode, on the trained
+        # state's tensors (a counted run dispatches otherwise, so it is
+        # not the run held bit for bit above)
+        plain = {k: (local_params(v) if k == "params" else
+                     _local_tree(v)) for k, v in placed.items()}
+        runtime_flags.set_moe_mesh(None)
+        with FlopCounterMode(display=False) as fc:
+            step(plain, batch)
+        row["plain_flops"] = fc.get_total_flops()
+        del plain
+        # one decode step: the trained parameters, served TP-only
+        params = placed["params"]
+        plain_params = local_params(params)
+        cache = lm.init_cache(cfg, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                              device=dev)
+        tokens = batch["tokens"][:, :1].contiguous()
+        with torch.inference_mode():
+            runtime_flags.set_moe_mesh(None)
+            for f in kernels.values():
+                f.launches = 0
+            logits, c_plain = lm.decode_step(plain_params, cache, tokens, cfg)
+            plain_dec = {k: kernels[k].launches for k in ("B11", "B12")}
+        p_placed = dry._place(mesh, plain_params, param_specs(
+            mesh, plain_params, mode="serve"))
+        c_placed = dry._place(mesh, cache, cache_specs(
+            mesh, cache, cfg, batch=TRAIN_BATCH))
+        t_placed = dry._place(mesh, {"t": tokens}, batch_specs_for(
+            mesh, {"t": tokens}, batch=TRAIN_BATCH))["t"]
+        with torch.no_grad():
+            runtime_flags.set_moe_mesh(mesh, ("data",))
+            for f in kernels.values():
+                f.launches = 0
+            logits2, c2 = lm.decode_step(p_placed, c_placed, t_placed, cfg)
+            dt_dec = {k: kernels[k].launches for k in ("B11", "B12")}
+        row["decode"] = {
+            "logits_equal": bool(torch.equal(logits, logits2.to_local())),
+            "cache_equal": all(torch.equal(c_plain[k], c2[k].to_local())
+                               for k in c_plain),
+            "launches": {"plain": plain_dec, "dtensor": dt_dec}}
+    finally:
+        runtime_flags.set_moe_mesh(None)
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    out, err = child.communicate(timeout=PHASE_4NB_LIMIT_S)
+    require(child.returncode == 0, f"phase 4n (b): the fake trace exited "
+            f"{child.returncode}: {err[-3000:]}")
+    traced = json.loads(out.strip().splitlines()[-1])
+    row["traced"] = traced
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    print(f"phase 4n (b): traced argument bytes {traced['argument_bytes']} "
+          f"vs state + batch {row['state_bytes'] + row['batch_bytes']}; "
+          f"traced temp {traced['temp_bytes'] / 2**30:.3f} GiB vs the card's "
+          f"peak less the arguments "
+          f"{row['real_peak_less_args_bytes'] / 2**30:.3f} GiB; traced "
+          f"FLOPs {traced['flops']:.6e} vs FlopCounterMode "
+          f"{row['plain_flops']:.6e}", flush=True)
+    require(row["train"]["loss_equal"] and row["train"]["leaves_equal"]
+            == row["train"]["leaves"], f"phase 4n (b): the DTensor train "
+            f"step differs from the plain one: {row['train']}")
+    require(row["decode"]["logits_equal"] and row["decode"]["cache_equal"],
+            f"phase 4n (b): the DTensor decode differs: {row['decode']}")
+    for what in ("plain", "dtensor"):
+        require(all(v > 0 for v in row["launches"][what].values()),
+                f"phase 4n (b): B12/B11 idle in the {what} step")
+    require(row["launches"]["plain"] == row["launches"]["dtensor"]
+            and plain_dec == dt_dec, f"phase 4n (b): launches differ: "
+            f"{row['launches']}, decode {row['decode']['launches']}")
+    require(traced["argument_bytes"] == row["state_bytes"]
+            + row["batch_bytes"], "phase 4n (b): the traced argument bytes "
+            "are not the real state's and batch's")
+    require(traced["flops"] == row["plain_flops"], "phase 4n (b): the "
+            "traced FLOPs are not FlopCounterMode's count of the plain step")
+    require(row["phase_s"] < PHASE_4NB_LIMIT_S,
+            f"phase 4n (b) took {row['phase_s']:.1f} s")
+    return row
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5718,6 +6135,11 @@ def main() -> None:
     emit({"check": "complex on the card vs the CPU path",
           "max_err_over_tol": complex_checks(dev, sets, rng)})
 
+    # phase 4n (a)'s cells trace on the host's cores from here on
+    # (niced), beside the card-bound phases 4e-4m; the host-bound oracle
+    # and FEM work of phases 4-4d has run
+    sweep = start_dryrun_sweep()
+
     # -- 4e. the policy and analysis layers: priors against the builds,
     #    the sweep, a loaded table, validators, the contract audit -------
     policy_phase(dev, sets, fem, kernels4, refill, smi_line)
@@ -5762,6 +6184,12 @@ def main() -> None:
     #    CPU, the launcher, the times ------------------------------------
     cross_train_launches = cross_training_phase(dev, kernels4, cpm,
                                                 smi_line)
+
+    # -- 4n. the production sharding: the dry run's cells on the fake
+    #    256/512-rank meshes, then a real sharded train and decode step on
+    #    a one-rank mesh against the plain ones, and its trace -----------
+    dryrun_sweep_phase(sweep, smi_line)
+    sharded = sharded_step_phase(dev, kernels4, smi_line)
 
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
@@ -6013,6 +6441,7 @@ def main() -> None:
          "ssm_train_launches": ssm_train_launches[k],
          "cross_serve_launches": cross_serve_launches[k],
          "cross_train_launches": cross_train_launches[k],
+         "sharded_step_launches": sharded["launches"]["dtensor"].get(k, 0),
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],

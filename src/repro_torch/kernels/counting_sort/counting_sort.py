@@ -13,7 +13,11 @@ route in plain PyTorch).
 
 The wrapper takes the plain version (:mod:`.ref`) for a CPU tensor and
 launches the kernel for a CUDA tensor; ``.launches`` counts kernel
-launches only.
+launches only.  Both run inside the custom op
+``torch.ops.repro_torch.placement``, which declares that it may write
+``offsets`` (``consume_offsets=True`` on the card) and whose fake
+implementation states the result's shape and dtype, so that fake
+tensors and DTensor's ``local_map`` trace through it.
 """
 from __future__ import annotations
 
@@ -58,6 +62,13 @@ def placement(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
     counting sort's own temporary), and then the table is left advanced.
     Empty ``keys`` give an empty result with no launch.
     """
+    return torch.ops.repro_torch.placement(keys, offsets, nbins, block_b,
+                                           consume_offsets)
+
+
+@torch.library.custom_op("repro_torch::placement", mutates_args=("offsets",))
+def _placement_op(keys: torch.Tensor, offsets: torch.Tensor, nbins: int,
+                  block_b: int, consume_offsets: bool) -> torch.Tensor:
     if keys.device.type == "cpu":
         return placement_ref(keys, offsets, nbins=nbins, block_b=block_b)
     if keys.ndim == 1 and keys.shape[0] == 0:
@@ -81,6 +92,11 @@ def placement(keys: torch.Tensor, offsets: torch.Tensor, *, nbins: int,
                  "placement")
     placement.launches += 1
     return pos
+
+
+@_placement_op.register_fake
+def _(keys, offsets, nbins, block_b, consume_offsets):
+    return keys.new_empty(keys.shape, dtype=torch.int32)
 
 
 placement.launches = 0

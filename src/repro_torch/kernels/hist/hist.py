@@ -8,7 +8,11 @@ axis to its tile).
 
 The wrapper takes the plain version (:mod:`.ref`) for a CPU tensor and
 launches the kernel for a CUDA tensor; ``.launches`` counts kernel
-launches only.
+launches only.  Both run inside the custom op
+``torch.ops.repro_torch.block_histogram``, whose fake implementation
+states the result's shape and dtype: fake tensors (the dry run,
+``launch/dryrun.py``) and DTensor's ``local_map`` trace through it
+without data.
 """
 from __future__ import annotations
 
@@ -53,6 +57,12 @@ def block_histogram(keys: torch.Tensor, *, nbins: int,
                     block_b: int) -> torch.Tensor:
     """B12: ``int32[nblocks, nbins]`` histogram of each block of
     ``block_b`` keys; keys outside ``[0, nbins)`` count nowhere."""
+    return torch.ops.repro_torch.block_histogram(keys, nbins, block_b)
+
+
+@torch.library.custom_op("repro_torch::block_histogram", mutates_args=())
+def _block_histogram_op(keys: torch.Tensor, nbins: int,
+                        block_b: int) -> torch.Tensor:
     if keys.device.type == "cpu":
         return block_histogram_ref(keys, nbins=nbins, block_b=block_b)
     L = check_keys(keys, nbins, block_b)
@@ -66,6 +76,12 @@ def block_histogram(keys: torch.Tensor, *, nbins: int,
                              current_stream(keys.device)), "block_histogram")
     block_histogram.launches += 1
     return hist
+
+
+@_block_histogram_op.register_fake
+def _(keys, nbins, block_b):
+    return keys.new_empty((cdiv(keys.shape[0], block_b), nbins),
+                          dtype=torch.int32)
 
 
 block_histogram.launches = 0

@@ -2,9 +2,17 @@
 
 Counterpart of ``repro/launch/mesh.py``: ``make_data_mesh`` (the
 sharded assembly), ``make_host_mesh`` with ``batch_axes``, ``tp_size``
-and ``dp_size`` (the serving launcher and the MoE mesh dispatch).
-``make_production_mesh`` (a pod of many cards) waits for a machine that
-has them (ROADMAP queue A, item 14).
+and ``dp_size`` (the serving launcher and the MoE mesh dispatch), and
+``make_production_mesh``: the 16 x 16 pod (``("data", "model")``) or
+the 2 x 16 x 16 pair of pods (``("pod", "data", "model")``) as a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`
+over a default process group of 256 or 512 ranks.  The dry run
+(``launch/dryrun.py``) makes that group on the ``"fake"`` backend, so
+that the mesh needs no cards; importing this module makes no group and
+no mesh.  :func:`axis_size` reads an axis's size from any of the three
+kinds of mesh the rules meet: this module's :class:`Mesh`, a
+``DeviceMesh`` and a duck-typed mesh with a ``shape`` dict and
+``axis_names``.
 
 A :class:`Mesh` names its axes, their sizes and the device of every
 shard.  The port keeps a mesh's shards as the leading axis of every
@@ -124,17 +132,64 @@ def make_host_mesh(*, data: int | None = None, model: int = 1,
     return Mesh(("data", "model"), (data, model), (dev,) * (data * model))
 
 
-def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+#: the production meshes' shapes and axes, single pod and two pods
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production ``DeviceMesh``: 16 x 16 over ``("data", "model")``,
+    or 2 x 16 x 16 over ``("pod", "data", "model")`` with ``multi_pod``.
+
+    It needs a default process group of exactly 256 or 512 ranks (the
+    dry run's ``"fake"`` group), as the reference's ``jax.make_mesh``
+    needs that many devices.  The mesh's device type is ``"cuda"``
+    unless the caller asks for ``device="cpu"``.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise RuntimeError(
+            f"make_production_mesh(multi_pod={bool(multi_pod)}) needs a "
+            f"default process group of exactly {need} ranks, got "
+            f"{'none' if have is None else have}")
+    kind = "cuda" if device is None else torch.device(device).type
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
+
+
+def axis_names(mesh) -> tuple[str, ...]:
+    """A mesh's axis names: ``mesh_dim_names`` of a ``DeviceMesh``,
+    ``axis_names`` of any other."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(mesh.axis_names if names is None else names)
+
+
+def axis_size(mesh, axis) -> int:
+    """The number of shards along ``axis`` (a name, or a tuple of names:
+    their product; the empty tuple gives 1), on a :class:`Mesh` or a
+    duck-typed mesh (``shape`` a dict) or a ``DeviceMesh`` (``shape`` a
+    tuple in the order of ``mesh_dim_names``)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    shape = mesh.shape
+    if not isinstance(shape, dict):
+        shape = dict(zip(axis_names(mesh), shape))
+    return math.prod(shape[a] for a in axes)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
     """The mesh axes that carry data parallelism."""
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
 
 
-def tp_size(mesh: Mesh) -> int:
-    return mesh.shape["model"]
+def tp_size(mesh) -> int:
+    return axis_size(mesh, "model")
 
 
-def dp_size(mesh: Mesh) -> int:
-    n = mesh.shape["data"]
-    if "pod" in mesh.axis_names:
-        n *= mesh.shape["pod"]
-    return n
+def dp_size(mesh) -> int:
+    return axis_size(mesh, batch_axes(mesh))

@@ -24,9 +24,9 @@ The model and its state live whole on one device: the card unless
     launcher feeds the model ``SyntheticLM``'s tokens and labels only,
     and cannot train these families: ROADMAP queue C, C4).
 
-The reference's parameter partition rules (``launch/sharding.py``) are
-not ported (ROADMAP queue A, item 15, step 4): ``--tp`` other than 1 is
-refused.
+``--tp`` above 1 is refused: tensor parallelism needs several cards,
+and the state lives whole on one device (the parameter partition rules,
+``launch/sharding.py``, place it on a ``DeviceMesh`` for the dry run).
 """
 from __future__ import annotations
 
@@ -87,9 +87,11 @@ def main(argv=None):
 
     if args.tp != 1:
         raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel parameter sharding "
-            "(launch/sharding.py) is not ported yet (ROADMAP queue A, item "
-            "15, step 4); the state lives whole on one device")
+            f"--tp {args.tp}: tensor parallelism above 1 needs several "
+            "cards (the reference's make_host_mesh(data=1, model=2) fails "
+            "on one device as well); the state lives whole on one device, "
+            "and the sharding rules of ROADMAP queue A, item 15, step 4 "
+            "place it only for the dry run")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

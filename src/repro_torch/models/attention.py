@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params, _dense_init, apply_rope, init_rmsnorm, rmsnorm
+from .shards import mesh_of, moved, on_shards, replicate, shard_start, \
+    split_last, split_work
 
 NEG_INF = -1e30
 
@@ -41,19 +43,17 @@ def init_attention(gen: torch.Generator, cfg, *, cross: bool = False):
 
 
 def _project_q(params, x, cfg):
-    B, S, _ = x.shape
     Dh = cfg.resolved_head_dim
-    q = torch.matmul(x, params["q_in"]).reshape(B, S, cfg.n_heads, Dh)
+    q = split_last(torch.matmul(x, params["q_in"]), cfg.n_heads, Dh)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
     return q
 
 
 def _project_kv(params, x, cfg):
-    B, S, _ = x.shape
     Dh = cfg.resolved_head_dim
-    k = torch.matmul(x, params["k_in"]).reshape(B, S, cfg.n_kv_heads, Dh)
-    v = torch.matmul(x, params["v_in"]).reshape(B, S, cfg.n_kv_heads, Dh)
+    k = split_last(torch.matmul(x, params["k_in"]), cfg.n_kv_heads, Dh)
+    v = split_last(torch.matmul(x, params["v_in"]), cfg.n_kv_heads, Dh)
     if "k_norm" in params:
         k = rmsnorm(params["k_norm"], k)
     return k, v
@@ -146,6 +146,51 @@ def decode_attention(q, k_cache, v_cache):
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
+def _write_slot_(cache, slot, new):
+    """``cache[:, slot] = new`` in place (``cache`` ``[B, S, ...]``,
+    ``slot`` ``[1]``).  For a DTensor cache whose sequence is sharded,
+    each rank writes its own shard: the new row where the slot falls in
+    its range, the row it holds back where not."""
+    mesh = mesh_of(cache)
+    if mesh is None:
+        cache.index_copy_(1, slot, new)
+        return
+    pl = tuple(cache.placements)
+    start = shard_start(cache.shape, mesh, pl, 1)
+
+    def local(c, s, n):
+        rel = s - start
+        at = rel.clamp(0, c.shape[1] - 1)
+        inside = ((rel >= 0) & (rel < c.shape[1])).reshape(
+            1, 1, *(1,) * (c.ndim - 2))
+        c.index_copy_(1, at, torch.where(inside, n, c.index_select(1, at)))
+        return c
+
+    on_shards(local, mesh, (pl, replicate(mesh), moved(pl, {0: 0, 2: 2})),
+              pl)(cache, slot, new)
+
+
+def _decode_window(q, k_cache, v_cache, *, window: int):
+    """:func:`decode_attention` over the cache's last ``window`` slots
+    (all of them for 0), as the reference takes them."""
+    if window > 0:
+        S = k_cache.shape[1]
+        k_cache, v_cache = k_cache[:, S - window:], v_cache[:, S - window:]
+    return decode_attention(q, k_cache, v_cache)
+
+
+def _on_local_heads(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``; for DTensors, on each rank's own batch rows
+    and heads (:func:`~.shards.split_work`; heads split only where the KV
+    heads split with them)."""
+    mesh = mesh_of(q, k)
+    if mesh is None:
+        return fn(q, k, v, **kw)
+    pl = split_work(q, (0, 2), {2: k.shape[2]})
+    return on_shards(lambda a, b, c: fn(a, b, c, **kw), mesh, (pl, pl, pl),
+                     pl)(q, k, v)
+
+
 # ---------------------------------------------------------------------------
 # Block-level entry points
 # ---------------------------------------------------------------------------
@@ -159,8 +204,8 @@ def self_attention(params, x, cfg, *, positions, causal=True, window=0,
     k, v = _project_kv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          kv_chunk=kv_chunk)
+    o = _on_local_heads(chunked_attention, q, k, v, causal=causal,
+                        window=window, kv_chunk=kv_chunk)
     return _out_proj(params, o, *x.shape[:2])
 
 
@@ -168,7 +213,8 @@ def cross_attention(params, x, kv_src, cfg, *, kv_chunk=1024):
     """x attends to encoder/vision states (no mask, no RoPE on kv)."""
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, kv_src, cfg)
-    o = chunked_attention(q, k, v, causal=False, window=0, kv_chunk=kv_chunk)
+    o = _on_local_heads(chunked_attention, q, k, v, causal=False, window=0,
+                        kv_chunk=kv_chunk)
     return _out_proj(params, o, *x.shape[:2])
 
 
@@ -184,16 +230,12 @@ def _attend_decode_into(params, x, cache_k, cache_v, cfg, *, position,
     k_new = apply_rope(k_new, pos, cfg.rope_theta)
     S = cache_k.shape[1]
     slot = (pos[:1, 0] % S).long()
-    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
-    if window > 0:
-        if window > S:
-            raise ValueError(f"a window of {window} positions needs a cache "
-                             f"of at least as many, got {S}")
-        k_att, v_att = cache_k[:, S - window:], cache_v[:, S - window:]
-    else:
-        k_att, v_att = cache_k, cache_v
-    o = decode_attention(q, k_att, v_att)
+    _write_slot_(cache_k, slot, k_new.to(cache_k.dtype))
+    _write_slot_(cache_v, slot, v_new.to(cache_v.dtype))
+    if window > S:
+        raise ValueError(f"a window of {window} positions needs a cache "
+                         f"of at least as many, got {S}")
+    o = _on_local_heads(_decode_window, q, cache_k, cache_v, window=window)
     return _out_proj(params, o, x.shape[0], 1)
 
 
@@ -224,5 +266,5 @@ def apply_rope_kv_for_cache(params, x_normed, cfg, positions):
 def cross_attention_decode(params, x, cache_k, cache_v, cfg):
     """Decode-side cross-attention over a precomputed source KV cache."""
     q = _project_q(params, x, cfg)
-    o = decode_attention(q, cache_k, cache_v)
+    o = _on_local_heads(decode_attention, q, cache_k, cache_v)
     return _out_proj(params, o, x.shape[0], 1)

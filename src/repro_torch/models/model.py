@@ -36,6 +36,12 @@ aux loss.
 :func:`forward` and :func:`prefill` do; the reference's decode applies it
 before the MLP and so departs from its own forward (ROADMAP queue C,
 C5).
+
+The entry points also run on DTensors placed on a ``DeviceMesh`` (the dry
+run, ``launch/dryrun.py``): plain tensors the model makes (positions,
+masks) join them as replicated, :func:`prefill` places its cache by the
+cache rules, and the functions DTensor cannot propagate run on each
+rank's shards (``models/shards.py``).
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ from .layers import (
     unembed,
 )
 from .moe import init_moe, moe_ffn
+from .shards import gold_logits, replicating
 from .ssm import init_mamba, mamba_decode, mamba_forward
 from . import runtime_flags
 
@@ -439,6 +446,11 @@ def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
     """batch: {"tokens": [B,S]} (+ ``src_embeds`` [B,S_src,D] for
     ``encdec``, ``vision_embeds`` [B,V,D] for ``vlm``). Returns (logits,
     aux)."""
+    with replicating(batch["tokens"]):
+        return _forward(params, batch, cfg, kv_chunk=kv_chunk)
+
+
+def _forward(params, batch, cfg, *, kv_chunk):
     tokens = batch["tokens"]
     positions = _positions(tokens)
     x = embed(params["embed"], tokens)
@@ -468,6 +480,11 @@ def forward(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
 def loss_fn(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
     """Next-token cross-entropy (+ MoE aux), in float32 logits; padded
     vocabulary slots are masked, labels below 0 are ignored."""
+    with replicating(batch["tokens"]):
+        return _loss(params, batch, cfg, kv_chunk=kv_chunk)
+
+
+def _loss(params, batch, cfg, *, kv_chunk):
     logits, aux = forward(params, batch, cfg, kv_chunk=kv_chunk)
     labels = batch["labels"].long()
     lf = logits.to(torch.float32)
@@ -477,7 +494,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024):
         lf = lf.masked_fill(pad_mask, -1e30)
     lse = torch.logsumexp(lf, dim=-1)
     # an ignored label reads slot 0; its term is masked out below
-    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    gold = gold_logits(lf, labels.clamp(min=0))
     mask = (labels >= 0).to(torch.float32)
     ce = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
                                                       min=1.0)
@@ -533,6 +550,27 @@ def init_cache(cfg: ModelConfig, *, batch: int, seq_len: int, device=None):
     return cache
 
 
+def _prefill_cache(cfg: ModelConfig, tokens, seq_len: int) -> dict:
+    """The zero cache :func:`prefill` fills: on ``tokens``' device, or,
+    for a DTensor batch, DTensors on its mesh placed by the cache rules
+    (``launch/sharding.py`` ``cache_specs``), each rank allocating only
+    its own shards, where the reference's jitted prefill places its
+    cache by ``out_shardings``."""
+    B = tokens.shape[0]
+    mesh = getattr(tokens, "device_mesh", None)
+    if mesh is None:
+        return init_cache(cfg, batch=B, seq_len=seq_len, device=tokens.device)
+    from torch.distributed.tensor import zeros
+
+    from ..launch.sharding import cache_specs, placements
+
+    tpl = init_cache(cfg, batch=B, seq_len=seq_len, device="meta")
+    specs = cache_specs(mesh, tpl, cfg, batch=B)
+    return {k: zeros(v.shape, dtype=v.dtype, device_mesh=mesh,
+                     placements=placements(mesh, specs[k], v.shape))
+            for k, v in tpl.items()}
+
+
 def _ring_write(cache_layer, new, pos):
     """Write [B,1,...] ``new`` at ring position pos % S."""
     S = cache_layer.shape[1]
@@ -557,8 +595,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     follows its MLP, as in :func:`forward` (the reference's decode puts
     it before the MLP: ROADMAP queue C, C5).
     """
-    if cfg.family in ("ssm", "hybrid"):
-        return _ssm_decode_step(params, cache, tokens, cfg)
+    with replicating(tokens):
+        if cfg.family in ("ssm", "hybrid"):
+            return _ssm_decode_step(params, cache, tokens, cfg)
+        return _decode_step(params, cache, tokens, cfg)
+
+
+def _decode_step(params, cache, tokens, cfg):
     pos = cache["pos"]
     x = embed(params["embed"], tokens)
     k_all, v_all = cache["k"].clone(), cache["v"].clone()
@@ -631,13 +674,18 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
     the ring-buffer capacity so the next ``extra_cache`` decode steps
     append without evicting (decode ring-writes at ``pos % capacity``).
     """
+    with replicating(batch["tokens"]):
+        return _prefill(params, batch, cfg, kv_chunk=kv_chunk,
+                        extra_cache=extra_cache)
+
+
+def _prefill(params, batch, cfg, *, kv_chunk, extra_cache):
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = _positions(tokens)
     x = embed(params["embed"], tokens)
     kvd = kv_cache_dtype(cfg)
-    cache = init_cache(cfg, batch=B, seq_len=S + extra_cache,
-                       device=tokens.device)
+    cache = _prefill_cache(cfg, tokens, S + extra_cache)
     if "ck" in cache:  # each cross block's K/V of its source, once
         src = _cross_source(params, batch, cfg, kv_chunk=kv_chunk)
         kvs = [_project_kv(cp["attn"], src, cfg)

@@ -31,8 +31,10 @@ import torch.nn.functional as F
 from ..kernels.counting_sort.counting_sort import placement
 from ..kernels.hist.ops import block_offsets, default_block_b
 from ..sparse.ops import scatter_rows
+from ..launch.mesh import Mesh, axis_size
 from . import runtime_flags
 from .layers import Params, torch_dtype
+from .shards import mesh_of, on_shards, replicate
 
 
 def init_moe(gen: torch.Generator, cfg):
@@ -102,17 +104,14 @@ def _capacity(cfg, tokens: int) -> int:
     return -(-C // 8) * 8
 
 
-def _moe_groups(params, x, cfg, G: int, C: int):
-    """Router, dispatch, experts and combine over G token groups.
-
-    Returns ``(y [G, TG, D] float32, load [G, E], probs [G, TG, E])``.
-    """
-    B, S, D = x.shape
+def _route(router, xt, cfg, G: int, C: int):
+    """Router, top-k and dispatch of ``G`` groups of tokens ``xt [G, TG,
+    D]``: ``(xs [G, E, C, D], slot [G, TG*K], gate_vals [G, TG, K],
+    load [G, E], probs [G, TG, E])``."""
+    G, TG, D = xt.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
-    TG = B * S // G
-    dev = x.device
-    xt = x.reshape(G, TG, D)
-    logits = torch.matmul(xt.to(torch.float32), params["router"])
+    dev = xt.device
+    logits = torch.matmul(xt.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, experts = torch.topk(probs, K, dim=-1)          # [G, TG, K]
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
@@ -127,20 +126,40 @@ def _moe_groups(params, x, cfg, G: int, C: int):
         G, dtype=torch.int32, device=dev)[:, None])
     xs = scatter_rows(flat.reshape(-1), xt[:, token_of].reshape(-1, D),
                       num_slots=G * E * C).reshape(G, E, C, D)
+    return xs, slot, gate_vals, load, probs
 
-    # expert FFN (SwiGLU)
+
+def _experts(params, xs):
+    """The expert FFN (SwiGLU) over ``xs [G, E, C, D]``."""
     g = torch.einsum("gecd,edf->gecf", xs, params["gate_ein"])
     u = torch.einsum("gecd,edf->gecf", xs, params["up_ein"])
-    out = torch.einsum("gecf,efd->gecd", F.silu(g) * u, params["down_eout"])
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, params["down_eout"])
 
-    # combine: gather each (t, k)'s slot, weighted sum (no scatter)
+
+def _combine(out, slot, gate_vals, C: int):
+    """Gather each (t, k)'s slot of ``out [G, E, C, D]`` and sum the
+    choices by their gates: ``[G, TG, D]`` float32 (no scatter)."""
+    G, E, _, D = out.shape
+    TG, K = gate_vals.shape[1:]
+    dropped = slot >= E * C
     out_flat = out.reshape(G * E * C, D)
     safe = torch.where(dropped, 0, slot) + E * C * torch.arange(
-        G, dtype=torch.int32, device=dev)[:, None]
+        G, dtype=torch.int32, device=out.device)[:, None]
     y_tk = out_flat[safe.reshape(-1)].reshape(G, TG, K, D)
     gates = torch.where(dropped.reshape(G, TG, K), 0.0, gate_vals)
-    y = torch.einsum("gtkd,gtk->gtd", y_tk.to(torch.float32),
-                     gates.to(torch.float32))
+    return torch.einsum("gtkd,gtk->gtd", y_tk.to(torch.float32),
+                        gates.to(torch.float32))
+
+
+def _moe_groups(params, x, cfg, G: int, C: int):
+    """Router, dispatch, experts and combine over G token groups.
+
+    Returns ``(y [G, TG, D] float32, load [G, E], probs [G, TG, E])``.
+    """
+    B, S, D = x.shape
+    xs, slot, gate_vals, load, probs = _route(
+        params["router"], x.reshape(G, B * S // G, D), cfg, G, C)
+    y = _combine(_experts(params, xs), slot, gate_vals, C)
     return y, load, probs
 
 
@@ -159,16 +178,19 @@ def moe_ffn(params, x, cfg):
     With ``runtime_flags.MOE_GROUPS = G`` the dispatch runs per token
     group: each group has its own stable order and capacity.  A mesh set
     by ``runtime_flags.set_moe_mesh`` routes through
-    :func:`moe_ffn_shardmap` when its data size divides B.
+    :func:`moe_ffn_shardmap` when its data size divides B.  A DTensor
+    ``x`` with no mesh set runs the dispatch whole on every rank
+    (:func:`_moe_on_device_mesh` over no batch axes).
     """
     B, S, D = x.shape
     T = B * S
     mm = runtime_flags.moe_mesh()
     if mm is not None:
         mesh, dp_axes = mm
-        dp = math.prod(mesh.shape[a] for a in dp_axes)
-        if B % dp == 0:
+        if B % axis_size(mesh, dp_axes) == 0:
             return moe_ffn_shardmap(params, x, cfg, mesh, dp_axes)
+    if mesh_of(x) is not None:
+        return _moe_on_device_mesh(params, x, cfg, mesh_of(x), ())
     G = runtime_flags.moe_groups()
     if T % G or B % G:
         G = 1
@@ -184,14 +206,18 @@ def moe_ffn_decode(params, x, cfg):
 
 
 def moe_ffn_shardmap(params, x, cfg, mesh, dp_axes):
-    """The reference's ``shard_map`` dispatch on the port's mesh.
+    """The reference's ``shard_map`` dispatch.
 
-    The port's shards of a mesh share one device, so the per-shard
-    dispatch is the group path with one group per data shard
-    (``dp = prod(mesh.shape[a] for a in dp_axes)``, capacity from the
-    shard's tokens); the probabilities' mean is taken as the reference
-    takes it, the shards' sums over ``dp * T_loc``.
+    On the port's own :class:`~repro_torch.launch.mesh.Mesh` the shards
+    share one device, so the per-shard dispatch is the group path with
+    one group per data shard (``dp = prod(mesh.shape[a] for a in
+    dp_axes)``, capacity from the shard's tokens); the probabilities'
+    mean is taken as the reference takes it, the shards' sums over ``dp
+    * T_loc``.  On a ``torch.distributed`` ``DeviceMesh`` it is
+    :func:`_moe_on_device_mesh`.
     """
+    if not isinstance(mesh, Mesh):
+        return _moe_on_device_mesh(params, x, cfg, mesh, dp_axes)
     B, S, D = x.shape
     dp = math.prod(mesh.shape[a] for a in dp_axes)
     T_loc = (B // dp) * S
@@ -199,3 +225,46 @@ def moe_ffn_shardmap(params, x, cfg, mesh, dp_axes):
     frac_probs = torch.sum(torch.sum(probs, dim=1), dim=0) / (dp * T_loc)
     aux = _aux_loss(load, frac_probs, cfg)
     return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def _moe_on_device_mesh(params, x, cfg, mesh, dp_axes):
+    """The dispatch and the combine on each rank's own tokens
+    (``local_map`` over the batch axes ``dp_axes``, as the reference's
+    ``shard_map``): B12 and B11 sort the rank's keys, one group per data
+    shard.  The expert einsums run on DTensors, the experts on their
+    ``model`` shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    B, S, D = x.shape
+    dp = axis_size(mesh, dp_axes)
+    C = _capacity(cfg, (B // dp) * S)
+    bat = tuple(Shard(0) if a in dp_axes else Replicate()
+                for a in mesh.mesh_dim_names)
+
+    def dispatch(router, xb):
+        return _route(router, xb.reshape(1, -1, D), cfg, 1, C)
+
+    xs, slot, gate_vals, load, probs = on_shards(
+        dispatch, mesh, (replicate(mesh), bat), (bat,) * 5)(
+            params["router"], x)
+
+    def combine(out, s, g):
+        return _combine(out, s, g, C).reshape(-1, S, D).to(x.dtype)
+
+    # expert parallel: each rank runs its groups' tokens through its own
+    # experts (the weights gathered whole over any other axis)
+    E = cfg.moe.n_experts
+    ep = tuple(Shard(1) if a == "model" and E % mesh.size(m) == 0 else p
+               for m, (a, p) in enumerate(zip(mesh.mesh_dim_names, bat)))
+    w = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 1
+              else Replicate() for p in ep)
+    out = on_shards(_experts_local, mesh, (ep, w, w, w), ep)(
+        xs, params["gate_ein"], params["up_ein"], params["down_eout"])
+
+    y = on_shards(combine, mesh, (bat, bat, bat), bat)(out, slot, gate_vals)
+    return y, _aux_loss(load, torch.mean(probs, dim=(0, 1)), cfg)
+
+
+def _experts_local(xs, gate_ein, up_ein, down_eout):
+    return _experts({"gate_ein": gate_ein, "up_ein": up_ein,
+                     "down_eout": down_eout}, xs)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Params, _dense_init, rmsnorm, torch_dtype
+from .shards import mesh_of, moved, on_shards, split_work
 
 
 def _linspace(start: float, stop: float, num: int, device) -> torch.Tensor:
@@ -86,7 +87,7 @@ def _causal_conv(xBC, w, b):
     W = w.shape[0]
     S = xBC.shape[1]
     pad = F.pad(xBC, (0, 0, W - 1, 0))
-    out = torch.zeros(xBC.shape, dtype=torch.float32, device=xBC.device)
+    out = torch.zeros_like(xBC, dtype=torch.float32)
     for i in range(W):
         out = out + pad[:, i:i + S, :].to(torch.float32) \
             * w[i].to(torch.float32)
@@ -160,6 +161,76 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk: int):
     return y, h
 
 
+def _ssd(xh, dt, A, Bm, Cm, *, chunk: int):
+    """:func:`ssd_chunked`; for DTensors, on each rank's own batch rows
+    and heads (:func:`~.shards.split_work`).  Heads split only where the
+    B/C groups split with them, or where there is one group (then the
+    groups are replicated)."""
+    mesh = mesh_of(xh)
+    if mesh is None:
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk=chunk)
+    G = Bm.shape[2]
+    x_pl = split_work(xh, (0, 2), {2: xh.shape[2] if G == 1 else G})
+    g_pl = x_pl if G > 1 else moved(x_pl, {0: 0})
+    return on_shards(
+        lambda *a: ssd_chunked(*a, chunk=chunk), mesh,
+        (x_pl, moved(x_pl, {0: 0, 2: 2}), moved(x_pl, {2: 0}), g_pl, g_pl),
+        (x_pl, moved(x_pl, {0: 0, 2: 1})))(xh, dt, A, Bm, Cm)
+
+
+def _conv(xBC, w, b):
+    """:func:`_causal_conv`; for DTensors, on each rank's own batch rows
+    and channels (the conv is depthwise)."""
+    mesh = mesh_of(xBC)
+    if mesh is None:
+        return _causal_conv(xBC, w, b)
+    pl = split_work(xBC, (0, 2))
+    return on_shards(_causal_conv, mesh,
+                     (pl, moved(pl, {2: 1}), moved(pl, {2: 0})), pl)(
+                         xBC, w, b)
+
+
+def _on_channels(fn, window, w, b):
+    """``fn(window, w, b)`` of the decode conv; for DTensors, on each
+    rank's own batch rows and channels: ``[B, ch]`` out."""
+    mesh = mesh_of(window)
+    if mesh is None:
+        return fn(window, w, b)
+    pl = split_work(window, (0, 2))
+    return on_shards(fn, mesh, (pl, moved(pl, {2: 1}), moved(pl, {2: 0})),
+                     moved(pl, {0: 0, 2: 1}))(window, w, b)
+
+
+def _conv_step(window, w, b):
+    """One step of the depthwise conv: ``window [B, W, ch]`` against
+    ``w [W, ch]`` plus ``b``, float32, before the silu."""
+    return torch.einsum("bwc,wc->bc", window.to(torch.float32),
+                        w.to(torch.float32)) + b.to(torch.float32)
+
+
+def _recurrent_update(dt, A, xh, Bv, Cv, state, d_skip):
+    """One step of the SSM recurrence over ``[B, H, ...]`` heads:
+    ``(y [B, H, P] float32, new state [B, H, N, P])``."""
+    decay = torch.exp(dt * A[None, :])                      # [B,H]
+    contrib = torch.einsum("bhN,bhp->bhNp", Bv, xh * dt[..., None])
+    h_new = state * decay[..., None, None] + contrib
+    y = torch.einsum("bhN,bhNp->bhp", Cv, h_new)
+    return y + d_skip[None, :, None] * xh, h_new
+
+
+def _recurrent(dt, A, xh, Bv, Cv, state, d_skip):
+    """:func:`_recurrent_update`; for DTensors, on each rank's own batch
+    rows and heads."""
+    mesh = mesh_of(state, xh)
+    if mesh is None:
+        return _recurrent_update(dt, A, xh, Bv, Cv, state, d_skip)
+    s_pl = split_work(state, (0, 1))
+    bh = moved(s_pl, {0: 0, 1: 1})
+    h = moved(s_pl, {1: 0})
+    return on_shards(_recurrent_update, mesh, (bh, h, bh, bh, bh, s_pl, h),
+                     (bh, s_pl))(dt, A, xh, Bv, Cv, state, d_skip)
+
+
 def mamba_forward(params, x, cfg, *, return_state: bool = False):
     """Full-sequence Mamba2 block. x: [B, S, D] -> [B, S, D].
 
@@ -177,7 +248,7 @@ def mamba_forward(params, x, cfg, *, return_state: bool = False):
     proj = torch.matmul(x, params["in_proj_in"])
     z, xc, Bm, Cm, dt = _split_proj(cfg, proj)
     xBC_raw = torch.cat([xc, Bm, Cm], dim=-1)
-    xBC = _causal_conv(xBC_raw, params["conv_w"], params["conv_b"])
+    xBC = _conv(xBC_raw, params["conv_w"], params["conv_b"])
     xc, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
 
     # jax.nn.softplus is logaddexp(x, 0); torch's returns x past its
@@ -188,7 +259,7 @@ def mamba_forward(params, x, cfg, *, return_state: bool = False):
     Bm = Bm.reshape(Bsz, S, G, N)
     Cm = Cm.reshape(Bsz, S, G, N)
 
-    y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, chunk=s.chunk)
+    y, h_final = _ssd(xh, dt, A, Bm, Cm, chunk=s.chunk)
     y = y + params["d_skip"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(Bsz, S, di).to(x.dtype)
     y = rmsnorm(params["gnorm"], y * F.silu(z))
@@ -220,10 +291,8 @@ def mamba_decode(params, x, ssm_state, conv_state, cfg):
     xBC_new = torch.cat([xc, Bm, Cm], dim=-1)               # [B, 1, ch]
     # promoted as jnp.concatenate promotes
     window = torch.cat([conv_state, xBC_new], dim=1)        # [B, W, ch]
-    conv_out = torch.einsum(
-        "bwc,wc->bc", window.to(torch.float32),
-        params["conv_w"].to(torch.float32),
-    ) + params["conv_b"].to(torch.float32)
+    conv_out = _on_channels(_conv_step, window, params["conv_w"],
+                            params["conv_b"])
     xBC = F.silu(conv_out)[:, None, :].to(x.dtype)
     xc, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
 
@@ -235,11 +304,7 @@ def mamba_decode(params, x, ssm_state, conv_state, cfg):
     Cv = torch.repeat_interleave(Cm.reshape(Bsz, G, N), H // G,
                                  dim=1).to(torch.float32)
 
-    decay = torch.exp(dt * A[None, :])                      # [B,H]
-    contrib = torch.einsum("bhN,bhp->bhNp", Bv, xh * dt[..., None])
-    h_new = ssm_state * decay[..., None, None] + contrib
-    y = torch.einsum("bhN,bhNp->bhp", Cv, h_new)
-    y = y + params["d_skip"][None, :, None] * xh
+    y, h_new = _recurrent(dt, A, xh, Bv, Cv, ssm_state, params["d_skip"])
     y = y.reshape(Bsz, 1, di).to(x.dtype)
     y = rmsnorm(params["gnorm"], y * F.silu(z))
     out = torch.matmul(y, params["out_proj_out"])

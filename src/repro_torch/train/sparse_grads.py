@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.counting_sort.ops import counting_sort
+from ..models.shards import (keep_shards, mesh_of, moved, on_shards,
+                             partial_over, vocab_lookup)
 from ..sparse.ops import scatter_rows
 from ..sparse.pattern import pattern_from_perm
 
@@ -39,17 +41,31 @@ def embed_grad(tokens: torch.Tensor, g: torch.Tensor, *, vocab: int,
     return scatter_rows(pat.indices, summed, num_slots=vocab).to(dtype)
 
 
+def _sharded_embed_grad(tokens, g, *, vocab: int, dtype: torch.dtype):
+    """:func:`embed_grad` of DTensors: each rank assembles the whole
+    ``[vocab, D]`` gradient of its own tokens (B12/B11 on its local
+    keys, under ``local_map``); the result is a partial sum over the mesh
+    dims that shard the tokens, replicated over the others."""
+    t_pl = keep_shards(tokens, (0,))
+    g_pl = moved(t_pl, {0: 0})
+    return on_shards(
+        lambda t, x: embed_grad(t, x, vocab=vocab, dtype=dtype),
+        mesh_of(tokens), (t_pl, g_pl), partial_over(t_pl))(tokens, g)
+
+
 class _SparseGradEmbed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, tokens):
         ctx.save_for_backward(tokens)
         ctx.vocab, ctx.dtype = table.shape[0], table.dtype
-        return table[tokens]
+        return vocab_lookup(table, tokens)
 
     @staticmethod
     def backward(ctx, g):
         (tokens,) = ctx.saved_tensors
-        return embed_grad(tokens, g, vocab=ctx.vocab, dtype=ctx.dtype), None
+        grad = _sharded_embed_grad if mesh_of(tokens) is not None \
+            else embed_grad
+        return grad(tokens, g, vocab=ctx.vocab, dtype=ctx.dtype), None
 
 
 def sparse_grad_embed(table: torch.Tensor, tokens: torch.Tensor

@@ -20,6 +20,7 @@ step to keep it.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -31,6 +32,7 @@ from ..models.layers import Params, stacked_leaves, tree_leaves, tree_map, \
 from ..models.model import (_STACKED, _leaf_to_numpy, _leaf_to_torch,
                             _stack_len, loss_fn, params_from_numpy,
                             params_to_numpy)
+from ..models.shards import mesh_of, placed_like, replicating
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
@@ -122,12 +124,69 @@ def train_state_to_numpy(state: dict) -> dict:
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
+def _spread_rows(x, n: int):
+    """``x`` (a DTensor with rows split on some mesh dims) laid out so
+    that each of ``n`` microbatches can spread over its row shards: the
+    largest set of those mesh dims whose shards divide ``B / n`` keeps
+    them, the others are gathered (each microbatch repeated on them).
+    Returns ``(x, shards)``; a plain tensor is ``(x, 1)``."""
+    from itertools import combinations
+
+    from torch.distributed.tensor import Replicate
+
+    from ..models.shards import mesh_of
+
+    mesh = mesh_of(x)
+    if mesh is None:
+        return x, 1
+    rows = [m for m, p in enumerate(x.placements)
+            if getattr(p, "dim", None) == 0]
+    per_mb = x.shape[0] // n
+    keep = max((c for k in range(len(rows) + 1)
+                for c in combinations(rows, k)
+                if per_mb % math.prod(mesh.size(m) for m in c) == 0),
+               key=lambda c: math.prod(mesh.size(m) for m in c))
+    if len(keep) < len(rows):
+        x = x.redistribute(placements=[
+            Replicate() if m in rows and m not in keep else p
+            for m, p in enumerate(x.placements)])
+    return x, math.prod(mesh.size(m) for m in keep)
+
+
 def _split_microbatches(batch, n: int):
-    """[B, ...] -> [n, B//n, ...] for every leaf."""
+    """[B, ...] -> [n, B//n, ...] for every leaf.  A DTensor whose rows
+    are split over ``dp`` shards is split shard by shard: microbatch
+    ``i`` takes the ``i``-th ``1/n`` of every shard's rows, so that every
+    rank keeps its share of each microbatch (:func:`_spread_rows` first
+    gathers the row shards a microbatch is too short to spread over)."""
     def f(x):
-        B = x.shape[0]
-        return x.reshape(n, B // n, *x.shape[1:])
+        B, rest = x.shape[0], x.shape[1:]
+        x, dp = _spread_rows(x, n)
+        if dp == 1:
+            return x.reshape(n, B // n, *rest)
+        return x.reshape(dp, n, B // (dp * n), *rest).transpose(0, 1) \
+            .reshape(n, B // n, *rest)
     return {k: f(v) for k, v in batch.items()}
+
+
+def _add_(xs: list, ys: list) -> None:
+    """``xs[i] += ys[i]``: one ``_foreach_add_`` for plain tensors, a
+    loop for DTensors (DTensor resolves a ``_foreach`` op's sharding
+    afresh at every call, at a cost of many plain ops)."""
+    if mesh_of(xs[0]) is None:
+        torch._foreach_add_(xs, ys)
+    else:
+        for x, y in zip(xs, ys):
+            x.add_(y)
+
+
+def _div_(xs: list, d: float) -> None:
+    """``xs[i] /= d``, as :func:`_add_`."""
+    if mesh_of(xs[0]) is None:
+        torch._foreach_div_(xs, d)
+    else:
+        for x in xs:
+            x.div_(d)
 
 
 def make_train_step(cfg, tcfg: TrainConfig):
@@ -145,33 +204,37 @@ def make_train_step(cfg, tcfg: TrainConfig):
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(state, batch):
+        with replicating(batch["tokens"]):
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         leaves = tree_leaves(params)
         n = tcfg.microbatches
 
         if n > 1:
             mbs = _split_microbatches(batch, n)
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             losses = []
             for i in range(n):
                 loss, grads = grads_of(params, leaves,
                                        {k: v[i] for k, v in mbs.items()})
-                torch._foreach_add_(acc, grads)
+                _add_(acc, grads)
                 losses.append(loss)
                 del grads
-            torch._foreach_div_(acc, float(n))
+            _div_(acc, float(n))
             loss = torch.mean(torch.stack(losses))
         else:
             loss, grads = grads_of(params, leaves, batch)
-            acc = [g.to(torch.float32) for g in grads]
+            acc = [placed_like(g.to(torch.float32), p)
+                   for g, p in zip(grads, leaves)]
             del grads
 
         with torch.no_grad():
             # ---- gradient compression with error feedback
             if tcfg.compress_grads:
                 ef = tree_leaves(state["ef"])
-                torch._foreach_add_(acc, ef)             # with_ef = g + ef
+                _add_(acc, ef)                           # with_ef = g + ef
                 sent = [a.to(torch.bfloat16) for a in acc]
                 for a, s, e in zip(acc, sent, ef):       # ef' = with_ef - s
                     e.copy_(a.sub_(s))

@@ -35,13 +35,9 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 PACKAGES = ("core", "sparse", "kernels", "models", "configs", "train",
             "launch", "serve", "data", "ckpt")
 
-#: the reference's modules the port does not have yet, with the ROADMAP
-#: queue A, item 15 step that brings each
-ABSENT_MODULES = {
-    # the production sharding (step 4): meshes over many cards
-    "launch.sharding": "the parameter and activation partition rules",
-    "launch.dryrun": "the 512-device dry run",
-}
+#: the reference's modules the port does not have, with the reason for
+#: each (none: every module is ported)
+ABSENT_MODULES = {}
 
 #: names of the reference's submodules the port leaves out on purpose
 ABSENT = {
@@ -75,9 +71,6 @@ ABSENT = {
                 "gather2_masked_cumsum", "gather_masked_segscan"},
     # no scan to unroll (the layer loop is a Python loop)
     "models.runtime_flags": {"UNROLL", "set_unroll", "unroll"},
-    # the 256/512-chip pod meshes: a machine with many cards (queue A,
-    # item 14)
-    "launch.mesh": {"make_production_mesh"},
 }
 
 
