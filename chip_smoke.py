@@ -9,13 +9,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    nvidia-smi; no CUDA device is a failure.
 2. build: compiles every kernel of the four paths from
    ``src/repro_torch/csrc`` (one nvcc per source, all started together),
-   and the timing probes of ``segment_sum_probe.cu``, ``merge_probe.cu``
-   and ``spmv_sym_probe.cu``, and prints each kernel's ``-Xptxas -v``
+   and the timing probes of ``radix_sort_probe.cu``,
+   ``segment_sum_probe.cu``, ``merge_probe.cu`` and
+   ``spmv_sym_probe.cu``, and prints each kernel's ``-Xptxas -v``
    report.
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on the streams its path gives it at L = 2.5e6 and 5e7: B1
    digit histogram and B2 stable digit placement on every pass of the
-   radix chain (``radix_chain``: B2 with the words it carries), B12
+   radix chain (``radix_chain``: B2 with the words it carries) of sets
+   1-3 and 2x20; B1 also on skewed streams at L = 2.5e6
+   (``hist_stream``: every key equal, one digit, sorted, reversed, runs
+   of 32 across loads and tiles, digits >= nbins), twice, at the run
+   edges (``HIST_RUNS`` tiles a block) and by each variant of its
+   timing probe (``HIST_VARIANTS``); B12
    block histogram and B11 counting-sort placement bit for bit; B3' fused sum and B5 prefix
    sum bit for bit on integer-valued data and within their stated
    tolerances on random float32/float64 (B5 on zero-mean and on
@@ -336,7 +342,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    it, on a handed-over table, with the copy a standalone call makes
    timed apart; B1 and B2 on the radix chain's second pass, B2 with
    the words it carries there; B1 against ``torch.bincount`` of (tile,
-   digit), B2 against a stable ``torch.sort`` of the digit; B4 against
+   digit), and on every digit pass beside the design it replaced, the
+   other variants of its probe and its loads alone, in turns
+   (``hist_pass_row``), with the plan and the radix sort run again with
+   the replaced B1 (``replaced_b1``); B2 against a stable ``torch.sort``
+   of the digit; B4 against
    ``scatter_reduce_`` with the gather ``v[perm]`` inside the timed
    call; B3' and B4 beside the gather floor, ``gather_floor``: their
    loads without the reduction; the radix sort against a stable
@@ -377,6 +387,7 @@ of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import importlib
@@ -1028,6 +1039,136 @@ def merge_probe(variant: int, qr, qc, tr, tc, side: str):
     return out
 
 
+#: B1's variants in ``csrc/radix_sort_probe.cu`` (``hist_probe``): the
+#: replaced design (one tile a block), the kernel as shipped, and the
+#: counter schemes that lost (counters by tile parity summed into a
+#: staged chunk: per-warp or one set a block, an atomic a key or
+#: ``__match_any_sync`` aggregation); ``HIST_FLOOR`` is the loads alone
+HIST_VARIANTS = {"replaced": 0, "shipped": 1, "private": 2, "match": 3,
+                 "private_match": 4, "block_parity": 5, "chunk8": 7,
+                 "chunk32": 8}
+#: the loads alone, and B1 without its flush (scratch outputs)
+HIST_FLOOR, HIST_NO_FLUSH = 6, 9
+#: B1's skewed streams (``hist_stream``) and the run lengths, in tiles a
+#: block, at which the shipped kernel is also checked through the probe
+#: (1, the chunk, the chunk + 1, a ragged run past two chunks)
+HIST_KINDS = ("equal", "one_digit", "sorted", "reversed", "runs32",
+              "over_nbins")
+HIST_RUNS = (1, 16, 17, 37)
+
+
+def hist_stream(kind: str, L: int, rng):
+    """B1's skewed keys of ``kind`` (``HIST_KINDS``), made with numpy
+    from ``rng``, and the digit pass ``dict(shift, bits, nbins)`` they
+    are counted by (the second byte).  ``equal``: every key one value;
+    ``one_digit``: one digit, the other bits random; ``sorted`` and
+    ``reversed``: random keys in order, so the digit runs L / 256 keys;
+    ``runs32``: runs of 32 equal digits starting 13 keys into a 16 B
+    load, so runs cross the lanes' loads and the tiles' edges;
+    ``over_nbins``: random digits with ``nbins`` = 200, the rest counting
+    nowhere."""
+    kw = dict(shift=8, bits=8, nbins=256)
+    low = rng.integers(0, 256, L)
+    if kind == "equal":
+        keys = np.full(L, int(rng.integers(0, 1 << 16)))
+    elif kind == "one_digit":
+        keys = rng.integers(0, 1 << 14, L) << 16 \
+            | int(rng.integers(0, 256)) << 8 | low
+    elif kind in ("sorted", "reversed"):
+        keys = np.sort(rng.integers(0, 1 << 16, L))
+        keys = keys[::-1] if kind == "reversed" else keys
+    elif kind == "runs32":
+        keys = ((np.arange(L) + 13) // 32 * 37 % 256) << 8 | low
+    elif kind == "over_nbins":
+        keys = rng.integers(0, 1 << 16, L)
+        kw["nbins"] = 200
+    else:
+        raise ValueError(f"unknown B1 stream {kind!r}")
+    return np.ascontiguousarray(keys, dtype=np.int32), kw
+
+
+def hist_probe(variant: int, keys, kw: dict, run: int = 0):
+    """B1 by a variant of ``csrc/radix_sort_probe.cu`` (``HIST_VARIANTS``,
+    or ``HIST_FLOOR``, whose output is scratch) at ``run`` tiles a block
+    (0: the kernel's own run; the replaced design ignores it)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.radix_sort.radix_sort import TILE
+    if "hist" not in _PROBE:
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        _PROBE["hist"] = common.bind(
+            common.load_library("radix_sort_probe"),
+            "probe_digit_histogram_launch",
+            [I, P, P, LL, I, I, I, I, I, P])
+    L = keys.numel()
+    nblocks = -(-L // TILE)
+    out = torch.empty((kw["nbins"], nblocks), dtype=torch.int32,
+                      device=keys.device)
+    rc = _PROBE["hist"](variant, keys.data_ptr(), out.data_ptr(), L,
+                        kw["shift"], kw["bits"], kw["nbins"], nblocks, run,
+                        torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"B1 probe variant {variant}: CUDA error {rc}")
+    return out
+
+
+def hist_pass_row(keys, kw: dict, cpm: float, runs=()) -> dict:
+    """B1 on one digit pass: the kernel and each variant of its probe at
+    their own run length (and the kernel at each of ``runs`` tiles a
+    block) held bit for bit against the plain version, then timed in
+    turns (the list forward, then backward, so the replaced design comes
+    first and last) beside the loads alone and ``torch.bincount`` of
+    (tile, digit); with the pass's bytes, bound and the kernel's share
+    of it."""
+    from repro_torch.kernels.radix_sort import radix_sort as rs
+    from repro_torch.kernels.radix_sort.ref import digit_block_histogram_ref
+    L = keys.numel()
+    want = digit_block_histogram_ref(keys, tile=rs.TILE, **kw)
+    timed = {"replaced": lambda: hist_probe(0, keys, kw),
+             "B1": lambda: rs.digit_block_histogram(keys, **kw),
+             **{v: (lambda i=i: hist_probe(i, keys, kw))
+                for v, i in HIST_VARIANTS.items()
+                if v not in ("replaced", "shipped")},
+             **{f"run{r}": (lambda r=r: hist_probe(1, keys, kw, run=r))
+                for r in runs}}
+    for v, fn in timed.items():
+        require(torch.equal(fn(), want),
+                f"B1 {v} differs from the plain version, {kw}, L = {L}")
+    del want
+    digit = (keys >> kw["shift"]) & ((1 << kw["bits"]) - 1)
+    nflat = -(-L // rs.TILE) * kw["nbins"]
+    flat = (torch.arange(L, device=keys.device) // rs.TILE) * kw["nbins"] \
+        + digit
+    timed["floor"] = lambda: hist_probe(HIST_FLOOR, keys, kw)
+    timed["no_flush"] = lambda: hist_probe(HIST_NO_FLUSH, keys, kw)
+    timed["bincount"] = lambda: torch.bincount(flat, minlength=nflat)
+    # the keys once, the histogram once
+    row = {"L": L, **kw, "bytes": 4 * L + 4 * nflat}
+    row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], 3 * L)
+    order = list(timed)
+    for turn in (order, order[::-1]):
+        for v in turn:
+            row.setdefault(f"{v}_ms", []).append(device_ms(timed[v], cpm))
+    for v in order:
+        row[f"{v}_ms"] = float(np.mean(row[f"{v}_ms"]))
+    row["ms"] = row.pop("B1_ms")
+    row["share"] = row["bound_ms"] / row["ms"]
+    row["replaced_share"] = row["bound_ms"] / row["replaced_ms"]
+    return row
+
+
+@contextlib.contextmanager
+def replaced_b1():
+    """The radix chain (``radix_sort_pair``, every ``plan``) with B1's
+    replaced design (``hist_probe`` variant 0) in place of the kernel,
+    inside the ``with``: the "before" of the plan's device times."""
+    from repro_torch.kernels.radix_sort import ops
+    shipped = ops.digit_block_histogram
+    ops.digit_block_histogram = lambda keys, **kw: hist_probe(0, keys, kw)
+    try:
+        yield
+    finally:
+        ops.digit_block_histogram = shipped
+
+
 #: the variants of ``merge_probe`` and of ``sym_probe``, by name
 MERGE_VARIANTS = {"replaced": 0, "shipped": 1, "sparse": 2, "dense": 3,
                   "ladder_tie": 4, "split": 5, "narrow_only": 6,
@@ -1107,6 +1248,37 @@ def sym_phase_stamps(rows, data, indptr, x) -> dict:
                for i, k in enumerate(SYM_PHASES)},
             "tile_us": float(life.mean()), "span_us": float(span),
             "tiles_in_flight": float(life.sum() / span), "tiles": ntiles}
+
+
+def hist_checks(dev, rng) -> None:
+    """Phase 3, B1 on the skewed streams at L = 2.5e6 (``hist_stream``)
+    and their run edges (the kernel at ``HIST_RUNS`` tiles a block,
+    through the probe), bit for bit against the plain version; the
+    kernel twice on each stream, the same bits; each variant of the
+    probe bit for bit."""
+    from repro_torch.kernels.radix_sort import radix_sort as rs
+    from repro_torch.kernels.radix_sort.ref import digit_block_histogram_ref
+
+    L = 2_500_000
+    for kind in HIST_KINDS:
+        keys_np, kw = hist_stream(kind, L, rng)
+        keys = torch.from_numpy(keys_np).to(dev)
+        want = digit_block_histogram_ref(keys, tile=rs.TILE, **kw)
+        a = rs.digit_block_histogram(keys, **kw)
+        require(torch.equal(a, want) and torch.equal(
+            rs.digit_block_histogram(keys, **kw), a),
+            f"B1 differs on the {kind} stream, or from launch to launch")
+        for r in HIST_RUNS:
+            require(torch.equal(hist_probe(HIST_VARIANTS["shipped"], keys, kw,
+                                           run=r), want),
+                    f"B1 at {r} tiles a block differs, {kind} stream")
+        for v, i in HIST_VARIANTS.items():
+            require(torch.equal(hist_probe(i, keys, kw), want),
+                    f"B1 probe variant {v} differs, {kind} stream")
+        emit({"check": "B1 vs plain, skewed stream", "stream": kind, "L": L,
+              **kw, "runs": list(HIST_RUNS), "B1": "bit-identical, twice",
+              "probe_variants": "bit-identical"})
+    torch.cuda.synchronize()
 
 
 def radix_chain(rows, cols, M: int, N: int, *, upto: int | None = None,
@@ -2436,6 +2608,10 @@ def priors_match_builds() -> dict:
         "radix_sort.tile": (rk["tile"], export("radix_sort", "radix_tile")),
         "radix_sort.kernel_max_bits": (1 << rk["kernel_max_bits"], export(
             "radix_sort", "radix_max_bins")),
+        "radix_sort.hist_per_sm": (rk["hist_per_sm"], export(
+            "radix_sort", "radix_hist_per_sm")),
+        "radix_sort.hist_chunk": (rk["hist_chunk"], export(
+            "radix_sort", "radix_hist_chunk")),
         "segment_sum.seg_per": (sk["threads"] * sk["seg_per"], export(
             "segment_sum", "segment_tile")),
         "segment_sum.sum2_per": (sk["threads"] * sk["sum2_per"], export(
@@ -5652,7 +5828,8 @@ def main() -> None:
                                                     plan_digit_passes,
                                                     radix_sort_pair)
     from repro_torch.kernels.radix_sort.ref import (
-        digit_block_histogram_ref, digit_placement_ref, radix_sort_pair_ref)
+        digit_block_histogram_ref, digit_placement_ref, hist_runs,
+        radix_sort_pair_ref)
     from repro_torch.kernels.segment_sum import segment_sum as ss_mod
     from repro_torch.kernels.segment_sum.ref import (
         PRODUCT_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
@@ -5668,6 +5845,7 @@ def main() -> None:
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     smi_line = nvidia_smi_line()
     print(f"device: {kind} (count {count}); {smi_line}", flush=True)
     dev = torch.device("cuda")
@@ -5676,8 +5854,8 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
                          "counting_sort", "spmv", "spmv_sym", "merge",
-                         "segment_sum_probe", "merge_probe",
-                         "spmv_sym_probe"])
+                         "radix_sort_probe", "segment_sum_probe",
+                         "merge_probe", "spmv_sym_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -5711,7 +5889,7 @@ def main() -> None:
 
     # -- 3. kernel vs plain on the card -------------------------------------
     b3_err = 0.0  # B1 and B2 are integer kernels: checked bit for bit
-    for name in ("2", "2x20"):
+    for name in ("1", "2", "3", "2x20"):
         ii, jj, ss, siz = sets[name]
         coo = coo_from_matlab(ii, jj, ss, (siz, siz))
         rows, cols, L = coo.rows, coo.cols, coo.L
@@ -5759,6 +5937,7 @@ def main() -> None:
               "included", "B3_integer": "bit-identical"})
         del coo, rows, cols, perm, pat, fill_args
     torch.cuda.synchronize()
+    hist_checks(dev, np.random.default_rng(SEED))
 
     # -- 3b. kernel vs plain: the second path's kernels ---------------------
     b5_err = 0.0  # B4, B11 and B12 are checked bit for bit
@@ -6227,6 +6406,20 @@ def main() -> None:
         # the plan's two device stages, and the host's share of fsparse
         t["radix_sort_device_ms"] = device_ms(
             lambda: radix_sort_pair(rows, cols, M=siz, N=siz), cpm)
+        # the plan and the radix sort with B1's replaced design
+        with replaced_b1():
+            t["radix_sort_device_ms_replaced_b1"] = device_ms(
+                lambda: radix_sort_pair(rows, cols, M=siz, N=siz), cpm)
+            t["plan_device_ms_replaced_b1"] = device_ms(
+                lambda: plan_coo(coo), cpm)
+        # B1 on every digit pass beside the replaced design and the
+        # probe's other variants, in turns (hist_pass_row)
+        b1_rows = []
+        radix_chain(rows, cols, siz, siz, check=lambda i, p, a: b1_rows.append(
+            {"pass": i, **hist_pass_row(a[0], a[5], cpm)}))
+        run, grid = hist_runs(-(-L // TILE), sms, rs.HIST_PER_SM)
+        emit({"times": "B1 passes", "set": name, "run": run, "grid": grid,
+              "card": smi_line, "passes": b1_rows})
         t["parts34_device_ms"] = device_ms(
             lambda: pattern_from_perm(rows, cols, pat.perm, M=siz, N=siz,
                                       nzmax=pat.nzmax), cpm)
@@ -6344,6 +6537,7 @@ def main() -> None:
             device_ms(lambda: gather_floor(*fill_in, pat.nzmax), cpm)
         rows_k["B11"]["standalone_ms"] = device_ms(
             lambda: cplace_k(rows, offsets, **cnt), cpm)
+        rows_k["B1"]["replaced_ms"] = b1_rows[1]["replaced_ms"]
         t["kernels"] = rows_k
         t["card"] = smi_line
         emit(t)
@@ -6452,8 +6646,8 @@ def main() -> None:
          **({"longrun_ms": lr[f"{k}_longrun_ms"],
              "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4", "B6")
             else {}),
-         **({"replaced_ms": big[k]["replaced_ms"]} if k in ("B6", "B7", "B9")
-            else {}),
+         **({"replaced_ms": big[k]["replaced_ms"]}
+            if k in ("B1", "B6", "B7", "B9") else {}),
          **({"gather2_floor_ms": big[k]["gather2_floor_ms"],
              "shipped": f"K = {PRODUCT_TILE // 256}",
              "sweep_winner": big[k]["sweep_winner"],

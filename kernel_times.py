@@ -61,9 +61,20 @@ bounds, the index streams through __ldg), the two-gather floor at K =
 turns (forward, then backward), each variant first held against the
 plain version bit for bit on integer-valued data.
 
-    python3 kernel_times.py [queue_d] [segment] [merge_sym] [product]
+Then B1 (digit histogram) on every digit pass of sets 1-3 and 2x20:
+the kernel, the design it replaced and the probe's variants
+(``csrc/radix_sort_probe.cu``: the counter schemes that lost, chunks of
+8 and 32 tiles, B1 without its flush, the loads alone), each first held
+bit for bit against the plain version, timed in turns (forward, then
+backward) beside ``torch.bincount`` of (tile, digit); on the second
+pass of sets 2 and 2x20 the kernel at run lengths of 1-96 tiles a
+block; the radix sort and the plan with the replaced B1 and with the
+kernel, in turns; B1 on the skewed streams at L = 2.5e6
+(``chip_smoke.hist_stream``).
 
-runs the named sections (all four without arguments).  Prints the
+    python3 kernel_times.py [queue_d] [segment] [merge_sym] [product] [hist]
+
+runs the named sections (all five without arguments).  Prints the
 card's name and power limit, then one JSON line a set, a stream or a
 site.  A quicker measure than ``chip_smoke.py`` when two versions of
 these kernels are compared on one card.
@@ -342,6 +353,67 @@ def product_times(cpm, dev) -> None:
         torch.cuda.empty_cache()
 
 
+#: run lengths (tiles a block) at which B1 is also timed on the chain's
+#: second pass of sets 2 and 2x20
+HIST_SWEEP = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 96)
+
+
+def hist_times(cpm, dev) -> None:
+    """B1 on every digit pass of sets 1-3 and 2x20 (``smoke.hist_pass_row``:
+    the kernel, the replaced design, each counter scheme, the loads
+    alone and ``bincount``, in turns), the run sweep on the second pass
+    of sets 2 and 2x20; the radix sort and the plan with the replaced B1
+    and with the kernel, in turns; then B1 on the skewed streams at
+    L = 2.5e6 (``smoke.hist_stream``)."""
+    from repro_torch.core.coo import coo_from_matlab
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.kernels.radix_sort.ops import radix_sort_pair
+    from repro_torch.kernels.radix_sort.radix_sort import HIST_PER_SM, TILE
+    from repro_torch.kernels.radix_sort.ref import hist_runs
+    from repro_torch.sparse.pattern import plan_coo
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("1", "2", "3", "2x20"):
+        cfg = smoke.BIG if name == "2x20" else DATA_SETS[int(name)]
+        ii, jj, ss_, siz = ransparse(cfg["siz"], cfg["nnz_row"], cfg["nrep"],
+                                     seed=smoke.SEED)
+        coo = coo_from_matlab(ii, jj, ss_, (siz, siz))
+        rows, cols = coo.rows, coo.cols
+        L = rows.shape[0]
+        run, grid = hist_runs(-(-L // TILE), sms, HIST_PER_SM)
+
+        def at_pass(i, p, args, name=name, run=run, grid=grid):
+            keys, kw = args[0], args[5]
+            sweep = HIST_SWEEP if i == 1 and name in ("2", "2x20") else ()
+            row = smoke.hist_pass_row(keys, kw, cpm, sweep)
+            print(json.dumps({"B1_pass": i, "set": name, "run": run,
+                              "grid": grid, **row}), flush=True)
+
+        smoke.radix_chain(rows, cols, siz, siz, check=at_pass)
+        timed = {
+            "radix_sort": lambda: radix_sort_pair(rows, cols, M=siz, N=siz),
+            "plan": lambda: plan_coo(coo)}
+        row = {"B1_plan": name, "L": L}
+        for order in (("before", "after"), ("after", "before")):
+            for which in order:
+                for k, fn in timed.items():
+                    if which == "before":
+                        with smoke.replaced_b1():
+                            ms = smoke.device_ms(fn, cpm)
+                    else:
+                        ms = smoke.device_ms(fn, cpm)
+                    row.setdefault(f"{k}_device_ms_{which}", []).append(ms)
+        print(json.dumps(row), flush=True)
+        del ii, jj, ss_, coo, rows, cols
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(smoke.SEED)
+    for kind in smoke.HIST_KINDS:
+        keys, kw = smoke.hist_stream(kind, 2_500_000, rng)
+        keys = torch.from_numpy(keys).to(dev)
+        row = smoke.hist_pass_row(keys, kw, cpm, smoke.HIST_RUNS)
+        print(json.dumps({"B1_stream": kind, **row}), flush=True)
+
+
 def _turns(row: dict, timed: dict, cpm) -> None:
     """Each of ``timed`` into ``row``, forward then backward."""
     order = list(timed)
@@ -531,7 +603,7 @@ def sym_sweep(cpm, dev) -> None:
             print(json.dumps(row), flush=True)
 
 
-SECTIONS = ("queue_d", "segment", "merge_sym", "product")
+SECTIONS = ("queue_d", "segment", "merge_sym", "product", "hist")
 
 
 def main(sections) -> None:
@@ -549,7 +621,8 @@ def main(sections) -> None:
             "segment": ["segment_sum", "segment_sum_probe", "radix_sort"],
             "merge_sym": ["merge", "merge_probe", "spmv_sym",
                           "spmv_sym_probe", "radix_sort", "segment_sum"],
-            "product": ["segment_sum", "segment_sum_probe", "radix_sort"]}
+            "product": ["segment_sum", "segment_sum_probe", "radix_sort"],
+            "hist": ["radix_sort", "radix_sort_probe", "segment_sum"]}
     logs = common.build(sorted({n for s in sections for n in libs[s]}))
     for lib, log in logs.items():
         for line in log.splitlines():
@@ -566,6 +639,8 @@ def main(sections) -> None:
         merge_sym_times(cpm, dev)
     if "product" in sections:
         product_times(cpm, dev)
+    if "hist" in sections:
+        hist_times(cpm, dev)
 
 
 if __name__ == "__main__":

@@ -6,16 +6,46 @@
 //   with the payload scatter of radix_sort/ops.py     -> digit_placement_kernel
 //
 // What bounds it on the H100: bytes.  B1 reads the pass's key word once
-// (4L B) and writes nbins * nblocks int32 counters (under 1% of that).
+// (4L B) and writes nbins * nblocks int32 counters (a sixteenth of that
+// at 256 bins).
 // B2 reads the key word, the payload and the carried words once and
 // writes the payload and the carried words once: 12-24 B a key, 108L B
 // over the six passes of the 5e7 set.  The work per key is a shift, a
 // mask and a few shared-memory operations, far below the integer rate.
 //
-// B1: each block counts one tile of TILE = 4096 keys (256 threads x 16)
-// in shared memory and writes its histogram digit-major (hist[d *
-// nblocks + b]), so one exclusive scan over the flat array (outside, in
-// PyTorch) yields every (digit, tile) base.
+// B1 writes one histogram a tile of TILE = 4096 keys, digit-major
+// (hist[d * nblocks + b]), so one exclusive scan over the flat array
+// (outside, in PyTorch) yields every (digit, tile) base.  Its bound is
+// 4L + 4 nbins nblocks bytes.  What held the first port (one block a
+// tile: 0.116 ms at 5e7, 8.1 us at 2.5e6, 53% and 39% of that bound)
+// back, and what the design does about each:
+//   1. one short block a tile (611 blocks at L = 2.5e6, 12,208 at 5e7):
+//      a block walks a contiguous run of G tiles, G = ceil(nblocks /
+//      (SMs x kHistPerSm)), so the grid is at most one resident wave and
+//      every SM holds blocks (hist_run; the SM count is read once);
+//   2. 16 scalar bounds-checked loads a thread: 4 x 16 B loads through
+//      the read-only path, unchecked for a whole aligned tile (scalar
+//      ones where the keys are not 16 B aligned, and at the ragged end),
+//      the next tile's in flight while the current one is counted;
+//   3. the counting's instructions, not contention, were what cost at
+//      2.5e6: Hopper's shared atomics add a warp's equal addresses in
+//      one step, so one histogram a block is as fast as per-warp
+//      counters even with every key equal, and __match_any_sync
+//      aggregation costs 1.5-5x.  A key is a shift, a mask, an address
+//      and an atomic: a digit >= nbins counts in its own row, which no
+//      flush reads, a key past the end (the last tile only) in row
+//      kMaxBins, so there is no compare and no branch a key.  The block
+//      counts straight into the tile's column of the chunk: no barrier
+//      and no copy a tile;
+//   4. a flush that put each counter in its own 32 B sector: a chunk of
+//      up to kHistChunk tiles is written with neighbouring lanes on
+//      neighbouring tiles of one digit (64 B a digit at 5e7, 8 B at
+//      2.5e6, where G = 2).
+// At 5e7 it reaches 86% of the bound, its loads alone 93%; at 2.5e6
+// 60-63%, its loads alone 85%: there the launch and one L2 round trip
+// are most of the time.  The probes (csrc/radix_sort_probe.cu) hold the
+// replaced design, the counter schemes that lost, chunks of 8 and 32
+// tiles, any run length, B1 without its flush and the loads alone.
 //
 // B2 is Onesweep's local sort of one tile (without its fused histogram):
 //   1. every word of the tile is copied once into shared memory in input
@@ -54,32 +84,159 @@ constexpr int kTile = kThreads * kPerThread;  // keys per block
 constexpr int kWarpSpan = kTile / kWarps;     // contiguous keys per warp
 constexpr int kMaxBins = 256;                 // digits of at most 8 bits
 constexpr int kMaxCarry = 2;                  // words carried beside the payload
+constexpr int kHistPerSm = 4;    // B1 blocks resident an SM: its grid's wave
+constexpr int kHistChunk = 16;   // B1 tiles counted between two flushes
+constexpr int kHistLoads = kPerThread / 4;  // B1's 16 B loads a thread a tile
 
-__device__ __forceinline__ int digit_of(const int32_t* __restrict__ keys,
-                                        long long i, long long L, int shift,
-                                        int mask, int nbins) {
-  if (i >= L) return -1;  // ragged tail, masked by index
-  int d = (__ldg(keys + i) >> shift) & mask;
-  return d < nbins ? d : -1;  // out-of-contract keys are never placed
+// Tiles a B1 block walks: the fewest that keep the grid within one
+// resident wave of kHistPerSm blocks an SM (kernels/radix_sort/ref.py
+// hist_runs is the same rule).
+__host__ __device__ inline int hist_run(int nblocks, int sms) {
+  const long long wave = (long long)sms * kHistPerSm;
+  return (int)((nblocks + wave - 1) / wave);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Keys [i, i + 4) of the stream: one 16 B load where the keys are 16 B
+// aligned and all four lie before L; else scalar loads, 0 past L (the
+// count masks those by index).
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ keys,
+                                      long long i, long long L, bool vec) {
+  if (vec && i + 4 <= L) return __ldg(reinterpret_cast<const int4*>(keys + i));
+  int4 v;
+  v.x = i < L ? __ldg(keys + i) : 0;
+  v.y = i + 1 < L ? __ldg(keys + i + 1) : 0;
+  v.z = i + 2 < L ? __ldg(keys + i + 2) : 0;
+  v.w = i + 3 < L ? __ldg(keys + i + 3) : 0;
+  return v;
+}
+
+// A tile's keys for this thread: load k holds keys tile0 + 4 (k kThreads
+// + t) .. + 3, so each load of the block reads 4 KB contiguously.  A
+// whole aligned tile takes 16 B loads without a check.
+__device__ __forceinline__ void load_tile(int4 (&v)[kHistLoads],
+                                          const int32_t* __restrict__ keys,
+                                          long long tile0, long long L,
+                                          bool vec) {
+  if (vec && tile0 + kTile <= L) {
+    const int4* p = reinterpret_cast<const int4*>(keys + tile0) + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < kHistLoads; ++k) v[k] = __ldg(p + k * kThreads);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kHistLoads; ++k)
+      v[k] = load4(keys, tile0 + 4 * (k * kThreads + threadIdx.x), L, vec);
+  }
+}
+
+// A tile's keys into column `col` of a [kMaxBins + 1][stride] array of
+// counters: a key into its digit's row (a digit >= nbins has a row too,
+// which nothing reads), a key past the tile's end (kRagged: the last
+// tile) into row kMaxBins.  One atomic a key and no branch.
+template <bool kRagged>
+__device__ __forceinline__ void count_tile(int* col, int stride,
+                                           const int4 (&v)[kHistLoads],
+                                           int tile_n, int shift, int mask) {
+#pragma unroll
+  for (int k = 0; k < kHistLoads; ++k) {
+    const int j = 4 * (k * kThreads + threadIdx.x);
+    const int key[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int d = (key[c] >> shift) & mask;
+      if (kRagged) d = j + c < tile_n ? d : kMaxBins;
+      atomicAdd(col + stride * d, 1);
+    }
+  }
+}
+
+// B1: block b counts tiles [b run, b run + run) one after the other,
+// tile g into column g % kChunk of the chunk; a full chunk, and the
+// run's end, is flushed (and zeroed, if tiles follow).  kFlush = false
+// (a probe's): the counts stay in shared memory, hist is written only by
+// a count no run gives.
+template <int kChunk, bool kFlush = true>
+__global__ void __launch_bounds__(kThreads, kHistPerSm)
 digit_histogram_kernel(const int32_t* __restrict__ keys,
                        int32_t* __restrict__ hist, long long L, int shift,
-                       int mask, int nbins, int nblocks) {
-  __shared__ int counts[kMaxBins];
-  for (int d = threadIdx.x; d < nbins; d += kThreads) counts[d] = 0;
+                       int mask, int nbins, int nblocks, int run, int vec) {
+  // + 1 row: keys past the end; + 1 column: no bank conflict in the flush
+  __shared__ int chunk[kMaxBins + 1][kChunk + 1];
+  const int t = threadIdx.x;
+  const int first = blockIdx.x * run;
+  const int ntiles = min(run, nblocks - first);
+  const bool v = vec != 0;
+  int4 cur[kHistLoads], nxt[kHistLoads];
+  load_tile(cur, keys, (long long)first * kTile, L, v);
+  // the flushed rows' columns the first chunk uses (kThreads >= nbins)
+  if (t < nbins)
+    for (int c = 0; c < min(ntiles, kChunk); ++c) chunk[t][c] = 0;
   __syncthreads();
-  const long long tile0 = (long long)blockIdx.x * kTile;
+  for (int g = 0; g < ntiles; ++g) {
+    const long long tile0 = (long long)(first + g) * kTile;
+    if (g + 1 < ntiles) load_tile(nxt, keys, tile0 + kTile, L, v);
+    const int kc = g % kChunk;
+    const long long left = L - tile0;
+    if (left >= kTile)
+      count_tile<false>(&chunk[0][kc], kChunk + 1, cur, kTile, shift, mask);
+    else
+      count_tile<true>(&chunk[0][kc], kChunk + 1, cur, (int)left, shift,
+                       mask);
+    const bool last = g == ntiles - 1;
+    if (kFlush && (kc == kChunk - 1 || last)) {
+      // the chunk's n tiles: thread t writes tile t % n of digits t / n,
+      // t / n + kThreads / n, ..., so a store instruction covers runs of
+      // one digit's tiles
+      __syncthreads();
+      const int n = kc + 1;
+      const long long at = first + g - kc;
+      const int c = t % n;
+      for (int d = t / n; d < nbins && t < kThreads / n * n;
+           d += kThreads / n) {
+        hist[(long long)d * nblocks + at + c] = chunk[d][c];
+        if (!last) chunk[d][c] = 0;
+      }
+      if (!last) __syncthreads();
+    }
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    int d = digit_of(keys, tile0 + k * kThreads + threadIdx.x, L, shift,
-                     mask, nbins);
-    if (d >= 0) atomicAdd(&counts[d], 1);
+    for (int k = 0; k < kHistLoads; ++k) cur[k] = nxt[k];
   }
-  __syncthreads();
-  for (int d = threadIdx.x; d < nbins; d += kThreads)
-    hist[(long long)d * nblocks + blockIdx.x] = counts[d];
+  if (!kFlush) {
+    __syncthreads();
+    if (t < nbins && chunk[t][0] == -1) hist[t] = 0;
+  }
+}
+
+// A launch of a B1 kernel (the shipped one, or a probe's) with `run`
+// tiles a block, as hist_run gives it or another.
+template <typename Kernel>
+int launch_histogram(Kernel kernel, const void* keys, void* hist,
+                     long long L, int shift, int bits, int nbins,
+                     int nblocks, int run, cudaStream_t s) {
+  if (run < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (nblocks + run - 1) / run;
+  const bool vec = (uintptr_t)keys % 16 == 0;
+  kernel<<<grid, kThreads, 0, s>>>((const int32_t*)keys, (int32_t*)hist, L,
+                                   shift, (1 << bits) - 1, nbins, nblocks,
+                                   run, (int)vec);
+  return (int)cudaGetLastError();
+}
+
+// The current device's SM count, read once a device.
+int device_sms(int* sms) {
+  static int known[64] = {0};
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!known[dev]) {
+    int n = 0;
+    rc = (int)cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (rc) return rc;
+    known[dev] = n;
+  }
+  *sms = known[dev];
+  return 0;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -288,10 +445,12 @@ extern "C" int digit_histogram_launch(const void* keys, void* hist,
                                       long long L, int shift, int bits,
                                       int nbins, int nblocks,
                                       void* stream) {
-  digit_histogram_kernel<<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)keys, (int32_t*)hist, L, shift, (1 << bits) - 1, nbins,
-      nblocks);
-  return (int)cudaGetLastError();
+  int sms = 0;
+  const int rc = device_sms(&sms);
+  if (rc) return rc;
+  return launch_histogram(digit_histogram_kernel<kHistChunk>, keys, hist, L,
+                          shift, bits, nbins, nblocks, hist_run(nblocks, sms),
+                          (cudaStream_t)stream);
 }
 
 // ncarry words (0-2) ride along: carry_out[c][pos] = carry_in[c][i]
@@ -331,6 +490,11 @@ extern "C" int digit_placement_launch(const void* keys, const void* base,
 extern "C" int radix_tile(void) { return kTile; }
 extern "C" int radix_max_bins(void) { return kMaxBins; }
 extern "C" int radix_max_carry(void) { return kMaxCarry; }
+extern "C" int radix_hist_per_sm(void) { return kHistPerSm; }
+extern "C" int radix_hist_chunk(void) { return kHistChunk; }
+extern "C" int radix_hist_run(int nblocks, int sms) {
+  return hist_run(nblocks, sms);
+}
 
 // the instances the radix chain launches (B2 with the keys not among the
 // carried words: its largest staging)
@@ -339,7 +503,8 @@ constexpr long long placement_smem(int nc) {
   return (long long)(nc + 2) * kTile * 4 + kTile * 3;
 }
 const KernelResource kResources[] = {
-    {"digit_histogram", (const void*)digit_histogram_kernel, kThreads, 0},
+    {"digit_histogram", (const void*)digit_histogram_kernel<kHistChunk>,
+     kThreads, 0},
     {"digit_placement_c0", (const void*)digit_placement_kernel<0>, kThreads,
      placement_smem(0)},
     {"digit_placement_c1", (const void*)digit_placement_kernel<1>, kThreads,

@@ -21,7 +21,7 @@ import torch
 from ...sparse import tuning
 from ..common import (bind, cdiv, check_cuda_tensor, check_launch,
                       current_stream, load_library)
-from .ref import digit_block_histogram_ref, digit_placement_ref
+from .ref import digit_block_histogram_ref, digit_placement_ref, hist_runs
 
 #: keys per thread block (256 threads x 16) -- fixed by the kernel source;
 #: the ``radix_sort`` spec's build-time ``tile``
@@ -30,6 +30,9 @@ TILE = tuning.prior_value("radix_sort", "tile")
 KERNEL_MAX_BITS = tuning.prior_value("radix_sort", "kernel_max_bits")
 #: words B2 carries beside the payload, fixed by the kernel source
 KERNEL_MAX_CARRY = 2
+#: B1 blocks resident on an SM: its grid is at most one such wave
+#: (:func:`.ref.hist_runs`); the ``radix_sort`` spec's ``hist_per_sm``
+HIST_PER_SM = tuning.prior_value("radix_sort", "hist_per_sm")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FNS: dict = {}
@@ -38,15 +41,27 @@ _FNS: dict = {}
 def _fns() -> dict:
     if not _FNS:
         lib = load_library("radix_sort")
-        for fn in ("radix_tile", "radix_max_bins", "radix_max_carry"):
+        for fn in ("radix_tile", "radix_max_bins", "radix_max_carry",
+                   "radix_hist_per_sm", "radix_hist_chunk"):
             bind(lib, fn, [])
+        bind(lib, "radix_hist_run", [_I, _I])
         built = tuning.build_knobs("radix_sort")
         if (lib.radix_tile() != built["tile"]
                 or lib.radix_max_bins() != 1 << built["kernel_max_bits"]
-                or lib.radix_max_carry() != KERNEL_MAX_CARRY):
-            raise RuntimeError("csrc/radix_sort.cu tile, bins or carry "
-                               "count differs from the radix_sort tuning "
-                               "spec or KERNEL_MAX_CARRY")
+                or lib.radix_max_carry() != KERNEL_MAX_CARRY
+                or lib.radix_hist_per_sm() != built["hist_per_sm"]
+                or lib.radix_hist_chunk() != built["hist_chunk"]):
+            raise RuntimeError("csrc/radix_sort.cu tile, bins, carry "
+                               "count or B1's wave or chunk differs from "
+                               "the radix_sort tuning spec or "
+                               "KERNEL_MAX_CARRY")
+        # B1's runs: the C side's rule is hist_runs'
+        for nblocks, sms in ((1, 1), (611, 132), (612, 132), (12_208, 132),
+                             (2**15, 144), (2**15 + 1, 1)):
+            if lib.radix_hist_run(nblocks, sms) != hist_runs(
+                    nblocks, sms, built["hist_per_sm"])[0]:
+                raise RuntimeError("csrc/radix_sort.cu hist_run() differs "
+                                   "from ref.hist_runs")
         _FNS["hist"] = bind(lib, "digit_histogram_launch",
                             [_P, _P, _LL, _I, _I, _I, _I, _P])
         _FNS["place"] = bind(lib, "digit_placement_launch",
@@ -70,7 +85,10 @@ def _check_digit(keys: torch.Tensor, bits: int, nbins: int) -> None:
 def digit_block_histogram(keys: torch.Tensor, *, shift: int, bits: int,
                           nbins: int) -> torch.Tensor:
     """B1: ``int32[nbins, nblocks]`` histogram of ``(keys >> shift) &
-    (2^bits - 1)`` per block of :data:`TILE` keys (digit-major)."""
+    (2^bits - 1)`` per block of :data:`TILE` keys (digit-major).
+
+    One launch; each CUDA block counts a run of tiles
+    (:func:`.ref.hist_runs` on the card's SM count)."""
     if keys.device.type == "cpu":
         return digit_block_histogram_ref(keys, shift=shift, bits=bits,
                                          nbins=nbins, tile=TILE)

@@ -36,6 +36,22 @@ def digit_block_histogram_ref(keys: torch.Tensor, *, shift: int, bits: int,
     return hist[:size].view(nbins, nblocks)
 
 
+def hist_runs(nblocks: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """B1's launch shape: ``(run, grid)``, block ``j`` counting tiles
+    ``[j * run, min((j + 1) * run, nblocks))``.
+
+    ``run`` is the fewest tiles a block that keeps the grid within one
+    resident wave of ``per_sm`` blocks on each of ``sms`` SMs
+    (``csrc/radix_sort.cu`` ``hist_run`` is the same rule); every block
+    gets at least one tile.
+    """
+    if nblocks < 1 or sms < 1 or per_sm < 1:
+        raise ValueError(f"need nblocks, sms, per_sm >= 1, got {nblocks}, "
+                         f"{sms}, {per_sm}")
+    run = cdiv(nblocks, sms * per_sm)
+    return run, cdiv(nblocks, run)
+
+
 def digit_placement_ref(keys: torch.Tensor, base: torch.Tensor,
                         payload: torch.Tensor | None = None, *,
                         carry: tuple = (), shift: int, bits: int,

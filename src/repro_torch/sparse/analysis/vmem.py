@@ -86,8 +86,14 @@ def declared_rows() -> list[dict]:
     t, tile = rk["threads"], rk["tile"]
     warps, bins = t // 32, 1 << rk["kernel_max_bits"]
     knobs = {k: rk[k] for k in ("threads", "tile")}
+    # the counted chunk, [bins + 1][hist_chunk + 1] (a row for the keys
+    # that count nowhere)
+    chunk = rk["hist_chunk"]
     rows.append(_row("B1", "radix_sort", "radix_sort", "digit_histogram",
-                     knobs=knobs, threads=t, tile=tile, static=4 * bins))
+                     knobs={**knobs, "hist_per_sm": rk["hist_per_sm"],
+                            "hist_chunk": chunk},
+                     threads=t, tile=tile, min_blocks=rk["hist_per_sm"],
+                     static=4 * (bins + 1) * (chunk + 1)))
     # cnt[warps][bins + 1], gbase[bins], wsum[warps], nvalid; staging of
     # the key, the payload and nc carried words (4 B) + position (2 B)
     # and digit (1 B) a key

@@ -572,7 +572,9 @@ register_kernel_spec(KernelSpec(
     (Knob("max_bits", 8, candidates=tuple(range(1, 9))),
      _build("kernel_max_bits", 8),  # csrc/radix_sort.cu kMaxBins = 256
      _build("threads", 256),        # kThreads
-     _build("tile", 4096)),         # kTile = kThreads * 16
+     _build("tile", 4096),          # kTile = kThreads * 16
+     _build("hist_per_sm", 4),      # kHistPerSm: B1's resident wave
+     _build("hist_chunk", 16)),     # kHistChunk: B1's tiles a flush
     description="LSD radix planner (B1, B2): the widest digit",
 ))
 register_kernel_spec(KernelSpec(

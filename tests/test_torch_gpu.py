@@ -57,7 +57,7 @@ from repro_torch.kernels.segment_sum.ref import (SCAN_TILE, SEG_TILE,
                                                  blocked_cumsum_ref,
                                                  gather_segment_minmax_ref,
                                                  gather_segment_sum_ref)
-from repro_torch.sparse import matlab
+from repro_torch.sparse import matlab, tuning
 from repro_torch.sparse.pattern import plan
 
 pytestmark = pytest.mark.gpu
@@ -92,6 +92,70 @@ def test_radix_kernels_match_plain_versions(L):
             assert torch.equal(
                 rs.digit_placement(keys, base, p, **kw),
                 ref.digit_placement_ref(keys, base, p, tile=rs.TILE, **kw))
+
+
+# B1 on chip_smoke.hist_stream's skewed streams (every key equal, one
+# digit, sorted, reversed, runs of 32 across loads and tiles, digits >=
+# nbins) and on a view 4 bytes into its storage (scalar loads)
+@pytest.mark.parametrize("L", [1, rs.TILE - 1, rs.TILE + 1,
+                               2 * rs.TILE - 1, 2 * rs.TILE + 1, 2_500_000])
+@pytest.mark.parametrize("kind", ["equal", "one_digit", "sorted",
+                                  "reversed", "runs32", "over_nbins",
+                                  "unaligned"])
+def test_digit_histogram_on_skewed_streams(kind, L):
+    """Bit for bit the plain version's, the same bits from two launches,
+    one launch a call."""
+    dev = _cuda()
+    keys, kw = _smoke().hist_stream(
+        "over_nbins" if kind == "unaligned" else kind, L,
+        np.random.default_rng(L))
+    keys = torch.from_numpy(keys).to(dev)
+    if kind == "unaligned":
+        keys = _unaligned(keys)
+    before = rs.digit_block_histogram.launches
+    a = rs.digit_block_histogram(keys, **kw)
+    b = rs.digit_block_histogram(keys, **kw)
+    assert rs.digit_block_histogram.launches == before + 2
+    assert torch.equal(a, ref.digit_block_histogram_ref(keys, tile=rs.TILE,
+                                                        **kw))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["runs32", "over_nbins"])
+def test_digit_histogram_over_several_chunks(kind):
+    """A stream long enough that each block walks more than two staged
+    chunks of tiles, with a ragged last tile: bit for bit the plain
+    version's."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    L = (2 * tuning.prior_value("radix_sort", "hist_chunk") + 3) \
+        * sms * rs.HIST_PER_SM * rs.TILE - 5
+    keys, kw = _smoke().hist_stream(kind, L, np.random.default_rng(9))
+    keys = torch.from_numpy(keys).to(dev)
+    assert ref.hist_runs(-(-L // rs.TILE), sms, rs.HIST_PER_SM)[0] > \
+        2 * tuning.prior_value("radix_sort", "hist_chunk")
+    assert torch.equal(rs.digit_block_histogram(keys, **kw),
+                       ref.digit_block_histogram_ref(keys, tile=rs.TILE,
+                                                     **kw))
+
+
+@pytest.mark.parametrize("variant", ["replaced", "shipped", "private",
+                                     "match", "private_match",
+                                     "block_parity", "chunk8", "chunk32"])
+def test_digit_histogram_probe_variants_match_plain_version(variant):
+    """Each of B1's timing variants (csrc/radix_sort_probe.cu), at its own
+    run length and at 1 and 37 tiles a block, bit for bit the plain
+    version's on a ragged stream of random keys and of runs of 32."""
+    dev = _cuda()
+    smoke = _smoke()
+    for kind in ("over_nbins", "runs32"):
+        keys, kw = smoke.hist_stream(kind, 41 * rs.TILE + 7,
+                                     np.random.default_rng(11))
+        keys = torch.from_numpy(keys).to(dev)
+        want = ref.digit_block_histogram_ref(keys, tile=rs.TILE, **kw)
+        for run in (0, 1, 37):
+            assert torch.equal(smoke.hist_probe(
+                smoke.HIST_VARIANTS[variant], keys, kw, run=run), want)
 
 
 def test_radix_sort_pair_counts_one_launch_per_kernel_and_pass():
