@@ -335,6 +335,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    argument bytes the real state's and batch's, its FLOPs
    ``FlopCounterMode``'s count of the plain step, its temp bytes beside
    the card's peak; must end within 180 s.
+4o. the port across ranks: four processes on the one card, a ``gloo``
+   group (``launch/ranks.py``: NCCL refuses two ranks on one card), the
+   kernels built by the parent and loaded by each rank
+   (``python3 chip_smoke.py --ranks-phase DIR`` under
+   ``launch.ranks.spawn_ranks``; the backend, world size and device
+   printed).  (a) sets 1-3 and 2x20 through ``plan_sharded`` and the
+   routed fill on the rank mesh ``make_data_mesh()`` (p = 4): each
+   rank's fields bit for bit block r of the one-process plan of phase
+   4g, the fill bit for bit on integer data and within ``C_SEG`` eps of
+   sum|terms| on random data, the gathered SpMV within ``8 eps sum_j
+   |a_ij x_j|`` of the one-process one; B1 and B2 a block's digit passes
+   and B3' one launch a fill on every rank; ``plan_sharded_ranks_ms``,
+   ``routed_fill_ranks_ms`` and the exchange alone (``exchange_ms``).
+   (b) OLMoE-1B-7B at full width on RANK_LM_LAYERS layers, bf16, on a
+   ``(data 2, model 2)`` rank mesh (the state placed by the sharding
+   rules, the MoE dispatch on each data shard's tokens) for
+   RANK_LM_STEPS steps of 4i's batch as one microbatch (each microbatch
+   gathers the weights again): every loss finite, the first (the same
+   weights) within RANK_BF16_FIRST_RTOL and every one within
+   RANK_BF16_RTOL of the one-process steps on the same state and batch
+   (two token groups, as the two data shards); B12 and B11 each
+   RANK_LM_STEPS x (2 x RANK_LM_LAYERS + 1) times on every rank;
+   ``step_ms``; a float32 one-layer copy, each rank on its shards: its
+   loss and every gradient leaf against the one-process ones within
+   4i's TRAIN_F32_RTOL, then the step's update half
+   (``train_step.apply_gradients``) on the one-process gradients handed
+   to both, its global norm within 4i's TRAIN_OPT_RTOL and the
+   parameters, master, mu, nu and ef within it of each leaf's largest.  (c) the launcher,
+   ``launch.train.main`` on ``--arch olmo_1b --reduced --dp 2 --tp 2``
+   for three steps, in the same four ranks (its group and its mesh are
+   theirs; rank 0 prints its lines).  Must end
+   within PHASE_4O_LIMIT_S.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -4122,7 +4154,9 @@ def train_parity(cfg1, batch, dev, ocfg) -> tuple[dict, dict]:
     TRAIN_DECAY_RTOL); then ``adamw_update`` (``ocfg``) on the CPU's
     gradients handed to both, master, mu, nu and the new parameters
     within TRAIN_OPT_RTOL of each leaf's largest.  Returns the two sets
-    of errors."""
+    of errors.  The card's results stay on the card and each CPU leaf is
+    compared there (:func:`_rel_err`): the CPU's own passes over the
+    float32 trees are what the phases that call this wait for."""
     import copy
 
     from repro_torch.models import model as lm
@@ -4141,12 +4175,11 @@ def train_parity(cfg1, batch, dev, ocfg) -> tuple[dict, dict]:
         loss = lm.loss_fn(p, {k: v.to(d) for k, v in batch.items()}, cfg1,
                           kv_chunk=S)
         grads = torch.autograd.grad(loss, tree_leaves(p))
-        side[name] = (float(loss.detach()), [g.cpu() for g in grads])
+        side[name] = (float(loss.detach()), list(grads))
         stage[f"grad_{name}"] = time.perf_counter() - t1
     (l_cpu, g_cpu), (l_dev, g_dev) = side["cpu"], side["cuda"]
     by_leaf = {  # each block's tensor against its own largest
-        n: max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-               for a, b in zip(pa, pb))
+        n: max(_rel_err(a, b) for a, b in zip(pa, pb))
         for (n, pa, _), (_, pb, _) in zip(
             stacked_leaves(tree_unflatten(p_dev, g_dev)),
             stacked_leaves(tree_unflatten(p_cpu, g_cpu)))}
@@ -4173,19 +4206,16 @@ def train_parity(cfg1, batch, dev, ocfg) -> tuple[dict, dict]:
         g = [x.to(d) for x in g_cpu]  # the CPU's gradients, handed over
         newp, opt, om = opt_mod.adamw_update(tree_unflatten(p, g), opt,
                                              ocfg)
-        upd[name] = ([x.cpu() for x in tree_leaves(newp)],
-                     {k: [x.cpu() for x in tree_leaves(opt[k])]
-                      for k in ("master", "mu", "nu")},
+        upd[name] = (tree_leaves(newp),
+                     {k: tree_leaves(opt[k]) for k in ("master", "mu", "nu")},
                      float(om["grad_norm"]), float(om["lr"]))
         stage[f"adamw_{name}"] = time.perf_counter() - t1
     dn = abs(upd["cuda"][2] / upd["cpu"][2] - 1)
     opt_err = {}
     for k in ("master", "mu", "nu"):
-        opt_err[k] = max(float((a - b).abs().max() / b.abs().max().clamp(
-            min=1e-30)) for a, b in zip(upd["cuda"][1][k],
-                                        upd["cpu"][1][k]))
-    opt_err["params"] = max(float((a - b).abs().max() / b.abs().max()
-                                  .clamp(min=1e-30))
+        opt_err[k] = max(_rel_err(a, b) for a, b in zip(upd["cuda"][1][k],
+                                                        upd["cpu"][1][k]))
+    opt_err["params"] = max(_rel_err(a, b)
                             for a, b in zip(upd["cuda"][0], upd["cpu"][0]))
     require(all(v <= TRAIN_OPT_RTOL for v in opt_err.values()),
             f"adamw_update on the card differs from the CPU's: {opt_err} "
@@ -4194,6 +4224,14 @@ def train_parity(cfg1, batch, dev, ocfg) -> tuple[dict, dict]:
     return errs, {"grad_norm_rel_diff": dn,
                   "lr": [upd["cuda"][3], upd["cpu"][3]],
                   **{f"{k}_rel_err": v for k, v in opt_err.items()}}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``max |got - want| / max |want|``, on ``got``'s device (``want``
+    copied there)."""
+    want = want.to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
 
 
 def launcher_resume(arch: str, dev, phase: str) -> dict:
@@ -5810,6 +5848,521 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
     return row
 
 
+#: phase 4o: its limit in seconds, the ranks sharing the card, the LM's
+#: (data, model) rank mesh, layers and steps, the timed repetitions
+PHASE_4O_LIMIT_S = 150
+RANK_WORLD = 4
+RANK_MESH = (2, 2)
+RANK_LM_LAYERS, RANK_LM_STEPS = 2, 3
+RANK_REPS = 5
+#: (b) the bf16 rank steps' losses against the one-process steps': the
+#: (2, 2) mesh adds its matmuls' partial sums in bf16 in other orders.
+#: The first step runs on the same weights (4.8e-5 apart on the H100,
+#: PERF.md); the updates then carry the bf16 differences on (1.5e-3 and
+#: 4.5e-3 at steps 2 and 3)
+RANK_BF16_FIRST_RTOL = 1e-3
+RANK_BF16_RTOL = 1e-2
+
+
+def _rank_kernels() -> dict:
+    """The wrappers the rank path launches, by their table names."""
+    from repro_torch.kernels.counting_sort import counting_sort as cs_mod
+    from repro_torch.kernels.hist import hist as hist_mod
+    from repro_torch.kernels.radix_sort import radix_sort as rs
+    from repro_torch.kernels.segment_sum import segment_sum as ss_mod
+
+    return {"B1": rs.digit_block_histogram, "B2": rs.digit_placement,
+            "B3": ss_mod.gather_segment_sum,
+            "B11": cs_mod.placement, "B12": hist_mod.block_histogram}
+
+
+def _ranks_ms(fn, reps: int) -> list:
+    """Host-clock ms of ``fn()`` on this rank, every call started after a
+    barrier of all ranks and ended by a synchronize."""
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _rank_sparse(info, mesh, kernels) -> dict:
+    """Phase 4o (a) on one rank: its block of every set, against block
+    ``r`` of the one-process plan at p = 4 on the same card."""
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.kernels.radix_sort.ops import plan_digit_passes
+    from repro_torch.launch import ranks as ranks_mod
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sparse import plan_sharded
+
+    dev, r, p = info.device, info.rank, info.world
+    one = Mesh(("data",), (p,), (dev,) * p)
+    out = {}
+    specs = {str(k): (c["siz"], c["nnz_row"], c["nrep"])
+             for k, c in DATA_SETS.items()}
+    specs["2x20"] = (BIG["siz"], BIG["nnz_row"], BIG["nrep"])
+    for name, (siz, nnz_row, nrep) in specs.items():
+        ii, jj, _, _ = ransparse(siz, nnz_row, nrep, seed=SEED)
+        rows = torch.from_numpy((ii - 1).astype(np.int32)).to(dev)
+        cols = torch.from_numpy((jj - 1).astype(np.int32)).to(dev)
+        del ii, jj
+        L = rows.shape[0]
+        g = np.random.default_rng([SEED, 40])
+        vi = torch.from_numpy(g.integers(-8, 9, L).astype(np.float32)).to(dev)
+        v = torch.from_numpy(g.standard_normal(L).astype(np.float32)).to(dev)
+        x = torch.from_numpy(g.standard_normal(siz).astype(np.float32)).to(dev)
+        # the main path, counted on this rank
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        pat = plan_sharded(rows, cols, (siz, siz), mesh=mesh)
+        A = pat.assemble(vi)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in kernels.items()}
+        npass = len(plan_digit_passes(pat.rpb, siz, p * pat.capacity))
+        row = {"launches": launches,
+               "expected": {"B1": npass, "B2": npass, "B3": 1, "B11": 0,
+                            "B12": 0}}
+        # against block r of the one-process plan, on the same card
+        ref = plan_sharded(rows, cols, (siz, siz), mesh=one)
+        fields = ("send_slot", "perm", "slot", "indices", "indptr", "nnz",
+                  "send_base", "block_load", "overflow")
+        row["fields_equal"] = all(torch.equal(getattr(pat, f)[0],
+                                              getattr(ref, f)[r])
+                                  for f in fields)
+        R = ref.assemble(vi)
+        row["fill_int_equal"] = bool(torch.equal(A.data[0], R.data[r]))
+        got, want = pat.assemble(v).data[0], ref.assemble(v).data[r]
+        mag = ref.assemble(v.abs()).data[r]
+        row["fill_err_over_eps"] = float(((got - want).abs() / (
+            EPS32 * mag).clamp(min=1e-30)).max())
+        y, y1 = A.spmv(x), R.spmv(x)
+        bound = ref.assemble(vi.abs()).spmv(x.abs())
+        row["spmv_err_over_eps"] = float(((y - y1).abs() / (
+            EPS32 * bound).clamp(min=1e-30)).max())
+        row["nnz_total"] = int(pat.nnz_total())
+        row["any_overflow"] = bool(pat.any_overflow())
+        row["nnz_one_process"] = int(ref.nnz_total())
+        del ref, R, got, want, mag
+        # the times: the plan and the fill on the rank mesh, and the
+        # fill's exchange alone (its bucket buffer through all_to_all)
+        reps = RANK_REPS
+        row["plan_sharded_ranks_ms"] = _ranks_ms(
+            lambda: plan_sharded(rows, cols, (siz, siz), mesh=mesh), reps)
+        row["routed_fill_ranks_ms"] = _ranks_ms(lambda: pat.assemble(v),
+                                                reps)
+        buf = torch.zeros(p, pat.capacity, device=dev)
+        group = mesh.get_group("data")
+        row["exchange_ms"] = _ranks_ms(
+            lambda: ranks_mod.exchange(buf, group), reps)
+        row["exchange_bytes"] = int(buf.numel() * 4)
+        out[name] = row
+        del pat, A, rows, cols, v, vi, x, buf
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_lm(info, kernels) -> dict:
+    """Phase 4o (b) on one rank: OLMoE at full width on a (2, 2) rank
+    mesh, against the one-process steps (rank 0)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import place_on_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+    from repro_torch.models.layers import stacked_leaves
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_step as ts_mod
+
+    dev, r = info.device, info.rank
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=RANK_LM_LAYERS)
+    mesh = make_host_mesh(data=RANK_MESH[0], model=RANK_MESH[1])
+    tcfg = ts_mod.TrainConfig(
+        opt=opt_mod.OptConfig(lr=3e-4, warmup_steps=2,
+                              total_steps=RANK_LM_STEPS),
+        microbatches=1, compress_grads=True, kv_chunk=TRAIN_SEQ)
+    host = SyntheticLM(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                       seed=SEED).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    out = {"stage_s": {}}
+    t_stage = time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage
+        t_stage = now
+
+    def whole_state():
+        return ts_mod.init_train_state(lm.init_model(cfg, seed=SEED,
+                                                     device=dev), tcfg)
+
+    # the batch first: DTensor's first use imports its machinery, which
+    # takes seconds, on every rank at once; then the ranks take turns to
+    # draw the whole state and keep their shards (four whole states at
+    # once would not fit the card)
+    placed = place_on_mesh(mesh, batch, batch=TRAIN_BATCH)
+    state = None
+    for turn in range(info.world):
+        if turn == r:
+            state = place_on_mesh(mesh, whole_state())
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["state_local_GB"] = sum(
+        t.to_local().numel() * t.element_size() for _, parts, _ in
+        stacked_leaves(state) for t in parts) / 1e9
+    stage("place")
+    step = ts_mod.make_train_step(cfg, tcfg)
+    runtime_flags.set_moe_mesh(mesh, ("data",))
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    for f in kernels.values():
+        f.launches = 0
+    for _ in range(RANK_LM_STEPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, placed)
+        losses.append(float(m["loss"].full_tensor()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = {k: f.launches for k, f in kernels.items()}
+    out["losses"], out["step_ms"] = losses, step_ms
+    out["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    runtime_flags.set_moe_mesh(None)
+    del state, placed
+    torch.cuda.empty_cache()
+    dist.barrier()
+    stage("steps")
+    # the one-process steps on the same state and batch (rank 0; two
+    # token groups, as the two data shards dispatch)
+    if r == 0:
+        runtime_flags.set_moe_groups(RANK_MESH[0])
+        state = whole_state()
+        plain = []
+        for _ in range(RANK_LM_STEPS):
+            state, m = step(state, batch)
+            plain.append(float(m["loss"]))
+        runtime_flags.set_moe_groups(1)
+        out["plain_losses"] = plain
+        del state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    stage("one_process_steps")
+
+    cfg1 = dataclasses.replace(full, n_layers=1, dtype="float32")
+    b1 = {k: v[:2, :128].contiguous() for k, v in batch.items()}
+    out.update(_rank_f32(info, mesh, cfg1, b1, tcfg))
+    torch.cuda.empty_cache()
+    dist.barrier()
+    stage("f32")
+    return out
+
+
+def _rank_f32(info, mesh, cfg1, batch, tcfg) -> dict:
+    """Phase 4o (b)'s float32 copy on one rank: a train step of ``cfg1``
+    on the rank mesh against one process's on the same weights, each
+    rank on its shards (one process's tensor cut by the mesh leaf's
+    placements).  The loss and every gradient leaf; then the step's
+    update half (``train_step.apply_gradients``: the compression with
+    error feedback, the global norm over the shards, AdamW on each
+    shard) on one process's gradients handed to both sides, every leaf
+    of the parameters, master, mu, nu and ef against one process's.
+    Returns the errors, each over the leaf's largest magnitude."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.launch.sharding import place_on_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.shards import replicating
+    from repro_torch.train import train_step as ts_mod
+
+    dev, B, S = info.device, *batch["tokens"].shape
+    out = {"card_free_GB": torch.cuda.mem_get_info(dev)[0] / 1e9}
+
+    def cut(t, like):
+        """One process's whole ``t`` as this rank's shard of ``like``."""
+        return distribute_tensor(t, mesh, like.placements,
+                                 src_data_rank=None)
+
+    def leaves_of(state):
+        return {"params": tree_leaves(state["params"]),
+                **{k: tree_leaves(state["opt"][k])
+                   for k in ("master", "mu", "nu")},
+                "ef": tree_leaves(state["ef"])}
+
+    def whole_state():
+        return ts_mod.init_train_state(lm.init_model(cfg1, seed=SEED,
+                                                     device=dev), tcfg)
+
+    # the ranks take turns (a whole float32 state a rank at once would
+    # crowd the card) to draw the whole state, take one process's loss
+    # and gradients on it (two token groups, as the two data shards
+    # dispatch) and keep their shards
+    state = ref_loss = ref_grads = None
+    for turn in range(info.world):
+        if turn == info.rank:
+            whole = whole_state()
+            runtime_flags.set_moe_groups(RANK_MESH[0])
+            loss = lm.loss_fn(whole["params"], batch, cfg1, kv_chunk=S)
+            ref_grads = list(torch.autograd.grad(
+                loss, tree_leaves(whole["params"])))
+            runtime_flags.set_moe_groups(1)
+            ref_loss = float(loss)
+            state = place_on_mesh(mesh, whole)
+            del whole, loss
+            torch.cuda.empty_cache()
+        dist.barrier()
+    mesh_leaves = leaves_of(state)
+    b_mesh = place_on_mesh(mesh, batch, batch=B)
+    runtime_flags.set_moe_mesh(mesh, ("data",))
+    with replicating(b_mesh["tokens"]):
+        loss = lm.loss_fn(state["params"], b_mesh, cfg1, kv_chunk=S)
+        grads = torch.autograd.grad(loss, mesh_leaves["params"])
+    runtime_flags.set_moe_mesh(None)
+    out["f32_loss_rel_err"] = abs(float(loss.full_tensor()) - ref_loss) \
+        / abs(ref_loss)
+    out["f32_grad_rel_err"] = max(
+        float((g.redistribute(placements=p.placements).to_local()
+               - cut(ref, p).to_local()).abs().max()
+              / ref.abs().max().clamp(min=1e-30))
+        for g, ref, p in zip(grads, ref_grads, mesh_leaves["params"]))
+    del grads, loss
+    # the update half on one process's gradients handed to both sides:
+    # the rank mesh's first, on its shards copied out of them ...
+    handed = [DTensor.from_local(cut(g, p).to_local().clone(), mesh,
+                                 p.placements, run_check=False,
+                                 shape=p.shape, stride=p.stride())
+              for g, p in zip(ref_grads, mesh_leaves["params"])]
+    gn = ts_mod.apply_gradients(state, handed, tcfg)["grad_norm"]
+    gn = float(gn.full_tensor() if isinstance(gn, DTensor) else gn)
+    mine = leaves_of(state)
+    # ... then one process's, in turns, each rank against its shards
+    errs, norm1 = {}, None
+    for turn in range(info.world):
+        if turn == info.rank:
+            whole = whole_state()
+            norm1 = float(ts_mod.apply_gradients(whole, ref_grads,
+                                                 tcfg)["grad_norm"])
+            for k, ws in leaves_of(whole).items():
+                errs[k] = max(float(
+                    (m.to_local() - cut(w, m).to_local()).abs().max()
+                    / w.abs().max().clamp(min=1e-30))
+                    for w, m in zip(ws, mine[k]))
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    out["f32_grad_norm_rel_diff"] = abs(gn / norm1 - 1)
+    out["f32_opt_rel_err"] = errs
+    return out
+
+
+def ranks_child(outdir: str) -> None:
+    """``python3 chip_smoke.py --ranks-phase DIR``: one rank of phase 4o;
+    writes ``DIR/rank<r>.json``."""
+    from repro_torch.launch.mesh import init_ranks, make_data_mesh
+
+    info = init_ranks()
+    print(f"phase 4o: {info.describe()}", flush=True)
+    kernels = _rank_kernels()
+    t0 = time.perf_counter()
+    res = {"rank": info.rank, "world": info.world,
+           "backend": info.backend, "device": str(info.device),
+           "sparse": _rank_sparse(info, make_data_mesh(), kernels)}
+    res["sparse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["lm"] = _rank_lm(info, kernels)
+    res["lm_s"] = time.perf_counter() - t0
+    # (c) the launcher on this group, which it ends
+    from repro_torch.launch import train as train_mod
+
+    t0 = time.perf_counter()
+    res["launcher_rc"] = train_mod.main([
+        "--arch", "olmo_1b", "--reduced", "--dp", str(RANK_MESH[0]),
+        "--tp", str(RANK_MESH[1]), "--steps", "3", "--log-every", "1",
+        "--ckpt-dir", os.path.join(outdir, "ckpt")])
+    res["launcher_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, f"rank{info.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ranks_phase(smi_line) -> dict:
+    """Phase 4o (the module docstring).  Returns the launches of its
+    main paths on each rank: ``{kernel: [rank 0, ...]}``."""
+    import tempfile
+
+    from repro_torch.launch.ranks import choose_backend, spawn_ranks
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    backend = choose_backend("cuda", ranks_on_host=RANK_WORLD, cards=count)
+    print(f"phase 4o: {RANK_WORLD} ranks on {count} card(s), backend "
+          f"{backend}; {smi_line}", flush=True)
+    row = {"phase": "4o", "card": smi_line, "world": RANK_WORLD,
+           "backend": backend}
+    torch.cuda.empty_cache()
+    row["card_free_GB"] = torch.cuda.mem_get_info()[0] / 1e9
+    tmp = Path(tempfile.mkdtemp(prefix="ranks_", dir=ROOT / "build"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    try:
+        res = spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--ranks-phase", str(tmp)], RANK_WORLD,
+                          timeout_s=PHASE_4O_LIMIT_S, env=env,
+                          rendezvous=str(tmp / "rendezvous"))
+    except RuntimeError as e:
+        print(f"phase 4o: {e}", file=sys.stderr, flush=True)  # every rank
+        fail(f"phase 4o: {e}"[:6000])
+    for rc, so, _ in res:
+        print("\n".join(ln for ln in so.splitlines()
+                        if not ln.startswith("[train]")), flush=True)
+    ranks = [json.load(open(tmp / f"rank{r}.json"))
+             for r in range(RANK_WORLD)]
+    for q in ranks:
+        require(q["backend"] == backend and q["world"] == RANK_WORLD
+                and q["device"] == "cuda:0", f"phase 4o: rank {q['rank']} "
+                f"ran on {q['device']} over {q['backend']}")
+    # (a) the sparse path, rank by rank
+    sets = {}
+    for name in ranks[0]["sparse"]:
+        per = [q["sparse"][name] for q in ranks]
+        for r, a in enumerate(per):
+            require(a["launches"] == a["expected"], f"phase 4o (a), set "
+                    f"{name}, rank {r}: launches {a['launches']} != "
+                    f"{a['expected']}")
+            require(a["fields_equal"] and a["fill_int_equal"],
+                    f"phase 4o (a), set {name}, rank {r}: the block differs "
+                    "from block r of the one-process plan or fill")
+            require(a["fill_err_over_eps"] <= C_SEG, f"phase 4o (a), set "
+                    f"{name}, rank {r}: fill error {a['fill_err_over_eps']}"
+                    f" eps x sum|terms| > {C_SEG}")
+            require(a["spmv_err_over_eps"] <= 8, f"phase 4o (a), set "
+                    f"{name}, rank {r}: SpMV error {a['spmv_err_over_eps']}"
+                    " eps x sum_j |a_ij x_j| > 8")
+            require(a["nnz_total"] == a["nnz_one_process"]
+                    and not a["any_overflow"], f"phase 4o (a), set {name}, "
+                    f"rank {r}: nnz {a['nnz_total']} vs "
+                    f"{a['nnz_one_process']}, overflow {a['any_overflow']}")
+        sets[name] = {
+            "launches": [a["launches"] for a in per],
+            "plan_sharded_ranks_ms": max(float(np.median(
+                a["plan_sharded_ranks_ms"])) for a in per),
+            "routed_fill_ranks_ms": max(float(np.median(
+                a["routed_fill_ranks_ms"])) for a in per),
+            "exchange_ms": max(float(np.median(a["exchange_ms"]))
+                               for a in per),
+            "exchange_bytes_a_rank": per[0]["exchange_bytes"],
+            "fill_err_over_eps": max(a["fill_err_over_eps"] for a in per),
+            "spmv_err_over_eps": max(a["spmv_err_over_eps"] for a in per)}
+        t = sets[name]
+        print(f"phase 4o (a): set {name}: plan_sharded_ranks_ms "
+              f"{t['plan_sharded_ranks_ms']:.4g}, routed_fill_ranks_ms "
+              f"{t['routed_fill_ranks_ms']:.4g}, exchange_ms "
+              f"{t['exchange_ms']:.4g} ({t['exchange_bytes_a_rank']} B a "
+              f"rank); B1/B2/B3' a rank "
+              f"{[(x['B1'], x['B2'], x['B3']) for x in t['launches']]}",
+              flush=True)
+    row["sets"] = sets
+    row["sparse_s"] = max(q["sparse_s"] for q in ranks)
+    # (b) the LM step on the (2, 2) rank mesh
+    lm_rows = [q["lm"] for q in ranks]
+    losses, plain = lm_rows[0]["losses"], lm_rows[0]["plain_losses"]
+    require(all(q["losses"] == losses for q in lm_rows)
+            and all(np.isfinite(losses)), f"phase 4o (b): the ranks' "
+            f"losses differ or are not finite: {[q['losses'] for q in lm_rows]}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    rel = max(rels)
+    require(rels[0] <= RANK_BF16_FIRST_RTOL and rel <= RANK_BF16_RTOL,
+            f"phase 4o (b): the rank steps' losses {losses} vs the "
+            f"one-process steps' {plain} (rel {rels})")
+    per_run = RANK_LM_STEPS * (2 * RANK_LM_LAYERS + 1)
+    for r, q in enumerate(lm_rows):
+        require(q["launches"]["B12"] == per_run == q["launches"]["B11"],
+                f"phase 4o (b), rank {r}: B12/B11 {q['launches']}, not "
+                f"{per_run} each")
+    f32 = {k: max(q[k] for q in lm_rows)
+           for k in ("f32_loss_rel_err", "f32_grad_rel_err",
+                     "f32_grad_norm_rel_diff")}
+    f32["f32_opt_rel_err"] = {k: max(q["f32_opt_rel_err"][k]
+                                     for q in lm_rows)
+                              for k in lm_rows[0]["f32_opt_rel_err"]}
+    require(f32["f32_loss_rel_err"] <= TRAIN_F32_RTOL
+            and f32["f32_grad_rel_err"] <= TRAIN_F32_RTOL,
+            f"phase 4o (b): the float32 copy on the rank mesh differs from "
+            f"one process: loss {f32['f32_loss_rel_err']:.3g}, gradients "
+            f"{f32['f32_grad_rel_err']:.3g} (limit {TRAIN_F32_RTOL})")
+    require(f32["f32_grad_norm_rel_diff"] <= TRAIN_OPT_RTOL
+            and all(v <= TRAIN_OPT_RTOL
+                    for v in f32["f32_opt_rel_err"].values()),
+            f"phase 4o (b): apply_gradients on the rank mesh differs from "
+            f"one process's on the same gradients: {f32['f32_opt_rel_err']}"
+            f", grad norm {f32['f32_grad_norm_rel_diff']:.3g} (limit "
+            f"{TRAIN_OPT_RTOL})")
+    row["lm"] = {
+        "arch": LM_ARCH, "n_layers": RANK_LM_LAYERS, "mesh": RANK_MESH,
+        "losses": losses, "plain_losses": plain, "loss_rel_diff": rels,
+        "launches": [q["launches"] for q in lm_rows],
+        "step_ms": [max(q["step_ms"][i] for q in lm_rows)
+                    for i in range(RANK_LM_STEPS)],
+        "state_local_GB": [q["state_local_GB"] for q in lm_rows],
+        "peak_GB": [q["peak_GB"] for q in lm_rows],
+        **f32,
+        "stage_s": [q["stage_s"] for q in lm_rows],
+        "f32_card_free_GB": [q["card_free_GB"] for q in lm_rows]}
+    row["lm_s"] = max(q["lm_s"] for q in ranks)
+    print(f"phase 4o (b): {LM_ARCH} on {RANK_LM_LAYERS} layers, mesh "
+          f"{RANK_MESH}: losses {losses} vs one process {plain}; step_ms "
+          f"{row['lm']['step_ms']}; B12/B11 a rank "
+          f"{[(x['B12'], x['B11']) for x in row['lm']['launches']]}; "
+          f"float32 loss {f32['f32_loss_rel_err']:.3g}, gradients "
+          f"{f32['f32_grad_rel_err']:.3g}, the update on the same "
+          f"gradients {f32['f32_opt_rel_err']} (grad norm "
+          f"{f32['f32_grad_norm_rel_diff']:.3g})", flush=True)
+    # (c) the launcher in the four ranks: rank 0's lines
+    lines = [ln for ln in res[0][1].splitlines() if ln.startswith("[train]")]
+    steps = [float(ln.split("loss=")[1].split()[0]) for ln in lines
+             if ln.startswith("[train] step=")]
+    require(all(q["launcher_rc"] == 0 for q in ranks) and lines
+            and lines[0] == f"[train] ranks={RANK_WORLD} backend={backend} "
+            "device=cuda:0" and len(steps) == 3 and all(np.isfinite(steps))
+            and (tmp / "ckpt" / "step_0000000003" / "manifest.json").exists()
+            and not any(ln.startswith("[train]") for _, so, _ in res[1:]
+                        for ln in so.splitlines()),
+            f"phase 4o (c): the launcher printed {lines}")
+    row["launcher"] = {"losses": steps, "first_line": lines[0],
+                       "s": max(q["launcher_s"] for q in ranks)}
+    print(f"phase 4o (c): launch.train --dp 2 --tp 2: {lines[0]}; losses "
+          f"{steps}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PHASE_4O_LIMIT_S,
+            f"phase 4o took {row['phase_s']:.1f} s")
+    launches = {k: [0] * RANK_WORLD for k in ("B1", "B2", "B3", "B11",
+                                                "B12")}
+    for r in range(RANK_WORLD):
+        for k in ("B1", "B2", "B3"):
+            launches[k][r] = sum(sets[n]["launches"][r][k] for n in sets)
+        for k in ("B11", "B12"):
+            launches[k][r] = row["lm"]["launches"][r][k]
+    return launches
+
+
 def main() -> None:
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -6100,12 +6653,8 @@ def main() -> None:
                 f"after set {name}")
         i0, j0 = ii - 1, jj - 1
         t0 = time.perf_counter()
-        pr, ir, jc = matlab_sparse_oracle(i0, j0, ss, siz, siz)
-        pr_v, _, _ = matlab_sparse_oracle(i0, j0, v.astype(np.float64),
-                                          siz, siz)
-        mag, _, _ = matlab_sparse_oracle(i0, j0,
-                                         np.abs(v).astype(np.float64),
-                                         siz, siz)
+        (pr, pr_v, mag), ir, jc = matlab_sparse_oracle(
+            i0, j0, np.stack([ss, v, np.abs(v)]), siz, siz)
         oracle_s = time.perf_counter() - t0
         oracles[name] = (pr, ir, jc, pr_v, mag)
         for A, what in ((S, "fsparse"), (R, "refill")):
@@ -6369,6 +6918,11 @@ def main() -> None:
     #    a one-rank mesh against the plain ones, and its trace -----------
     dryrun_sweep_phase(sweep, smi_line)
     sharded = sharded_step_phase(dev, kernels4, smi_line)
+
+    # -- 4o. the port across ranks: four processes on the card, a gloo
+    #    group; the sharded assembly, OLMoE on a (2, 2) rank mesh, the
+    #    launcher ----------------------------------------------------
+    rank_launches = ranks_phase(smi_line)
 
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
@@ -6636,6 +7190,7 @@ def main() -> None:
          "cross_serve_launches": cross_serve_launches[k],
          "cross_train_launches": cross_train_launches[k],
          "sharded_step_launches": sharded["launches"]["dtensor"].get(k, 0),
+         "rank_launches": rank_launches.get(k, [0] * RANK_WORLD),
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],
@@ -6668,5 +7223,7 @@ if __name__ == "__main__":
         loaded_table_check(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--serving-restart-check"]:
         serving_restart_check(sys.argv[2])
+    elif sys.argv[1:2] == ["--ranks-phase"]:
+        ranks_child(sys.argv[2])
     else:
         main()

@@ -72,9 +72,20 @@ block; the radix sort and the plan with the replaced B1 and with the
 kernel, in turns; B1 on the skewed streams at L = 2.5e6
 (``chip_smoke.hist_stream``).
 
-    python3 kernel_times.py [queue_d] [segment] [merge_sym] [product] [hist]
+The ``ranks`` section (only when named) measures the backends of ranks
+that share the one card, each in a group of two child processes
+(``launch.ranks.spawn_ranks``): ``gloo``'s plain collectives on CUDA
+tensors (``all_to_all_single``, ``all_gather_into_tensor``,
+``all_reduce``; median host ms of 10, at 2^20 and 2^24 float32 a rank),
+staged through pinned host buffers beside them; DTensor's functional
+``all_gather`` on such a group, as it is and with
+``sync_functional_collectives`` (the exit code of the first: torch
+2.11's crash); NCCL with both ranks on the card (the error it raises).
 
-runs the named sections (all five without arguments).  Prints the
+    python3 kernel_times.py [queue_d] [segment] [merge_sym] [product] [hist]
+    python3 kernel_times.py ranks
+
+runs the named sections (the first five without arguments).  Prints the
 card's name and power limit, then one JSON line a set, a stream or a
 site.  A quicker measure than ``chip_smoke.py`` when two versions of
 these kernels are compared on one card.
@@ -603,6 +614,104 @@ def sym_sweep(cpm, dev) -> None:
             print(json.dumps(row), flush=True)
 
 
+#: the ranks section: float32 values a rank of each timed collective
+RANK_SIZES = (1 << 20, 1 << 24)
+
+
+def rank_child(what: str, out: str) -> None:
+    """``python3 kernel_times.py --rank-child WHAT OUT``: one of the two
+    ranks of a ``ranks`` probe; rank 0 writes ``OUT``."""
+    import os
+    import time
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.launch import ranks
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    init = "file://" + os.environ["REPRO_RANKS_FILE"]
+    res = {"what": what}
+    if what == "funcol_sync":
+        ranks.init_ranks()          # gloo, with the plain collectives
+    else:
+        dist.init_process_group("nccl" if what == "nccl" else "gloo",
+                                init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=timedelta(seconds=60))
+    x = torch.arange(8, dtype=torch.float32, device=dev) + rank
+    if what == "nccl":
+        try:  # the probe records the refusal; nothing runs on after it
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            res["error"] = None
+        except Exception as e:  # noqa: BLE001 - the message is the result
+            res["error"] = str(e).strip().splitlines()[-1]
+    elif what in ("funcol", "funcol_sync"):
+        y = funcol.all_gather_tensor(x, 0, list(range(world)))
+        res["all_gather"] = y.cpu().tolist()
+    else:
+        group = dist.group.WORLD
+
+        def ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(10):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(t))
+
+        def staged(fn, v):
+            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            h.copy_(v)
+            return fn(h, group).to(dev)
+
+        for n in RANK_SIZES:
+            v = torch.randn(world, n // world, device=dev)
+            res[str(n)] = {
+                "bytes_a_rank": 4 * n,
+                "all_to_all_single_ms": ms(lambda: ranks.exchange(v, group)),
+                "all_gather_into_tensor_ms": ms(
+                    lambda: ranks.gather(v, group)),
+                "all_reduce_ms": ms(lambda: ranks.reduce(v, group)),
+                "staged_all_to_all_single_ms": ms(
+                    lambda: staged(ranks.exchange, v)),
+                "staged_all_reduce_ms": ms(lambda: staged(ranks.reduce, v)),
+            }
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+    if what != "nccl":  # a refused NCCL group runs no further collective
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+def ranks_times() -> None:
+    import tempfile
+
+    from repro_torch.launch.ranks import spawn_ranks
+
+    tmp = Path(tempfile.mkdtemp(prefix="rank_probe_"))
+    for what in ("gloo", "funcol", "funcol_sync", "nccl"):
+        out = tmp / f"{what}.json"
+        try:
+            spawn_ranks([sys.executable, str(Path(__file__).resolve()),
+                         "--rank-child", what, str(out)], 2, timeout_s=120,
+                        rendezvous=str(tmp / f"rendezvous_{what}"))
+        except RuntimeError as e:  # the crash is the finding
+            print(json.dumps({"what": what, "failed": str(e).splitlines()[0]}),
+                  flush=True)
+            continue
+        print(out.read_text(), flush=True)
+
+
 SECTIONS = ("queue_d", "segment", "merge_sym", "product", "hist")
 
 
@@ -611,11 +720,14 @@ def main(sections) -> None:
         sys.exit("torch.cuda.is_available() is false: no CUDA device")
     from repro_torch.kernels import common
 
-    unknown = set(sections) - set(SECTIONS)
+    unknown = set(sections) - set(SECTIONS) - {"ranks"}
     if unknown:
         sys.exit(f"unknown sections {sorted(unknown)}; choose from "
-                 f"{SECTIONS}")
+                 f"{SECTIONS} or ranks")
     print(smoke.nvidia_smi_line(), flush=True)
+    if "ranks" in sections:
+        ranks_times()
+        sections = [s for s in sections if s != "ranks"]
     libs = {"queue_d": ["hist", "counting_sort", "segment_sum",
                         "radix_sort"],
             "segment": ["segment_sum", "segment_sum_probe", "radix_sort"],
@@ -644,4 +756,7 @@ def main(sections) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or SECTIONS)
+    if sys.argv[1:2] == ["--rank-child"]:
+        rank_child(sys.argv[2], sys.argv[3])
+    else:
+        main(sys.argv[1:] or SECTIONS)

@@ -10,7 +10,12 @@
   * RESTORE: pick the newest ``step_*`` with a valid manifest and copy
     each leaf into the template's tensor in place (a resume holds one
     state, not two).
-  * Multi-process: only rank 0 writes (single-writer); all read.
+  * Multi-process: only rank 0 writes (single-writer); all read.  A
+    state of DTensors (a rank mesh) is gathered whole on every rank
+    before rank 0 writes it (every rank calls ``save``), and restored
+    into whatever placements the restarted job's template has: each
+    rank copies its own shards out of the whole leaf, so a state saved
+    on a ``(2, 2)`` mesh resumes on ``(4, 1)``.
 
 The format is the reference's, so that each package restores the
 other's checkpoints: ``step_<10 digits>/arrays.npz`` plus
@@ -49,9 +54,12 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     """A host copy of one leaf (the caller goes on writing into its
-    tensors), the types numpy lacks as their uint view."""
+    tensors), the types numpy lacks as their uint view; a DTensor
+    gathered whole (a collective)."""
     name = _dtype_name(t)
     t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     if name not in _VIEW_AS:
         return t.to("cpu", copy=True).numpy()
     uint, same_width, _ = _VIEW_AS[name]
@@ -100,8 +108,26 @@ def _unflatten_into(template, arrays: dict[str, np.ndarray],
             arr = arrays[name]
             value = _as_torch(arr, dtypes.get(name, str(arr.dtype)))
             for i, p in enumerate(parts):
-                p.copy_(value[i] if stacked else value)
+                _copy_into(p, value[i] if stacked else value)
     return template
+
+
+def _copy_into(p: torch.Tensor, value: torch.Tensor) -> None:
+    """``p.copy_(value)``; a DTensor ``p`` takes this rank's shards of
+    the whole ``value`` by its own placements."""
+    if not hasattr(p, "device_mesh"):
+        p.copy_(value)
+        return
+    from torch.distributed.tensor import distribute_tensor
+
+    local = distribute_tensor(value.to(p.to_local().device), p.device_mesh,
+                              p.placements, src_data_rank=None)
+    p.to_local().copy_(local.to_local())
+
+
+def _has_dtensors(state) -> bool:
+    return any(hasattr(p, "device_mesh") for _, parts, _ in
+               stacked_leaves(state) for p in parts[:1])
 
 
 def _process_index() -> int:
@@ -154,10 +180,14 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, state, *, extra: dict | None = None,
              blocking: bool = False):
-        """Snapshot to host memory now; write to disk asynchronously."""
-        if self.proc != 0:
+        """Snapshot to host memory now; write to disk asynchronously.
+        A state of DTensors is gathered on every rank (each calls this),
+        then written by rank 0."""
+        if self.proc != 0 and not _has_dtensors(state):
             return
         flat, dtypes = _flatten(state)  # snapshot before async
+        if self.proc != 0:
+            return
         extra = dict(extra or {})
 
         def work():
@@ -193,8 +223,9 @@ class CheckpointManager:
         """Copy the checkpoint at ``step`` (the latest by default) into
         ``template``'s tensors in place, on their devices; returns
         ``(template, manifest)``, or ``(None, None)`` when there is none.
-        (The reference's ``shardings`` has no counterpart: the state
-        stays whole on the template's device.)"""
+        The reference's ``shardings`` are the template's own: a DTensor
+        leaf takes its shards of the saved whole leaf by its placements,
+        whatever mesh saved it."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None

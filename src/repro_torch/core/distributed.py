@@ -11,7 +11,10 @@ times:
     >>> A = pat.assemble(vals)           # O(L) per fill   # doctest: +SKIP
 
 :class:`ShardedCSC` is re-exported from its home so ``isinstance``
-checks keep working.
+checks keep working.  Both factories run on a rank mesh too
+(``make_data_mesh()`` or ``make_host_mesh(data=p)`` on a group of
+ranks): every rank calls them alike, the SpMV's ``y`` is gathered to
+the global vector on every rank.
 """
 from __future__ import annotations
 
@@ -47,12 +50,15 @@ def make_distributed_spmv(mesh: Mesh, *, M: int, N: int, axis: str = "data"):
     """y = A @ x with block-row ShardedCSC A; x shared.
 
     Deprecated: a ``ShardedCSC`` from the sharded plan path carries its
-    mesh and supports ``A.spmv(x)`` / ``A @ x`` directly.  The blocks
-    are ``A``'s leading axis, so ``mesh`` and ``axis`` only keep the
-    reference's signature.
+    mesh and supports ``A.spmv(x)`` / ``A @ x`` directly.  On one device
+    the blocks are ``A``'s leading axis, so ``mesh`` and ``axis`` only
+    keep the reference's signature; on a rank mesh ``A`` holds this
+    rank's block and ``y`` is gathered over ``A``'s mesh.
     """
 
     def dist_spmv(A: ShardedCSC, x: torch.Tensor) -> torch.Tensor:
+        if A.ranked:
+            return A.spmv(x)
         return _sharded_spmv(A.data, A.indices, A.indptr, A.nnz, x,
                              shape=(M, N))
 

@@ -5,8 +5,10 @@ Copies of ``repro/core/oracle.py``'s ``matlab_sparse_oracle``,
 included) and ``dense_oracle``, so the port and ``chip_smoke.py``
 import nothing of the JAX package.  The
 duplicate sums and column counts use ``np.bincount`` where the
-reference uses ``np.add.at``: the same float64 sums in the same input
-order, fast enough for 5·10^7 triplets.
+reference uses ``np.add.at``, and the order is a stable sort of the key
+``col * M + row`` where the reference lexsorts (row, col): the same
+order and the same float64 sums in the same input order, fast enough
+for 5·10^7 triplets.
 """
 from __future__ import annotations
 
@@ -19,18 +21,21 @@ def matlab_sparse_oracle(ii, jj, ss, M: int, N: int):
     Duplicate (i, j) pairs are summed (in float64) and the structural
     nonzero is kept even when the sum is 0.0, as fsparse keeps it.
     Column-major (CSC) output with rows ascending within each column;
-    row indices ``>= M`` are padding and dropped.
+    row indices ``>= M`` are padding and dropped.  ``ss`` may hold
+    several value vectors as rows (``[k, L]``): one sort serves them
+    all, and ``prS`` is then ``[k, nnz]``.
     """
     ii = np.asarray(ii, dtype=np.int64)
     jj = np.asarray(jj, dtype=np.int64)
     ss = np.asarray(ss, dtype=np.float64)
     keep = ii < M
-    ii, jj, ss = ii[keep], jj[keep], ss[keep]
-    order = np.lexsort((ii, jj))  # sort by col, then row (stable)
-    ii, jj, ss = ii[order], jj[order], ss[order]
+    ii, jj, ss = ii[keep], jj[keep], ss[..., keep]
+    # sort by col, then row, stable: the key is unique to (col, row)
+    order = np.argsort(jj * M + ii, kind="stable")
+    ii, jj, ss = ii[order], jj[order], ss[..., order]
     if ii.size == 0:
         return (
-            np.zeros(0, np.float64),
+            np.zeros(ss.shape[:-1] + (0,), np.float64),
             np.zeros(0, np.int32),
             np.zeros(N + 1, np.int32),
         )
@@ -40,7 +45,9 @@ def matlab_sparse_oracle(ii, jj, ss, M: int, N: int):
     boundary[1:] = key[1:] != key[:-1]
     slot = np.cumsum(boundary) - 1
     nnz = int(slot[-1]) + 1
-    prS = np.bincount(slot, weights=ss, minlength=nnz)
+    prS = np.stack([np.bincount(slot, weights=s, minlength=nnz)
+                    for s in ss.reshape(-1, ss.shape[-1])]).reshape(
+                        ss.shape[:-1] + (nnz,))
     irS = np.zeros(nnz, np.int32)
     irS[slot] = ii
     jcS = np.zeros(N + 1, np.int64)

@@ -13,7 +13,10 @@ Two sources:
 Both yield {"tokens": [B, S] int32, "labels": [B, S] int32} with labels
 = next-token shift.  A background prefetch thread keeps ``depth``
 batches ready (overlap host data prep with device compute).  The
-batches are numpy; the launcher moves them to the device.
+batches are numpy; the launcher moves them to the device.  On a rank
+mesh every rank draws the same global batch (a function of the seed and
+the step, so no rank waits for another) and keeps its own rows over the
+data axes (``launch/sharding.py`` ``place_on_mesh(..., batch=B)``).
 """
 from __future__ import annotations
 

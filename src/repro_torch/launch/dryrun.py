@@ -50,12 +50,10 @@ import traceback
 import weakref
 
 import torch
-from torch import nn
 
 from ..configs import ARCHS, get_config
 from ..models import runtime_flags as _rtf
 from ..models.config import SHAPES
-from ..models.layers import Params
 from ..models.model import decode_step, init_cache, init_model, prefill
 from ..train.optimizer import OptConfig
 from ..train.train_step import TrainConfig, init_train_state, make_train_step
@@ -67,6 +65,7 @@ from .sharding import (
     logits_spec,
     map_with_path,
     param_specs,
+    place,
     placements,
 )
 from .specs import cell_applicable, input_specs
@@ -279,28 +278,9 @@ def _leaves(tree) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Templates placed on the mesh
+# Templates placed on the mesh (``sharding.place``)
 # ---------------------------------------------------------------------------
-def _place(mesh, tree, specs):
-    """``tree`` with every tensor a DTensor placed by its spec; a
-    :class:`Params` model stays a model (DTensor parameters)."""
-    from torch.distributed.tensor import distribute_tensor
-
-    if isinstance(tree, Params):
-        out = Params()
-        for k in tree.keys():
-            out[k] = _place(mesh, tree[k], specs[k])
-        return out
-    if isinstance(tree, nn.ModuleList):
-        return nn.ModuleList([_place(mesh, t, s)
-                              for t, s in zip(tree, specs)])
-    if isinstance(tree, dict):
-        return {k: _place(mesh, tree[k], specs[k]) for k in tree}
-    if isinstance(tree, list):
-        return [_place(mesh, t, s) for t, s in zip(tree, specs)]
-    return distribute_tensor(tree.detach(), mesh,
-                             placements(mesh, specs, tree.shape),
-                             src_data_rank=None)
+_place = place
 
 
 def _fake_like(spec_tree, device):

@@ -14,14 +14,22 @@ kinds of mesh the rules meet: this module's :class:`Mesh`, a
 ``DeviceMesh`` and a duck-typed mesh with a ``shape`` dict and
 ``axis_names``.
 
+On a default group of more than one rank (:func:`init_ranks`, one
+process a shard, ``launch/ranks.py``), :func:`make_data_mesh` and
+:func:`make_host_mesh` return a ``DeviceMesh`` with one shard a rank,
+as the reference meshes over all present devices: the sharded assembly
+and the LM step then exchange data between processes.
+:func:`is_rank_mesh` tells the two kinds apart, :func:`mesh_device`
+gives either kind's device (a rank mesh's: this rank's).
+
 A :class:`Mesh` names its axes, their sizes and the device of every
 shard.  The port keeps a mesh's shards as the leading axis of every
 sharded tensor, so several shards may share one device:
 ``make_data_mesh(4)`` puts four shards on the current card, as the
 reference's tests put four on forced host devices
-(``XLA_FLAGS=--xla_force_host_platform_device_count=4``).  A mesh whose
-shards span more than one device is refused: meshes over several cards
-wait for a machine that has them (ROADMAP queue A, item 14).
+(``XLA_FLAGS=--xla_force_host_platform_device_count=4``).  A
+:class:`Mesh` whose shards span more than one device is refused: a
+mesh over several devices is a rank mesh, one process a device.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import math
 import torch
 
 from ..kernels.common import resolve_device
+from .ranks import init_ranks, rank_info  # noqa: F401 - init_ranks: API
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +75,10 @@ class Mesh:
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
                 f"the mesh's shards span {len(set(self.devices))} devices: "
-                "the port runs every shard of a mesh on one device; "
-                "meshes over several cards wait for a machine that has "
-                "them (ROADMAP queue A, item 14)")
+                "a Mesh runs every shard on one device; a mesh over "
+                "several devices is a rank mesh, one process a shard "
+                "(make_data_mesh on a group of ranks: ROADMAP queue A, "
+                "item 14)")
 
     @property
     def shape(self) -> dict[str, int]:
@@ -93,7 +103,10 @@ def make_data_mesh(n: int | None = None, *, axis: str = "data",
                    device=None) -> Mesh:
     """One-axis mesh of ``n`` shards, the default of the sharded path.
 
-    With ``n=None`` there is one shard per visible CUDA device (one on a
+    On a group of more than one rank (:func:`init_ranks`) it is a
+    ``DeviceMesh`` of one shard a rank (``n`` None or the world size),
+    on the rank's device unless ``device`` names another kind.  With
+    ``n=None`` there is one shard per visible CUDA device (one on a
     machine with one card; a machine with several gets a mesh the port
     refuses, see :class:`Mesh`).  A given ``n`` puts all ``n`` shards on
     one device: the current card, or ``device`` when the caller passes
@@ -104,6 +117,13 @@ def make_data_mesh(n: int | None = None, *, axis: str = "data",
     """
     if n is not None and int(n) < 1:
         raise ValueError(f"a mesh needs n >= 1 shards, got {n}")
+    info = rank_info()
+    if info is not None:
+        if n is not None and int(n) != info.world:
+            raise ValueError(
+                f"a group of {info.world} ranks meshes {info.world} "
+                f"shards, one a rank; got n={n}")
+        return _rank_mesh((info.world,), (axis,), _rank_kind(device))
     if device is None:
         resolve_device(None)  # raises when there is no card
         if n is None:
@@ -119,17 +139,62 @@ def make_data_mesh(n: int | None = None, *, axis: str = "data",
 
 def make_host_mesh(*, data: int | None = None, model: int = 1,
                    device=None) -> Mesh:
-    """A ``("data", "model")`` mesh on one device (tests, the serving
-    launcher).
+    """A ``("data", "model")`` mesh (tests, the launchers).
 
     As the reference's, ``data`` defaults to the present devices over
-    ``model``: one, since the port's meshes live on one device.  A given
-    ``data`` puts ``data * model`` shards on that device.
+    ``model``.  On a group of more than one rank (:func:`init_ranks`) it
+    is a ``DeviceMesh`` of one shard a rank, ``data * model`` the world
+    size, on the rank's device unless ``device`` names another kind.
+    Otherwise the devices are one, and a given ``data`` puts ``data *
+    model`` shards on that device.
     """
+    info = rank_info()
+    if info is not None:
+        if data is None:
+            data = info.world // model
+        if data * model != info.world:
+            raise ValueError(
+                f"a ({data}, {model}) mesh needs {data * model} ranks; "
+                f"the group has {info.world}")
+        return _rank_mesh((data, model), ("data", "model"),
+                          _rank_kind(device))
     dev = _pinned(resolve_device(device))
     if data is None:
         data = 1 // model
     return Mesh(("data", "model"), (data, model), (dev,) * (data * model))
+
+
+def _rank_kind(device) -> str:
+    """The device type of a rank mesh: ``device``'s, else the rank's."""
+    if device is not None:
+        return torch.device(device).type
+    return rank_info().device.type
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_mesh(shape: tuple, names: tuple, kind: str):
+    """The ``DeviceMesh`` of ``shape`` over the default group, one per
+    shape and kind: forming a mesh of several dims is itself a
+    collective (its subgroups), which every rank must run alike."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(kind, shape, mesh_dim_names=names)
+
+
+def is_rank_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` over ranks, as against the
+    port's one-process :class:`Mesh`."""
+    return mesh is not None and not isinstance(mesh, Mesh) and \
+        hasattr(mesh, "get_group")
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device a mesh's shard lives on in this process: a
+    :class:`Mesh`'s one device, a rank mesh's card for this rank (the
+    current card) or the CPU."""
+    if isinstance(mesh, Mesh):
+        return mesh.device
+    return _pinned(torch.device(mesh.device_type))
 
 
 #: the production meshes' shapes and axes, single pod and two pods

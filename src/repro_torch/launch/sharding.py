@@ -21,13 +21,15 @@ gets the reference's spec less its first entry.  A :class:`P` holds
 what the reference's ``PartitionSpec`` holds: per tensor dim ``None``,
 an axis name, or a tuple of names that shard the dim major to minor.
 :func:`param_shardings` turns specs into DTensor placements on a
-``DeviceMesh``.
+``DeviceMesh``; :func:`place` puts a tree's tensors there as DTensors
+(the dry run's templates on its fake group, a real state or batch on a
+rank mesh), and :func:`place_on_mesh` does so by these rules.
 """
 from __future__ import annotations
 
 import re
 
-from ..models.layers import _is_node, _is_stack
+from ..models.layers import Params, _is_node, _is_stack
 from .mesh import axis_names, axis_size, batch_axes
 
 
@@ -168,6 +170,52 @@ def param_shardings(mesh, params, *, mode: str = "train"):
         lambda name, leaf, blocks: placements(
             mesh, _leaf_spec(mesh, name, leaf, blocks, mode), leaf.shape),
         params)
+
+
+def place(mesh, tree, specs):
+    """``tree`` with every tensor a DTensor placed on ``mesh`` by its
+    spec in ``specs``; a :class:`Params` model stays a model (DTensor
+    parameters).  Each rank keeps its own shards of the whole tensor it
+    holds (``src_data_rank=None``: nothing is sent), so every rank must
+    hold the same values: the same seed, the same checkpoint or batch.
+    A shard is copied out of the whole tensor, so that the caller frees
+    the whole by dropping it; a replicated tensor is the caller's own."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(tree, Params):
+        out = Params()
+        for k in tree.keys():
+            out[k] = place(mesh, tree[k], specs[k])
+        return out
+    if isinstance(tree, nn.ModuleList):
+        return nn.ModuleList([place(mesh, t, s)
+                              for t, s in zip(tree, specs)])
+    if isinstance(tree, dict):
+        return {k: place(mesh, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, list):
+        return [place(mesh, t, s) for t, s in zip(tree, specs)]
+    whole = tree.detach()
+    out = distribute_tensor(whole, mesh, placements(mesh, specs, tree.shape),
+                            src_data_rank=None)
+    local = out.to_local()
+    if local._is_view() and local.numel() < whole.numel():
+        # a view into the whole would keep all of it alive on every rank
+        out = DTensor.from_local(local.clone(), mesh, out.placements,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out
+
+
+def place_on_mesh(mesh, tree, *, batch: int | None = None,
+                  mode: str = "train"):
+    """A train state or a model (:func:`param_specs` in ``mode``) or,
+    with ``batch`` (its row count), a batch of ``[B, ...]`` arrays
+    (:func:`batch_specs_for`: rows over the data axes) placed on a rank
+    mesh by :func:`place`."""
+    specs = param_specs(mesh, tree, mode=mode) if batch is None else \
+        batch_specs_for(mesh, tree, batch=batch)
+    return place(mesh, tree, specs)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,22 @@
         --arch olmo_1b --reduced --steps 200 --batch 8 --seq 128 \\
         --ckpt-dir /tmp/ckpt --ckpt-every 50 [--device cpu]
 
-The model and its state live whole on one device: the card unless
-``--device cpu``.  What it exercises:
+One process with no rank environment keeps the model and its state
+whole on one device: the card unless ``--device cpu``.  Under
+``python -m torch.distributed.run --nproc-per-node D*T`` (or any
+launcher that sets ``RANK``/``WORLD_SIZE``), ``--dp D --tp T`` runs on a
+``(data, model)`` rank mesh of ``D*T`` ranks, one process a shard
+(``launch/ranks.py``): the state placed by the sharding rules
+(``launch/sharding.py``: FSDP over ``data``, tensor parallel over
+``model``), each rank's batch rows over ``data``, the MoE dispatch on
+each data shard's tokens, checkpoints gathered whole and restored onto
+whatever mesh the resumed job has::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch olmo_1b --reduced \
+        --dp 2 --tp 2 --device cpu --steps 6 --ckpt-dir /tmp/ckpt
+
+What it exercises:
   * automatic resume from the latest valid checkpoint, the data
     pipeline's position included: the position of the next batch the
     loop consumes (the reference saves the prefetch thread's own
@@ -24,13 +38,13 @@ The model and its state live whole on one device: the card unless
     launcher feeds the model ``SyntheticLM``'s tokens and labels only,
     and cannot train these families: ROADMAP queue C, C4).
 
-``--tp`` above 1 is refused: tensor parallelism needs several cards,
-and the state lives whole on one device (the parameter partition rules,
-``launch/sharding.py``, place it on a ``DeviceMesh`` for the dry run).
+``--dp D --tp T`` with ``D*T`` above 1 and no rank environment is
+refused: the ranks are processes, started by the launcher above.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import time
@@ -43,10 +57,13 @@ from ..configs import get_config
 from ..data.pipeline import Prefetcher, SyntheticLM
 from ..kernels.common import resolve_device
 from ..models.config import ShapeConfig
+from ..models import runtime_flags
 from ..models.model import init_model
 from ..train.optimizer import OptConfig
 from ..train.train_step import TrainConfig, init_train_state, make_train_step
-from .mesh import make_host_mesh
+from .mesh import axis_names, init_ranks, make_host_mesh
+from .ranks import close_ranks
+from .sharding import place_on_mesh
 from .specs import stub_embeddings, train_batch_specs
 
 
@@ -85,20 +102,33 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, _on_term)
     signal.signal(signal.SIGINT, _on_term)
 
-    if args.tp != 1:
+    ranked = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if not ranked and args.tp * (args.dp or 1) != 1:
         raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism above 1 needs several "
-            "cards (the reference's make_host_mesh(data=1, model=2) fails "
-            "on one device as well); the state lives whole on one device, "
-            "and the sharding rules of ROADMAP queue A, item 15, step 4 "
-            "place it only for the dry run")
-    device = resolve_device(args.device)
+            f"--dp {args.dp} --tp {args.tp}: a mesh of more than one "
+            "shard runs one process a shard (ROADMAP queue A, item 15, "
+            "step 4, and A16); start the ranks with python -m "
+            "torch.distributed.run --nproc-per-node "
+            f"{args.tp * (args.dp or 1)} -m repro_torch.launch.train ...")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    mesh = make_host_mesh(data=args.dp, model=args.tp, device=device)
-    print(f"[train] arch={cfg.name} params~{cfg.n_params/1e6:.1f}M "
-          f"mesh={dict(mesh.shape)} devices={len(set(mesh.devices))}")
+    if ranked:
+        info = init_ranks(args.device)
+        device = info.device
+        mesh = make_host_mesh(data=args.dp, model=args.tp)
+        runtime_flags.set_moe_mesh(mesh, ("data",))
+        shape = dict(zip(axis_names(mesh), mesh.shape))
+        say = print if info.rank == 0 else _quiet
+        say(f"[train] ranks={info.world} backend={info.backend} "
+            f"device={device}")
+    else:
+        device = resolve_device(args.device)
+        mesh = make_host_mesh(data=args.dp, model=args.tp, device=device)
+        shape = dict(mesh.shape)
+        say = print
+    say(f"[train] arch={cfg.name} params~{cfg.n_params/1e6:.1f}M "
+        f"mesh={shape} devices={1 if ranked else len(set(mesh.devices))}")
 
     tcfg = TrainConfig(
         opt=OptConfig(lr=args.lr, warmup_steps=args.warmup,
@@ -111,6 +141,8 @@ def main(argv=None):
     # ---- init (or resume: the checkpoint is copied into this state)
     params = init_model(cfg, seed=args.seed, device=device)
     state = init_train_state(params, tcfg)
+    if ranked:  # every rank draws the same state and keeps its shards
+        state = place_on_mesh(mesh, state)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     pipe_state = {"step": 0, "seed": args.seed}
@@ -119,7 +151,7 @@ def main(argv=None):
         if restored is not None:
             state = restored
             pipe_state = manifest.get("pipeline", pipe_state)
-            print(f"[train] resumed from step {manifest['step']}")
+            say(f"[train] resumed from step {manifest['step']}")
 
     pipe = SyntheticLM(cfg.vocab, args.batch, args.seq, seed=args.seed)
     pipe.load_state_dict(pipe_state)
@@ -132,21 +164,36 @@ def main(argv=None):
     specs = train_batch_specs(cfg, ShapeConfig("train", args.seq, args.batch,
                                                "train"))
 
-    if preempted["flag"]:
-        print("[train] preempted during init; nothing to save; exiting")
+    def stop() -> bool:
+        """The preemption flag, the same on every rank (a signal may
+        reach one rank only; the ranks then save and exit together)."""
+        if not ranked:
+            return preempted["flag"]
+        flag = torch.tensor([int(preempted["flag"])], device=device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def finish(code=0):
         data.close()
-        return 0
+        if ranked:
+            runtime_flags.set_moe_mesh(None)
+            close_ranks()
+        return code
+
+    if stop():
+        say("[train] preempted during init; nothing to save; exiting")
+        return finish()
 
     def save(step, blocking=False):
         if mgr is None:
             return
         mgr.save(step, state,
                  extra={"pipeline": dict(consumed),
-                        "mesh": dict(mesh.shape), "arch": cfg.name},
+                        "mesh": shape, "arch": cfg.name},
                  blocking=blocking)
 
     ewma = None
-    start_step = int(state["step"])
+    start_step = int(_whole(state["step"]))
     t_loop = time.time()
     for step in range(start_step, args.steps):
         t0 = time.time()
@@ -156,28 +203,37 @@ def main(argv=None):
                  for k, v in host_batch.items()}
         batch.update(stub_embeddings(
             specs, np.random.default_rng((args.seed, step)), device))
+        if ranked:  # each rank keeps its rows of the batch
+            batch = place_on_mesh(mesh, batch, batch=args.batch)
         state, metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
-            print(f"[train] step={step} loss={m['loss']:.4f} "
-                  f"lr={m['lr']:.2e} gnorm={m['grad_norm']:.3f}")
+            m = {k: float(_whole(v)) for k, v in metrics.items()}
+            say(f"[train] step={step} loss={m['loss']:.4f} "
+                f"lr={m['lr']:.2e} gnorm={m['grad_norm']:.3f}")
         dt = time.time() - t0
         ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
         if dt > args.straggler_factor * ewma and step > start_step + 5:
             print(f"[train] STRAGGLER step={step}: {dt:.3f}s vs ewma {ewma:.3f}s")
         if mgr is not None and step > 0 and step % args.ckpt_every == 0:
             save(step)
-        if preempted["flag"]:
+        if stop():
             save(step, blocking=True)
-            print(f"[train] preempted at step {step}; state saved; exiting")
-            data.close()
-            return 0
+            say(f"[train] preempted at step {step}; state saved; exiting")
+            return finish()
     total = time.time() - t_loop
-    print(f"[train] done {args.steps - start_step} steps in {total:.1f}s "
-          f"({(args.steps - start_step) / max(total, 1e-9):.2f} it/s)")
+    say(f"[train] done {args.steps - start_step} steps in {total:.1f}s "
+        f"({(args.steps - start_step) / max(total, 1e-9):.2f} it/s)")
     save(args.steps, blocking=True)
-    data.close()
-    return 0
+    return finish()
+
+
+def _whole(t):
+    """A metric or counter as one tensor: a DTensor's whole value."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _quiet(*args, **kwargs):
+    """The print of a rank other than 0."""
 
 
 if __name__ == "__main__":

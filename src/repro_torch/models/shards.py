@@ -61,7 +61,13 @@ def replicating(x):
 def on_shards(fn, mesh, in_placements, out_placements):
     """``fn`` applied to each rank's local shards, its inputs first
     redistributed to ``in_placements`` (None for a non-tensor argument),
-    its outputs wrapped as DTensors with ``out_placements``."""
+    its outputs wrapped as DTensors with ``out_placements``.
+
+    An input replicated over a mesh dim that shards another input (a
+    weight beside a batch split over ``data``) meets different data on
+    each rank of that dim: its gradient there is each rank's share of a
+    sum, ``Partial()`` (:func:`_grad_placements`), where ``local_map``
+    would take it as replicated."""
     from torch.distributed.tensor import Placement
     from torch.distributed.tensor.experimental import local_map
 
@@ -71,8 +77,23 @@ def on_shards(fn, mesh, in_placements, out_placements):
     single = bool(out_placements) and isinstance(out_placements[0], Placement)
     return local_map(fn, out_placements=list(out_placements) if single
                      else each(out_placements),
-                     in_placements=each(in_placements), device_mesh=mesh,
-                     redistribute_inputs=True)
+                     in_placements=each(in_placements),
+                     in_grad_placements=each(_grad_placements(in_placements)),
+                     device_mesh=mesh, redistribute_inputs=True)
+
+
+def _grad_placements(in_placements) -> tuple:
+    """The gradients' placements of ``on_shards``' inputs: ``Partial()``
+    on every mesh dim where the input is replicated and another input is
+    sharded (the ranks of that dim compute on different data), else the
+    input's own placement."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    split = {m for pls in in_placements if pls is not None
+             for m, p in enumerate(pls) if isinstance(p, Shard)}
+    return tuple(None if pls is None else tuple(
+        Partial() if m in split and isinstance(p, Replicate) else p
+        for m, p in enumerate(pls)) for pls in in_placements)
 
 
 def replicate(mesh) -> tuple:

@@ -31,6 +31,7 @@ import torch
 from ..core.coo import COO, coo_from_host, host_triplets
 from ..core.csc import CSC, slot_columns
 from ..kernels.common import resolve_device
+from ..launch.mesh import mesh_device
 from .dispatch import resolve_method
 from .lru import LRUCache
 from .pattern import (SparsePattern, _host_array, plan, plan_coo,
@@ -131,7 +132,8 @@ def fsparse(ii, jj, ss, shape=None, nzmax: int | None = None, *,
         _reject_sharded_accum(accum)
         _reject_sharded_slack(nzmax_slack)
         mesh = _sharded_mesh(mesh, device)
-        coo = coo_from_host(rows, cols, vals, shape, device=mesh.device)
+        coo = coo_from_host(rows, cols, vals, shape,
+                            device=mesh_device(mesh))
         return _plan_sharded_coo(coo, nzmax, mesh).assemble(coo.vals)
     device = resolve_device(device)
     method = resolve_method(method, device, M=shape[0], N=shape[1],
@@ -217,11 +219,11 @@ def _sharded_mesh(mesh, device):
 
     mesh = resolve_mesh(mesh, device=device)
     if device is not None and _device_key(device) != _device_key(
-            mesh.device):
+            mesh_device(mesh)):
         raise ValueError(
             f"device={str(device)!r} differs from the mesh's device "
-            f"{str(mesh.device)!r}: a sharded request runs on its mesh's "
-            "device; pass one of them, or the same device to both"
+            f"{str(mesh_device(mesh))!r}: a sharded request runs on its "
+            "mesh's device; pass one of them, or the same device to both"
         )
     return mesh
 
@@ -333,7 +335,7 @@ def plan_lookup(ii, jj, ss, shape=None, nzmax: int | None = None, *,
         _reject_sharded_accum(accum)
         _reject_sharded_slack(nzmax_slack)
         mesh = _sharded_mesh(mesh, device)
-        device = mesh.device
+        device = mesh_device(mesh)
         extra = mesh_fingerprint(mesh, "data")
     else:
         device = resolve_device(device)
@@ -558,6 +560,9 @@ def nnz_of(S) -> int:
     BSR) expose the Matlab-visible expanded count as ``nnz_total``,
     which is preferred here.
     """
+    whole = getattr(S, "whole", None)   # a rank ShardedCSC: every block
+    if whole is not None:
+        S = whole()
     total = getattr(S, "nnz_total", None)
     if total is not None:
         return int(torch.as_tensor(total))

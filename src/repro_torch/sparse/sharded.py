@@ -41,6 +41,23 @@ The output :class:`ShardedCSC` is block-row partitioned, registered as
 the ``"sharded"`` format (``convert(A, "csc")``, ``to_dense``, ``find``)
 and carries its mesh; ``A.spmv(x)`` / ``A @ x`` run the port's
 ``core/csc.py`` SpMV on each block with ``x`` shared.
+
+On a rank mesh (:func:`repro_torch.launch.mesh.make_data_mesh` on a
+group of ranks: one process a shard) every field holds this rank's row
+of the reference's sharded array, a leading axis of one: its slice of
+``send_slot``, its block's ``perm``/``slot``/``indices``/``indptr``/
+``nnz``, its row of ``send_base``, ``block_load`` and ``overflow``.
+Each rank takes its ``L_pad / p`` slice of the triplets (every rank
+passes the global vectors, or the local shard of a ``Shard(0)``
+DTensor).  Phase A's counts are gathered over the ranks
+(``all_gather_into_tensor`` to ``[p, p]``), the exchange is one
+``all_to_all_single`` of the ``[p * capacity]`` bucket buffer (the row
+and column indices in one at plan time), Phase C plans the rank's own
+block.  Reductions over the shard axis (``nnz_total``,
+``any_overflow``) are collectives, and so is every view that needs the
+other blocks (``to_dense``, ``spmv``'s ``y``, the format conversions):
+each gathers, so that every rank holds the reference's global answer.
+Every rank must make the same calls in the same order.
 """
 from __future__ import annotations
 
@@ -52,7 +69,8 @@ import torch
 from ..core.coo import COO
 from ..core.csc import CSC, slot_columns
 from ..core.csc import spmv as csc_spmv
-from ..launch.mesh import Mesh
+from ..launch import ranks as _ranks
+from ..launch.mesh import Mesh, axis_size, is_rank_mesh, mesh_device
 from .dispatch import resolve_method
 from .pattern import _index_tensor, fill_dtype, plan
 
@@ -70,7 +88,18 @@ def resolve_mesh(mesh: Mesh | None = None, *, axis: str = "data",
 
 def mesh_fingerprint(mesh: Mesh, axis: str) -> tuple:
     """Hashable identity of a mesh for host-side plan caches (the
-    reference's layout, with device indices for device ids)."""
+    reference's layout, with device indices for device ids; a rank
+    mesh's ranks and its group's backend)."""
+    if is_rank_mesh(mesh):
+        import torch.distributed as dist
+
+        return (
+            tuple(mesh.mesh_dim_names),
+            tuple(mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()),
+            dist.get_backend(mesh.get_group(axis)),
+            axis,
+        )
     return (
         tuple(mesh.axis_names),
         tuple(mesh.shape[a] for a in mesh.axis_names),
@@ -106,7 +135,14 @@ class ShardedCSC:
     axis: str = "data"
 
     @property
+    def ranked(self) -> bool:
+        """Whether this rank holds only its own block (a rank mesh)."""
+        return is_rank_mesh(self.mesh)
+
+    @property
     def n_blocks(self) -> int:
+        if self.ranked:
+            return axis_size(self.mesh, self.axis)
         return int(self.data.shape[0])
 
     @property
@@ -139,7 +175,23 @@ class ShardedCSC:
             shape=(self.rows_per_block, self.shape[1]),
         )
 
+    def whole(self) -> "ShardedCSC":
+        """Every block: on a rank mesh the ranks' fields gathered into
+        the one-process layout (a collective: every rank calls it); on
+        one device ``self``."""
+        if not self.ranked:
+            return self
+        group = self.mesh.get_group(self.axis)
+        dev = self.data.device
+        p = self.n_blocks
+        return dataclasses.replace(
+            self, **{f: _ranks.gather(getattr(self, f)[0], group)
+                     for f in ("data", "indices", "indptr", "nnz")},
+            mesh=Mesh((self.axis,), (p,), (dev,) * p))
+
     def to_dense(self) -> torch.Tensor:
+        if self.ranked:
+            return self.whole().to_dense()
         M, _ = self.shape
         blocks = [self.block(b).to_dense() for b in range(self.n_blocks)]
         return torch.cat(blocks, dim=0)[:M]
@@ -160,6 +212,10 @@ class ShardedCSC:
             )
         if self.data.ndim != 2:
             raise ValueError("spmv needs unbatched data; see batch_select")
+        if self.ranked:
+            y = csc_spmv(self.block(0), x)
+            group = self.mesh.get_group(self.axis)
+            return _GatherShards.apply(y, group).reshape(-1)[:self.shape[0]]
         return _sharded_spmv(self.data, self.indices, self.indptr, self.nnz,
                              x, shape=self.shape)
 
@@ -212,13 +268,20 @@ class ShardedPattern:
 
     # -- static geometry ---------------------------------------------------
     @property
+    def ranked(self) -> bool:
+        """Whether this rank holds only its own shard (a rank mesh)."""
+        return is_rank_mesh(self.mesh)
+
+    @property
     def p(self) -> int:
+        if self.ranked:
+            return axis_size(self.mesh, self.axis)
         return int(self.send_slot.shape[0])
 
     @property
     def L_pad(self) -> int:
         """Padded input length (divisible by p)."""
-        return int(self.send_slot.shape[0] * self.send_slot.shape[1])
+        return self.p * int(self.send_slot.shape[1])
 
     @property
     def rpb(self) -> int:
@@ -229,10 +292,27 @@ class ShardedPattern:
         return int(self.indices.shape[-1])
 
     def nnz_total(self) -> torch.Tensor:
+        if self.ranked:
+            return _ranks.reduce(self.nnz, self._group)[0]
         return torch.sum(self.nnz)
 
     def any_overflow(self) -> torch.Tensor:
+        if self.ranked:
+            return _ranks.reduce(self.overflow.to(torch.int32), self._group,
+                                 "max")[0] > 0
         return torch.any(self.overflow)
+
+    @property
+    def _group(self):
+        return self.mesh.get_group(self.axis)
+
+    @functools.cached_property
+    def _exchanger(self):
+        """The exchange of the routed buffers: a transpose on one
+        device, ``all_to_all_single`` over the ranks."""
+        if self.ranked:
+            return _RankExchange(self._group, self.p)
+        return _exchange
 
     # -- numeric phase -----------------------------------------------------
     def assemble(self, vals: torch.Tensor) -> ShardedCSC:
@@ -273,11 +353,16 @@ class ShardedPattern:
         )
 
     def _pad_vals(self, vals: torch.Tensor) -> torch.Tensor:
+        """``vals`` padded to ``L_pad``; on a rank mesh this rank's
+        ``L_pad / p`` slice of them (of a ``Shard(0)`` DTensor's, its
+        local shard)."""
         if vals.shape[-1] != self.L:
             raise ValueError(
                 f"vals has length {vals.shape[-1]} but this pattern was "
                 f"planned for L={self.L} triplets"
             )
+        if self.ranked:
+            return _rank_slice(vals, self._group, self.p, 0)
         pad = self.L_pad - self.L
         if pad:
             vals = torch.nn.functional.pad(vals, (0, pad))
@@ -294,7 +379,7 @@ class ShardedPattern:
         """``perm`` and ``slot`` of the p blocks as one stream for B3':
         block ``d``'s positions offset by ``d * R``, its kept slots by
         ``d * nzb``, every dropped entry at the sentinel ``p * nzb``."""
-        p, R, nzb = self.p, int(self.perm.shape[1]), self.nzb
+        p, R, nzb = int(self.perm.shape[0]), int(self.perm.shape[1]), self.nzb
         if p == 1:
             return self.perm[0], self.slot[0]
         if p * max(R, nzb) >= 2**31:
@@ -309,7 +394,84 @@ class ShardedPattern:
 
 
 def _values(vals, device) -> torch.Tensor:
+    if hasattr(vals, "device_mesh"):  # a DTensor: _pad_vals takes its shard
+        return vals
     return torch.as_tensor(vals).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Rank meshes: the slices, gathers and exchange between processes
+# ---------------------------------------------------------------------------
+class _TakeShard(torch.autograd.Function):
+    """This rank's slice ``[index * n, (index + 1) * n)`` of the last
+    axis of a value every rank holds alike.  Backward: the slices'
+    cotangents gathered, so each rank holds the gradient of the global
+    vector (of the sum of the ranks' losses)."""
+
+    @staticmethod
+    def forward(ctx, x, group, p, index):
+        ctx.group = group
+        n = x.shape[-1] // p
+        return x[..., index * n:(index + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = _ranks.gather(g, ctx.group)           # [p, ..., n]
+        return torch.movedim(parts, 0, -2).flatten(-2), None, None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Every rank's ``x`` stacked on a leading axis (a value every rank
+    then holds alike).  Backward: this rank's own row of the cotangent,
+    the adjoint of :class:`_TakeShard`."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.index = _rank_index(group)
+        return _ranks.gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index].clone(), None
+
+
+def _rank_index(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
+
+def _rank_slice(x, group, p: int, pad_value) -> torch.Tensor:
+    """This rank's ``ceil(L / p)`` slice of the last axis of ``x`` (the
+    global vector, which every rank passes, padded with ``pad_value``),
+    or the local shard of a ``Shard`` DTensor, padded to that length:
+    ``torch.chunk``'s split, the reference's ``L_pad / p`` chunks."""
+    L = x.shape[-1]
+    n = -(-max(L, 1) // p)
+    if hasattr(x, "to_local"):
+        x = x.to_local()
+    else:
+        if n * p != L:
+            x = torch.nn.functional.pad(x, (0, n * p - L), value=pad_value)
+        return _TakeShard.apply(x, group, p, _rank_index(group))
+    if x.shape[-1] != n:
+        x = torch.nn.functional.pad(x, (0, n - x.shape[-1]), value=pad_value)
+    return x
+
+
+class _RankExchange:
+    """The tiled ``all_to_all`` over the ranks of ``group``: chunk ``d``
+    of this rank's ``[..., 1, p * capacity]`` buffer goes to rank ``d``,
+    chunk ``s`` of the result came from rank ``s``.  Its own adjoint."""
+
+    def __init__(self, group, p: int):
+        self.group, self.p = group, p
+
+    def __call__(self, buf: torch.Tensor, capacity: int) -> torch.Tensor:
+        shape = buf.shape
+        x = buf.reshape(-1, self.p, capacity).transpose(0, 1)
+        y = _ranks.exchange(x, self.group)
+        return y.transpose(0, 1).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -324,28 +486,40 @@ def _exchange(buf: torch.Tensor, capacity: int) -> torch.Tensor:
         .reshape(*lead, p, drop)
 
 
-def _route(x: torch.Tensor, send_slot: torch.Tensor, fill, *,
-           capacity: int) -> torch.Tensor:
-    """Phase B's routing of ``x[..., p, L_loc]``: each shard's inputs
-    scattered into its send buckets (``fill`` where nothing lands,
-    dropped inputs cut), then the exchange; ``[..., p, p * capacity]``."""
-    drop = send_slot.shape[0] * capacity
+def _buckets(x: torch.Tensor, send_slot: torch.Tensor, fill, *,
+             drop: int) -> torch.Tensor:
+    """Each shard's inputs ``x[..., n, L_loc]`` scattered into its send
+    buckets ``[..., n, drop]`` (``fill`` where nothing lands, dropped
+    inputs cut)."""
     buf = torch.full((*x.shape[:-1], drop + 1), fill, dtype=x.dtype,
                      device=x.device)
     buf.scatter_(-1, send_slot.long().expand_as(x), x)
-    return _exchange(buf[..., :drop], capacity)
+    return buf[..., :drop]
+
+
+def _route(x: torch.Tensor, send_slot: torch.Tensor, fill, *,
+           capacity: int) -> torch.Tensor:
+    """Phase B's routing of ``x[..., p, L_loc]``: the send buckets, then
+    the exchange; ``[..., p, p * capacity]``."""
+    return _exchange(_buckets(x, send_slot, fill,
+                              drop=send_slot.shape[0] * capacity), capacity)
 
 
 def _plan_phases(rows, cols, *, M: int, N: int, p: int, capacity: int,
-                 nzb: int, method: str):
-    """Phases A-C over all p shards; ``rows``/``cols`` are int32[L_pad]."""
+                 nzb: int, method: str, group=None):
+    """Phases A-C over all p shards, ``rows``/``cols`` int32[L_pad]; or,
+    with the ``group`` of a rank mesh, over this rank's shard alone,
+    ``rows``/``cols`` its int32[L_pad / p] slice."""
     dev = rows.device
     rpb = -(-M // p)
     drop = p * capacity
-    rows = rows.reshape(p, -1)
-    cols = cols.reshape(p, -1)
+    n = p if group is None else 1        # the shards held here
+    first = 0 if group is None else _rank_index(group)
+    rows = rows.reshape(n, -1)
+    cols = cols.reshape(n, -1)
     L_loc = rows.shape[1]
-    shard = torch.arange(p, dtype=torch.int32, device=dev)[:, None]
+    shard = torch.arange(first, first + n, dtype=torch.int32,
+                         device=dev)[:, None]
     dest = torch.clamp(torch.div(rows, max(rpb, 1), rounding_mode="floor"),
                        max=p - 1)
     key = torch.where(rows >= M, p, dest).to(torch.int32)
@@ -356,14 +530,17 @@ def _plan_phases(rows, cols, *, M: int, N: int, p: int, capacity: int,
     k_s, order = torch.sort(key, dim=1, stable=True)
     bounds = torch.searchsorted(
         k_s, torch.arange(p + 1, dtype=torch.int32, device=dev)
-        .expand(p, p + 1).contiguous(), out_int32=True)
+        .expand(n, p + 1).contiguous(), out_int32=True)
 
     # Phase A: each shard's histogram over row-block keys (padding keyed
-    # p and dropped); the exclusive scan over the source shards gives
-    # each shard its base offset into every block's arrival stream
+    # p and dropped), gathered to [p, p] over the ranks; the exclusive
+    # scan over the source shards gives each shard its base offset into
+    # every block's arrival stream
     counts = bounds[:, 1:] - bounds[:, :-1]
-    send_base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    block_load = counts.sum(0, dtype=torch.int32).expand(p, p).contiguous()
+    every = counts if group is None else _ranks.gather(counts[0], group)
+    send_base = (torch.cumsum(every, 0) - every).to(torch.int32)
+    send_base = send_base[first:first + n]
+    block_load = every.sum(0, dtype=torch.int32).expand(n, p).contiguous()
     overflow = torch.any(counts > capacity, dim=1)
 
     # Phase B (symbolic): the position in the stable order, less its
@@ -373,18 +550,23 @@ def _plan_phases(rows, cols, *, M: int, N: int, p: int, capacity: int,
         - bounds.gather(1, k_s.clamp(max=p - 1).long())
     ok = (k_s < p) & (offset < capacity)
     flat = torch.where(ok, k_s * capacity + offset, drop).to(torch.int32)
-    send_slot = torch.full((p, L_loc), drop, dtype=torch.int32,
+    send_slot = torch.full((n, L_loc), drop, dtype=torch.int32,
                            device=dev).scatter_(1, order, flat)
 
-    r_recv = _route(rows, send_slot, M, capacity=capacity)
-    c_recv = _route(cols, send_slot, 0, capacity=capacity)
+    if group is None:
+        r_recv = _route(rows, send_slot, M, capacity=capacity)
+        c_recv = _route(cols, send_slot, 0, capacity=capacity)
+    else:  # one exchange carries both index vectors
+        r_recv, c_recv = _RankExchange(group, p)(torch.stack([
+            _buckets(rows, send_slot, M, drop=drop),
+            _buckets(cols, send_slot, 0, drop=drop)]), capacity)
     r_loc = torch.where(r_recv >= M, rpb, r_recv - shard * rpb)
     r_loc = r_loc.clamp(0, rpb).to(torch.int32)
 
     # Phase C: the serial symbolic analysis (Parts 1-4) on each owned
     # row block; the single-device plan's code path
     pats = [plan(r_loc[d], c_recv[d], (rpb, N), nzmax=nzb, method=method)
-            for d in range(p)]
+            for d in range(n)]
     return (send_slot,
             *(torch.stack([getattr(q, f) for q in pats])
               for f in ("perm", "slot", "indices", "indptr", "nnz")),
@@ -419,6 +601,11 @@ def plan_sharded(
     as :func:`~repro_torch.sparse.dispatch.resolve_method` does: the
     radix planner, B1 and B2, on the card).
 
+    On a rank mesh every rank calls it with the same arguments: the
+    global vectors (each rank takes its slice) or a ``Shard(0)``
+    DTensor's local shards; the plan holds this rank's shard of every
+    field (see the module docstring).
+
     ``symmetric=True`` requests the halved strict-upper plan
     (``plan_symmetric``'s contract); the block-row partition would need
     a mirrored-entry router so each half-entry reaches both owning
@@ -434,16 +621,21 @@ def plan_sharded(
         )
     mesh = resolve_mesh(mesh, axis=axis, device=rows.device if isinstance(
         rows, torch.Tensor) else None)
-    dev = mesh.device
+    dev = mesh_device(mesh)
     M, N = int(shape[0]), int(shape[1])
-    p = mesh.shape[axis]
-    rows = _index_tensor(rows).to(dev, torch.int32)
-    cols = _index_tensor(cols).to(dev, torch.int32)
+    p = axis_size(mesh, axis)
+    group = mesh.get_group(axis) if is_rank_mesh(mesh) else None
     L = int(rows.shape[0])
     L_pad = -(-max(L, 1) // p) * p
-    if L_pad != L:
-        rows = torch.nn.functional.pad(rows, (0, L_pad - L), value=M)
-        cols = torch.nn.functional.pad(cols, (0, L_pad - L))
+    if group is not None:
+        rows = _rank_slice(_rank_input(rows, dev), group, p, M)
+        cols = _rank_slice(_rank_input(cols, dev), group, p, 0)
+    else:
+        rows = _index_tensor(rows).to(dev, torch.int32)
+        cols = _index_tensor(cols).to(dev, torch.int32)
+        if L_pad != L:
+            rows = torch.nn.functional.pad(rows, (0, L_pad - L), value=M)
+            cols = torch.nn.functional.pad(cols, (0, L_pad - L))
     if capacity is None:
         capacity = int(capacity_factor * L_pad / (p * p)) + 8
         capacity = -(-capacity // 8) * 8
@@ -452,13 +644,22 @@ def plan_sharded(
     method = resolve_method(method, dev, M=rpb, N=N, L=p * int(capacity))
     (send_slot, perm, slot, indices, indptr, nnz, send_base, block_load,
      overflow) = _plan_phases(rows, cols, M=M, N=N, p=p,
-                              capacity=int(capacity), nzb=nzb, method=method)
+                              capacity=int(capacity), nzb=nzb, method=method,
+                              group=group)
     return ShardedPattern(
         send_slot=send_slot, perm=perm, slot=slot, indices=indices,
         indptr=indptr, nnz=nnz, send_base=send_base,
         block_load=block_load, overflow=overflow, shape=(M, N), L=L,
         capacity=int(capacity), mesh=mesh, axis=axis,
     )
+
+
+def _rank_input(x, device):
+    """An index vector of a rank plan as int32 on ``device``: a DTensor
+    keeps its layout (its local shard is taken)."""
+    if hasattr(x, "to_local"):
+        return x.to(torch.int32)
+    return _index_tensor(x).to(device, torch.int32)
 
 
 def plan_sharded_coo(coo: COO, **kwargs) -> ShardedPattern:
@@ -470,7 +671,7 @@ def plan_sharded_coo(coo: COO, **kwargs) -> ShardedPattern:
 # Fill time: the O(L) numeric phase
 # ---------------------------------------------------------------------------
 def route_values(send_slot: torch.Tensor, v: torch.Tensor, *, p: int,
-                 capacity: int) -> torch.Tensor:
+                 capacity: int, exchange=None) -> torch.Tensor:
     """Replay Phase B on values alone, for every shard at once.
 
     ``send_slot`` is the plan's bucket map ``int32[p, L_loc]``; ``v`` is
@@ -478,11 +679,16 @@ def route_values(send_slot: torch.Tensor, v: torch.Tensor, *, p: int,
     :func:`~repro_torch.sparse.pattern.fill_dtype`.  One bucket scatter
     and the exchange give the received value streams ``[B, p, p *
     capacity]`` (``[b, d]`` is block ``d``'s stream) that each block's
-    pattern reduces.
+    pattern reduces.  On a rank mesh ``send_slot`` is this rank's
+    ``int32[1, L_loc]``, ``v`` its ``[B, L_loc]`` and ``exchange`` the
+    pattern's ``all_to_all`` (``ShardedPattern._exchanger``); the result
+    is this rank's block's stream ``[B, 1, p * capacity]``.
     """
     dtype = fill_dtype(v)
-    return _route(v.to(dtype).reshape(v.shape[0], p, -1), send_slot, 0,
-                  capacity=capacity)
+    n = send_slot.shape[0]
+    buf = _buckets(v.to(dtype).reshape(v.shape[0], n, -1), send_slot, 0,
+                   drop=p * capacity)
+    return (exchange or _exchange)(buf, capacity)
 
 
 class _RouteFill(torch.autograd.Function):
@@ -499,27 +705,30 @@ class _RouteFill(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, vals, send_slot, perm, slot, streams, capacity, nzb):
+    def forward(ctx, vals, send_slot, perm, slot, streams, capacity, nzb,
+                p, exchange):
         # lazy: the kernel family's ops module imports sparse.pattern
         from ..kernels.segment_sum.ops import gather_segment_sum_sorted
 
-        p = send_slot.shape[0]
-        recv = route_values(send_slot, vals, p=p, capacity=capacity)
+        n = send_slot.shape[0]                   # the blocks held here
+        recv = route_values(send_slot, vals, p=p, capacity=capacity,
+                            exchange=exchange)
         ctx.save_for_backward(send_slot, perm, slot)
-        ctx.capacity, ctx.nzb = capacity, nzb
+        ctx.capacity, ctx.nzb, ctx.p, ctx.exchange = capacity, nzb, p, \
+            exchange
         perm_g, slot_g = streams
         out = [gather_segment_sum_sorted(r.reshape(-1), perm_g, slot_g,
-                                         num_segments=p * nzb).view(p, nzb)
+                                         num_segments=n * nzb).view(n, nzb)
                for r in recv]
         if not out:
-            return recv.new_zeros((p, 0, nzb))
+            return recv.new_zeros((n, 0, nzb))
         return torch.stack(out, dim=1)
 
     @staticmethod
     def backward(ctx, g):
         send_slot, perm, slot = ctx.saved_tensors
-        capacity, nzb = ctx.capacity, ctx.nzb
-        p, L_loc = send_slot.shape
+        capacity, nzb, p = ctx.capacity, ctx.nzb, ctx.p
+        n, L_loc = send_slot.shape
         drop = p * capacity
         gb = g.transpose(0, 1)                       # [B, p, nzb]
         B = gb.shape[0]
@@ -527,22 +736,22 @@ class _RouteFill(torch.autograd.Function):
             g_recv = torch.where(slot < nzb, gb.gather(
                 2, slot.clamp(0, nzb - 1).long().expand(B, -1, -1)), 0)
         else:
-            g_recv = gb.new_zeros((B, p, drop))
-        g_buf = _exchange(torch.zeros_like(g_recv).scatter_(
+            g_recv = gb.new_zeros((B, n, drop))
+        g_buf = ctx.exchange(torch.zeros_like(g_recv).scatter_(
             2, perm.long().expand(B, -1, -1), g_recv), capacity)
         sent = send_slot < drop
         g_vals = torch.where(
             sent, g_buf.gather(2, send_slot.clamp(0, drop - 1).long()
                                .expand(B, -1, -1)), 0)
-        return g_vals.reshape(B, p * L_loc), None, None, None, None, None, \
-            None
+        return (g_vals.reshape(B, n * L_loc), *(None,) * 8)
 
 
 def _fill_sharded(pat: ShardedPattern, vals: torch.Tensor) -> torch.Tensor:
     """``[p, B, nzb]`` fills of the padded ``[B, L_pad]`` values."""
     vals = vals.to(fill_dtype(vals))
     return _RouteFill.apply(vals, pat.send_slot, pat.perm, pat.slot,
-                            pat._streams, pat.capacity, pat.nzb)
+                            pat._streams, pat.capacity, pat.nzb, pat.p,
+                            pat._exchanger)
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +761,7 @@ def sharded_to_coo(A: ShardedCSC) -> COO:
     """Per-block triplets with rows rebased to global coordinates."""
     if A.data.ndim != 2:
         raise ValueError("convert() needs unbatched data; see batch_select")
+    A = A.whole()
     M, N = A.shape
     rpb = A.rows_per_block
     rows, cols, vals = [], [], []

@@ -10,6 +10,9 @@ Gradient flow:
      step t is added at step t+1);
   3. AdamW consumes the compressed gradient against the float32 master
      weights.
+Steps 2 and 3 are :func:`apply_gradients`, which also takes gradients
+handed over from elsewhere (the same gradients on two meshes give the
+same update to float32 rounding).
 
 The state is consumed: every step writes the parameters, the optimizer
 state, ``ef`` and ``step`` into the tensors it was given (the
@@ -129,7 +132,9 @@ def _spread_rows(x, n: int):
     that each of ``n`` microbatches can spread over its row shards: the
     largest set of those mesh dims whose shards divide ``B / n`` keeps
     them, the others are gathered (each microbatch repeated on them).
-    Returns ``(x, shards)``; a plain tensor is ``(x, 1)``."""
+    Returns ``(x, shards)``; a plain tensor is ``(x, 1)``.  The choice
+    reads only shapes and placements, the same on every rank, so on a
+    rank mesh every rank gathers alike."""
     from itertools import combinations
 
     from torch.distributed.tensor import Replicate
@@ -230,29 +235,41 @@ def make_train_step(cfg, tcfg: TrainConfig):
                    for g, p in zip(grads, leaves)]
             del grads
 
+        om = apply_gradients(state, acc, tcfg)
         with torch.no_grad():
-            # ---- gradient compression with error feedback
-            if tcfg.compress_grads:
-                ef = tree_leaves(state["ef"])
-                _add_(acc, ef)                           # with_ef = g + ef
-                sent = [a.to(torch.bfloat16) for a in acc]
-                for a, s, e in zip(acc, sent, ef):       # ef' = with_ef - s
-                    e.copy_(a.sub_(s))
-                del acc
-                used = sent
-            else:
-                used = acc
-            # cast to the param dtypes so adamw mirrors them
-            used = [g.to(p.dtype) for p, g in zip(leaves, used)]
-            new, opt, om = adamw_update(tree_unflatten(params, used),
-                                        state["opt"], tcfg.opt)
-            del used
-            for p, q in zip(leaves, tree_leaves(new)):
-                p.copy_(q)
-            del new
             metrics = {"loss": loss, **om, "step": state["step"].clone()}
             state["step"].add_(1)
-        state["opt"] = opt
         return state, metrics
 
     return train_step
+
+
+@torch.no_grad()
+def apply_gradients(state, grads: list, tcfg: TrainConfig) -> dict:
+    """The update half of a train step, in place: ``grads`` (float32, one
+    a leaf of ``state["params"]``, placed as that leaf; consumed) is
+    compressed to bf16 with error feedback when ``tcfg.compress_grads``,
+    then AdamW steps the float32 master and the parameters take its
+    result.  Returns AdamW's metrics (``lr``, ``grad_norm``)."""
+    params = state["params"]
+    leaves = tree_leaves(params)
+    # ---- gradient compression with error feedback
+    if tcfg.compress_grads:
+        ef = tree_leaves(state["ef"])
+        _add_(grads, ef)                         # with_ef = g + ef
+        used = [a.to(torch.bfloat16) for a in grads]
+        for a, s, e in zip(grads, used, ef):     # ef' = with_ef - s
+            e.copy_(a.sub_(s))
+    else:
+        used = list(grads)
+    grads.clear()  # consumed: the float32 gradients go before AdamW
+    # cast to the param dtypes so adamw mirrors them
+    used = [g.to(p.dtype) for p, g in zip(leaves, used)]
+    new, opt, om = adamw_update(tree_unflatten(params, used), state["opt"],
+                                tcfg.opt)
+    del used
+    for p, q in zip(leaves, tree_leaves(new)):
+        p.copy_(q)
+    del new
+    state["opt"] = opt
+    return om
