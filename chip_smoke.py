@@ -170,7 +170,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    512, 32 tokens), every logit finite and every token in ``[0,
    vocab)``.  All twelve counters are set to 0 before the served run;
    B12 and B11 must then read 1,024 each (one per MoE layer call: 16
-   layers x 32 calls x 2 batches) and the others 0.  Then: layer 0's
+   layers x 32 calls x 2 batches) and the others 0.  On the same model,
+   the one-process runs phase 4o (d) is held to (``rank_serve_reference``:
+   ``rank_serve_prompts``, two token groups, RANK_SERVE_GEN greedy
+   tokens with the output projection summed as the (2, 2) mesh sums it,
+   and the plain prefill; written to ``build/``).  Then: layer 0's
    expert ids of one prefill (16,384 keys) and one decode step (32)
    through ``moe_dispatch_indices`` on the card, bit for bit the plain
    route's and a stable ``torch.argsort``'s, also in 4 groups (256
@@ -362,11 +366,44 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    4i's TRAIN_F32_RTOL, then the step's update half
    (``train_step.apply_gradients``) on the one-process gradients handed
    to both, its global norm within 4i's TRAIN_OPT_RTOL and the
-   parameters, master, mu, nu and ef within it of each leaf's largest.  (c) the launcher,
-   ``launch.train.main`` on ``--arch olmo_1b --reduced --dp 2 --tp 2``
-   for three steps, in the same four ranks (its group and its mesh are
-   theirs; rank 0 prints its lines).  Must end
-   within PHASE_4O_LIMIT_S.
+   parameters, master, mu, nu and ef within it of each leaf's largest.
+   (d) serving: OLMoE-1B-7B whole (16 layers, bf16, seed 0) on the
+   ``(data 2, model 2)`` rank mesh, its weights in the layout
+   ``launch.sharding.serving_mode`` chooses (``"serve"``: TP only) drawn
+   block by block (``init_model(..., place=node_placer(...))``), the MoE
+   dispatch on each data shard's tokens (``set_moe_dispatch``): one
+   request batch of 4h's shape (``rank_serve_prompts``), ``prefill`` and
+   greedy decode to RANK_SERVE_GEN tokens (``shards.greedy_tokens``),
+   against 4h's one-process run of the same prompts (two token groups;
+   ``rank_serve_reference`` writes it to ``build/`` RANK_SERVE_REF),
+   whose attention output projection is summed as the mesh sums it
+   (``tp2_out_proj``: two bf16 partial sums added in bf16): the
+   prefill's last-position logits within RANK_SERVE_RTOL of max|logit|,
+   each row's tokens equal up to its first step whose one-process top-2
+   margin is within twice that, and each decode step's logits up to
+   there within RANK_DECODE_RTOL; the logits within LM_BF16_RTOL of the
+   plain one-process prefill's; the outputs each step redistributed to
+   where ``logits_spec``/``cache_specs`` put them
+   (``model.LAYOUT_FIXES``), counted, the same on every rank; B12 and
+   B11 RANK_SERVE_CALLS
+   times on every rank and B1-B3' none; ``prefill_ranks_ms``,
+   ``decode_ranks_ms``, ``tok_per_s_ranks`` and the peak GB a rank.
+   Then float32 on the rank mesh against one process on the card, the
+   same weights and inputs, logits and every cache leaf within
+   RANK_SERVE_F32_RTOL: a one-layer OLMoE (B = 2, S = 128, 3 decode
+   steps) and each of RANK_SERVE_CASES (the six families reduced, three
+   sequence-sharded caches past the ring's wrap).  (e)
+   ``PlanService(method="sharded")`` on sets 3 and 2x20: each rank's
+   block of ``assemble`` and ``assemble_many`` bit for bit block r of
+   4g's one-process ``fsparse(method="sharded")`` call (made again in
+   the rank), the SpMV within ``8 eps sum_j |a_ij x_j|`` of the
+   one-process SpMV; B1 and B2 a
+   block's digit passes and B3' one launch a fill on every rank;
+   ``hit_ranks_ms``.  (c) the launcher, ``launch.train.main`` on
+   ``--arch olmo_1b --reduced --dp 2 --tp 2`` for three steps, in the
+   same four ranks (its group and its mesh are theirs; rank 0 prints
+   its lines; it ends the group, so it runs after (d) and (e)).  Must
+   end within PHASE_4O_LIMIT_S.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -3809,6 +3846,93 @@ def serve_watched(arch: str, cfg, params, kernels, dev, phase: str) -> dict:
             "tok_per_s": float(m.group(1))}
 
 
+def rank_serve_prompts(cfg) -> np.ndarray:
+    """Phase 4o (d)'s request batch: LM_BATCH prompts of LM_PROMPT
+    tokens, the same on every rank and in 4h's one-process run."""
+    rng = np.random.default_rng([SEED, 41])
+    return rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+
+
+def greedy_margins(logits, vocab: int):
+    """``(tokens [B, 1], top-2 margins [B], max|logit|)`` of one step's
+    last-position logits over the first ``vocab`` entries."""
+    x = logits[:, -1, :vocab].float()
+    top2 = torch.topk(x, 2, dim=-1).values
+    return (torch.argmax(x, dim=-1, keepdim=True), top2[:, 0] - top2[:, 1],
+            x.abs().amax())
+
+
+def rank_serve_reference(params, cfg, dev) -> dict:
+    """One request batch of :func:`rank_serve_prompts` served greedily on
+    one process (RANK_SERVE_GEN tokens, two token groups: one a data
+    shard of the rank mesh), its attention output projection summed as
+    the (2, 2) mesh sums it (:func:`tp2_out_proj`), written to
+    ``build/`` RANK_SERVE_REF for phase 4o (d): each step's last-position
+    logits (the prefill's first), the tokens, each step's top-2 margins
+    and max|logit|; and the prefill's logits summed as one process sums
+    them (``prefill_plain``)."""
+    from repro_torch.models import attention as attn_mod
+
+    prompts = torch.from_numpy(rank_serve_prompts(cfg)).to(dev)
+    plain, _, _, _ = _greedy(params, cfg, prompts, 1, attn_mod._out_proj)
+    lasts, toks, margins, peaks = _greedy(params, cfg, prompts,
+                                          RANK_SERVE_GEN, tp2_out_proj)
+    first, plain = lasts[:, 0], plain[:, 0]
+    out = {"logits": lasts.numpy(), "prefill_plain": plain.numpy(),
+           "tokens": toks.numpy(), "margins": margins.numpy(),
+           "peaks": peaks.numpy()}
+    (ROOT / "build").mkdir(exist_ok=True)
+    np.savez(ROOT / "build" / RANK_SERVE_REF, **out)
+    return {"tokens_row0": out["tokens"][0].tolist(),
+            "min_margin": float(out["margins"].min()),
+            "tp2_vs_plain_rel_err": _rel_err(first, plain)}
+
+
+def _greedy(params, cfg, prompts, gen: int, out_proj):
+    """``prefill`` and greedy decode to ``gen`` tokens on one process with
+    RANK_MESH[0] token groups and ``out_proj`` as the attention's output
+    projection: ``(each step's last-position logits [B, gen, vocab],
+    tokens [B, gen], top-2 margins [B, gen], max|logit| [gen])`` on the
+    host."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+
+    saved = attn_mod._out_proj
+    attn_mod._out_proj = out_proj
+    runtime_flags.set_moe_groups(RANK_MESH[0])
+    try:
+        with torch.inference_mode():
+            logits, cache = lm.prefill(params, {"tokens": prompts}, cfg,
+                                       kv_chunk=prompts.shape[1])
+            lasts, toks, margins, peaks = [], [], [], []
+            for i in range(gen):
+                if i:
+                    logits, cache = lm.decode_step(
+                        params, cache, toks[-1].to(torch.int32), cfg)
+                lasts.append(logits[:, -1, :cfg.vocab].float().cpu())
+                tok, margin, peak = greedy_margins(logits, cfg.vocab)
+                toks.append(tok)
+                margins.append(margin)
+                peaks.append(peak)
+    finally:
+        attn_mod._out_proj = saved
+        runtime_flags.set_moe_groups(1)
+    return (torch.stack(lasts, 1), torch.cat(toks, 1).cpu(),
+            torch.stack(margins, 1).cpu(), torch.stack(peaks).cpu())
+
+
+def tp2_out_proj(params, o, B, S):
+    """``attention._out_proj`` as a mesh of two ``model`` ranks sums it:
+    each rank's half of the heads against its rows of ``o_out`` (each
+    product rounded to the model's dtype), the two added in that
+    dtype."""
+    w = params["o_out"]
+    x = o.reshape(B, S, -1)
+    h = w.shape[0] // 2
+    return torch.matmul(x[..., :h], w[:h]) + torch.matmul(x[..., h:], w[h:])
+
+
 def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
     """Phase 4h: the LM serving path (the module docstring).  Returns the
     launches of its main path, the served run."""
@@ -3860,6 +3984,9 @@ def lm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
     row["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     row["max_memory_allocated_over_start_GB"] = \
         (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the one-process answers phase 4o (d) holds the rank mesh to, on
+    # the same model: no fifth model is drawn there
+    row["rank_serve_reference"] = rank_serve_reference(params, cfg, dev)
 
     # (b) the dispatch bit for bit: layer 0's expert ids in one prefill
     # and one decode step, on the card against the plain route (the CPU)
@@ -5608,8 +5735,12 @@ def dryrun_sweep_phase(sweep: dict, smi_line) -> dict:
         "memory": r.get("memory"), "census": r.get("collectives"),
         "mismatches": r.get("placement_mismatches")}
         for k, r in oks.items()}
+    row["mismatches_total"] = sum(len(r.get("placement_mismatches") or [])
+                                  for r in oks.values())
     print(f"phase 4n (a): {len(res)} cells, {n_ok} ok, {n_skip} skipped, "
-          f"0 errors in {wall:.1f} s; slowest {row['slowest']}", flush=True)
+          f"0 errors in {wall:.1f} s; slowest {row['slowest']}; outputs "
+          f"placed unlike out_shardings (serving steps: redistributed) "
+          f"{row['mismatches_total']}", flush=True)
     for a in ARCHS:
         print(f"phase 4n (a): {a} train_4k per rank temp "
               f"{row['train_4k'][a]['temp_bytes'] / 2**30:.2f} GiB, "
@@ -5850,7 +5981,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
 
 #: phase 4o: its limit in seconds, the ranks sharing the card, the LM's
 #: (data, model) rank mesh, layers and steps, the timed repetitions
-PHASE_4O_LIMIT_S = 150
+PHASE_4O_LIMIT_S = 180
 RANK_WORLD = 4
 RANK_MESH = (2, 2)
 RANK_LM_LAYERS, RANK_LM_STEPS = 2, 3
@@ -5862,6 +5993,61 @@ RANK_REPS = 5
 #: 4.5e-3 at steps 2 and 3)
 RANK_BF16_FIRST_RTOL = 1e-3
 RANK_BF16_RTOL = 1e-2
+#: (d) serving: OLMoE-1B-7B whole in bf16 on the (2, 2) rank mesh, one
+#: request batch of 4h's prompts (LM_BATCH x LM_PROMPT), RANK_SERVE_GEN
+#: tokens: one B12 and one B11 a MoE layer call, 16 layers x (the
+#: prefill + 15 decode steps) on every rank.  4h writes its one-process
+#: answers to ``build/`` RANK_SERVE_REF.
+RANK_SERVE_GEN = 16
+RANK_SERVE_CALLS = 16 * RANK_SERVE_GEN
+RANK_SERVE_REF = "rank_serve_ref.npz"
+#: the (2, 2) mesh sums the attention's output projection as two bf16
+#: partial sums (its row-parallel halves, one a ``model`` rank) added in
+#: bf16: one rounding more a layer than one process's single product,
+#: which moves the prefill's logits by 2.9e-2 of max|logit| through 16
+#: layers and the MoE routing (PERF.md).  So the ranks are held
+#: to a one-process run that sums that projection as the mesh does
+#: (``tp2_out_proj``): the prefill's last-position logits within
+#: RANK_SERVE_RTOL x max|logit| (0 measured on the H100, PERF.md), a
+#: generated token equal wherever that step's top-2 margin there exceeds
+#: twice that bound, each decode step's logits within RANK_DECODE_RTOL
+#: (a row is compared up to its first token that may differ: after it
+#: the two feed different tokens); and to the plain one-process run
+#: within 4h's LM_BF16_RTOL, its bound for two bf16 orders of this model
+RANK_SERVE_RTOL = 1e-3
+#: a decode step splits the batch over "data" (2 of 4 rows a rank): its
+#: GEMMs have other row counts than one process's, so their float32
+#: orders, and then a bf16 rounding or a MoE routing choice, may differ
+#: (4.55e-2 of max|logit| measured on the H100, PERF.md; the prefill's
+#: 2 x 512 rows a rank read 0): held to 4h's bound for two bf16 orders
+#: of this model
+RANK_DECODE_RTOL = LM_BF16_RTOL
+#: float32 on the rank mesh against one process on the card: a one-layer
+#: OLMoE (B = 2, S = 128, 3 decode steps) and each family's reduced
+#: config, logits and every cache leaf within RANK_SERVE_F32_RTOL of the
+#: leaf's max
+RANK_SERVE_F32_RTOL = 1e-5
+#: (name, arch, batch, prompt, extra_cache, decode steps) of the reduced
+#: float32 configs served on the card ranks, as
+#: ``tests/test_torch_ranks_serve.py`` serves them on the CPU: the six
+#: families, then caches whose sequence is sharded (over data, over
+#: model, over both) run past the ring buffer's wrap
+RANK_SERVE_CASES = (
+    ("dense", "olmo_1b", 4, 16, 0, 3),
+    ("moe", "olmoe_1b_7b", 4, 16, 0, 3),
+    ("ssm", "mamba2_780m", 4, 16, 0, 3),
+    ("hybrid", "zamba2_7b", 4, 16, 0, 3),
+    ("encdec", "seamless_m4t_medium", 4, 16, 0, 3),
+    ("vlm", "llama_3_2_vision_11b", 4, 16, 0, 3),
+    ("seq_data", "olmo_1b", 1, 16, 4, 6),
+    ("seq_model", "gemma3_1b", 4, 16, 4, 6),
+    ("seq_both", "gemma3_1b", 1, 16, 4, 6),
+)
+#: (e) PlanService(method="sharded") on set 3 and 2x20, its hits timed
+#: RANK_SERVICE_REPS times (each request pays the host facade: 2-3 s at
+#: 5e7 on every rank)
+RANK_SERVICE_SETS = ("3", "2x20")
+RANK_SERVICE_REPS = 3
 
 
 def _rank_kernels() -> dict:
@@ -6171,6 +6357,267 @@ def _rank_f32(info, mesh, cfg1, batch, tcfg) -> dict:
     return out
 
 
+def _gathered(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _serve_pair(cfg, mesh, batch: dict, decode, extra: int, dev) -> dict:
+    """``prefill`` and decode steps of ``cfg`` (float32) on one process
+    and on the rank mesh, on the same weights (seed SEED) and inputs:
+    the worst error of the logits and of every cache leaf, each over the
+    one-process leaf's max, and the outputs the ranks' steps moved to
+    where the reference's ``out_shardings`` put them
+    (``model.LAYOUT_FIXES``: a list a step)."""
+    from repro_torch.launch.sharding import (param_bytes, place_on_mesh,
+                                             place_tokens, serving_mode)
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+
+    B = batch["tokens"].shape[0]
+    kv = dict(kv_chunk=batch["tokens"].shape[1], extra_cache=extra)
+    runs = {}
+    groups = runtime_flags.set_moe_dispatch(cfg, mesh, B)
+    with torch.no_grad():  # as launch/serve.py serves on ranks
+        whole = lm.init_model(cfg, seed=SEED, device=dev)
+        placed = place_on_mesh(mesh, whole,
+                               mode=serving_mode(mesh, param_bytes(whole)))
+        for side, params in (("ranks", placed), ("one", whole)):
+            if side == "one":  # the same token groups, on one process
+                runtime_flags.set_moe_mesh(None)
+            b = batch if side == "one" else place_on_mesh(mesh, batch,
+                                                          batch=B)
+            lm.LAYOUT_FIXES.clear()
+            logits, cache = lm.prefill(params, b, cfg, **kv)
+            got, fixes = [_gathered(logits)], [list(lm.LAYOUT_FIXES)]
+            for tok in decode:
+                t = tok if side == "one" else place_tokens(mesh, tok)
+                lm.LAYOUT_FIXES.clear()
+                logits, cache = lm.decode_step(params, cache, t, cfg)
+                got.append(_gathered(logits))
+                fixes.append(list(lm.LAYOUT_FIXES))
+            if side == "ranks":
+                layout_fixes = fixes
+            runs[side] = (got, {k: _gathered(v) for k, v in cache.items()
+                                if k != "pos"})
+    runtime_flags.set_moe_dispatch(cfg, None, B)
+    (lr, cr), (lo, co) = runs["ranks"], runs["one"]
+    return {"groups": groups, "layout_fixes": layout_fixes,
+            "logits_rel_err": max(_rel_err(a, b) for a, b in zip(lr, lo)),
+            "cache_rel_err": max(_rel_err(cr[k], co[k]) for k in co)}
+
+
+def _rank_serve(info, kernels) -> dict:
+    """Phase 4o (d) on one rank: OLMoE-1B-7B served whole on a (2, 2)
+    rank mesh against 4h's one-process run, then float32 copies."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (model_param_bytes, node_placer,
+                                             place_on_mesh, serving_mode)
+    from repro_torch.models import model as lm
+    from repro_torch.models import runtime_flags
+    from repro_torch.models.shards import greedy_tokens
+
+    dev = info.device
+    cfg = get_config(LM_ARCH)
+    mesh = make_host_mesh(data=RANK_MESH[0], model=RANK_MESH[1])
+    out = {"stage_s": {}}
+    t_stage = time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        now = time.perf_counter()
+        out["stage_s"][name] = now - t_stage
+        t_stage = now
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["mode"] = mode = serving_mode(mesh, model_param_bytes(cfg))
+    out["groups"] = runtime_flags.set_moe_dispatch(cfg, mesh, LM_BATCH)
+    prompts = torch.from_numpy(rank_serve_prompts(cfg)).to(dev)
+    with torch.no_grad():  # as launch/serve.py serves on ranks
+        # every rank draws the model from the seed block by block and
+        # keeps its shards: never the whole model at once
+        params = lm.init_model(cfg, seed=SEED, device=dev,
+                               place=node_placer(mesh, mode))
+        torch.cuda.synchronize()
+        out["weights_local_GB"] = sum(
+            p.to_local().numel() * p.element_size()
+            for p in params.parameters()) / 1e9
+        out["init_peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        batch = place_on_mesh(mesh, {"tokens": prompts}, batch=LM_BATCH)
+        stage("init")
+        # the main path, counted and timed on this rank
+        dist.barrier()
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        lm.LAYOUT_FIXES.clear()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, batch, cfg, kv_chunk=LM_PROMPT)
+        tok = greedy_tokens(logits, cfg.vocab)
+        torch.cuda.synchronize()
+        out["prefill_ranks_ms"] = (time.perf_counter() - t0) * 1e3
+        toks, decode_ms, lasts = [tok], [], [logits[:, -1]]
+        fixes = [list(lm.LAYOUT_FIXES)]
+        for _ in range(RANK_SERVE_GEN - 1):
+            lm.LAYOUT_FIXES.clear()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(params, cache,
+                                           tok.to(torch.int32), cfg)
+            tok = greedy_tokens(logits, cfg.vocab)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+            lasts.append(logits[:, -1])
+            fixes.append(list(lm.LAYOUT_FIXES))
+        out["launches"] = {k: f.launches for k, f in kernels.items()}
+        out["decode_ranks_ms"] = decode_ms
+        out["served_s"] = (out["prefill_ranks_ms"] + sum(decode_ms)) / 1e3
+        out["tok_per_s_ranks"] = LM_BATCH * RANK_SERVE_GEN / out["served_s"]
+        out["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+        out["layout_fixes"] = fixes
+        out["cache_local_GB"] = sum(
+            v.to_local().numel() * v.element_size() for k, v in
+            cache.items() if k != "pos") / 1e9
+        stage("served")
+        # against 4h's one process: the prefill's last-position logits,
+        # then each row's tokens and each step's logits up to its first
+        # token that may differ
+        ref = dict(np.load(ROOT / "build" / RANK_SERVE_REF))
+        served = np.stack([x.full_tensor()[:, :cfg.vocab].float().cpu()
+                          .numpy() for x in lasts], 1)
+        gen = torch.cat(toks, 1).full_tensor().cpu().numpy()
+    del params, cache, logits, lasts, batch
+    runtime_flags.set_moe_dispatch(cfg, None, LM_BATCH)
+    torch.cuda.empty_cache()
+    got, want = served[:, 0], ref["logits"][:, 0]
+    out["prefill_rel_err"] = float(np.abs(got - want).max()
+                                   / np.abs(want).max())
+    out["prefill_plain_rel_err"] = float(
+        np.abs(got - ref["prefill_plain"]).max()
+        / np.abs(ref["prefill_plain"]).max())
+    compared, diverged, decode_err = 0, [], 0.0
+    for b in range(LM_BATCH):
+        for t in range(RANK_SERVE_GEN):
+            if t:  # fed the same tokens so far
+                decode_err = max(decode_err, float(np.abs(
+                    served[b, t] - ref["logits"][b, t]).max()
+                    / ref["peaks"][t]))
+            if gen[b, t] == ref["tokens"][b, t]:
+                compared += 1
+                continue
+            diverged.append({"row": b, "step": t, "margin_over_peak": float(
+                ref["margins"][b, t] / ref["peaks"][t])})
+            break
+    out["tokens_row0"] = gen[0].tolist()
+    out["tokens_compared"], out["tokens_diverged"] = compared, diverged
+    out["decode_rel_err"] = decode_err
+    dist.barrier()
+    stage("checked")
+
+    # the float32 copies, on one process and on the rank mesh on the card
+    rng = np.random.default_rng([SEED, 42])
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    toks1 = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(
+        np.int32)).to(dev)
+    dec1 = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2, 1)).astype(
+        np.int32)).to(dev)
+    out["f32_one_layer"] = _serve_pair(cfg1, mesh, {"tokens": toks1},
+                                       dec1, 0, dev)
+    torch.cuda.empty_cache()
+    stage("f32")
+    out["families"] = {}
+    for name, arch, B, S, extra, steps in RANK_SERVE_CASES:
+        c = get_config(arch).reduced(dtype="float32")
+        g = np.random.default_rng([SEED, 43, len(out["families"])])
+        b = {"tokens": g.integers(0, c.vocab, (B, S)).astype(np.int32)}
+        if c.family == "encdec":
+            b["src_embeds"] = g.normal(size=(B, S, c.d_model))
+        if c.family == "vlm":
+            b["vision_embeds"] = g.normal(size=(B, c.n_vision_tokens,
+                                                c.d_model))
+        b = {k: torch.from_numpy(v.astype(np.float32) if v.dtype.kind == "f"
+                                 else v).to(dev) for k, v in b.items()}
+        dec = torch.from_numpy(g.integers(0, c.vocab, (steps, B, 1)).astype(
+            np.int32)).to(dev)
+        out["families"][name] = _serve_pair(c, mesh, b, dec, extra, dev)
+    stage("families")
+    return out
+
+
+def _rank_service(info, mesh, kernels) -> dict:
+    """Phase 4o (e) on one rank: ``PlanService(method="sharded")`` on the
+    rank mesh, each set's block against block r of 4g's one-process
+    call (made again in the rank, on the same card)."""
+    import dataclasses
+
+    from repro_torch.core.ransparse import DATA_SETS, ransparse
+    from repro_torch.kernels.radix_sort.ops import plan_digit_passes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve import PlanService
+    from repro_torch.sparse import fsparse, plan_sharded
+
+    dev, r, p = info.device, info.rank, info.world
+    one = Mesh(("data",), (p,), (dev,) * p)
+    svc = PlanService(method="sharded", device=dev)
+    specs = {"3": tuple(DATA_SETS[3][k] for k in ("siz", "nnz_row", "nrep")),
+             "2x20": (BIG["siz"], BIG["nnz_row"], BIG["nrep"])}
+    out = {}
+    for name in RANK_SERVICE_SETS:
+        siz, nnz_row, nrep = specs[name]
+        ii, jj, _, _ = ransparse(siz, nnz_row, nrep, seed=SEED)
+        shape = (siz, siz)
+        g = np.random.default_rng([SEED, 44])
+        vi = g.integers(-8, 9, ii.shape[0]).astype(np.float32)
+        x = torch.from_numpy(g.standard_normal(siz).astype(np.float32)).to(
+            dev)
+        torch.cuda.synchronize()
+        for f in kernels.values():
+            f.launches = 0
+        A = svc.assemble(ii, jj, vi, shape)
+        torch.cuda.synchronize()
+        row = {"launches": {k: f.launches for k, f in kernels.items()}}
+        for f in kernels.values():
+            f.launches = 0
+        many = svc.assemble_many([(ii, jj, vi, shape),
+                                  (ii, jj, 2 * vi, shape)])
+        torch.cuda.synchronize()
+        row["many_launches"] = {k: f.launches for k, f in kernels.items()}
+        pat = plan_sharded(torch.from_numpy((ii - 1).astype(np.int32)).to(
+            dev), torch.from_numpy((jj - 1).astype(np.int32)).to(dev), shape,
+            mesh=mesh)
+        npass = len(plan_digit_passes(pat.rpb, siz, p * pat.capacity))
+        row["expected"] = {"B1": npass, "B2": npass, "B3": 1, "B11": 0,
+                           "B12": 0}
+        row["many_expected"] = {"B1": 0, "B2": 0, "B3": 2, "B11": 0,
+                                "B12": 0}
+        del pat
+        ref = fsparse(ii, jj, vi, shape, method="sharded", mesh=one)
+        row["block_equal"] = bool(torch.equal(A.data[0], ref.data[r])
+                                  and torch.equal(A.indices[0],
+                                                  ref.indices[r]))
+        row["many_equal"] = bool(torch.equal(many[0].data[0], ref.data[r])
+                                 and torch.equal(many[1].data[0],
+                                                 2 * ref.data[r]))
+        y, y1 = svc.spmv(A, x), ref.spmv(x)
+        bound = dataclasses.replace(ref, data=ref.data.abs()).spmv(x.abs())
+        row["spmv_err_over_eps"] = float(((y - y1).abs() / (
+            EPS32 * bound).clamp(min=1e-30)).max())
+        row["hit_ranks_ms"] = _ranks_ms(
+            lambda: svc.assemble(ii, jj, vi, shape), RANK_SERVICE_REPS)
+        out[name] = row
+        del A, many, ref, y, y1, bound, x, ii, jj, vi
+        torch.cuda.empty_cache()
+    st = svc.stats()
+    out["stats"] = {"plan": st["plan"], "persisted": st["persisted"],
+                    "device": st["device"]}
+    return out
+
+
 def ranks_child(outdir: str) -> None:
     """``python3 chip_smoke.py --ranks-phase DIR``: one rank of phase 4o;
     writes ``DIR/rank<r>.json``."""
@@ -6187,6 +6634,14 @@ def ranks_child(outdir: str) -> None:
     t0 = time.perf_counter()
     res["lm"] = _rank_lm(info, kernels)
     res["lm_s"] = time.perf_counter() - t0
+    # (d) serving and (e) the plan service, before (c): the launcher
+    # ends the group at its exit
+    t0 = time.perf_counter()
+    res["serve"] = _rank_serve(info, kernels)
+    res["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["service"] = _rank_service(info, make_data_mesh(), kernels)
+    res["service_s"] = time.perf_counter() - t0
     # (c) the launcher on this group, which it ends
     from repro_torch.launch import train as train_mod
 
@@ -6333,6 +6788,139 @@ def ranks_phase(smi_line) -> dict:
           f"{f32['f32_grad_rel_err']:.3g}, the update on the same "
           f"gradients {f32['f32_opt_rel_err']} (grad norm "
           f"{f32['f32_grad_norm_rel_diff']:.3g})", flush=True)
+    # (d) serving OLMoE-1B-7B on the (2, 2) rank mesh, and (e) the plan
+    # service: every figure printed first, then checked
+    sv = [q["serve"] for q in ranks]
+    serve = {
+        "arch": LM_ARCH, "mesh": RANK_MESH, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "gen": RANK_SERVE_GEN,
+        "weights": sv[0]["mode"], "moe_groups": sv[0]["groups"],
+        "prefill_ranks_ms": max(q["prefill_ranks_ms"] for q in sv),
+        "decode_ranks_ms": max(float(np.median(q["decode_ranks_ms"]))
+                               for q in sv),
+        "decode_ranks_ms_each": [max(q["decode_ranks_ms"][i] for q in sv)
+                                 for i in range(RANK_SERVE_GEN - 1)],
+        "tok_per_s_ranks": min(q["tok_per_s_ranks"] for q in sv),
+        "peak_GB": [q["peak_GB"] for q in sv],
+        "init_peak_GB": [q["init_peak_GB"] for q in sv],
+        "weights_local_GB": [q["weights_local_GB"] for q in sv],
+        "cache_local_GB": [q["cache_local_GB"] for q in sv],
+        "launches": [q["launches"] for q in sv],
+        "prefill_rel_err": max(q["prefill_rel_err"] for q in sv),
+        "prefill_plain_rel_err": max(q["prefill_plain_rel_err"]
+                                     for q in sv),
+        "decode_rel_err": max(q["decode_rel_err"] for q in sv),
+        "layout_fixes_a_step": [len(f) for f in sv[0]["layout_fixes"]],
+        "layout_fixes_moved": sorted({x for f in sv[0]["layout_fixes"]
+                                      for x in f}),
+        "tokens_row0": sv[0]["tokens_row0"],
+        "tokens_compared": sv[0]["tokens_compared"],
+        "tokens_diverged": sv[0]["tokens_diverged"],
+        "f32_one_layer": {k: max(q["f32_one_layer"][k] for q in sv)
+                          for k in ("logits_rel_err", "cache_rel_err")},
+        "families": {n: {k: max(q["families"][n][k] for q in sv)
+                         for k in ("logits_rel_err", "cache_rel_err")}
+                     for n in sv[0]["families"]},
+        "f32_layout_fixes_a_step": {
+            n: [len(f) for f in q["layout_fixes"]] for n, q in [
+                ("f32_one_layer", sv[0]["f32_one_layer"]),
+                *sv[0]["families"].items()]},
+        "stage_s": [q["stage_s"] for q in sv]}
+    row["serve"] = serve
+    row["serve_s"] = max(q["serve_s"] for q in ranks)
+    print(f"phase 4o (d): {LM_ARCH} whole on {RANK_MESH}, "
+          f"{serve['weights']} weights ({serve['weights_local_GB'][0]:.3f} "
+          f"GB a rank), {serve['moe_groups']} token groups: "
+          f"prefill_ranks_ms {serve['prefill_ranks_ms']:.1f}, "
+          f"decode_ranks_ms {serve['decode_ranks_ms']:.1f}, "
+          f"tok_per_s_ranks {serve['tok_per_s_ranks']:.2f}, peak GB a "
+          f"rank {max(serve['peak_GB']):.2f}; prefill "
+          f"{serve['prefill_rel_err']:.3g} of max|logit| from one process "
+          f"summing the output projection as the mesh does "
+          f"({serve['prefill_plain_rel_err']:.3g} from one process as it "
+          f"sums it), decode steps {serve['decode_rel_err']:.3g}, "
+          f"{serve['tokens_compared']} tokens compared, diverged "
+          f"{serve['tokens_diverged']}; outputs redistributed a step "
+          f"{serve['layout_fixes_a_step']} ({serve['layout_fixes_moved']}); "
+          f"float32 one layer "
+          f"{serve['f32_one_layer']}; B12/B11 a rank "
+          f"{[(x['B12'], x['B11']) for x in serve['launches']]}",
+          flush=True)
+    for n, f in serve["families"].items():
+        print(f"phase 4o (d): {n} float32 on the rank mesh vs one process: "
+              f"{f}", flush=True)
+    sets_e = {}
+    for name in RANK_SERVICE_SETS:
+        per = [q["service"][name] for q in ranks]
+        sets_e[name] = {
+            "launches": [a["launches"] for a in per],
+            "many_launches": [a["many_launches"] for a in per],
+            "hit_ranks_ms": max(float(np.median(a["hit_ranks_ms"]))
+                                for a in per),
+            "spmv_err_over_eps": max(a["spmv_err_over_eps"] for a in per)}
+        print(f"phase 4o (e): set {name}: PlanService(method='sharded') "
+              f"hit_ranks_ms {sets_e[name]['hit_ranks_ms']:.4g}; B1/B2/B3' "
+              f"a rank {[(x['B1'], x['B2'], x['B3']) for x in sets_e[name]['launches']]}",
+              flush=True)
+    row["service"] = {"sets": sets_e,
+                      "stats": [q["service"]["stats"] for q in ranks]}
+    row["service_s"] = max(q["service_s"] for q in ranks)
+    for r, q in enumerate(sv):
+        require(q["mode"] == "serve" and q["groups"] == RANK_MESH[0],
+                f"phase 4o (d), rank {r}: weights {q['mode']}, "
+                f"{q['groups']} token groups")
+        require(q["launches"]["B12"] == RANK_SERVE_CALLS
+                == q["launches"]["B11"] and all(
+                    q["launches"][k] == 0 for k in ("B1", "B2", "B3")),
+                f"phase 4o (d), rank {r}: launches {q['launches']}, not "
+                f"{RANK_SERVE_CALLS} B12/B11 and no other")
+        require(q["layout_fixes"] == sv[0]["layout_fixes"],
+                f"phase 4o (d), rank {r}: redistributed other outputs "
+                f"than rank 0: {q['layout_fixes']}")
+        for name, f in [("f32_one_layer", q["f32_one_layer"]),
+                        *q["families"].items()]:
+            require(f["logits_rel_err"] <= RANK_SERVE_F32_RTOL
+                    and f["cache_rel_err"] <= RANK_SERVE_F32_RTOL,
+                    f"phase 4o (d), rank {r}, {name}: float32 on the rank "
+                    f"mesh against one process: logits "
+                    f"{f['logits_rel_err']:.3g}, caches "
+                    f"{f['cache_rel_err']:.3g} (limit "
+                    f"{RANK_SERVE_F32_RTOL})")
+        require(q["prefill_rel_err"] <= RANK_SERVE_RTOL,
+                f"phase 4o (d), rank {r}: prefill logits "
+                f"{q['prefill_rel_err']:.3g} of max|logit| from one "
+                f"process summing as the mesh does (limit "
+                f"{RANK_SERVE_RTOL})")
+        require(q["decode_rel_err"] <= RANK_DECODE_RTOL,
+                f"phase 4o (d), rank {r}: decode logits "
+                f"{q['decode_rel_err']:.3g} of max|logit| from one process "
+                f"summing as the mesh does, up to each row's first token "
+                f"that may differ (limit {RANK_DECODE_RTOL})")
+        require(q["prefill_plain_rel_err"] <= LM_BF16_RTOL,
+                f"phase 4o (d), rank {r}: prefill logits "
+                f"{q['prefill_plain_rel_err']:.3g} of max|logit| from one "
+                f"process (limit {LM_BF16_RTOL})")
+        for dv in q["tokens_diverged"]:
+            require(dv["margin_over_peak"] <= 2 * RANK_SERVE_RTOL,
+                    f"phase 4o (d), rank {r}: row {dv['row']} step "
+                    f"{dv['step']} differs from one process where its "
+                    f"top-2 margin is {dv['margin_over_peak']:.3g} of "
+                    f"max|logit| (over {2 * RANK_SERVE_RTOL})")
+        require(q["tokens_row0"] == sv[0]["tokens_row0"],
+                f"phase 4o (d): rank {r}'s tokens differ from rank 0's")
+    for name in RANK_SERVICE_SETS:
+        for r, a in enumerate(q["service"][name] for q in ranks):
+            require(a["launches"] == a["expected"]
+                    and a["many_launches"] == a["many_expected"],
+                    f"phase 4o (e), set {name}, rank {r}: launches "
+                    f"{a['launches']} / {a['many_launches']} != "
+                    f"{a['expected']} / {a['many_expected']}")
+            require(a["block_equal"] and a["many_equal"],
+                    f"phase 4o (e), set {name}, rank {r}: the service's "
+                    "block differs from block r of the one-process fsparse")
+            require(a["spmv_err_over_eps"] <= 8, f"phase 4o (e), set "
+                    f"{name}, rank {r}: SpMV error {a['spmv_err_over_eps']}"
+                    " eps x sum_j |a_ij x_j| > 8")
     # (c) the launcher in the four ranks: rank 0's lines
     lines = [ln for ln in res[0][1].splitlines() if ln.startswith("[train]")]
     steps = [float(ln.split("loss=")[1].split()[0]) for ln in lines
@@ -6353,14 +6941,19 @@ def ranks_phase(smi_line) -> dict:
     emit(row)
     require(row["phase_s"] < PHASE_4O_LIMIT_S,
             f"phase 4o took {row['phase_s']:.1f} s")
-    launches = {k: [0] * RANK_WORLD for k in ("B1", "B2", "B3", "B11",
-                                                "B12")}
+    names = ("B1", "B2", "B3", "B11", "B12")
+    launches = {k: [0] * RANK_WORLD for k in names}
+    serving = {k: [0] * RANK_WORLD for k in names}
     for r in range(RANK_WORLD):
         for k in ("B1", "B2", "B3"):
             launches[k][r] = sum(sets[n]["launches"][r][k] for n in sets)
+            serving[k][r] = sum(sets_e[n]["launches"][r][k]
+                                + sets_e[n]["many_launches"][r][k]
+                                for n in sets_e)
         for k in ("B11", "B12"):
             launches[k][r] = row["lm"]["launches"][r][k]
-    return launches
+            serving[k][r] = serve["launches"][r][k]
+    return launches, serving
 
 
 def main() -> None:
@@ -6922,7 +7515,7 @@ def main() -> None:
     # -- 4o. the port across ranks: four processes on the card, a gloo
     #    group; the sharded assembly, OLMoE on a (2, 2) rank mesh, the
     #    launcher ----------------------------------------------------
-    rank_launches = ranks_phase(smi_line)
+    rank_launches, rank_serve_launches = ranks_phase(smi_line)
 
     # -- 5. times -----------------------------------------------------------
     fem_k, t3 = fem_times(fem, cpm, dev)
@@ -7191,6 +7784,8 @@ def main() -> None:
          "cross_train_launches": cross_train_launches[k],
          "sharded_step_launches": sharded["launches"]["dtensor"].get(k, 0),
          "rank_launches": rank_launches.get(k, [0] * RANK_WORLD),
+         "rank_serve_launches": rank_serve_launches.get(k,
+                                                        [0] * RANK_WORLD),
          "max_abs_err": err,
          "ms": big[k]["ms"], "call_ms": big[k]["call_ms"],
          "plain_ms": big[k]["plain_ms"],

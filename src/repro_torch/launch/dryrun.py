@@ -52,21 +52,26 @@ import weakref
 import torch
 
 from ..configs import ARCHS, get_config
+from ..models import model as _model
 from ..models import runtime_flags as _rtf
 from ..models.config import SHAPES
 from ..models.model import decode_step, init_cache, init_model, prefill
 from ..train.optimizer import OptConfig
 from ..train.train_step import TrainConfig, init_train_state, make_train_step
-from .mesh import batch_axes, dp_size, make_production_mesh, tp_size
+from .mesh import dp_size, make_production_mesh
 from .sharding import (
     P,
     batch_specs_for,
     cache_specs,
     logits_spec,
     map_with_path,
+    param_bytes,
     param_specs,
     place,
+    place_cache,
+    place_tokens,
     placements,
+    serving_mode,
 )
 from .specs import cell_applicable, input_specs
 
@@ -368,12 +373,7 @@ def build_lowered(arch: str, shape_name: str, mesh, *, microbatches=None,
         return None, why
 
     # §Perf iteration 5/7: shard-local MoE dispatch (local_map)
-    if cfg.is_moe and shape.global_batch % dp_size(mesh) == 0:
-        _rtf.set_moe_groups(dp_size(mesh))
-        _rtf.set_moe_mesh(mesh, batch_axes(mesh))
-    else:
-        _rtf.set_moe_groups(1)
-        _rtf.set_moe_mesh(None)
+    _rtf.set_moe_dispatch(cfg, mesh, shape.global_batch)
 
     specs = input_specs(cfg, shape_name)
     dev = mesh.device_type
@@ -424,12 +424,8 @@ def build_lowered(arch: str, shape_name: str, mesh, *, microbatches=None,
     # serving replicates weights over "data" (TP only) — see sharding.py —
     # but only when weights/TP fit the HBM budget; dbrx-132b (16.5 GiB/dev
     # TP-only) keeps FSDP sharding + per-layer gathers instead.
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in params_tpl.parameters())
-    tp = tp_size(mesh)
-    serve_ok = param_bytes / tp < 8 * 2**30
-    p_specs = param_specs(mesh, params_tpl,
-                          mode="serve" if serve_ok else "train")
+    p_specs = param_specs(mesh, params_tpl, mode=serving_mode(
+        mesh, param_bytes(params_tpl)))
     with fake_mode:
         params = _place(mesh, params_tpl, p_specs)
     del params_tpl
@@ -454,12 +450,9 @@ def build_lowered(arch: str, shape_name: str, mesh, *, microbatches=None,
     with fake_mode:
         cache_tpl = init_cache(cfg, batch=shape.global_batch,
                                seq_len=shape.seq_len, device=dev)
-        cache = _place(mesh, cache_tpl, c_specs)
-        tok_tpl = {"tokens": torch.zeros(specs["tokens"].shape,
-                                         dtype=specs["tokens"].dtype,
-                                         device=dev)}
-        tokens = _place(mesh, tok_tpl, batch_specs_for(
-            mesh, tok_tpl, batch=shape.global_batch))["tokens"]
+        cache = place_cache(mesh, cache_tpl, cfg, batch=shape.global_batch)
+        tokens = place_tokens(mesh, torch.zeros(
+            specs["tokens"].shape, dtype=specs["tokens"].dtype, device=dev))
     del cache_tpl
     return Lowered(
         lambda p, c, t: decode_step(p, c, t, cfg),
@@ -469,7 +462,11 @@ def build_lowered(arch: str, shape_name: str, mesh, *, microbatches=None,
 
 def placement_mismatches(mesh, out, out_specs) -> list[str]:
     """Where the traced outputs' placements differ from the placements
-    the reference's ``out_shardings`` ask for (recorded, not forced)."""
+    the reference's ``out_shardings`` ask for.  A train step's are
+    recorded here, not forced.  ``prefill`` and ``decode_step`` force
+    theirs (``models.model._served_layout``), so for them this finds
+    nothing: :func:`run_cell` adds what that function moved
+    (``models.model.LAYOUT_FIXES``)."""
     from torch.distributed.tensor import DTensor
 
     got, want = [], []
@@ -509,6 +506,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None,
             result["reason"] = why
             print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: SKIP ({why})")
             return result
+        _model.LAYOUT_FIXES.clear()
         rec = lowered.trace()
         t1 = time.time()
         census = rec["census"]
@@ -526,7 +524,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None,
             bytes_accessed=-1.0,
             collectives=census,
             placement_mismatches=placement_mismatches(
-                mesh, rec["out"], lowered.out_specs),
+                mesh, rec["out"], lowered.out_specs) + list(
+                    dict.fromkeys(_model.LAYOUT_FIXES)),
         )
         print(
             f"[dryrun] {arch} x {shape_name} x {mesh_kind}: OK "

@@ -137,6 +137,16 @@ def close_ranks() -> None:
         dist.destroy_process_group()
 
 
+def rank0_print(info: RankInfo):
+    """``print`` on rank 0 and a function that prints nothing on every
+    other rank: a launcher's lines, once for the group."""
+    return print if info.rank == 0 else _quiet
+
+
+def _quiet(*args, **kwargs):
+    """The print of a rank other than 0."""
+
+
 def rank_info() -> RankInfo | None:
     """The :class:`RankInfo` of this process's group, or None when no
     group of more than one rank was formed by :func:`init_ranks`."""

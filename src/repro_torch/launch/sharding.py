@@ -24,6 +24,13 @@ an axis name, or a tuple of names that shard the dim major to minor.
 ``DeviceMesh``; :func:`place` puts a tree's tensors there as DTensors
 (the dry run's templates on its fake group, a real state or batch on a
 rank mesh), and :func:`place_on_mesh` does so by these rules.
+
+Serving (the reference's dry run, ``build_lowered``): :func:`serving_mode`
+chooses the weights' layout, ``"serve"`` (TP only) where a model shard
+fits :data:`SERVE_PARAM_BUDGET`, else ``"train"``; :func:`node_placer`
+places a model node by node as ``init_model`` draws it;
+:func:`place_cache` and :func:`place_tokens` place a serving cache and a
+token batch.
 """
 from __future__ import annotations
 
@@ -207,6 +214,56 @@ def place(mesh, tree, specs):
     return out
 
 
+#: the bytes of weights a device may hold in ``"serve"`` mode (TP only,
+#: replicated over the data axes): above it the weights keep the
+#: ``"train"`` layout, FSDP over data as well (the reference's dry run,
+#: ``launch/dryrun.py`` ``build_lowered``: dbrx-132b's 16.5 GiB a device)
+SERVE_PARAM_BUDGET = 8 * 2**30
+
+
+def serving_mode(mesh, param_bytes: int) -> str:
+    """The layout of served weights: ``"serve"`` when ``param_bytes`` over
+    the mesh's ``model`` size is under :data:`SERVE_PARAM_BUDGET`, else
+    ``"train"``.  The dry run's serving cells and the serving launcher
+    both ask here, so the two never differ."""
+    return "serve" if param_bytes / axis_size(mesh, "model") < \
+        SERVE_PARAM_BUDGET else "train"
+
+
+def param_bytes(params) -> int:
+    """The bytes of every tensor of a model (fake or meta tensors too)."""
+    out = []
+    map_with_path(lambda name, leaf, blocks: out.append(leaf), params)
+    return sum(t.numel() * t.element_size() for t in out)
+
+
+def model_param_bytes(cfg) -> int:
+    """The bytes of ``cfg``'s weights, from a template drawn on fake
+    tensors (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..models.model import init_model
+
+    with FakeTensorMode():
+        return param_bytes(init_model(cfg, device="cpu"))
+
+
+def node_placer(mesh, mode: str):
+    """``place(name, node, blocks)`` for ``init_model(..., place=)``: a
+    top-level node of a model (``"embed"``, ``"final_norm"``, ...) or one
+    block of the stack ``name`` (``blocks`` long) placed on ``mesh`` by
+    :func:`param_specs` in ``mode``, as the whole model would be.  Each
+    rank then holds its shards and one whole block at a time, never the
+    whole model."""
+    def place_node(name, node, blocks=None):
+        specs = map_with_path(
+            lambda n, leaf, b: _leaf_spec(mesh, n, leaf, b, mode), node,
+            f"{name}/", blocks)
+        return place(mesh, node, specs)
+
+    return place_node
+
+
 def place_on_mesh(mesh, tree, *, batch: int | None = None,
                   mode: str = "train"):
     """A train state or a model (:func:`param_specs` in ``mode``) or,
@@ -300,6 +357,20 @@ def cache_specs(mesh, cache, cfg, *, batch: int):
         return P()
 
     return map_with_path(one, cache)
+
+
+def place_cache(mesh, cache, cfg, *, batch: int):
+    """A serving cache (``init_cache``'s tree, ``batch`` rows) placed on a
+    rank mesh by :func:`cache_specs`; every rank holds the same whole
+    cache."""
+    return place(mesh, cache, cache_specs(mesh, cache, cfg, batch=batch))
+
+
+def place_tokens(mesh, tokens):
+    """A ``[B, ...]`` token batch placed on a rank mesh: rows over the
+    data axes where B divides, else replicated (:func:`batch_spec`)."""
+    spec = batch_spec(mesh, batch=tokens.shape[0])
+    return place(mesh, tokens, P(*spec[:1], *(None,) * (tokens.ndim - 1)))
 
 
 def _total(mesh, axes) -> int:

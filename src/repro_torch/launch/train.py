@@ -62,7 +62,7 @@ from ..models.model import init_model
 from ..train.optimizer import OptConfig
 from ..train.train_step import TrainConfig, init_train_state, make_train_step
 from .mesh import axis_names, init_ranks, make_host_mesh
-from .ranks import close_ranks
+from .ranks import close_ranks, rank0_print
 from .sharding import place_on_mesh
 from .specs import stub_embeddings, train_batch_specs
 
@@ -119,7 +119,7 @@ def main(argv=None):
         mesh = make_host_mesh(data=args.dp, model=args.tp)
         runtime_flags.set_moe_mesh(mesh, ("data",))
         shape = dict(zip(axis_names(mesh), mesh.shape))
-        say = print if info.rank == 0 else _quiet
+        say = rank0_print(info)
         say(f"[train] ranks={info.world} backend={info.backend} "
             f"device={device}")
     else:
@@ -230,10 +230,6 @@ def main(argv=None):
 def _whole(t):
     """A metric or counter as one tensor: a DTensor's whole value."""
     return t.full_tensor() if hasattr(t, "full_tensor") else t
-
-
-def _quiet(*args, **kwargs):
-    """The print of a rank other than 0."""
 
 
 if __name__ == "__main__":

@@ -124,11 +124,20 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache):
+def _no_reduce(x, op):
+    return x
+
+
+def decode_attention(q, k_cache, v_cache, *, valid=None,
+                     reduce=_no_reduce):
     """One-token decode: q [B, 1, H, Dh] over full cache [B, S, Hkv, Dh].
 
-    The whole cache counts as valid (the reference's shape contract);
-    q and the softmax weights are cast to the cache dtype.
+    The whole cache counts as valid (the reference's shape contract)
+    unless ``valid`` (``[S]`` bool) masks slots out; q and the softmax
+    weights are cast to the cache dtype.  ``reduce(x, op)`` (``op``
+    ``"max"`` or ``"sum"``) combines the softmax's max and sum and the
+    PV product with the ranks that hold the rest of a cache whose
+    sequence is sharded (:func:`_decode_over_cache`); by default none.
     """
     B, _, H, Dh = q.shape
     _, S, Hkv, _ = k_cache.shape
@@ -137,12 +146,14 @@ def decode_attention(q, k_cache, v_cache):
     s = torch.einsum("bkgd,bskd->bkgs",
                      qf.to(k_cache.dtype).to(torch.float32),
                      k_cache.to(torch.float32))
-    m = torch.amax(s, dim=-1, keepdim=True)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = reduce(torch.amax(s, dim=-1, keepdim=True), "max")
     p = torch.exp(s - m)
-    denom = torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskd->bkgd",
-                       (p / denom).to(v_cache.dtype).to(torch.float32),
-                       v_cache.to(torch.float32))
+    denom = reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
+    out = reduce(torch.einsum("bkgs,bskd->bkgd",
+                              (p / denom).to(v_cache.dtype).to(torch.float32),
+                              v_cache.to(torch.float32)), "sum")
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
@@ -170,6 +181,28 @@ def _write_slot_(cache, slot, new):
               pl)(cache, slot, new)
 
 
+def _write_prefix_(cache, new):
+    """``cache[:, :S] = new`` in place (``cache`` ``[B, S_cache, ...]``,
+    ``new`` ``[B, S, ...]``).  For a DTensor cache whose sequence is
+    sharded, each rank writes the part of the prefix that falls in its
+    own range of slots."""
+    S = new.shape[1]
+    mesh = mesh_of(cache)
+    if mesh is None or not _seq_dims(cache):
+        cache[:, :S] = new
+        return
+    pl = tuple(cache.placements)
+    start = shard_start(cache.shape, mesh, pl, 1)
+
+    def local(c, n):
+        hi = min(start + c.shape[1], S)
+        if hi > start:
+            c[:, :hi - start] = n[:, start:hi]
+        return c
+
+    on_shards(local, mesh, (pl, moved(pl, {0: 0, 2: 2})), pl)(cache, new)
+
+
 def _decode_window(q, k_cache, v_cache, *, window: int):
     """:func:`decode_attention` over the cache's last ``window`` slots
     (all of them for 0), as the reference takes them."""
@@ -177,6 +210,51 @@ def _decode_window(q, k_cache, v_cache, *, window: int):
         S = k_cache.shape[1]
         k_cache, v_cache = k_cache[:, S - window:], v_cache[:, S - window:]
     return decode_attention(q, k_cache, v_cache)
+
+
+def _seq_dims(cache) -> list:
+    """The mesh dims that shard a DTensor cache ``[B, S, Hkv, Dh]``'s
+    sequence."""
+    from torch.distributed.tensor import Shard
+
+    return [m for m, p in enumerate(cache.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _decode_over_cache(q, k_cache, v_cache, *, window: int = 0):
+    """:func:`_decode_window` of ``q`` over the cache.  A DTensor cache
+    is read where it lies, the query laid out as the cache's rows and
+    heads: each rank runs :func:`decode_attention` on its own slots (the
+    window a mask there), and where the sequence is sharded (the
+    reference's ``cache_specs`` shard it where the batch or the KV heads
+    do not split) its ``reduce`` all-reduces the softmax's max and sum
+    and the PV product over the mesh dims that shard it (small
+    all-reduces of ``[B, H, ...]``), as GSPMD inserts them for the
+    reference (its §Perf iteration 8).  The cache is never gathered."""
+    mesh = mesh_of(k_cache)
+    if mesh is None:
+        return _decode_window(q, k_cache, v_cache, window=window)
+    seq = _seq_dims(k_cache)
+    pl = tuple(k_cache.placements)
+    S = k_cache.shape[1]
+    first = S - window if window > 0 else 0
+    start = shard_start(k_cache.shape, mesh, pl, 1)
+    groups = [(mesh, m) for m in seq]
+    q_pl = moved(pl, {0: 0, 2: 2})
+
+    def local(qa, ka, va):
+        from torch.distributed import _functional_collectives as funcol
+
+        def over_seq(x, op):
+            for g in groups:
+                x = funcol.all_reduce(x, op, g)
+            return x
+
+        slots = start + torch.arange(ka.shape[1], device=ka.device)
+        return decode_attention(qa, ka, va, reduce=over_seq,
+                                valid=slots >= first if first else None)
+
+    return on_shards(local, mesh, (q_pl, pl, pl), q_pl)(q, k_cache, v_cache)
 
 
 def _on_local_heads(fn, q, k, v, **kw):
@@ -235,7 +313,7 @@ def _attend_decode_into(params, x, cache_k, cache_v, cfg, *, position,
     if window > S:
         raise ValueError(f"a window of {window} positions needs a cache "
                          f"of at least as many, got {S}")
-    o = _on_local_heads(_decode_window, q, cache_k, cache_v, window=window)
+    o = _decode_over_cache(q, cache_k, cache_v, window=window)
     return _out_proj(params, o, x.shape[0], 1)
 
 
@@ -266,5 +344,5 @@ def apply_rope_kv_for_cache(params, x_normed, cfg, positions):
 def cross_attention_decode(params, x, cache_k, cache_v, cfg):
     """Decode-side cross-attention over a precomputed source KV cache."""
     q = _project_q(params, x, cfg)
-    o = _on_local_heads(decode_attention, q, cache_k, cache_v)
+    o = _decode_over_cache(q, cache_k, cache_v)
     return _out_proj(params, o, x.shape[0], 1)

@@ -38,10 +38,13 @@ before the MLP and so departs from its own forward (ROADMAP queue C,
 C5).
 
 The entry points also run on DTensors placed on a ``DeviceMesh`` (the dry
-run, ``launch/dryrun.py``): plain tensors the model makes (positions,
-masks) join them as replicated, :func:`prefill` places its cache by the
-cache rules, and the functions DTensor cannot propagate run on each
-rank's shards (``models/shards.py``).
+run, ``launch/dryrun.py``; a mesh of ranks, ``launch/serve.py`` and
+``launch/train.py``): plain tensors the model makes (positions, masks)
+join them as replicated, :func:`prefill` and :func:`decode_step` place
+their logits and caches as the reference's serving steps do, a cache
+sharded over its sequence is written and read where it lies
+(``attention.py``), and the functions DTensor cannot propagate run on
+each rank's shards (``models/shards.py``).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..kernels.common import resolve_device
 from .attention import (
     _attend_decode_into,
     _project_kv,
+    _write_prefix_,
     apply_rope_kv_for_cache,
     cross_attention,
     cross_attention_decode,
@@ -74,7 +78,7 @@ from .layers import (
     unembed,
 )
 from .moe import init_moe, moe_ffn
-from .shards import gold_logits, replicating
+from .shards import gold_logits, mesh_of, replicating
 from .ssm import init_mamba, mamba_decode, mamba_forward
 from . import runtime_flags
 
@@ -136,33 +140,50 @@ def init_enc_block(gen: torch.Generator, cfg):
     return init_block(gen, cfg)  # same structure; masks differ
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+def _keep(name, node, blocks=None):
+    return node
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
+               place=None) -> Params:
     """Random parameters from ``seed`` on ``device`` (the card unless
-    asked), drawn by a ``torch.Generator`` on that device."""
+    asked), drawn by a ``torch.Generator`` on that device.
+
+    With ``place`` (``place(name, node, blocks)``, such as
+    ``launch.sharding.node_placer``), each top-level node and each block
+    of a stack (``blocks`` long) is handed to it as soon as it is drawn,
+    and what it returns is kept: on a rank mesh a rank then holds its
+    shards and one whole block at a time.  The draws are the same."""
     device = resolve_device(device)
+    keep = place or _keep
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+
+    def stack(name, init, n):
+        return nn.ModuleList([keep(name, init(gen, cfg), n)
+                              for _ in range(n)])
+
     params = Params()
-    params["embed"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model,
-                                     cfg.dtype)
-    params["final_norm"] = _init_norm(cfg, gen)
-    params["layers"] = nn.ModuleList(
-        [init_block(gen, cfg) for _ in range(cfg.n_layers)])
+    params["embed"] = keep("embed", init_embedding(
+        gen, cfg.padded_vocab, cfg.d_model, cfg.dtype))
+    params["final_norm"] = keep("final_norm", _init_norm(cfg, gen))
+    params["layers"] = stack("layers", init_block, cfg.n_layers)
     if _shared_every(cfg):
-        params["shared_norm1"] = _init_norm(cfg, gen)
-        params["shared_attn"] = init_attention(gen, cfg)
-        params["shared_norm2"] = _init_norm(cfg, gen)
-        params["shared_mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                        cfg.dtype)
+        params["shared_norm1"] = keep("shared_norm1", _init_norm(cfg, gen))
+        params["shared_attn"] = keep("shared_attn",
+                                     init_attention(gen, cfg))
+        params["shared_norm2"] = keep("shared_norm2", _init_norm(cfg, gen))
+        params["shared_mlp"] = keep("shared_mlp", init_mlp(
+            gen, cfg.d_model, cfg.d_ff, cfg.dtype))
     if _cross_every(cfg):
-        params["cross"] = nn.ModuleList(
-            [init_cross_block(gen, cfg) for _ in range(_n_cross(cfg))])
+        params["cross"] = stack("cross", init_cross_block, _n_cross(cfg))
     if cfg.family == "encdec":
-        params["enc_layers"] = nn.ModuleList(
-            [init_enc_block(gen, cfg) for _ in range(cfg.n_enc_layers)])
-        params["enc_final_norm"] = _init_norm(cfg, gen)
-        params["dec_cross"] = nn.ModuleList(
-            [init_cross_block(gen, cfg) for _ in range(cfg.n_layers)])
+        params["enc_layers"] = stack("enc_layers", init_enc_block,
+                                     cfg.n_enc_layers)
+        params["enc_final_norm"] = keep("enc_final_norm",
+                                        _init_norm(cfg, gen))
+        params["dec_cross"] = stack("dec_cross", init_cross_block,
+                                    cfg.n_layers)
     return params
 
 
@@ -597,8 +618,45 @@ def decode_step(params, cache, tokens, cfg: ModelConfig):
     """
     with replicating(tokens):
         if cfg.family in ("ssm", "hybrid"):
-            return _ssm_decode_step(params, cache, tokens, cfg)
-        return _decode_step(params, cache, tokens, cfg)
+            out = _ssm_decode_step(params, cache, tokens, cfg)
+        else:
+            out = _decode_step(params, cache, tokens, cfg)
+        return _served_layout(*out, cfg)
+
+
+#: what :func:`_served_layout` redistributed, one ``"name: got !=
+#: want"`` a leaf, appended as it goes (clear it before a step to read
+#: that step's): where DTensor's own propagation left an output unlike
+#: the reference's ``out_shardings``
+LAYOUT_FIXES: list[str] = []
+
+
+def _served_layout(logits, cache, cfg):
+    """``(logits, cache)`` of a step on a mesh placed as the reference's
+    serving steps place their outputs (``out_shardings``:
+    ``launch/sharding.py`` ``logits_spec`` and ``cache_specs``): a leaf
+    whose placements differ is redistributed, and recorded in
+    :data:`LAYOUT_FIXES`; the others are returned as they are.  Plain
+    tensors pass through."""
+    mesh = mesh_of(logits)
+    if mesh is None:
+        return logits, cache
+    from ..launch.sharding import cache_specs, logits_spec, placements
+
+    B = logits.shape[0]
+    specs = cache_specs(mesh, cache, cfg, batch=B)
+
+    def fit(name, t, spec):
+        if mesh_of(t) is None:
+            return t
+        want = placements(mesh, spec)
+        if tuple(t.placements) == want:
+            return t
+        LAYOUT_FIXES.append(f"{name}: {tuple(t.placements)} != {want}")
+        return t.redistribute(placements=want)
+
+    return fit("logits", logits, logits_spec(mesh, batch=B)), {
+        k: fit(f"cache/{k}", v, specs[k]) for k, v in cache.items()}
 
 
 def _decode_step(params, cache, tokens, cfg):
@@ -675,8 +733,9 @@ def prefill(params, batch, cfg: ModelConfig, *, kv_chunk: int = 1024,
     append without evicting (decode ring-writes at ``pos % capacity``).
     """
     with replicating(batch["tokens"]):
-        return _prefill(params, batch, cfg, kv_chunk=kv_chunk,
-                        extra_cache=extra_cache)
+        return _served_layout(*_prefill(params, batch, cfg,
+                                        kv_chunk=kv_chunk,
+                                        extra_cache=extra_cache), cfg)
 
 
 def _prefill(params, batch, cfg, *, kv_chunk, extra_cache):
@@ -708,12 +767,12 @@ def _prefill(params, batch, cfg, *, kv_chunk, extra_cache):
                 k_c = apply_rope(k_c, positions, cfg.rope_theta)
                 x = _shared_attn_block(params, x, cfg, positions=positions,
                                        kv_chunk=kv_chunk)
-                cache["k"][ai, :, :S] = k_c.to(kvd)
-                cache["v"][ai, :, :S] = v_c.to(kvd)
+                _write_prefix_(cache["k"][ai], k_c.to(kvd))
+                _write_prefix_(cache["v"][ai], v_c.to(kvd))
             continue
         k_c, v_c = apply_rope_kv_for_cache(lp["attn"], hn, cfg, positions)
-        cache["k"][idx, :, :S] = k_c.to(kvd)
-        cache["v"][idx, :, :S] = v_c.to(kvd)
+        _write_prefix_(cache["k"][idx], k_c.to(kvd))
+        _write_prefix_(cache["v"][idx], v_c.to(kvd))
         kw = dict(positions=positions, kv_chunk=kv_chunk)
         if "ck" in cache:
             x, _ = _cross_layer(lp, _cross_params(params, cfg, idx), x, src,

@@ -1,7 +1,8 @@
 """Process-wide model flags (counterpart of ``repro/models/runtime_flags.py``).
 
 ``MOE_GROUPS`` and ``MOE_MESH`` steer
-:func:`repro_torch.models.moe.moe_ffn`; ``REMAT`` picks the activation
+:func:`repro_torch.models.moe.moe_ffn` (:func:`set_moe_dispatch` sets
+both for a step on a mesh); ``REMAT`` picks the activation
 checkpointing of :func:`repro_torch.models.model.forward`'s layer loop
 when gradients are being recorded.  The reference's ``UNROLL`` (the
 ``unroll=`` of its ``lax.scan``s) is left out: the port's layer loop is
@@ -37,6 +38,25 @@ def set_moe_mesh(mesh, dp_axes=("data",)):
 
 def moe_mesh():
     return MOE_MESH
+
+
+def set_moe_dispatch(cfg, mesh, global_batch: int) -> int:
+    """The MoE dispatch of a step on ``mesh`` with ``global_batch`` rows,
+    as the reference's dry run sets it (``build_lowered``): one token
+    group a data shard and the mesh's dispatch on each shard's tokens
+    when ``cfg`` is a MoE and the rows divide over the data axes, else
+    one group and no mesh.  Returns the groups: a one-process run that
+    is to match sets ``set_moe_groups`` to them."""
+    from ..launch.mesh import batch_axes, dp_size
+
+    if mesh is not None and cfg.is_moe and \
+            global_batch % dp_size(mesh) == 0:
+        set_moe_groups(dp_size(mesh))
+        set_moe_mesh(mesh, batch_axes(mesh))
+        return dp_size(mesh)
+    set_moe_groups(1)
+    set_moe_mesh(None)
+    return 1
 
 
 #: activation checkpointing of the layer loop, applied only while autograd

@@ -267,3 +267,35 @@ def gold_logits(lf, labels):
             (), dtype=x.dtype, device=x.device))
 
     return on_shards(local, mesh, (l_pl, b_pl), out_pl)(lf, labels)
+
+
+def greedy_tokens(logits, vocab: int):
+    """The greedy next tokens ``[B, 1]`` (int64) of last-position logits
+    ``[B, S, V]``: the argmax over the first ``vocab`` entries (the rest
+    pad the vocabulary), the first of equal maxima.  For a DTensor whose
+    vocabulary is sharded each rank takes the best of its own slice;
+    the ranks of those mesh dims then swap one value and one index a row
+    (not the logits) and keep the first best, so the result is the
+    argmax over the whole vocabulary, its rows as the logits' rows and
+    replicated over every other mesh dim."""
+    mesh = mesh_of(logits)
+    if mesh is None:
+        return torch.argmax(logits[:, -1, :vocab], dim=-1)[:, None]
+    x = logits[:, -1]
+    pl = keep_shards(x, (0, 1))
+    start = shard_start(x.shape, mesh, pl, 1)
+
+    def best(xl):
+        cols = start + torch.arange(xl.shape[1], device=xl.device)
+        xl = xl.masked_fill(cols >= vocab, float("-inf"))
+        idx = torch.argmax(xl, dim=-1, keepdim=True)
+        return torch.gather(xl, 1, idx), idx + start
+
+    rows = keep_shards(x, (0,))
+    vals, idx = on_shards(best, mesh, (pl,), (pl, pl))(x)
+
+    def pick(v, i):
+        return torch.gather(i, 1, torch.argmax(v, dim=1, keepdim=True))
+
+    return on_shards(pick, mesh, (rows, rows), rows)(vals, idx)
+

@@ -6,7 +6,8 @@ Two serving surfaces live here:
 * **Model serving**: the primitives next to the model definitions
   (:mod:`repro_torch.models.model`: ``init_cache`` / ``prefill`` /
   ``decode_step``) plus the continuous-batching loop
-  (``python -m repro_torch.launch.serve``).
+  (``python -m repro_torch.launch.serve``, one process or, under
+  ``python -m torch.distributed.run``, a mesh over the ranks).
 * **Sparse-assembly serving**: the plan service subsystem
   (:mod:`repro_torch.sparse.serving`), thread-safe plan/product/
   executable caches, CUDA-graph fills, products and SpMVs captured once

@@ -475,6 +475,14 @@ class PlanService:
     while the executable tier is per service (graphs bind to this
     process's device memory).
 
+    On a group of ranks (``launch.ranks.init_ranks``) each rank runs its
+    own service and every rank makes the same requests in the same
+    order: a ``method="sharded"`` request plans and fills on the rank
+    mesh (each rank its own block, its own fill), ``spmv`` of the
+    ``ShardedCSC`` it returns runs the sharded SpMV (a collective), and
+    the plans the services persist to one ``cache_dir`` are written by
+    atomic replace, so several ranks may write the same entry.
+
     Parameters
     ----------
     cache_dir:
