@@ -1,0 +1,1 @@
+"""generators of the benchmark, each found by the name its entry gives."""

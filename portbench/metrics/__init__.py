@@ -1,0 +1,1 @@
+"""metrics of the benchmark, each found by the name its entry gives."""
