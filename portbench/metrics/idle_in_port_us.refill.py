@@ -1,0 +1,7 @@
+"""Device-idle time inside the port's own ``fill`` spans, in us a call:
+the host in the port's code while the device waits."""
+from portbench import program_spans
+
+
+def read(run):
+    return program_spans.idle_in_port_us(run.trace)

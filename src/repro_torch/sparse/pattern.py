@@ -43,10 +43,11 @@ import warnings
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.coo import COO
 from ..core.csc import CSC, scatter_add
 from ..kernels.common import resolve_device
-from .dispatch import merge_search, sorted_permutation
+from .dispatch import merge_search, resolve_method, sorted_permutation
 from .errors import CapacityWarning
 
 #: duplicate-combination modes of the numeric phase (the reference's)
@@ -129,11 +130,14 @@ class SparsePattern:
     def scatter(self, vals: torch.Tensor, *,
                 accum: str | None = None) -> torch.Tensor:
         """The raw O(L) numeric phase: ``data`` only (``prS``)."""
-        accum = validate_accum(self.accum if accum is None else accum,
-                               vals.dtype)
-        self.check_vals(vals)
-        return _Scatter.apply(vals.to(fill_dtype(vals)), self.perm,
-                              self.slot, self.nzmax, accum)
+        with obs.span("fill") as span:
+            accum = validate_accum(self.accum if accum is None else accum,
+                                   vals.dtype)
+            if span:
+                span.set(accum=accum, dtype=vals.dtype)
+            self.check_vals(vals)
+            return _Scatter.apply(vals.to(fill_dtype(vals)), self.perm,
+                                  self.slot, self.nzmax, accum)
 
     def reduce_rows(self, mat: torch.Tensor, *,
                     accum: str | None = None) -> torch.Tensor:
@@ -666,19 +670,33 @@ def plan(rows, cols, shape: tuple[int, int], *, nzmax: int | None = None,
     and ``"fused"`` on the CPU).  ``nzmax`` defaults to
     ``L + nzmax_slack``.
     """
-    rows, cols = torch.as_tensor(rows), torch.as_tensor(cols)
-    M, N = int(shape[0]), int(shape[1])
-    L = rows.shape[0]
-    nzmax = L + int(nzmax_slack) if nzmax is None else nzmax
-    validate_accum(accum)
-    if L == 0 or M == 0 or N == 0:
-        return trivial_pattern(L, (M, N), nzmax=nzmax, accum=accum,
-                               device=rows.device)
-    rows = rows.to(torch.int32).contiguous()
-    cols = cols.to(torch.int32).contiguous()
-    perm = sorted_permutation(rows, cols, M=M, N=N, method=method)
-    pat = pattern_from_perm(rows, cols, perm, M=M, N=N, nzmax=nzmax)
-    return pat if accum == "sum" else dataclasses.replace(pat, accum=accum)
+    with obs.span("plan") as span:
+        rows, cols = torch.as_tensor(rows), torch.as_tensor(cols)
+        M, N = int(shape[0]), int(shape[1])
+        L = rows.shape[0]
+        nzmax = L + int(nzmax_slack) if nzmax is None else nzmax
+        validate_accum(accum)
+        if L == 0 or M == 0 or N == 0:
+            return trivial_pattern(L, (M, N), nzmax=nzmax, accum=accum,
+                                   device=rows.device)
+        rows = rows.to(torch.int32).contiguous()
+        cols = cols.to(torch.int32).contiguous()
+        method = resolve_method(method, rows.device, M=M, N=N, L=L)
+        if span:
+            span.set(method=method, L=L, M=M, N=N, nzmax=nzmax)
+        with obs.span("plan.sort", device=rows.device) as sort:
+            perm = sorted_permutation(rows, cols, M=M, N=N, method=method)
+        if sort and method == "radix":
+            # the sort backend's digit plan, looked up again outside the
+            # span so that the span's events time the sort alone
+            from ..kernels.radix_sort.ops import plan_digit_passes
+
+            sort.set(passes=len(plan_digit_passes(
+                M, N, L, backend=rows.device)))
+        with obs.span("plan.parts34", device=rows.device):
+            pat = pattern_from_perm(rows, cols, perm, M=M, N=N,
+                                    nzmax=nzmax)
+        return pat if accum == "sum" else dataclasses.replace(pat, accum=accum)
 
 
 def plan_coo(coo: COO, *, nzmax: int | None = None,
