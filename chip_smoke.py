@@ -63,7 +63,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    L = 5e7, each matched bit for bit against the port's numpy oracle,
    then a refill ``pattern.assemble(v)`` with random float32 values
    against the oracle in float64.  The kernels' launch counters are set
-   to 0 before this phase and must rise by exactly the planned passes.
+   to 0 before this phase and must rise by exactly the planned passes,
+   and Parts 3-4's pass (P34, ``csrc/pattern_build.cu``) by one a plan:
+   two a set.  Phases 4b-4d, 4g, 4i, 4k, 4m, 4n and 4o count P34 the
+   same way, one a plan or an update's merge (4i-4m: one a microbatch's
+   embedding gradient), and the serving phases expect 0.
 4b. second path, on the same sets and the oracles of phase 4:
    ``fsparse(..., method="pallas")`` (the paper's counting sort, B12 and
    B11) bit for bit against the oracle, its permutation against the
@@ -104,7 +108,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    two B7 launches each, false with one mirror removed;
    ``fsparse(..., format="symcsc")`` and ``format="bsr", block=2``
    equal to phase 4c's conversions of A; ``detect_block`` of the P1
-   stream 1.  Counters (all twelve) are set to 0 before this phase and
+   stream 1.  Counters (all thirteen, P34 the pass of phase 4p) are set to 0 before this phase and
    must rise by exactly the expected launches.  Then B7 against its
    plain version and ``torch.searchsorted``, bit for bit, on both call
    sites' streams, both sides, on edge cases and on ``merge_streams``
@@ -134,7 +138,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    1-3 beside those before the policy layer;
    ``validate_pattern``/``validate_matrix`` on the plans and formats of
    phases 4-4d, a ``SymPattern``, and one ``update`` under
-   ``REPRO_VALIDATE=1``; ``audit_default_paths`` on CUDA tensors.  All twelve counters are set to 0 before the sweep and
+   ``REPRO_VALIDATE=1``; ``audit_default_paths`` on CUDA tensors.  All thirteen counters are set to 0 before the sweep and
    must be above 0 after the audit; the phase must end within 90 s.
    The rest of the run resolves from the priors again.
 4f. the plan service (``PlanService``): cold, warm (threads) and
@@ -168,7 +172,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``memory_allocated`` printed; 8 requests served through
    ``repro_torch.launch.serve.main`` in-process (batch 4, prompts of
    512, 32 tokens), every logit finite and every token in ``[0,
-   vocab)``.  All twelve counters are set to 0 before the served run;
+   vocab)``.  All thirteen counters are set to 0 before the served run;
    B12 and B11 must then read 1,024 each (one per MoE layer call: 16
    layers x 32 calls x 2 batches) and the others 0.  On the same model,
    the one-process runs phase 4o (d) is held to (``rank_serve_reference``:
@@ -208,10 +212,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    parameters); 8 steps of ``make_train_step`` (2 microbatches, bf16
    gradient compression with error feedback, AdamW with 2 warm-up
    steps) on one repeated ``SyntheticLM`` batch of 8 x 512: every loss
-   finite, the last below the first.  All twelve counters are set to 0
+   finite, the last below the first.  All thirteen counters are set to 0
    before the steps; B12 and B11 must then read 144 each (8 steps x 2
    microbatches x (4 forward + 4 recompute MoE dispatches + 1
-   embedding gradient)) and the others 0.  Times: a step's call, split
+   embedding gradient)), P34 16 (one an embedding gradient) and the
+   others 0.  Times: a step's call, split
    by CUDA events into forward + backward + compression and AdamW,
    tok/s, the profiler's kernel time and top kernels, against the
    step's FLOP bound at 989 TFLOP/s (the capacity buffers' expert
@@ -234,9 +239,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    device="cuda")``, their parameter counts held to the reference's
    (``SSM_PARAMS``) and ``memory_allocated`` printed; each served
    through ``repro_torch.launch.serve.main`` in-process as in 4h, every
-   logit finite and every token in ``[0, vocab)``; all twelve counters
+   logit finite and every token in ``[0, vocab)``; all thirteen counters
    set to 0 before each served run must read 0 after it (serving these
-   families runs none of the twelve kernels).  Then, on each: float32
+   families runs none of the thirteen kernels).  Then, on each: float32
    copies at full width (Mamba2 with 1 layer, Zamba2 with 6: one shared
    application) whose prefill logits on the card are within
    ``LM_F32_RTOL`` of the CPU's; ``decode_step`` after ``prefill(...,
@@ -404,6 +409,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same four ranks (its group and its mesh are theirs; rank 0 prints
    its lines; it ends the group, so it runs after (d) and (e)).  Must
    end within PHASE_4O_LIMIT_S.
+4p. Parts 3-4's pass (``csrc/pattern_build.cu``; run after phase 5's
+   times, before the summary, or alone with ``python3 chip_smoke.py
+   --parts34-phase``): both entries against the plain version bit for
+   bit on ``parts34_case``'s edge cases and on streams of many tiles, at
+   three nzmax each (the case's, L / 3, L + 4097), 16 B aligned and
+   not, K0 choosing pairs for some and the two key streams for others
+   (the choice it leaves in its scratch word); in the shapes of the
+   benchmark's two assemble cells (the FEM matrix at n = 1999, set 2 at
+   1e6) under their radix permutations, where ``plan`` must launch the
+   pass once; then its device time beside its byte bound, set 2's
+   gather floor (``parts34_bytes``) and the plain version's, and the
+   pass with K0's other choice imposed, bit for bit and timed.  Must
+   end within PARTS34_PHASE_S.
 5. times, with CUDA events: the device time of the plan (radix and
    counting sort), the fill (fused and unfused), each kernel, its plain
    version and a PyTorch yardstick (calls back to back behind a device
@@ -1407,6 +1425,60 @@ def p1_triplets(n: int):
     return rows, cols, vals, (n + 1) * (n + 1)
 
 
+#: Parts 3-4's edge cases (``parts34_case``)
+PARTS34_CASES = ("padding", "empty_columns", "nzmax_below_nnz",
+                 "nzmax_above_L", "one", "one_padding", "one_column",
+                 "all_duplicates", "all_unique", "all_padding", "wide_gaps")
+
+
+def parts34_case(kind: str, seed: int = 0, L: int = 600, M: int = 40,
+                 N: int = 30):
+    """Triplet keys of one of Parts 3-4's edge cases: ``(rows, cols,
+    perm, M, N, nzmax)``, int32 numpy, ``perm`` the stable (col, row)
+    order.  ``padding``: rows == M inside their columns;
+    ``empty_columns``: no triplet in the first, some inner and the last
+    columns; ``nzmax_below_nnz``, ``nzmax_above_L``; ``one`` and
+    ``one_padding``: L = 1; ``one_column``: N = 1 and a vocabulary of M
+    = 50,000 rows (the embedding gradient's shape); ``all_duplicates``,
+    ``all_unique``, ``all_padding``; ``wide_gaps``: the triplets spread
+    over N = 2^21 columns, so that runs of empty columns are wider than
+    a warp (the first and last columns empty too)."""
+    rng = np.random.default_rng(seed)
+    nzmax = None
+    rows = rng.integers(0, M + 1, L)
+    cols = rng.integers(0, N, L)
+    if kind == "empty_columns":
+        keep = np.setdiff1d(np.arange(N), [0, 1, N // 2, N // 2 + 1, N - 1])
+        cols = rng.choice(keep, L)
+    elif kind == "nzmax_below_nnz":
+        nzmax = L // 4
+    elif kind == "nzmax_above_L":
+        nzmax = L + 37
+    elif kind in ("one", "one_padding"):
+        rows = np.array([M if kind == "one_padding" else M // 2])
+        cols = np.array([N - 1])
+    elif kind == "one_column":
+        M, N = 50_000, 1
+        rows = rng.integers(0, 200, L)
+        cols = np.zeros(L, np.int64)
+    elif kind == "all_duplicates":
+        rows, cols = np.full(L, M // 3), np.full(L, N // 2)
+    elif kind == "all_unique":
+        key = rng.choice(M * N, L, replace=False)
+        rows, cols = key % M, key // M
+    elif kind == "all_padding":
+        rows = np.full(L, M)
+    elif kind == "wide_gaps":
+        N = 1 << 21
+        cols = rng.integers(N // 7, N - N // 9, L)
+    elif kind != "padding":
+        raise ValueError(f"unknown Parts 3-4 case {kind!r}")
+    perm = np.lexsort((rows, cols))
+    return (rows.astype(np.int32), cols.astype(np.int32),
+            perm.astype(np.int32), M, N,
+            rows.shape[0] if nzmax is None else nzmax)
+
+
 def fem_system(n: int):
     """``fem_poisson.py``'s Dirichlet system: boundary rows and columns
     dropped and replaced by identity rows; the load of u = sin(pi x)
@@ -1565,7 +1637,7 @@ def fem_path(dev, n: int, iters: int, counts, rng):
     pat = plan(rows_d, cols_d, (nv, nv))
     A = pat.assemble(vals_d)
     k = npass(nv, nv, rows.size)
-    expect(B1=k, B2=k, B3=1)
+    expect(B1=k, B2=k, B3=1, P34=1)
     prA, irA, jcA = matlab_sparse_oracle(rows, cols, vals.astype(np.float64),
                                          nv, nv)
     nnz = int(A.nnz)
@@ -1580,7 +1652,7 @@ def fem_path(dev, n: int, iters: int, counts, rng):
                 pshape)
     P = patP.assemble(torch.from_numpy(pv_).to(dev))
     k = npass(*pshape, pr_.size)
-    expect(B1=k, B2=k, B3=1)
+    expect(B1=k, B2=k, B3=1, P34=1)
     # -- the four SpMVs, each against the CSC result
     x = torch.from_numpy(rng.standard_normal(nv).astype(np.float32)).to(dev)
     y_csc = ops.matmul(A, x)
@@ -1629,7 +1701,7 @@ def fem_path(dev, n: int, iters: int, counts, rng):
     pp2 = cached_product_plan(PtA, P)
     expect(B1=npass(nc2, nv, pp1.flops) + npass(nc2, nc2, pp2.flops),
            B2=npass(nc2, nv, pp1.flops) + npass(nc2, nc2, pp2.flops),
-           B6=3)
+           B6=3, P34=2)
     info = product_cache_info()
     require((info["misses"], info["hits"]) == (2, 2),
             f"product cache {info} after the Galerkin product")
@@ -2185,19 +2257,19 @@ def update_path(dev, sets, fem, counts, rng):
         del r_h, c_h
         L = r.shape[0]
         full = plan(r, c, (siz, siz))  # phase 4's radix plan of the set
-        expect(B1=npass(siz, siz, L), B2=npass(siz, siz, L))
+        expect(B1=npass(siz, siz, L), B2=npass(siz, siz, L), P34=1)
         row = {"fourth_path": f"update, set {name}", "L": L}
         for frac in UPDATE_FRACS:
             Ld = round(frac * L)
             Lb = L - Ld
             base = plan(r[:Lb], c[:Lb], (siz, siz), nzmax=L)
-            expect(B1=npass(siz, siz, Lb), B2=npass(siz, siz, Lb))
+            expect(B1=npass(siz, siz, Lb), B2=npass(siz, siz, Lb), P34=1)
             got, made = launched(lambda: base.update(r[Lb:], c[Lb:]))
             k = npass(siz, siz, Ld)
-            require(made == {"B1": k, "B2": k, "B7": 1},
+            require(made == {"B1": k, "B2": k, "B7": 1, "P34": 1},
                     f"update of set {name} at {frac} launched {made}, "
-                    f"expected {k} B1, {k} B2 and one B7")
-            expect(B1=k, B2=k, B7=1)
+                    f"expected {k} B1, {k} B2, one B7 and one P34")
+            expect(B1=k, B2=k, B7=1, P34=1)
             for f in fields:
                 require(torch.equal(getattr(got, f), getattr(full, f)),
                         f"update of set {name} at {frac}: {f} differs from "
@@ -2237,11 +2309,13 @@ def update_path(dev, sets, fem, counts, rng):
     torch.cuda.synchronize()
     flip_s = time.perf_counter() - t1
     kb, kd = npass(nv, nv, Lf), npass(nv, nv, Ld)
-    require(made == {"B1": kb + kd, "B2": kb + kd, "B3": 1, "B7": 1},
+    require(made == {"B1": kb + kd, "B2": kb + kd, "B3": 1, "B7": 1,
+                     "P34": 2},
             f"sparse2_update of the edge flip launched {made}")
-    expect(B1=kb + kd, B2=kb + kd, B3=1, B7=1)
+    expect(B1=kb + kd, B2=kb + kd, B3=1, B7=1, P34=2)
     G = fsparse(ci + 1, cj + 1, cv, (nv, nv), nzmax=F.nzmax)
-    expect(B1=npass(nv, nv, ci.size), B2=npass(nv, nv, ci.size), B3=1)
+    expect(B1=npass(nv, nv, ci.size), B2=npass(nv, nv, ci.size), B3=1,
+           P34=1)
     for f in ("data", "indices", "indptr", "nnz"):
         require(torch.equal(getattr(F, f), getattr(G, f)),
                 f"edge flip: sparse2_update's {f} differs from fsparse")
@@ -2294,7 +2368,7 @@ def update_path(dev, sets, fem, counts, rng):
                                                   int(cols_f[k])))
     pat_m = plan(fem["rows_d"][one], fem["cols_d"][one], (nv, nv))
     Lm = int(one.sum())
-    expect(B1=npass(nv, nv, Lm), B2=npass(nv, nv, Lm))
+    expect(B1=npass(nv, nv, Lm), B2=npass(nv, nv, Lm), P34=1)
     require(not pattern_symmetric(pat_m),
             "a copy with one mirror removed tests symmetric")
     expect(B7=2)
@@ -2302,7 +2376,7 @@ def update_path(dev, sets, fem, counts, rng):
     Y = fsparse(rows_f + 1, cols_f + 1, vals_f, (nv, nv), format="symcsc")
     Lu = int(np.sum(rows_f < cols_f))
     Ldiag = int(np.sum(rows_f == cols_f))
-    expect(B1=npass(nv, nv, Lu), B2=npass(nv, nv, Lu), B3=1)
+    expect(B1=npass(nv, nv, Lu), B2=npass(nv, nv, Lu), B3=1, P34=1)
     S = fem["S"]
     nzu = int(S.nnz)
     require(int(Y.nnz) == nzu and torch.equal(Y.diag, S.diag)
@@ -2314,7 +2388,7 @@ def update_path(dev, sets, fem, counts, rng):
             "fsparse(format='symcsc') differs from convert(A, 'symcsc')")
     Bz = fsparse(rows_f + 1, cols_f + 1, vals_f, (nv, nv), format="bsr",
                  block=2)
-    expect(B1=npass(nv, nv, Lf), B2=npass(nv, nv, Lf), B3=1)
+    expect(B1=npass(nv, nv, Lf), B2=npass(nv, nv, Lf), B3=1, P34=1)
     require(all(torch.equal(getattr(Bz, f), getattr(fem["Bm"], f))
                 for f in ("data", "indices", "indptr", "nnz")),
             "fsparse(format='bsr', block=2) differs from convert(A, 'bsr')")
@@ -3351,7 +3425,7 @@ def _serving_phase(dev, sets, fem, verified, kernels, cpm, smi_line,
 
     launches = {k: f.launches for k, f in kernels.items()}
     row["launches"] = launches
-    for k in ("B1", "B2", "B3", "B4", "B6", "B7", "B9", "B10"):
+    for k in ("B1", "B2", "B3", "B4", "B6", "B7", "B9", "B10", "P34"):
         require(launches[k] > 0, f"kernel {k} never launched on phase "
                 "4f's path")
     row["plan_cache"] = plan_cache_info()
@@ -3387,6 +3461,7 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
     t_phase = time.perf_counter()
     row = {"phase": "4g", "card": smi_line}
     hist_k, place_k, fill_k = kernels["B1"], kernels["B2"], kernels["B3"]
+    p34_k = kernels["P34"]
     meshes = {p: (None if p == 1 else make_data_mesh(p)) for p in SHARDS}
     require(make_data_mesh().shape["data"] == 1,
             "the default mesh is not one shard on the card")
@@ -3395,7 +3470,7 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
 
     def counts() -> dict:
         return {"B1": hist_k.launches, "B2": place_k.launches,
-                "B3": fill_k.launches}
+                "B3": fill_k.launches, "P34": p34_k.launches}
 
     def block_passes(siz: int, L: int, p: int) -> int:
         """Digit passes of one block's plan (rpb rows, R received)."""
@@ -3405,9 +3480,9 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
         return len(plan_digit_passes(-(-siz // p), siz, p * cap))
 
     # the main path alone, counted: fsparse(..., method="sharded")
-    for f in (hist_k, place_k, fill_k):
+    for f in (hist_k, place_k, fill_k, p34_k):
         f.launches = 0
-    expected = {"B1": 0, "B2": 0, "B3": 0}
+    expected = {"B1": 0, "B2": 0, "B3": 0, "P34": 0}
     results = {}
     for name, p in runs:
         ii, jj, ss, siz = sets[name]
@@ -3417,12 +3492,13 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
         expected["B1"] += p * npass
         expected["B2"] += p * npass
         expected["B3"] += 1
+        expected["P34"] += p
     torch.cuda.synchronize()
     launches = counts()
     row["launches"], row["expected"] = launches, dict(expected)
     require(launches == expected, f"phase 4g launch counts {launches} != "
             f"{expected} (p x the digit passes of a block's plan for B1 "
-            "and B2, one B3' a fill)")
+            "and B2, one B3' a fill, one P34 a block's plan)")
 
     # each result in the Matlab layout: bit for bit the oracle's, and so
     # phase 4's single-device fsparse's; sets 1-3 also against a fresh one
@@ -3600,8 +3676,10 @@ def sharded_phase(dev, sets, oracles, kernels, cpm, smi_line) -> dict:
     require((info["misses"], info["hits"]) == (2, 1),
             f"sparse2 sharded cache {info}, expected 2 misses and 1 hit")
     require(hit["B1"] == mid["B1"] and hit["B3"] == mid["B3"] + 1
-            and mid["B1"] > before["B1"],
-            "the sharded sparse2 hit ran a plan kernel or no fill")
+            and mid["B1"] > before["B1"] and hit["P34"] == mid["P34"]
+            and mid["P34"] == before["P34"] + 4,
+            "the sharded sparse2 hit ran a plan kernel or no fill, or the "
+            "miss did not run one P34 a block")
     require(torch.equal(S1.data, S2.data)
             and torch.equal(convert(S1, "csc").data[:int(S1.nnz.sum())],
                             convert(S3, "csc").data[:int(S3.nnz.sum())]),
@@ -4565,7 +4643,9 @@ def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
         losses.append(float(m["loss"]))  # waits for the step
         step_s.append(time.perf_counter() - t0)
     launches = {k: f.launches for k, f in kernels.items()}
-    expected = {k: TRAIN_DISPATCH_CALLS if k in ("B11", "B12") else 0
+    # the embedding gradient's Parts 3-4: one P34 a microbatch
+    expected = {k: TRAIN_DISPATCH_CALLS if k in ("B11", "B12") else
+                TRAIN_STEPS * TRAIN_MICROBATCHES if k == "P34" else 0
                 for k in kernels}
     row["losses"], row["step_s"] = losses, step_s
     row["launches"], row["expected"] = launches, expected
@@ -4577,7 +4657,7 @@ def lm_training_phase(dev, kernels, cpm, smi_line) -> dict:
             f"{losses[-1]}")
     require(launches == expected, f"phase 4i launch counts {launches} != "
             f"{expected} ({TRAIN_STEPS} steps x {TRAIN_MICROBATCHES} "
-            f"microbatches x (2 x {TRAIN_LAYERS} + 1))")
+            f"microbatches x (2 x {TRAIN_LAYERS} + 1) B12/B11, x 1 P34)")
 
     # (e) times on (b)'s model: a step's call and its split by CUDA
     # events (forward + backward + compression, then AdamW), the
@@ -4816,7 +4896,7 @@ def ssm_serving_phase(dev, kernels, cpm, smi_line) -> dict:
         r["launches"] = served["launches"]
         require(all(n == 0 for n in r["launches"].values()),
                 f"phase 4j ({arch}) launched {r['launches']}: serving "
-                "these families runs none of the twelve kernels")
+                "these families runs none of the thirteen kernels")
         for k, n in served["launches"].items():
             launches[k] += n
 
@@ -4993,8 +5073,8 @@ def ssm_training_phase(dev, kernels, cpm, smi_line) -> dict:
             losses.append(float(m["loss"]))  # waits for the step
             step_s.append(time.perf_counter() - t0)
         got = {k: f.launches for k, f in kernels.items()}
-        expected = {k: steps * TRAIN_MICROBATCHES if k in ("B11", "B12")
-                    else 0 for k in kernels}
+        expected = {k: steps * TRAIN_MICROBATCHES
+                    if k in ("B11", "B12", "P34") else 0 for k in kernels}
         for k, n in got.items():
             launches[k] += n
         r["losses"], r["step_s"] = losses, step_s
@@ -5277,7 +5357,7 @@ def cross_serving_phase(dev, kernels, cpm, smi_line) -> dict:
         r["launches"] = served["launches"]
         require(all(n == 0 for n in r["launches"].values()),
                 f"phase 4l ({arch}) launched {r['launches']}: serving "
-                "these families runs none of the twelve kernels")
+                "these families runs none of the thirteen kernels")
         for k, n in served["launches"].items():
             launches[k] += n
 
@@ -5483,8 +5563,8 @@ def cross_training_phase(dev, kernels, cpm, smi_line) -> dict:
             losses.append(float(m["loss"]))  # waits for the step
             step_s.append(time.perf_counter() - t0)
         got = {k: f.launches for k, f in kernels.items()}
-        expected = {k: steps * TRAIN_MICROBATCHES if k in ("B11", "B12")
-                    else 0 for k in kernels}
+        expected = {k: steps * TRAIN_MICROBATCHES
+                    if k in ("B11", "B12", "P34") else 0 for k in kernels}
         for k, n in got.items():
             launches[k] += n
         r["losses"], r["step_s"] = losses, step_s
@@ -5870,7 +5950,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
     torch.cuda.synchronize()
     row["real_peak_less_args_bytes"] = \
         torch.cuda.max_memory_allocated() - base - args_bytes
-    plain_launches = {k: kernels[k].launches for k in ("B11", "B12")}
+    plain_launches = {k: kernels[k].launches for k in ("B11", "B12", "P34")}
     plain_loss = m["loss"].clone()
     plain_state = [t.cpu() for t in leaves(state)]
     del state, m
@@ -5893,7 +5973,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
             f.launches = 0
         placed, m = step(placed, b_placed)
         torch.cuda.synchronize()
-        dt_launches = {k: kernels[k].launches for k in ("B11", "B12")}
+        dt_launches = {k: kernels[k].launches for k in ("B11", "B12", "P34")}
         same = [torch.equal(a.to(dev), b.to_local())
                 for a, b in zip(plain_state, leaves(placed))]
         row["train"] = {"loss_equal": bool(torch.equal(
@@ -5922,7 +6002,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
             for f in kernels.values():
                 f.launches = 0
             logits, c_plain = lm.decode_step(plain_params, cache, tokens, cfg)
-            plain_dec = {k: kernels[k].launches for k in ("B11", "B12")}
+            plain_dec = {k: kernels[k].launches for k in ("B11", "B12", "P34")}
         p_placed = dry._place(mesh, plain_params, param_specs(
             mesh, plain_params, mode="serve"))
         c_placed = dry._place(mesh, cache, cache_specs(
@@ -5934,7 +6014,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
             for f in kernels.values():
                 f.launches = 0
             logits2, c2 = lm.decode_step(p_placed, c_placed, t_placed, cfg)
-            dt_dec = {k: kernels[k].launches for k in ("B11", "B12")}
+            dt_dec = {k: kernels[k].launches for k in ("B11", "B12", "P34")}
         row["decode"] = {
             "logits_equal": bool(torch.equal(logits, logits2.to_local())),
             "cache_equal": all(torch.equal(c_plain[k], c2[k].to_local())
@@ -5965,7 +6045,7 @@ def sharded_step_phase(dev, kernels, smi_line) -> dict:
             f"phase 4n (b): the DTensor decode differs: {row['decode']}")
     for what in ("plain", "dtensor"):
         require(all(v > 0 for v in row["launches"][what].values()),
-                f"phase 4n (b): B12/B11 idle in the {what} step")
+                f"phase 4n (b): B12/B11 or P34 idle in the {what} step")
     require(row["launches"]["plain"] == row["launches"]["dtensor"]
             and plain_dec == dt_dec, f"phase 4n (b): launches differ: "
             f"{row['launches']}, decode {row['decode']['launches']}")
@@ -6054,12 +6134,14 @@ def _rank_kernels() -> dict:
     """The wrappers the rank path launches, by their table names."""
     from repro_torch.kernels.counting_sort import counting_sort as cs_mod
     from repro_torch.kernels.hist import hist as hist_mod
+    from repro_torch.kernels.pattern_build.ops import pattern_build
     from repro_torch.kernels.radix_sort import radix_sort as rs
     from repro_torch.kernels.segment_sum import segment_sum as ss_mod
 
     return {"B1": rs.digit_block_histogram, "B2": rs.digit_placement,
             "B3": ss_mod.gather_segment_sum,
-            "B11": cs_mod.placement, "B12": hist_mod.block_histogram}
+            "B11": cs_mod.placement, "B12": hist_mod.block_histogram,
+            "P34": pattern_build}
 
 
 def _ranks_ms(fn, reps: int) -> list:
@@ -6115,7 +6197,7 @@ def _rank_sparse(info, mesh, kernels) -> dict:
         npass = len(plan_digit_passes(pat.rpb, siz, p * pat.capacity))
         row = {"launches": launches,
                "expected": {"B1": npass, "B2": npass, "B3": 1, "B11": 0,
-                            "B12": 0}}
+                            "B12": 0, "P34": 1}}
         # against block r of the one-process plan, on the same card
         ref = plan_sharded(rows, cols, (siz, siz), mesh=one)
         fields = ("send_slot", "perm", "slot", "indices", "indptr", "nnz",
@@ -6592,9 +6674,9 @@ def _rank_service(info, mesh, kernels) -> dict:
             mesh=mesh)
         npass = len(plan_digit_passes(pat.rpb, siz, p * pat.capacity))
         row["expected"] = {"B1": npass, "B2": npass, "B3": 1, "B11": 0,
-                           "B12": 0}
+                           "B12": 0, "P34": 1}
         row["many_expected"] = {"B1": 0, "B2": 0, "B3": 2, "B11": 0,
-                                "B12": 0}
+                                "B12": 0, "P34": 0}
         del pat
         ref = fsparse(ii, jj, vi, shape, method="sharded", mesh=one)
         row["block_equal"] = bool(torch.equal(A.data[0], ref.data[r])
@@ -6750,6 +6832,9 @@ def ranks_phase(smi_line) -> dict:
         require(q["launches"]["B12"] == per_run == q["launches"]["B11"],
                 f"phase 4o (b), rank {r}: B12/B11 {q['launches']}, not "
                 f"{per_run} each")
+        require(q["launches"]["P34"] == RANK_LM_STEPS,
+                f"phase 4o (b), rank {r}: P34 {q['launches']['P34']}, not "
+                f"one a step's embedding gradient ({RANK_LM_STEPS})")
     f32 = {k: max(q[k] for q in lm_rows)
            for k in ("f32_loss_rel_err", "f32_grad_rel_err",
                      "f32_grad_norm_rel_diff")}
@@ -6871,7 +6956,8 @@ def ranks_phase(smi_line) -> dict:
                 f"{q['groups']} token groups")
         require(q["launches"]["B12"] == RANK_SERVE_CALLS
                 == q["launches"]["B11"] and all(
-                    q["launches"][k] == 0 for k in ("B1", "B2", "B3")),
+                    q["launches"][k] == 0 for k in ("B1", "B2", "B3",
+                                                    "P34")),
                 f"phase 4o (d), rank {r}: launches {q['launches']}, not "
                 f"{RANK_SERVE_CALLS} B12/B11 and no other")
         require(q["layout_fixes"] == sv[0]["layout_fixes"],
@@ -6941,19 +7027,175 @@ def ranks_phase(smi_line) -> dict:
     emit(row)
     require(row["phase_s"] < PHASE_4O_LIMIT_S,
             f"phase 4o took {row['phase_s']:.1f} s")
-    names = ("B1", "B2", "B3", "B11", "B12")
+    names = ("B1", "B2", "B3", "B11", "B12", "P34")
     launches = {k: [0] * RANK_WORLD for k in names}
     serving = {k: [0] * RANK_WORLD for k in names}
     for r in range(RANK_WORLD):
-        for k in ("B1", "B2", "B3"):
+        for k in ("B1", "B2", "B3", "P34"):
             launches[k][r] = sum(sets[n]["launches"][r][k] for n in sets)
             serving[k][r] = sum(sets_e[n]["launches"][r][k]
                                 + sets_e[n]["many_launches"][r][k]
                                 for n in sets_e)
-        for k in ("B11", "B12"):
-            launches[k][r] = row["lm"]["launches"][r][k]
-            serving[k][r] = serve["launches"][r][k]
+        for k in ("B11", "B12", "P34"):
+            launches[k][r] += row["lm"]["launches"][r][k]
+            serving[k][r] += serve["launches"][r][k]
     return launches, serving
+
+
+#: phase 4p's time limit, in seconds
+PARTS34_PHASE_S = 300
+#: phase 4p's FEM mesh: the benchmark's ``fem_p1_1999`` (n x n cells)
+PARTS34_FEM_N = 1999
+
+
+def parts34_bytes(L: int, N: int, nzmax: int) -> tuple[int, int]:
+    """Parts 3-4's needed bytes (perm read, rows and cols gathered,
+    srows, scols and slot written, indices and indptr written) and its
+    gather floor where perm is random (each gathered word a 32 B
+    sector)."""
+    rest = 4 * L + 12 * L + 4 * nzmax + 4 * (N + 1)
+    return rest + 8 * L, rest + 64 * L
+
+
+def parts34_phase(dev, smi_line) -> dict:
+    """Phase 4p: Parts 3-4's pass (``csrc/pattern_build.cu``) against its
+    plain version bit for bit, both entries, on the edge cases of
+    ``parts34_case`` (16 B aligned and not), on streams of many tiles and
+    in the shapes of the benchmark's two assemble cells (the FEM matrix of
+    ``fem_p1_1999`` and set 2 at 1e6 under their radix permutations);
+    ``plan`` on each of those launches the pass once; then the pass's
+    device time beside its byte bound, set 2's gather floor and the plain
+    version's time, and with K0's other choice of gather imposed (bit for
+    bit and timed).  Returns the phase's row."""
+    from repro_torch.core.ransparse import ransparse
+    from repro_torch.kernels.pattern_build import ops as pb
+    from repro_torch.kernels.pattern_build.ref import pattern_fields_ref
+    from repro_torch.sparse.dispatch import sorted_permutation
+    from repro_torch.sparse.pattern import plan
+
+    t_phase = time.perf_counter()
+    row = {"phase": "4p", "card": smi_line}
+
+    def plain(rows, cols, perm, sizes):
+        return pattern_fields_ref(rows[perm], cols[perm], **sizes)
+
+    def pairs(rows, cols, perm, sizes, force=None):
+        """The kernel's fields with K0's choice of gather (a bool)."""
+        got = pb.pattern_build_kernel(rows, cols, perm, **sizes, pairs=force)
+        return got, bool(got.pop("pairs"))
+
+    def check(rows, cols, perm, sizes, what):
+        want = plain(rows, cols, perm, sizes)
+        r_s, c_s = want["srows"], want["scols"]
+        for entry, got in (
+                ("gathered", pb.pattern_build(rows, cols, perm, **sizes)),
+                ("presorted", pb.pattern_build_sorted(r_s, c_s, **sizes))):
+            for f, w in want.items():
+                require(torch.equal(got[f], w),
+                        f"4p: {what}, {entry} entry: {f} differs from the "
+                        "plain version")
+        return want
+
+    def unaligned(x):
+        return torch.cat([x[:1], x])[1:]
+
+    n_checked = 0
+    streams = [(kind, parts34_case(kind)) for kind in PARTS34_CASES]
+    streams += [(f"padding L={L} M=N={M}", parts34_case(
+        "padding", seed=L, L=L, M=M, N=M)) for L, M in (
+            (2048 * 37 + 5, 3000), (2048 * 997 + 1023, 1 << 20),
+            (4_000_003, 1 << 21))]
+    streams.append(("one_column L=300,001", parts34_case(
+        "one_column", seed=1, L=300_001)))
+    streams.append(("wide_gaps L=6,161", parts34_case(
+        "wide_gaps", seed=2, L=2048 * 3 + 17)))
+    chose = set()
+    for what, (rows, cols, perm, M, N, nzmax) in streams:
+        t = [torch.from_numpy(a).to(dev) for a in (rows, cols, perm)]
+        chose.add(pairs(*t, dict(M=M, N=N, nzmax=nzmax))[1])
+        for nz in sorted({nzmax, rows.shape[0] // 3, rows.shape[0] + 4097}):
+            sizes = dict(M=M, N=N, nzmax=nz)
+            check(*t, sizes, f"{what}, nzmax {nz}")
+            check(*[unaligned(x) for x in t], sizes,
+                  f"{what}, nzmax {nz}, unaligned")
+            n_checked += 4
+    row["edge_checks"] = n_checked
+    require(chose == {False, True}, "4p: the streams did not take both of "
+            "K0's choices (pairs and the two key streams)")
+
+    cpm = sleep_cycles_per_ms()
+    r, c, _, nv = p1_triplets(PARTS34_FEM_N)
+    ii, jj, _, siz = ransparse(**BIG)
+    cells = {"fem_p1_1999": (r, c, nv),
+             "ransparse_set2_1e6": (ii - 1, jj - 1, siz)}
+    del r, c, ii, jj
+    for name, (r, c, n) in cells.items():
+        rows, cols = (torch.from_numpy(np.ascontiguousarray(
+            x, dtype=np.int32)).to(dev) for x in (r, c))
+        L = rows.shape[0]
+        perm = sorted_permutation(rows, cols, M=n, N=n, method="radix")
+        sizes = dict(M=n, N=n, nzmax=L)
+        want = check(rows, cols, perm, sizes, name)
+        chosen = pairs(rows, cols, perm, sizes)[1]
+        other, took = pairs(rows, cols, perm, sizes, force=not chosen)
+        require(took == (not chosen), f"4p: {name}: K0 ignored the "
+                "imposed choice")
+        other_same = all(torch.equal(other[f], w) for f, w in want.items())
+        del other, want
+        before = pb.pattern_build.launches
+        pat = plan(rows, cols, (n, n))
+        torch.cuda.synchronize()
+        require(pb.pattern_build.launches == before + 1,
+                f"4p: plan of {name} launched the pass "
+                f"{pb.pattern_build.launches - before} times, not once")
+        nnz = int(pat.nnz)
+        del pat
+        need, floor = parts34_bytes(L, n, L)
+        ms = device_ms(lambda: pb.pattern_build(rows, cols, perm, **sizes),
+                       cpm)
+        bound = need / HBM_BYTES_PER_S * 1e3
+        row[name] = {
+            "L": L, "N": n, "nnz": nnz, "pairs": chosen, "ms": ms,
+            "call_ms": call_ms(lambda: pb.pattern_build(rows, cols, perm,
+                                                        **sizes)),
+            "plain_ms": device_ms(lambda: plain(rows, cols, perm, sizes),
+                                  cpm, reps=5),
+            "bound_ms": bound, "bound_pct": 100 * bound / ms,
+            "gather_floor_ms": floor / HBM_BYTES_PER_S * 1e3,
+            "kernels": top_kernels(lambda: pb.pattern_build(
+                rows, cols, perm, **sizes)),
+            "other_gather": {
+                "pairs": not chosen, "bit_identical": other_same,
+                "ms": device_ms(lambda: pb.pattern_build_kernel(
+                    rows, cols, perm, **sizes, pairs=not chosen), cpm)},
+        }
+        require(other_same, f"4p: {name}: with pairs={not chosen} imposed "
+                "the pass differs from the plain version")
+        del rows, cols, perm
+        torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    require(row["phase_s"] < PARTS34_PHASE_S,
+            f"phase 4p took {row['phase_s']:.1f} s, over its "
+            f"{PARTS34_PHASE_S} s limit")
+    return row
+
+
+def parts34_only() -> None:
+    """``python3 chip_smoke.py --parts34-phase``: build Parts 1-4's
+    kernels and run phase 4p alone."""
+    from repro_torch.kernels import common
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    smi_line = nvidia_smi_line()
+    logs = common.build(["radix_sort", "pattern_build"])
+    for line in logs["pattern_build"].splitlines():
+        if "ptxas" in line and ("registers" in line or "spill" in line):
+            print(f"ptxas[pattern_build]: {line.strip()}", flush=True)
+    parts34_phase(torch.device("cuda"), smi_line)
+    print(smi_line, flush=True)
+    emit({"ok": True})
 
 
 def main() -> None:
@@ -6980,6 +7222,7 @@ def main() -> None:
     from repro_torch.kernels.segment_sum.ref import (
         PRODUCT_TILE, blocked_cumsum_ref, gather_segment_minmax_ref,
         gather_segment_sum_ref)
+    from repro_torch.kernels.pattern_build.ops import pattern_build
     from repro_torch.kernels.spmv import spmv as ell_mod
     sym_mod = importlib.import_module(
         "repro_torch.kernels.spmv_sym.spmv_sym")
@@ -7000,6 +7243,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = common.build(["radix_sort", "segment_sum", "hist",
                          "counting_sort", "spmv", "spmv_sym", "merge",
+                         "pattern_build",
                          "radix_sort_probe", "segment_sum_probe",
                          "merge_probe", "spmv_sym_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7017,6 +7261,7 @@ def main() -> None:
     ell_k, sym_k, bsr_k = (ell_mod.spmv_ell, sym_mod.sym_streams,
                            sym_mod.bsr_tiles)
     merge_k = merge_mod.merge_search_kernel
+    p34_k = pattern_build  # Parts 3-4's pass, one launch a plan or merge
     TILE = rs.TILE
 
     # data: the paper's Table 4.1 sets at full scale + the L = 5e7 set
@@ -7221,10 +7466,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 4. main path -------------------------------------------------------
-    counters = (hist_k, place_k, fill_k)
+    counters = (hist_k, place_k, fill_k, p34_k)
     for f in counters:
         f.launches = 0
-    expected = {"B1": 0, "B2": 0, "B3": 0}
+    expected = {"B1": 0, "B2": 0, "B3": 0, "P34": 0}
     oracles, verified = {}, {}
     for name, (ii, jj, ss, siz) in sets.items():
         L = ii.shape[0]
@@ -7240,8 +7485,9 @@ def main() -> None:
         expected["B1"] += 2 * npass
         expected["B2"] += 2 * npass
         expected["B3"] += 2
+        expected["P34"] += 2
         got = {"B1": hist_k.launches, "B2": place_k.launches,
-               "B3": fill_k.launches}
+               "B3": fill_k.launches, "P34": p34_k.launches}
         require(got == expected, f"launch counts {got} != {expected} "
                 f"after set {name}")
         i0, j0 = ii - 1, jj - 1
@@ -7278,16 +7524,16 @@ def main() -> None:
               "run_s": run_s, "oracle_s": oracle_s})
         del S, R, pat, coo
     launches = {"B1": hist_k.launches, "B2": place_k.launches,
-                "B3": fill_k.launches}
+                "B3": fill_k.launches, "P34": p34_k.launches}
     emit({"main_path_launches": launches, "expected": expected})
-    for k in ("B1", "B2", "B3"):
+    for k in ("B1", "B2", "B3", "P34"):
         require(launches[k] > 0, f"kernel {k} never launched on the main "
                 "path")
 
     # -- 4b. second path: counting sort, unfused fill, duplicate modes,
     #    sparse2 -------------------------------------------------------------
     kernels = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B4": minmax_k,
-               "B5": scan_k, "B11": cplace_k, "B12": bhist_k}
+               "B5": scan_k, "B11": cplace_k, "B12": bhist_k, "P34": p34_k}
 
     def counts() -> dict:
         return {k: f.launches for k, f in kernels.items()}
@@ -7305,6 +7551,7 @@ def main() -> None:
         exp2["B12"] += 2
         exp2["B11"] += 2
         exp2["B3"] += 1
+        exp2["P34"] += 1
         require(int(S.nnz) == nnz, f"pallas nnz differs, set {name}")
         require(np.array_equal(S.indptr.cpu().numpy(), jc)
                 and np.array_equal(S.indices[:nnz].cpu().numpy(), ir)
@@ -7319,6 +7566,7 @@ def main() -> None:
         exp2["B11"] += 2
         exp2["B1"] += npass
         exp2["B2"] += npass
+        exp2["P34"] += 2
         require(torch.equal(pat_p.perm, pat.perm)
                 and torch.equal(pat_p.slot, pat.slot),
                 f"pallas permutation differs from the radix one, set {name}")
@@ -7343,6 +7591,7 @@ def main() -> None:
                             accum=accum)
                 exp2["B1"] += npass
                 exp2["B2"] += npass
+                exp2["P34"] += 1
                 exp2["B4"] += accum in ("min", "max")
                 exp2["B3"] += accum == "mean"
                 got = A.data[:nnz].cpu().numpy()
@@ -7368,12 +7617,13 @@ def main() -> None:
         exp2["B1"] += npass
         exp2["B2"] += npass
         exp2["B3"] += 1
+        exp2["P34"] += 1
         before = counts()
         B = sparse2(ii, jj, ss, (siz, siz))
         exp2["B3"] += 1
         after = counts()
         require(all(after[k] == before[k] for k in ("B1", "B2", "B11",
-                                                    "B12"))
+                                                    "B12", "P34"))
                 and after["B3"] == before["B3"] + 1,
                 f"sparse2 hit launched {before} -> {after}, set {name}")
         info = plan_cache_info()
@@ -7393,7 +7643,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     launches2 = counts()
     emit({"second_path_launches": launches2, "expected": exp2})
-    for k in ("B4", "B5", "B11", "B12"):
+    for k in ("B4", "B5", "B11", "B12", "P34"):
         require(launches2[k] > 0, f"kernel {k} never launched on its path")
     csc_oracles = {k: v[:3] for k, v in oracles.items()}  # for phase 4g
     del oracles
@@ -7401,7 +7651,7 @@ def main() -> None:
 
     # -- 4c. third path: FEM SpMV four ways, CG, the Galerkin product ------
     kernels3 = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B6": sum2_k,
-                "B8": ell_k, "B9": sym_k, "B10": bsr_k}
+                "B8": ell_k, "B9": sym_k, "B10": bsr_k, "P34": p34_k}
 
     def counts3() -> dict:
         return {k: f.launches for k, f in kernels3.items()}
@@ -7433,7 +7683,8 @@ def main() -> None:
     # -- 4d. fourth path: update, the edge flip, symmetric planning ---------
     kernels4 = {"B1": hist_k, "B2": place_k, "B3": fill_k, "B4": minmax_k,
                 "B5": scan_k, "B6": sum2_k, "B7": merge_k, "B8": ell_k,
-                "B9": sym_k, "B10": bsr_k, "B11": cplace_k, "B12": bhist_k}
+                "B9": sym_k, "B10": bsr_k, "B11": cplace_k, "B12": bhist_k,
+                "P34": p34_k}
 
     def counts4() -> dict:
         return {k: f.launches for k, f in kernels4.items()}
@@ -7738,6 +7989,8 @@ def main() -> None:
     del va, vb, sa, sb, slot
     emit(lr)
 
+    p34 = parts34_phase(dev, smi_line)
+
     big = per_kernel["2x20"]
     meta = {
         "B1": ("digit_block_histogram", "src/repro_torch/csrc/radix_sort.cu",
@@ -7765,15 +8018,20 @@ def main() -> None:
                 "src/repro/kernels/spmv_sym/spmv_sym.py:104", errs3["B10"]),
         "B7": ("merge_search_kernel", "src/repro_torch/csrc/merge.cu",
                "src/repro/kernels/merge/merge.py:47", 0.0),
+        "P34": ("pattern_build", "src/repro_torch/csrc/pattern_build.cu",
+                "none: the JAX package leaves Parts 3-4 to XLA", 0.0),
     }
     # launches: B1-B3 on the main path (phase 4), B4, B5, B11, B12 on
     # theirs (4b), B6, B8, B9, B10 on the third path (4c), B7 on the
-    # fourth (4d); times at 5e7 for the first seven, at the third path's
-    # size for B6 and B8-B10, B7 at the update of the 5e7 set (1% delta)
+    # fourth (4d), P34 on the main path; times at 5e7 for the first seven
+    # and P34 (phase 4p), at the third path's size for B6 and B8-B10, B7
+    # at the update of the 5e7 set (1% delta)
     path_launches = {**launches2, **launches,
                      **{k: launches3[k] for k in fem_k if k in launches3},
                      "B7": launches4["B7"]}
-    big = {**big, **fem_k, "B7": b7_row}
+    big = {**big, **fem_k, "B7": b7_row,
+           "P34": {**p34["ransparse_set2_1e6"], "bound_by": "bytes",
+                   "library_ms": None}}
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[k], "lm_launches": lm_launches[k],
@@ -7792,7 +8050,7 @@ def main() -> None:
          "bound_ms": big[k]["bound_ms"], "bound_by": big[k]["bound_by"],
          "library_ms": big[k]["library_ms"],
          **({"gather_floor_ms": big[k]["gather_floor_ms"]}
-            if k in ("B3", "B4") else {}),
+            if k in ("B3", "B4", "P34") else {}),
          **({"longrun_ms": lr[f"{k}_longrun_ms"],
              "runs1_ms": lr[f"{k}_runs1_ms"]} if k in ("B3", "B4", "B6")
             else {}),
@@ -7820,5 +8078,7 @@ if __name__ == "__main__":
         serving_restart_check(sys.argv[2])
     elif sys.argv[1:2] == ["--ranks-phase"]:
         ranks_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--parts34-phase"]:
+        parts34_only()
     else:
         main()

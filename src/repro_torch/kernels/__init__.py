@@ -7,6 +7,9 @@ Layout (counterpart of ``repro.kernels``):
                   (B11)
   radix_sort/     Parts 1-3: LSD radix planner (B1 digit histogram,
                   B2 stable placement fused with the payload scatter)
+  pattern_build/  Parts 3-4 in one pass: sorted keys, flags, their scan,
+                  slots and the CSC structure (no counterpart: the
+                  reference leaves them to XLA)
   segment_sum/    numeric phase: fused gather + mask + segment sum
                   (B3') and min/max (B4), prefix sum (B5), the SpGEMM
                   product segment sum (B6)

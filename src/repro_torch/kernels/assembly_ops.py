@@ -4,9 +4,10 @@ Counterparts of ``repro/kernels/assembly_ops.py``'s ``plan_pallas``,
 ``fill_fused`` and ``assemble_pallas``, renamed because nothing in the
 port is Pallas (the reference's names stay as aliases):
 
-  Parts 1-3  radix_sort.radix_sort_pair  (B1 histogram + scan + B2
+  Parts 1-2  radix_sort.radix_sort_pair  (B1 histogram + scan + B2
              placement per digit of at most 8 bits)
-  Part 4     prefix over column boundaries (plain PyTorch)
+  Parts 3-4  pattern_build.pattern_build (one pass: the sorted keys, the
+             boundary flags and their scan, slots, indices, indptr)
   Numeric    segment_sum.gather_segment_reduce_sorted (B3': gather +
              mask + segment sum in one kernel; B4 the same for
              min/max)

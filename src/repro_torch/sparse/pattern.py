@@ -47,6 +47,8 @@ from .. import obs
 from ..core.coo import COO
 from ..core.csc import CSC, scatter_add
 from ..kernels.common import resolve_device
+from ..kernels.pattern_build.ops import (path, pattern_build,
+                                         pattern_build_sorted)
 from .dispatch import merge_search, resolve_method, sorted_permutation
 from .errors import CapacityWarning
 
@@ -507,9 +509,16 @@ class _Scatter(torch.autograd.Function):
 
 def pattern_from_perm(rows, cols, perm, *, M: int, N: int,
                       nzmax: int) -> SparsePattern:
-    """Parts 3-4 on an already (col,row)-ordered permutation."""
-    return pattern_from_sorted(rows[perm], cols[perm], perm, M=M, N=N,
-                               nzmax=nzmax)
+    """Parts 3-4 on an already (col,row)-ordered permutation.
+
+    On the card one hand-written pass gathers the sorted keys through
+    ``perm`` and builds the rest from them (``csrc/pattern_build.cu``);
+    on the CPU the plain version gathers, then runs
+    :func:`pattern_from_sorted`'s steps.
+    """
+    fields = pattern_build(_i32(rows), _i32(cols), _i32(perm), M=M, N=N,
+                           nzmax=nzmax)
+    return SparsePattern(perm=_i32(perm), shape=(M, N), **fields)
 
 
 def pattern_from_sorted(r_s, c_s, perm, *, M: int, N: int,
@@ -517,38 +526,18 @@ def pattern_from_sorted(r_s, c_s, perm, *, M: int, N: int,
     """Parts 3-4 on an already-sorted key stream (``L >= 1``).
 
     ``r_s``/``c_s`` are the (col,row)-ordered int32 keys and ``perm``
-    maps sorted position back to input position.  Phrased gather-side,
-    as the reference: cumsum of the boundary flags, then two
-    searchsorted lookups.
+    maps sorted position back to input position.  On the CPU phrased
+    gather-side, as the reference: cumsum of the boundary flags, then
+    two searchsorted lookups; on the card scatter-side, in the pass of
+    ``csrc/pattern_build.cu`` (:mod:`repro_torch.kernels.pattern_build`).
     """
-    dev = r_s.device
-    L = r_s.shape[0]
-    r_s = r_s.to(torch.int32).contiguous()
-    c_s = c_s.to(torch.int32).contiguous()
-    valid = r_s < M
-    first = torch.cat([
-        torch.ones(1, dtype=torch.bool, device=dev),
-        (c_s[1:] != c_s[:-1]) | (r_s[1:] != r_s[:-1]),
-    ]) & valid
-    cum_first = torch.cumsum(first, 0, dtype=torch.int32)
-    cum0 = torch.cat([cum_first.new_zeros(1), cum_first])
-    # column j's pointer = uniques strictly before its first position
-    col_bnd = torch.searchsorted(
-        c_s, torch.arange(N + 1, dtype=torch.int32, device=dev),
-        side="left", out_int32=True)
-    indptr = cum0[col_bnd]
-    slot = torch.where(valid, cum_first - 1, nzmax).to(torch.int32)
-    # row of the s-th unique = r_s where cum_first first reaches s+1;
-    # s >= nnz searches past the stream and gets the sentinel M
-    upos = torch.searchsorted(
-        cum_first, torch.arange(1, nzmax + 1, dtype=torch.int32, device=dev),
-        side="left", out_int32=True)
-    indices = torch.where(upos < L, r_s[upos.clamp(max=L - 1)], M)
-    return SparsePattern(
-        perm=perm.to(torch.int32), slot=slot,
-        indices=indices.to(torch.int32), indptr=indptr,
-        nnz=indptr[-1].clone(), srows=r_s, scols=c_s, shape=(M, N),
-    )
+    fields = pattern_build_sorted(_i32(r_s), _i32(c_s), M=M, N=N,
+                                  nzmax=nzmax)
+    return SparsePattern(perm=_i32(perm), shape=(M, N), **fields)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
 
 
 def _index_tensor(x) -> torch.Tensor:
@@ -693,9 +682,13 @@ def plan(rows, cols, shape: tuple[int, int], *, nzmax: int | None = None,
 
             sort.set(passes=len(plan_digit_passes(
                 M, N, L, backend=rows.device)))
-        with obs.span("plan.parts34", device=rows.device):
+        with obs.span("plan.parts34", device=rows.device) as parts34:
+            before = pattern_build.launches
             pat = pattern_from_perm(rows, cols, perm, M=M, N=N,
                                     nzmax=nzmax)
+            if parts34:
+                parts34.set(path=path(rows.device),
+                            launches=pattern_build.launches - before)
         return pat if accum == "sum" else dataclasses.replace(pat, accum=accum)
 
 

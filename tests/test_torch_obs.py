@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels.pattern_build.ops import pattern_build
 from repro_torch.sparse.pattern import plan
 
 torch.set_num_threads(1)
@@ -70,11 +71,22 @@ def test_plan_and_fill_spans(method, passes):
                        "M": SHAPE[0], "N": SHAPE[1], "nzmax": pat.nzmax}
     assert by["plan.sort"].attrs == ({} if passes is None
                                      else {"passes": passes})
-    assert by["plan.parts34"].attrs == {}
+    # the CPU runs Parts 3-4's plain version: the kernel's count stays
+    assert by["plan.parts34"].attrs == {"path": "plain", "launches": 0}
     assert fill.attrs == {"accum": "sum", "dtype": torch.float32}
     # a CPU device takes no CUDA events
     assert all(s.events is None and s.device_ms() is None
                for s in obs.records())
+
+
+@pytest.mark.parametrize("method", ["jnp", "fused", "pallas", "radix"])
+def test_cpu_plan_takes_the_plain_parts34(method):
+    before = pattern_build.launches
+    with obs.recording():
+        _plan_and_fill(method)
+    (p34,) = [s for s in obs.records() if s.name == "plan.parts34"]
+    assert p34.attrs == {"path": "plain", "launches": 0}
+    assert pattern_build.launches == before
 
 
 def test_spans_share_the_profilers_clock():
@@ -230,6 +242,9 @@ def test_card_spans_time_the_device_and_skip_captures():
     assert by["plan"].events is None and by["fill"].events is None
     assert by["plan"].attrs["method"] == "radix"
     assert by["plan.sort"].attrs["passes"] >= 1
+    # Parts 3-4 ran the hand-written pass, counted on its wrapper
+    assert by["plan.parts34"].attrs["path"] == "kernel"
+    assert by["plan.parts34"].attrs["launches"] == 1
     # recording changes nothing on the card either
     obs.clear()
     off, data = _plan_and_fill("radix", device=dev)
